@@ -1,0 +1,125 @@
+"""Build and load the hand-written CUDA kernels of dmi_tpu_torch.
+
+At first use, `lib()` compiles every `dmi_tpu_torch/csrc/*.cu` with nvcc for
+Hopper (`sm_90a`) into one shared library with a plain C interface, and
+loads it with ctypes.  The library lands in `dmi_tpu_torch/_build/` (listed
+in .gitignore) under a name keyed by a hash of the sources and flags, so an
+edit rebuilds and an unchanged tree reuses it.  Nothing is built at import
+time: the CPU tests import every module on a machine without nvcc.
+
+Each C entry point returns the CUDA error code of its launch; `check`
+raises on a nonzero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_SIGNATURES = {
+    # x, w0, b0, w1, b1, out, B, mm, lm, lm2, tb, dtype, stream
+    "dmi_mlp2": [_P] * 6 + [_I] * 6 + [_P],
+    # q, k, v, bias, out, B, nkv, group, S, hd, k_sb, k_sh, v_sb, v_sh,
+    # scale, softcap, dtype, stream
+    "dmi_decode_attn": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _P],
+}
+
+_lib = None
+build_seconds = None  # wall time of the nvcc build, None when it was reused
+build_log = ""        # nvcc's output (ptxas register and spill report)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME): the dmi_tpu_torch CUDA kernels "
+        "are compiled at first use and need the CUDA toolkit"
+    )
+
+
+def _build(out: Path) -> None:
+    global build_seconds, build_log
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    objs, logs = [], []
+    tag = f"{os.getpid()}"
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{r.stdout}{r.stderr}")
+        objs.append(obj)
+    tmp = out.with_suffix(f".{tag}.tmp")
+    r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
+                       capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{r.stdout}{r.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never load a torn file
+    build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        h = hashlib.sha256(" ".join(FLAGS).encode())
+        for src in _sources():
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        out = BUILD_DIR / f"libdmi_kernels_{h.hexdigest()[:16]}.so"
+        if not out.exists():
+            _build(out)
+        loaded = ctypes.CDLL(str(out))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        loaded.dmi_error_string.argtypes = [ctypes.c_int]
+        loaded.dmi_error_string.restype = ctypes.c_char_p
+        _lib = loaded
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib().dmi_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def dtype_code(dtype) -> int:
+    name = str(dtype).removeprefix("torch.")
+    if name not in DTYPE_CODES:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {dtype}")
+    return DTYPE_CODES[name]
