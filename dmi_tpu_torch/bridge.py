@@ -1,4 +1,4 @@
-"""Bridge from dmi_tpu's parameters to the port's.
+"""Bridge between dmi_tpu's parameters and the port's.
 
 dmi_tpu keeps an LLM as a pytree with per-layer weights stacked [L, ...]
 and a projector as {"layers": [{"w", "b"}, ...]}, both in the (in, out)
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from dmi_tpu_torch.models import llama
+from dmi_tpu_torch.models import projector as proj
 
 # dmi_tpu LlamaConfig fields with no meaning for serving on the card
 _IGNORED = {"attention_impl"}
@@ -73,3 +74,29 @@ def projector_params_from_jax(jparams: dict, device="cpu") -> dict:
         {"w": to_torch(layer["w"], device), "b": to_torch(layer["b"], device)}
         for layer in jparams["layers"]
     ]}
+
+
+def projector_params_from_train_state(state, device="cpu") -> dict:
+    """A dmi_tpu projector trainer's TrainState -> the port's projector params."""
+    return projector_params_from_jax(state.params, device)
+
+
+def projector_spec_from_jax(jspec) -> proj.ProjectorSpec:
+    """dmi_tpu ProjectorSpec -> the port's (the same fields)."""
+    return proj.ProjectorSpec(**{f.name: getattr(jspec, f.name)
+                                 for f in dataclasses.fields(proj.ProjectorSpec)})
+
+
+def llm_params_to_numpy(params: dict) -> dict:
+    """The port's LLM params -> dmi_tpu's pytree layout (layers stacked
+    [L, ...]) as numpy; bfloat16 goes through f32, exactly."""
+    def host(t):
+        return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
+            else t.detach().cpu().numpy()
+
+    return {
+        "embed": host(params["embed"]),
+        "layers": {k: np.stack([host(lw[k]) for lw in params["layers"]])
+                   for k in params["layers"][0]},
+        "final_norm": host(params["final_norm"]),
+    }

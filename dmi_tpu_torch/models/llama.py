@@ -11,7 +11,10 @@ families the JAX package covers are not ported yet (ROADMAP.md A.9).
 
 Attention: prefill (T > 1) runs `_attention`, plain torch with the additive
 bias; the single-token cache step runs the CUDA decode-attention kernel
-(ops/cuda/decode_attn.py), or its plain twin when `plain` is set.
+(ops/cuda/decode_attn.py), or its plain twin when `plain` is set.  The
+full-sequence `forward` of training and the eval loss runs the CUDA flash
+attention kernels, forward and backward (ops/cuda/flash_attn.py), or their
+plain twin when `plain` is set.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
+from dmi_tpu_torch.ops.cuda.flash_attn import _flash_attn_plain, flash_attention
 
 
 @dataclass(frozen=True)
@@ -264,14 +268,30 @@ def _attention(q, k, v, bias, scale=None, softcap=None):
     return out.reshape(B, nh, T, hd)
 
 
-def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv, cache_index: int,
-           plain: bool = False):
+def _write_cache(cache_kv, cache_index: int, k, v):
+    """Write k/v [B, nkv, T, hd] into the caches at cache_index, in place;
+    return views of the caches' written positions."""
+    k_cache, v_cache = cache_kv
+    end = cache_index + k.shape[2]
+    k_cache[:, :, cache_index:end] = k
+    v_cache[:, :, cache_index:end] = v
+    return k_cache[:, :, :end], v_cache[:, :, :end]
+
+
+def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: int = 0,
+           plain: bool = False, key_mask=None):
     """One transformer block over x [B, T, H] with this layer's weights lw.
 
-    The new k/v are written IN PLACE into cache_kv = (k_cache, v_cache)
-    [B, nkv, S_max, hd] at cache_index, and attention reads the cache's
-    first cache_index + T positions; bias is [T, cache_index + T] f32.
-    T == 1 is a decode step: the CUDA kernel (its plain twin when `plain`)."""
+    With cache_kv = (k_cache, v_cache) [B, nkv, S_max, hd] (serving), the
+    new k/v are written IN PLACE into the caches at cache_index, and
+    attention reads the caches' first cache_index + T positions; bias is
+    [T, cache_index + T] f32.  T == 1 is a decode step: the CUDA kernel (its
+    plain twin when `plain`).
+
+    With cache_kv None (training and the eval loss), attention is causal
+    over x's T positions with the keys masked by key_mask [B, T] (None: no
+    key masked), through the flash attention kernels (the twin when
+    `plain`); bias is unused.  Nothing on this path is written in place."""
     B, T, H = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -284,18 +304,17 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv, cache_index: int,
     k = apply_rope(k.reshape(B, T, nkv, hd).transpose(1, 2), cos, sin)
     v = v.reshape(B, T, nkv, hd).transpose(1, 2)
 
-    k_cache, v_cache = cache_kv
-    end = cache_index + T
-    k_cache[:, :, cache_index:end] = k
-    v_cache[:, :, cache_index:end] = v
-    k, v = k_cache[:, :, :end], v_cache[:, :, :end]
-
     scale = attn_score_scale(cfg)
     cap = cfg.attn_logit_softcap
-    if T == 1:
+    if cache_kv is None:
+        attend = _flash_attn_plain if plain else flash_attention
+        attn = attend(q, k, v, key_mask, scale)
+    elif T == 1:
+        k, v = _write_cache(cache_kv, cache_index, k, v)
         attend = _decode_attn_plain if plain else fused_decode_attention
         attn = attend(q.contiguous(), k, v, bias[0], scale, cap)
     else:
+        k, v = _write_cache(cache_kv, cache_index, k, v)
         attn = _attention(q, k, v, bias, scale, cap)
     attn = attn.transpose(1, 2).reshape(B, T, nh * hd)
     x = x + _mm(attn, lw["wo"])
@@ -306,3 +325,38 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv, cache_index: int,
     else:
         gate, up = _mm(h, lw["w_gate"]), _mm(h, lw["w_up"])
     return x + _mm(mlp_activation(cfg, gate) * up, lw["w_down"])
+
+
+def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
+            attention_mask: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
+    """Full-sequence forward with no cache -> logits [B, T, V] (dmi_tpu's
+    llama.forward on the flash path, llama.py:1255-1379).
+
+    attention_mask: [B, T] with 1 = real token (HF convention), or None for
+    pure causal attention.  As on the TPU flash path it masks keys only:
+    pad queries still attend the real prefix (llama.py:1089-1095).
+    Positions are arange(T).  Attention runs the CUDA flash kernels for
+    CUDA tensors, and their plain twin for CPU tensors or when `plain`."""
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError(
+            "attention softcaps in the full-sequence forward (the flash kernels "
+            "have none) are not ported yet (ROADMAP.md A.9, decoder families)"
+        )
+    T = inputs_embeds.shape[1]
+    x = scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
+    cos, sin = rope_tables(cfg, torch.arange(T, device=x.device))
+    for lw in params["layers"]:
+        x = _block(cfg, x, lw, cos, sin, None, plain=plain, key_mask=attention_mask)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _head_matmul(x, params, cfg)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """HF CausalLM loss: shift, ignore -100, token-mean cross-entropy in f32
+    (dmi_tpu's llama.causal_lm_loss); 0 when no label is valid."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != -100
+    nll = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
+                          shift_labels.reshape(-1), ignore_index=-100, reduction="sum")
+    return nll / valid.sum().clamp(min=1)

@@ -1,7 +1,10 @@
 """Frozen-LLM soft-prefix captioner glue (counterpart of
-dmi_tpu/models/mmmodel.py, generation only): prepend the projected soft
-token to the embedded chat prefix and greedy-decode
-(reference: dmi/model/mmmodel.py:149-169)."""
+dmi_tpu/models/mmmodel.py): project the modality embedding to ONE soft
+token; for the loss, prepend it to the text embeddings, extend the
+attention mask with 1 and the labels with -100, and run the frozen LM
+(reference: dmi/model/mmmodel.py:112-147); for generation, prepend it to
+the embedded chat prefix and greedy-decode (reference:
+dmi/model/mmmodel.py:149-169)."""
 
 from __future__ import annotations
 
@@ -12,6 +15,51 @@ import torch
 from dmi_tpu_torch.models import decode as dec
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.models.llama import LlamaConfig
+
+
+def assemble_inputs(
+    cfg: LlamaConfig,
+    llm_params: dict,
+    soft_tokens: torch.Tensor,     # [B, lm_dim]
+    input_ids: torch.Tensor,       # [B, T]
+    attention_mask: torch.Tensor,  # [B, T]
+    labels: torch.Tensor,          # [B, T]
+):
+    """Prepend the soft token (reference: dmi/model/mmmodel.py:112-136)."""
+    B = soft_tokens.shape[0]
+    text_embeds = llama.embed_tokens(cfg, llm_params, input_ids)
+    inputs_embeds = torch.cat([soft_tokens[:, None, :].to(text_embeds.dtype), text_embeds],
+                              dim=1)
+    attention_mask = torch.cat(
+        [attention_mask.new_ones((B, 1)), attention_mask], dim=1)
+    labels = torch.cat([labels.new_full((B, 1), -100), labels], dim=1)
+    return inputs_embeds, attention_mask, labels
+
+
+def caption_loss(
+    cfg: LlamaConfig,
+    llm_params: dict,
+    soft_tokens: torch.Tensor,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    labels: torch.Tensor,
+    mask_padding: bool = False,
+    plain: bool = False,
+) -> torch.Tensor:
+    """loss = LM(inputs_embeds = soft ⊕ text, labels = -100 ⊕ labels).
+
+    Reference quirk, kept by default as dmi_tpu keeps it (mmmodel.py:56-68):
+    the reference builds the extended attention mask but never passes it
+    to the LLM, so the loss runs full causal attention over the pad
+    columns, whose positions carry loss.  mask_padding=True passes it (keys
+    masked, queries not).  plain=True runs the attention's plain twin in
+    place of the CUDA kernels."""
+    inputs_embeds, attention_mask, labels = assemble_inputs(
+        cfg, llm_params, soft_tokens, input_ids, attention_mask, labels
+    )
+    logits = llama.forward(cfg, llm_params, inputs_embeds,
+                           attention_mask if mask_padding else None, plain=plain)
+    return llama.causal_lm_loss(logits, labels)
 
 
 def assemble_prompt(

@@ -1,21 +1,24 @@
-"""Shared encoder->LLM projector, eval forward (counterpart of
-dmi_tpu/models/projector.py; reference: dmi/model/projector.py).
+"""Shared encoder->LLM projector (counterpart of dmi_tpu/models/projector.py;
+reference: dmi/model/projector.py).
 
-  * arch 'mlp'   : Linear(mm,lm) -> GELU(tanh) -> [Linear(lm,lm) -> GELU(tanh)]
-                   *(n-2) -> Linear(lm,lm)   (dropout is identity in eval)
-  * arch 'linear': Linear(mm,lm)
+  * arch 'mlp'   : Linear(mm,lm) -> GELU(tanh) -> Dropout -> [Linear(lm,lm)
+                   -> GELU(tanh) -> Dropout]*(n-2) -> Linear(lm,lm)
+  * arch 'linear': Linear(mm,lm) -> Dropout
+  * prune        : keep only the first `keep` input features of layer 0
 
 Weights are stored (in_dim, out_dim), as in the JAX package, so a layer is
-`x @ w + b`.  The 2-layer mlp, the serving default, runs the fused CUDA
-kernel (ops/cuda/projector.py); linear and deeper mlps are plain torch.
-Training (dropout, adapters) comes with the training path.
+`x @ w + b`.  In eval mode the 2-layer mlp, the serving default, runs the
+fused CUDA kernel (ops/cuda/projector.py); linear and deeper mlps, and
+every projector in train mode, are plain torch, as in the JAX package.
+Dropout draws from an explicit torch.Generator; its bits are not JAX's, so
+the tests compare it statistically and by its determinism.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +31,9 @@ class ProjectorSpec:
     mm_dim: int
     lm_dim: int
     arch: str = "mlp"
+    act: str = "quick_gelu"
     n_layers: int = 2
+    dropout: float = 0.1
 
     def layer_dims(self) -> List[Tuple[int, int]]:
         if self.arch == "linear":
@@ -40,6 +45,23 @@ class ProjectorSpec:
                 self.n_layers - 1
             )
         raise NotImplementedError(self.arch)
+
+
+def _act(spec: ProjectorSpec, x: torch.Tensor) -> torch.Tensor:
+    if spec.act == "quick_gelu":
+        # reference instantiates nn.GELU(approximate='tanh')
+        return F.gelu(x, approximate="tanh")
+    raise NotImplementedError(spec.act)
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """Keep each element with probability 1 - rate, scaled by 1 / (1 - rate)
+    (dmi_tpu's _dropout); identity at rate 0 or without a generator."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def init(spec: ProjectorSpec, generator: torch.Generator, dtype=torch.float32,
@@ -58,17 +80,34 @@ def init(spec: ProjectorSpec, generator: torch.Generator, dtype=torch.float32,
     return {"layers": layers}
 
 
-def apply(spec: ProjectorSpec, params: dict, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """Eval projector forward (reference: dmi/model/projector.py:56-59).
-    plain=True runs the fused kernel's plain twin (a reference path)."""
+def prune(params: dict, keep: int) -> dict:
+    """Slice layer-0 input features to the first `keep` dims
+    (reference: dmi/model/projector.py:49-54 prunes net.0.weight columns)."""
+    layers = list(params["layers"])
+    layers[0] = {**layers[0], "w": layers[0]["w"][:keep, :]}
+    return {"layers": layers}
+
+
+def apply(spec: ProjectorSpec, params: dict, x: torch.Tensor, plain: bool = False,
+          train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Projector forward (reference: dmi/model/projector.py:56-59).
+
+    train=True applies dropout after the linear ('linear') or after each
+    hidden activation ('mlp'), drawing from `generator`, and never takes the
+    fused kernel.  In eval mode the 2-layer mlp runs fused_mlp2; plain=True
+    runs its plain twin (a reference path)."""
     layers = params["layers"]
-    if spec.arch == "mlp" and spec.n_layers == 2:
+    if spec.arch == "linear":
+        y = x @ layers[0]["w"] + layers[0]["b"]
+        return _dropout(y, spec.dropout, generator) if train else y
+    if spec.arch == "mlp" and spec.n_layers == 2 and not train:
         mlp2 = _mlp2_plain if plain else fused_mlp2
         return mlp2(x, layers[0]["w"], layers[0]["b"], layers[1]["w"], layers[1]["b"])
     n = len(layers)
     for i, layer in enumerate(layers):
         x = x @ layer["w"] + layer["b"]
-        if spec.arch == "mlp" and i < n - 1:
-            # reference instantiates nn.GELU(approximate='tanh')
-            x = F.gelu(x, approximate="tanh")
+        if i < n - 1:
+            x = _act(spec, x)
+            if train:
+                x = _dropout(x, spec.dropout, generator)
     return x

@@ -37,6 +37,14 @@ _SIGNATURES = {
     # q, k, v, bias, out, B, nkv, group, S, hd, k_sb, k_sh, v_sb, v_sh,
     # scale, softcap, dtype, stream
     "dmi_decode_attn": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _P],
+    # q, k, v, key_mask, o, lse, B, nh, nkv, T, hd, strides[12], scale, dtype, stream
+    "dmi_flash_fwd": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, key_mask, dout, lse, delta, dk, dv, B, nh, nkv, T, hd, strides[18],
+    # scale, dtype, stream
+    "dmi_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, key_mask, dout, lse, delta, dq, B, nh, nkv, T, hd, strides[15],
+    # scale, dtype, stream
+    "dmi_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
 }
 
 _lib = None
@@ -67,16 +75,25 @@ def _build(out: Path) -> None:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    objs, logs = [], []
     tag = f"{os.getpid()}"
+    # one nvcc per source, all started together
+    jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        logs.append(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{r.stdout}{r.stderr}")
+        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    objs, logs, failed = [], [], []
+    for src, obj, proc in jobs:
+        text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name}:\n{text}")
         objs.append(obj)
+    if failed:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        raise RuntimeError("\n".join(failed))
     tmp = out.with_suffix(f".{tag}.tmp")
     r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
                        capture_output=True, text=True)

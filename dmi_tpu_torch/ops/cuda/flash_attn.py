@@ -1,0 +1,189 @@
+"""Causal flash attention over the full sequence, forward and backward.
+
+Counterpart of dmi_tpu/models/llama.py:_flash_attention, the training
+attention of every layer, whose TPU kernels are the Pallas library's flash
+attention: the forward (`_flash_attention_impl`) and the two backward
+kernels (`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`) of jax's
+jax/experimental/pallas/ops/tpu/flash_attention.py.  Here they are
+csrc/flash_attn_fwd.cu and csrc/flash_attn_bwd.cu, wrapped in one
+torch.autograd.Function.  Differences from the TPU path, none in the math:
+
+  * GQA is native (query head h reads kv head h // group); the TPU wrapper
+    repeated k and v over the group for the library's layout.
+  * Any T: the kernels mask the ragged last tile; the TPU wrapper padded T
+    to a multiple of 128.
+  * q, k, v, the output and the gradients keep free batch, head and row
+    strides, so a transformer block passes its [B, T, heads, hd]
+    projections in place.
+
+Semantics (the TPU path's, llama.py:1089-1095): query i attends key j when
+j <= i and key_mask[b, j] is 1 (None: all keys); queries are never masked.
+Scores and softmax in f32, p rounded to v's dtype before p . v, output in
+q's dtype.
+
+`flash_attention` runs `_flash_attn_plain` (differentiated by autograd) for
+tensors on the CPU and launches the kernels for tensors on a CUDA device;
+there is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from dmi_tpu_torch.ops.cuda import _build
+
+# launches of each CUDA kernel since the counts were last set to 0
+fwd_launches = 0
+dkv_launches = 0
+dq_launches = 0
+
+MAX_HEAD_DIM = 128  # kMaxHd of csrc/flash_attn.cuh
+
+
+def _flash_attn_plain(q, k, v, key_mask=None, scale=None):
+    """The kernels' function in plain torch, the math of dmi_tpu's
+    llama._attention: products in the input dtype, f32 softmax with the
+    causal and key masks as an additive finfo.min bias, probabilities
+    rounded to v's dtype.
+
+    q [B, nh, T, hd], k/v [B, nkv, T, hd], key_mask [B, T] or None ->
+    [B, nh, T, hd] in q's dtype."""
+    B, nh, T, hd = q.shape
+    nkv = k.shape[1]
+    qg = q.reshape(B, nkv, nh // nkv, T, hd)
+    scores = torch.einsum("bkgtd,bksd->bkgts", qg, k).float()
+    scores = scores * (scale if scale is not None else 1.0 / math.sqrt(hd))
+    pos = torch.arange(T, device=q.device)
+    valid = (pos[None, :] <= pos[:, None])[None]  # [1, T, T]
+    if key_mask is not None:
+        valid = valid & (key_mask[:, None, :] != 0)
+    bias = torch.where(valid, 0.0, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores + bias[:, None, None], dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bksd->bkgtd", probs, v)
+    return out.reshape(B, nh, T, hd).to(q.dtype)
+
+
+def _strides(*tensors):
+    """(batch, head, row) element strides of each [B, heads, T, hd] tensor,
+    as the int64 array the C entry points read."""
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _fwd_kernel(q, k, v, key_mask, scale):
+    """Launch csrc/flash_attn_fwd.cu on checked CUDA tensors (key_mask int32
+    contiguous or None) -> (o in q's layout, lse [B, nh, T] f32)."""
+    global fwd_launches
+    B, nh, T, hd = q.shape
+    o = torch.empty_like(q)  # q's layout: a block's reshape after it is free
+    lse = torch.empty((B, nh, T), dtype=torch.float32, device=q.device)
+    err = _build.lib().dmi_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), o.data_ptr(),
+        lse.data_ptr(), B, nh, k.shape[1], T, hd, _strides(q, k, v, o), scale,
+        _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash attention forward")
+    fwd_launches += 1
+    return o, lse
+
+
+def _bwd_dkv_kernel(q, k, v, key_mask, do, lse, delta, scale):
+    """Launch the dK/dV kernel of csrc/flash_attn_bwd.cu -> (dk, dv)."""
+    global dkv_launches
+    B, nh, T, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.lib().dmi_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, nh, k.shape[1], T, hd, _strides(q, k, v, do, dk, dv), scale,
+        _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash attention backward dK/dV")
+    dkv_launches += 1
+    return dk, dv
+
+
+def _bwd_dq_kernel(q, k, v, key_mask, do, lse, delta, scale):
+    """Launch the dQ kernel of csrc/flash_attn_bwd.cu -> dq."""
+    global dq_launches
+    B, nh, T, hd = q.shape
+    dq = torch.empty_like(q)
+    err = _build.lib().dmi_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        B, nh, k.shape[1], T, hd, _strides(q, k, v, do, dq), scale,
+        _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash attention backward dQ")
+    dq_launches += 1
+    return dq
+
+
+def _delta(do, o):
+    """rowsum(dO * O) in f32, [B, nh, T] contiguous (the TPU wrapper's di)."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        o, lse = _fwd_kernel(q, k, v, key_mask, scale)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        if do.dtype != q.dtype:
+            raise TypeError(f"flash attention backward: dO is {do.dtype}, q is {q.dtype}")
+        if do.stride(-1) != 1:  # autograd may hand an expanded gradient
+            do = do.contiguous()
+        delta = _delta(do, o)
+        dk, dv = _bwd_dkv_kernel(q, k, v, key_mask, do, lse, delta, ctx.scale)
+        dq = _bwd_dq_kernel(q, k, v, key_mask, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, key_mask=None, scale=None):
+    """q [B, nh, T, hd], k/v [B, nkv, T, hd] (last dim contiguous; batch,
+    head and row strides free), key_mask [B, T] of 0/1 or None, scale
+    (None: hd ** -0.5) -> [B, nh, T, hd] in q's dtype, differentiable in
+    q, k and v."""
+    B, nh, T, hd = q.shape
+    nkv = k.shape[1]
+    if (k.shape != (B, nkv, T, hd) or v.shape != k.shape or nkv == 0 or nh % nkv
+            or (key_mask is not None and key_mask.shape != (B, T))):
+        raise ValueError(
+            f"flash attention shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, key_mask "
+            f"{None if key_mask is None else tuple(key_mask.shape)}"
+        )
+    tensors = (q, k, v) if key_mask is None else (q, k, v, key_mask)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("flash attention: all tensors must be on one device")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    if q.device.type == "cpu":
+        return _flash_attn_plain(q, k, v, key_mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: no kernel for device {q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash attention kernel: q, k and v must share one dtype")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernel: hd {hd} > {MAX_HEAD_DIM}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash attention kernel: q/k/v rows must be contiguous")
+    if key_mask is not None:
+        if key_mask.dtype.is_floating_point:
+            raise TypeError("flash attention kernel: key_mask must be integer or bool")
+        key_mask = key_mask.to(torch.int32).contiguous()
+    if B == 0 or T == 0:
+        return torch.empty_like(q)
+    return _FlashAttention.apply(q, k, v, key_mask, scale)

@@ -9,10 +9,13 @@ kernel keeps each row tile's hidden activation in shared memory (the TPU
 kept both weights in VMEM, which does not fit an SM) and streams w1 against
 it; see the source for the design.
 
-`fused_mlp2` runs `_mlp2_plain` for tensors on the CPU and launches the
-kernel for tensors on a CUDA device; there is no fallback between the two.
-Forward only: the autograd.Function with the backward comes with the
-training path.
+`fused_mlp2` is a torch.autograd.Function.  Its forward runs `_mlp2_plain`
+for tensors on the CPU and launches the kernel for tensors on a CUDA
+device; there is no fallback between the two.  Its backward is the gradient
+of `_mlp2_plain`, recomputed from the saved inputs: the counterpart of the
+custom_vjp of dmi_tpu/ops/pallas/projector.py (`_mlp2_bwd`, :226-229),
+whose backward is not a kernel either.  The trainer's eval loss and
+generate run it with parameters that require grad, under torch.no_grad().
 """
 
 from __future__ import annotations
@@ -48,30 +51,14 @@ def rows_per_block(mm: int, lm: int) -> int:
     return tb
 
 
-def fused_mlp2(x, w0, b0, w1, b1):
-    """x [B, mm], w0 [mm, lm], b0 [lm], w1 [lm, lm2], b1 [lm2] -> [B, lm2]."""
+def _mlp2_kernel(x, w0, b0, w1, b1):
+    """Launch csrc/mlp2.cu on contiguous CUDA tensors of one dtype."""
     global launches
     tensors = (x, w0, b0, w1, b1)
     B, mm = x.shape
     lm, lm2 = w1.shape
-    if (w0.shape != (mm, lm) or b0.shape != (lm,) or b1.shape != (lm2,)):
-        raise ValueError(
-            f"mlp2 shapes: x {tuple(x.shape)}, w0 {tuple(w0.shape)}, b0 "
-            f"{tuple(b0.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}"
-        )
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("mlp2: all tensors must be on one device")
-    if x.device.type == "cpu":
-        return _mlp2_plain(*tensors)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp2: no kernel for device {x.device}")
     if len({t.dtype for t in tensors}) != 1:
         raise TypeError("mlp2 kernel: all tensors must share one dtype")
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "mlp2 kernel is forward-only; its backward comes with the "
-            "training path (ROADMAP.md A.2)"
-        )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mlp2 kernel: tensors must be contiguous")
     code = _build.dtype_code(x.dtype)
@@ -86,3 +73,40 @@ def fused_mlp2(x, w0, b0, w1, b1):
     _build.check(err, "mlp2")
     launches += 1
     return out
+
+
+class _MLP2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w0, b0, w1, b1):
+        ctx.save_for_backward(x, w0, b0, w1, b1)
+        if x.device.type == "cpu":
+            return _mlp2_plain(x, w0, b0, w1, b1)
+        return _mlp2_kernel(x, w0, b0, w1, b1)
+
+    @staticmethod
+    def backward(ctx, gy):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = _mlp2_plain(*inputs)
+        grads = iter(torch.autograd.grad(y, wanted, gy))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def fused_mlp2(x, w0, b0, w1, b1):
+    """x [B, mm], w0 [mm, lm], b0 [lm], w1 [lm, lm2], b1 [lm2] -> [B, lm2],
+    differentiable in all five."""
+    tensors = (x, w0, b0, w1, b1)
+    B, mm = x.shape
+    lm, lm2 = w1.shape
+    if (w0.shape != (mm, lm) or b0.shape != (lm,) or b1.shape != (lm2,)):
+        raise ValueError(
+            f"mlp2 shapes: x {tuple(x.shape)}, w0 {tuple(w0.shape)}, b0 "
+            f"{tuple(b0.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}"
+        )
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("mlp2: all tensors must be on one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mlp2: no kernel for device {x.device}")
+    return _MLP2.apply(*tensors)

@@ -1,1 +1,2 @@
-"""Port of dmi_tpu.training: checkpoint loading and LM builders."""
+"""Port of dmi_tpu.training: stage-1 projector training, its optimizer,
+checkpoints, generation helpers and LM constructors."""

@@ -1,20 +1,30 @@
-"""Load dmi_tpu pytree checkpoints (counterpart of
-dmi_tpu/training/checkpoint.py:load_pytree, read side only).
+"""Pytree checkpoints in dmi_tpu's envelope (counterpart of
+dmi_tpu/training/checkpoint.py: save_pytree, load_pytree, BestCheckpointer).
 
 dmi_tpu writes a pickle of {step_idx, <type>_state_dict, optimizer_state_dict,
-<metric>} with numpy arrays as leaves.  Its optimizer state holds optax
-named tuples, whose classes live in a JAX package; the port never imports
-JAX, so the unpickler here builds numpy and builtin objects only and turns
-every other class into an opaque `ForeignObject` that keeps its arguments.
-Serving reads only the projector arrays.  The reference's torch `.pt` (zip)
-envelope comes with the training path.
+<metric>} with numpy arrays as leaves; the port writes the same envelope
+(tensors become numpy arrays), so each package reads the other's projector
+checkpoints.  The optimizer states differ: dmi_tpu's holds optax named
+tuples, whose classes live in a JAX package, and the port's holds its AdamW
+moments and step counts as numpy arrays (ADAMW_FORMAT).  The port never
+imports JAX, so its unpickler builds numpy and builtin objects only and
+turns every other class into an opaque `ForeignObject` that keeps its
+arguments.  The reference's torch `.pt` (zip) envelope is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
 import pickle
 import zipfile
-from typing import Any, Dict
+from glob import glob
+from typing import Any, Dict, Optional
+
+import torch
+
+# optimizer_state_dict["format"] of the port's AdamW state
+ADAMW_FORMAT = "dmi_tpu_torch.adamw"
 
 _ALLOWED_MODULES = ("builtins", "collections", "copyreg", "numpy", "_codecs")
 
@@ -53,7 +63,77 @@ def load_pytree(path: str) -> Dict[str, Any]:
     if zipfile.is_zipfile(path):
         raise NotImplementedError(
             f"{path} is a torch .pt (zip) checkpoint: the reference envelope "
-            "comes with the training path (ROADMAP.md A.2)"
+            "is not ported yet (ROADMAP.md A.2)"
         )
     with open(path, "rb") as f:
         return _EnvelopeUnpickler(f).load()
+
+
+def to_numpy(tree):
+    """Tensors -> numpy arrays (on the host) through dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree
+
+
+def save_pytree(path: str, obj: Dict[str, Any]) -> None:
+    os.makedirs(osp.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(to_numpy(obj), f)
+
+
+class BestCheckpointer:
+    """One rolling "best" checkpoint per (model name, save type), replaced
+    only when the tracked metric improves (reference semantics,
+    dmi/train.py:215-254); step checkpoints are cleaned up."""
+
+    def __init__(self, ckpt_dir: str, model_name: str, save_type: str, mode: str = "max"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode {mode!r}")
+        self.ckpt_dir = ckpt_dir
+        self.model_name = model_name
+        self.save_type = save_type
+        self.mode = mode
+
+    @property
+    def best_path(self) -> str:
+        return osp.join(
+            self.ckpt_dir, f"{self.model_name}-checkpoint-{self.save_type}-best.pt"
+        )
+
+    def clear_step_checkpoints(self) -> None:
+        for f in glob(
+            osp.join(self.ckpt_dir, f"{self.model_name}-checkpoint-{self.save_type}-step*.pt")
+        ):
+            os.remove(f)
+
+    def save(self, step_idx: int, metric: float, metric_name: str, state_dict,
+             optimizer_state=None) -> bool:
+        """Save if metric improves; returns True when the best was replaced.
+        An old checkpoint without this metric name is replaced."""
+        old = None
+        if osp.exists(self.best_path):
+            old = load_pytree(self.best_path).get(metric_name)
+        self.clear_step_checkpoints()
+        improved = (
+            old is None
+            or (self.mode == "max" and metric > old)
+            or (self.mode == "min" and metric < old)
+        )
+        if improved:
+            save_pytree(self.best_path, {
+                "step_idx": step_idx,
+                f"{self.save_type}_state_dict": state_dict,
+                "optimizer_state_dict": optimizer_state,
+                metric_name: metric,
+            })
+        return improved
+
+    def load_best(self) -> Optional[Dict[str, Any]]:
+        if not osp.exists(self.best_path):
+            return None
+        return load_pytree(self.best_path)

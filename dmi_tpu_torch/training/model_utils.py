@@ -26,6 +26,16 @@ def is_test_lm(name: str) -> bool:
     return name.startswith("test:")
 
 
+def is_instruct_lm(name: str) -> bool:
+    """reference: is_instruct = name in LLMS_CHATTEMPLATES
+    (dmi/train_projector.py:188); test models run the instruct path."""
+    if is_test_lm(name):
+        return True
+    from dmi_tpu.chat_templates import LLMS_CHATTEMPLATES
+
+    return name in LLMS_CHATTEMPLATES
+
+
 def _not_ported(name: str):
     return NotImplementedError(
         f"{name!r}: loading LMs from the HF cache is not ported yet; use "

@@ -21,11 +21,15 @@ import torch
 from dmi_tpu_torch.models import decode as dec
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.ops.cuda import decode_attn as tda
+from dmi_tpu_torch.ops.cuda import flash_attn as tfa
 from dmi_tpu_torch.ops.cuda import projector as tpk
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# flash gradients at bf16: dS and p are rounded to bf16 before their
+# products in the kernels (as on the TPU), a few more roundings than outputs
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture()
@@ -68,10 +72,28 @@ def test_mlp2_kernel_matches_twin(cuda, B, mm, lm, lm2, dtype):
     _close(out, tpk._mlp2_plain(*args), TOL[dtype])
 
 
-def test_mlp2_kernel_refuses_grad_and_mixed_dtypes(cuda):
-    args = _mlp2_args(4, 32, 64, 64, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tpk.fused_mlp2(args[0].requires_grad_(), *args[1:])
+@pytest.mark.parametrize("no_grad", [False, True], ids=["grad", "no_grad"])
+def test_mlp2_kernel_differentiates_like_twin(cuda, no_grad):
+    """Parameters that require grad (the trainer's eval loss and generate):
+    the kernel runs, and the gradient of its output with respect to x and
+    all four weights is the twin's."""
+    args = [t.requires_grad_() for t in _mlp2_args(16, 96, 160, 72, torch.float32, cuda)]
+    n0 = tpk.launches
+    with torch.no_grad():
+        out_ng = tpk.fused_mlp2(*args)
+    assert tpk.launches == n0 + 1 and not out_ng.requires_grad
+    _close(out_ng, tpk._mlp2_plain(*args).detach(), TOL[torch.float32])
+    if no_grad:
+        return
+    out = tpk.fused_mlp2(*args)
+    ref = tpk._mlp2_plain(*args)
+    _close(out.detach(), ref.detach(), TOL[torch.float32])
+    gy = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    for got, want in zip(torch.autograd.grad(out, args, gy), torch.autograd.grad(ref, args, gy)):
+        _close(got, want, TOL[torch.float32])
+
+
+def test_mlp2_kernel_refuses_mixed_dtypes(cuda):
     args = _mlp2_args(4, 32, 64, 64, torch.float32, cuda)
     with pytest.raises(TypeError, match="one dtype"):
         tpk.fused_mlp2(args[0].bfloat16(), *args[1:])
@@ -181,3 +203,145 @@ def test_decode_step_kernel_path_matches_plain_path_bf16(cuda):
         outs = [dec.decode_step(cfg, params, emb, (caches[0].clone(), caches[1].clone()), 9,
                                 plain=plain) for plain in (False, True)]
     _close(outs[0], outs[1], 5e-2)
+
+
+def _flash_args(B, nh, nkv, T, hd, dtype, dev, masked, seed=0):
+    """q, k, v in the [B, T, heads, hd] layout of a block's projections,
+    viewed as [B, heads, T, hd]; a key mask that zeroes a ragged tail of
+    each row but the first (key 0, the soft token, stays)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, hd)).astype(np.float32)).to(
+        dev, dtype).transpose(1, 2) for n in (nh, nkv, nkv))
+    mask = None
+    if masked:
+        mask = torch.ones(B, T, dtype=torch.int32)
+        for b in range(1, B):
+            mask[b, max(1, T - 1 - 7 * b):] = 0
+        mask = mask.to(dev)
+    return q, k, v, mask
+
+
+def _flash_vs_twin(q, k, v, mask, dtype, seed=1):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    n = (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches)
+    out = tfa.flash_attention(q, k, v, mask, 0.125)
+    ref = tfa._flash_attn_plain(q, k, v, mask, 0.125)
+    _close(out.detach(), ref.detach(), TOL[dtype])
+    gen = torch.Generator(q.device).manual_seed(seed)
+    do = torch.randn(out.shape, generator=gen, device=q.device).to(dtype)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    assert (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches) == (n[0] + 1, n[1] + 1,
+                                                                      n[2] + 1)
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "key-mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T", [(2, 1), (3, 17), (32, 65), (4, 128), (2, 606)])
+def test_flash_kernels_match_twin(cuda, B, T, dtype, masked):
+    """Llama-3.2-1B heads (32/8, hd 64); T 65 is stage 1's training length
+    (64 text tokens and the soft token), 606 sharegpt4video's budget."""
+    _flash_vs_twin(*_flash_args(B, 32, 8, T, 64, dtype, cuda, masked), dtype)
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(4, 4, 16), (6, 2, 128), (8, 1, 40)])
+def test_flash_kernels_other_heads(cuda, nh, nkv, hd):
+    _flash_vs_twin(*_flash_args(2, nh, nkv, 70, hd, torch.float32, cuda, True),
+                   torch.float32)
+
+
+def test_flash_contiguous_inputs(cuda):
+    q, k, v, mask = _flash_args(2, 8, 2, 33, 64, torch.float32, cuda, True)
+    _flash_vs_twin(q.contiguous(), k.contiguous(), v.contiguous(), mask, torch.float32)
+
+
+def test_flash_fully_masked_row_gives_zeros(cuda):
+    """A row with no key to attend (its only causal key masked) writes
+    zeros and gets zero gradients, not NaN."""
+    q, k, v, _ = _flash_args(2, 8, 2, 20, 64, torch.float32, cuda, False)
+    mask = torch.ones(2, 20, dtype=torch.int32, device=cuda)
+    mask[1, :3] = 0  # rows 0-2 of batch row 1 see no key
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = tfa.flash_attention(q, k, v, mask)
+    assert torch.equal(out[1, :, :3], torch.zeros_like(out[1, :, :3]))
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert torch.equal(grads[0][1, :, :3], torch.zeros_like(grads[0][1, :, :3]))
+    ref = tfa._flash_attn_plain(q, k, v, mask)
+    _close(out[:, :, 3:].detach(), ref[:, :, 3:].detach(), 1e-4)
+    _close(out[0].detach(), ref[0].detach(), 1e-4)
+
+
+def test_flash_refuses_what_it_cannot_take(cuda):
+    q, k, v, mask = _flash_args(2, 8, 2, 16, 64, torch.float32, cuda, True)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        tfa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, mask)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention(q, k.bfloat16(), v, mask)
+    with pytest.raises(ValueError, match="flash attention shapes"):
+        tfa.flash_attention(q, k[:, :, :15], v, mask)
+    with pytest.raises(ValueError, match="flash attention shapes"):
+        tfa.flash_attention(q, k, v, mask[:, :15])
+    with pytest.raises(ValueError, match="one device"):
+        tfa.flash_attention(q, k, v, mask.cpu())
+    with pytest.raises(ValueError, match="hd 256"):
+        tfa.flash_attention(*_flash_args(1, 2, 2, 4, 256, torch.float32, cuda, False)[:3])
+    with pytest.raises(TypeError, match="integer or bool"):
+        tfa.flash_attention(q, k, v, mask.float())
+
+
+def test_full_width_trainer_kernel_path_matches_plain_path(cuda):
+    """Two micro-steps of ProjectorTrainer on Llama-3.2-1B at full width
+    (bf16, seeded random weights), batch 8 of 40 text tokens: at each step
+    the loss through the flash kernels matches the plain path's (bf16
+    logits tolerance, 5e-2), every layer launches each flash kernel once,
+    and the updates (constant LR: with a warmup, the reference's schedule
+    gives the first two updates an LR of 0) move the projector."""
+    import types
+
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.projector_trainer import ProjectorTrainer
+
+    cfg = dataclasses.replace(llama.llama32_1b(), eos_token_ids=())
+    params = llama.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    spec = proj.ProjectorSpec(mm_dim=768, lm_dim=cfg.hidden_size, dropout=0.1)
+    pp = proj.init(spec, torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    rng = np.random.default_rng(0)
+
+    def batch():
+        B, T = 8, 40
+        ids = rng.integers(0, 128000, size=(B, T)).astype(np.int32)
+        mask = np.ones((B, T), np.int32)
+        mask[1:, 30:] = 0
+        labels = np.where(mask == 1, ids, 128009).astype(np.int64)
+        labels[:, :10] = -100
+        return {"input_ids": ids, "attention_mask": mask, "labels": labels,
+                "embs": rng.normal(size=(B, 768)).astype(np.float32)}
+
+    class Source:
+        def total_train_steps(self):
+            return 2
+
+    args = types.SimpleNamespace(
+        learning_rate=1e-4, adam_beta1=0.9, adam_beta2=0.95, adam_epsilon=1e-8,
+        weight_decay=5e-6, max_grad_norm=1.0, scheduler=None, warmup_steps=0,
+        gradient_accumulation_steps=1, seed=0, mesh_shape=None,
+        finetune_from_checkpoint=None, checkpoint_dir="unused")
+    trainer = ProjectorTrainer("cuda-test", cfg, params, spec, pp, [Source()],
+                               [EmbeddingManager("enc", device=cuda)], None, args)
+    before = [t.detach().clone() for t in trainer.leaves]
+    for step in range(2):
+        b = (0, batch())
+        with torch.no_grad():
+            plain = trainer.micro_loss(step, b, plain=True)
+        n0 = (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches)
+        loss, did_update = trainer.train_step(step, 2, b)
+        assert did_update
+        assert (tfa.fwd_launches - n0[0], tfa.dkv_launches - n0[1],
+                tfa.dq_launches - n0[2]) == (16, 16, 16)
+        assert bool(torch.isfinite(loss))
+        _close(loss, plain, 5e-2)
+    assert all(not torch.equal(a, b.detach()) for a, b in zip(before, trainer.leaves))

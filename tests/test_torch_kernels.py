@@ -92,6 +92,27 @@ def test_mlp2_twin_rounds_hidden_to_weight_dtype():
     assert torch.equal(out, ref)
 
 
+def test_mlp2_autograd_function_matches_xla_twin_gradient():
+    """fused_mlp2's backward (the gradient of _mlp2_plain, recomputed) against
+    the gradient of dmi_tpu's _mlp2_xla, with respect to x and all four
+    weights, at f32 on the CPU, where the Function's forward is the twin."""
+    import jax
+
+    data = _mlp2_data(B=9, mm=40, lm=56, lm2=24, seed=4)
+    gy = np.random.default_rng(9).normal(size=(9, 24)).astype(np.float32)
+    _, vjp = jax.vjp(jpk._mlp2_xla, *map(jnp.asarray, data))
+    ref = vjp(jnp.asarray(gy))
+    args = [t.requires_grad_() for t in _t(*data)]
+    out = tpk.fused_mlp2(*args)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "_MLP2Backward"
+    for got, want in zip(torch.autograd.grad(out, args, torch.from_numpy(gy)), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    # only the inputs that require grad get one
+    x = _t(data[0])[0].requires_grad_()
+    (gx,) = torch.autograd.grad(tpk.fused_mlp2(x, *_t(*data[1:])), [x], torch.from_numpy(gy))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-6)
+
+
 def test_rows_per_block_fits_shared_memory():
     assert tpk.rows_per_block(1024, 2048) == 16      # the 1B projector
     assert tpk.rows_per_block(1024, 4096) == 11      # an 8B-wide projector

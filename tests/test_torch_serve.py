@@ -235,9 +235,14 @@ def test_port_imports_no_jax():
     """In a fresh process: conftest.py has imported jax into this one."""
     code = (
         "import sys, dmi_tpu_torch, dmi_tpu_torch.serve, dmi_tpu_torch.bridge, "
-        "dmi_tpu_torch.ops.cuda, dmi_tpu_torch.ops.cuda._build, chip_smoke; "
+        "dmi_tpu_torch.ops.cuda, dmi_tpu_torch.ops.cuda._build, "
+        "dmi_tpu_torch.ops.cuda.flash_attn, dmi_tpu_torch.train_projector, "
+        "dmi_tpu_torch.training.projector_trainer, dmi_tpu_torch.training.optim, "
+        "dmi_tpu_torch.training.embeddings, dmi_tpu_torch.training.generation, "
+        "dmi_tpu_torch.training.trainer, dmi_tpu_torch.utils.grad_stats, "
+        "dmi_tpu_torch.utils.profiling, chip_smoke; "
         "print(sorted({m.split('.')[0] for m in sys.modules} "
-        "& {'jax', 'jaxlib', 'transformers', 'tokenizers', 'optax'}))"
+        "& {'jax', 'jaxlib', 'transformers', 'tokenizers', 'optax', 'dmi_tpu'}))"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
@@ -252,8 +257,9 @@ def test_chip_smoke_imports_load_no_dmi_tpu_module():
     sydney's, which it states as a constant for that reason."""
     nodes = [n for n in ast.walk(ast.parse((REPO / "chip_smoke.py").read_text()))
              if isinstance(n, (ast.Import, ast.ImportFrom))]
-    assert any(isinstance(n, ast.ImportFrom) and n.module == "dmi_tpu_torch.serve"
-               for n in nodes)
+    for module in ("dmi_tpu_torch.serve", "dmi_tpu_torch.training.projector_trainer",
+                   "dmi_tpu_torch.ops.cuda"):
+        assert any(isinstance(n, ast.ImportFrom) and n.module == module for n in nodes), module
     code = "\n".join([ast.unparse(n) for n in nodes] + [
         "import sys, chip_smoke",
         "print(chip_smoke.MAX_NEW)",
