@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Smoke run of dmi_tpu_torch's serving and stage-1 training paths on one
-CUDA card.
+"""Smoke run of dmi_tpu_torch's serving path and its three training stages
+(with the LoRA baseline) on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
 1. Builds the CUDA kernels from dmi_tpu_torch/csrc with nvcc (sm_90a).
-2. Holds each kernel against its plain PyTorch twin and times both (CUDA
-   events): the projector MLP2 and the decode attention at the serving
-   shapes; the flash attention forward and both backward kernels (dK/dV,
-   dQ) at Llama-3.2-1B's heads, B 32, T 65 (stage 1), 128 and 606
-   (sharegpt4video's budget), bf16 and f32, with and without a key mask.
+2. Holds each kernel against its plain PyTorch twin at the shapes of every
+   path that runs it, and times it, the twin and one PyTorch library call of
+   the same function (device time per call, from torch.profiler's kernel
+   spans) beside its bound (the bytes it must move over the memory rate or
+   its operations over the peak rate, whichever is larger): the projector
+   MLP2 at serving's and stage 3's shapes; the decode attention at serving's
+   and stage 3's; the flash attention forward and both backward kernels
+   (dK/dV, dQ) at Llama-3.2-1B's heads and the (B, T) of stage 1, stage 2,
+   stage 3 and the LoRA baseline, of T 128 and of T 606 (sharegpt4video's
+   budget), bf16 and f32, with and without a key mask; the LoRA layer-0
+   kernel at stage 2's and stage 3's shapes, f32 and bf16, one and four
+   adapter groups.
 3. Runs one decode step of a full-width Llama-3.2-1B from a common cache
    through the kernel path and through the plain path, and compares logits.
 4. Serves 300 requests through dmi_tpu_torch.serve.Captioner: Llama-3.2-1B
@@ -22,17 +29,39 @@ CUDA card.
    greedy-token agreement of the kernel and plain paths (information only),
    and one batch of each size under torch.profiler: device busy time and
    idle share.
-5. Trains: dmi_tpu_torch.training.projector_trainer.ProjectorTrainer on the
-   same Llama-3.2-1B with a 2-layer f32 projector (mm 768, dropout 0.1) and
-   the optimizer of configs/experiments/projector/v1:llama1b_inst_all_
-   extracted.json (warmup cut to 2), on synthetic batches of 32 captions
-   (64 text tokens and the soft token).  Step 0's loss and projector
-   gradients through the kernels against the plain path; 10 micro-steps
-   with the launch counters set to 0 just before (each flash kernel must
-   run 16 x 10 times), finite losses, a projector that moves and an LLM
-   that does not; one eval-loss call through fused_mlp2 with parameters
-   that require grad; micro-steps/s, tokens/s, peak memory and one step
-   under torch.profiler.
+5. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
+   projector (mm 768, dropout 0.1) and the optimizer of configs/experiments/
+   projector/v1:llama1b_inst_all_extracted.json (warmup cut to 2), on
+   synthetic batches of 32 captions (64 text tokens and the soft token).
+   Step 0's loss and projector gradients through the kernels against the
+   plain path; 10 micro-steps with the launch counters set to 0 just before
+   (each flash kernel must run 16 x 10 times), finite losses, a projector
+   that moves and an LLM that does not; one eval-loss call through
+   fused_mlp2; micro-steps/s, tokens/s, peak memory and one step under
+   torch.profiler.
+6. Stage 2: HypernetTrainer at the v4 hypernet config's shapes (attention
+   hypernet, positional encodings, width 768, rank 32, subsets of 128,
+   rotation augmentation and text interleave, AdamW and accumulation 40,
+   warmup cut to 2) over a frozen f32 projector (mm 768), micro-batches of
+   4 captions of 328 text tokens.  Step 0 kernel vs plain path; 80
+   micro-steps (lora0 exactly 80 launches, each flash kernel 16 x 80), a
+   hypernet that moves, a frozen projector and LLM that do not; one eval
+   loss; one coalesced window of 40 at micro_batch_coalesce 4 (10 grouped
+   lora0 launches); the card's time of one 768 x 768 random_orthogonal;
+   throughput, peak memory and one micro-step under torch.profiler.
+7. Stage 3: the generated projector from one subset of the stage-2
+   hypernet; step 0 kernel vs plain path; 5 few-shot micro-steps over it at
+   batch 64 on sydney-length captions, then one generate batch of 64 through
+   it (1 mlp2 launch, 16 x 21 decode-attention launches); then 2 few-shot
+   micro-steps that tune the hypernet itself (finetune_generated_projector
+   false: 1 lora0 launch each).
+8. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
+   32, alpha 32): step 0 kernel vs plain path, then 5 micro-steps (each
+   flash kernel 16 x 5).
+
+Step 0 of every training path compares the loss within TOL["loss"] of the
+plain path's and each trainable leaf's gradient within TOL["logits"] of
+that leaf's own largest plain gradient.
 
 Any mismatch raises and the script exits non-zero.  Output ends with a JSON
 line of per-kernel results, the card's `nvidia-smi` name and power limit,
@@ -62,12 +91,19 @@ PREFIX_IDS = [128000, 128006, 882, 128007, 271, 75885, 279, 24088, 2217, 13,
 PAD_ID = 128009
 # tolerances, relative to max(1, max |plain|): f32 differs by summation
 # order only; bf16 also by last-bit rounding of outputs (one bf16 ulp is
-# 2**-8 relative); logits after 16 bf16 layers by a few such roundings
-TOL = {"float32": 1e-4, "bfloat16": 1e-2, "logits": 5e-2}
+# 2**-8 relative); logits after 16 bf16 layers by a few such roundings; a
+# training loss, the mean of the log-softmax over thousands of positions,
+# averages those roundings out
+TOL = {"float32": 1e-4, "bfloat16": 1e-2, "logits": 5e-2, "loss": 1e-3}
 # flash gradients at bf16: p and dS are rounded to bf16 before their
 # products in the kernels, as on the TPU
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_HEADS = (32, 8, 64)  # Llama-3.2-1B: query heads, kv heads, head dim
+# the card's peak rates for a kernel's bound (NVIDIA's H100 SXM data sheet,
+# dense): device memory, f32 on the CUDA cores (the kernels use no TF32),
+# bf16 on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TRAIN_STEPS = 10
 TRAIN_BATCH, TRAIN_TEXT = 32, 64  # the v1 config's train_batch_size; text tokens
 TRAIN_MM_DIM, TRAIN_DROPOUT = 768, 0.1  # the v1 config's mm_dim and proj_dropout
@@ -80,6 +116,31 @@ TRAIN_ARGS = dict(
     gradient_accumulation_steps=1, seed=SEED, mesh_shape=None,
     finetune_from_checkpoint=None,
 )
+# stage 2 at configs/experiments/hypernet/v4:llama1b_inst_all.json's shapes:
+# micro-batches of 4 captions of sharegpt4v's 328-token budget
+# (dmi_tpu/registry.py:110-112), conditioning subsets of 128, the attention
+# hypernet (positional encodings, width 768, rank 32, alpha 32, biases);
+# 80 micro-steps are 2 updates at its accumulation of 40
+HN_STEPS, HN_ACCUM, HN_COALESCE = 80, 40, 4
+HN_BATCH, HN_TEXT, HN_SUBSET, HN_RANK = 4, 328, 128, 32
+HN_ARGS = dict(TRAIN_ARGS, gradient_accumulation_steps=HN_ACCUM,
+               feed_txt_embs=True, augment_emb_space=True, finetune_mm_dim=None,
+               micro_batch_coalesce=1, subset_batch_size=HN_SUBSET)
+HN_SPEC = dict(lm_dim=2048, mm_dim=768, n_tokens=HN_SUBSET, arch="attention", hypnet_dim=768,
+               rank=HN_RANK, alpha=32, predict_bias=True, n_proj_layers=2, use_pos_encs=True)
+# stage 3 and the LoRA baseline: batch 64 (the v6 few-shot and v3 LoRA
+# configs) of sydney-length captions: the prompt, 22 caption tokens, an end
+# token; v6's accumulation of 1 and few-shot defaults; v3's optimizer
+FS_STEPS, FS_BATCH, FS_TEXT = 5, 64, len(PREFIX_IDS) + MAX_NEW + 1
+FS_ARGS = dict(HN_ARGS, gradient_accumulation_steps=1)
+FEWSHOT = dict(finetune_generated_projector=True, fewshot_n_adapters="one",
+               fewshot_learning_rate=1e-4, fewshot_weight_decay=5e-6)
+LORA_ARGS = dict(TRAIN_ARGS, adam_beta2=0.999, scheduler=None, gradient_accumulation_steps=1)
+FS_HN_STEPS = 2  # few-shot micro-steps that tune the hypernet itself
+# the flash kernels' (B, T): stage 1, stage 2, stage 3 and the LoRA baseline
+# (the paths' own calls, timed), then longer sequences at stage 1's batch
+FLASH_PATHS = ((TRAIN_BATCH, TRAIN_TEXT + 1), (HN_BATCH, HN_TEXT + 1), (FS_BATCH, FS_TEXT + 1))
+FLASH_CASES = FLASH_PATHS + ((TRAIN_BATCH, 128), (TRAIN_BATCH, 606))
 
 
 def nvidia_smi() -> str:
@@ -93,7 +154,9 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, iters=20, warmup=3) -> float:
-    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+    """Mean time of one fn() in ms, from CUDA events around `iters` calls,
+    host launches and host waits included: for a call that is more than
+    kernels (the rotation's QR)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -107,14 +170,32 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(torch, name, out, ref, tol) -> float:
+def compare(torch, name, out, ref, tol, scale=None) -> float:
+    """Max |out - ref| against tol * scale, where scale defaults to
+    max(1, max |ref|)."""
     err = (out.float() - ref.float()).abs().max().item()
-    bound = tol * max(1.0, ref.float().abs().max().item())
+    if scale is None:
+        scale = max(1.0, ref.float().abs().max().item())
+    bound = tol * scale
     ok = bool(torch.isfinite(out.float()).all()) and err <= bound
     print(f"  {name}: max_abs_err {err!r} (bound {bound!r}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
     return err
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def least_time(nbytes_moved, flops, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the peak rate of the inputs' type."""
+    t_bytes = nbytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def kernel_phase(torch, dev):
@@ -126,31 +207,41 @@ def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
 
-    print("kernel fused_mlp2 vs _mlp2_plain (mm 1024, lm 2048):")
-    spec = proj.ProjectorSpec(mm_dim=MM_DIM, lm_dim=2048)
+    print("kernel fused_mlp2 vs _mlp2_plain (lm 2048):")
     errs, times = [], None
-    for B, dtype in ((128, torch.float32), (44, torch.float32), (256, torch.float32),
-                     (128, torch.bfloat16)):
+    # serving (mm 1024, B 128; ragged 44, 256, bf16), then stage 3's
+    # generate through the generated projector (mm 768, B 64)
+    for B, mm, dtype in ((128, MM_DIM, torch.float32), (44, MM_DIM, torch.float32),
+                         (256, MM_DIM, torch.float32), (128, MM_DIM, torch.bfloat16),
+                         (FS_BATCH, TRAIN_MM_DIM, torch.float32)):
+        spec = proj.ProjectorSpec(mm_dim=mm, lm_dim=2048)
         p = proj.init(spec, gen, dtype=dtype, device=dev)["layers"]
-        x = l2_normalize(torch.randn(B, MM_DIM, generator=gen, device=dev)).to(dtype)
+        x = l2_normalize(torch.randn(B, mm, generator=gen, device=dev)).to(dtype)
         args = (x, p[0]["w"], p[0]["b"], p[1]["w"], p[1]["b"])
-        name = f"B={B} {str(dtype)[6:]}"
+        name = f"B={B} mm={mm} {str(dtype)[6:]}"
         errs.append(compare(torch, name, pk.fused_mlp2(*args), pk._mlp2_plain(*args),
                             TOL[str(dtype)[6:]]))
-        k_ms = time_ms(torch, lambda: pk.fused_mlp2(*args))
-        p_ms = time_ms(torch, lambda: pk._mlp2_plain(*args))
-        print(f"    kernel {k_ms * 1e3!r} us/call, plain {p_ms * 1e3!r} us/call")
-        if times is None:
-            times = (k_ms, p_ms)  # the serving case: f32, B = 128
-    results["mlp2"] = (max(errs), *times)
+        if times is None:  # the serving case: f32, B = 128
+            x, w0, b0, w1, b1 = args
+            times = {**device_times(
+                torch, lambda: pk.fused_mlp2(*args), lambda: pk._mlp2_plain(*args),
+                lambda: torch.addmm(b1, torch.nn.functional.gelu(torch.addmm(b0, x, w0),
+                                                                 approximate="tanh"), w1)),
+                     **least_time(nbytes(*args) + B * w1.shape[1] * x.element_size(),
+                                  2 * B * (w0.numel() + w1.numel()), dtype)}
+            print(f"    {report_times(times)}; library: addmm, gelu, addmm")
+    results["mlp2"] = {"max_abs_err": max(errs), **times}
 
     print("kernel fused_decode_attention vs _decode_attn_plain "
           "(32/8 heads, hd 64, k/v views of a 38-slot cache):")
     errs, times, cap_moves = [], None, []
+    # serving at B 128 and 256; stage 3's generate at B 64 (a prompt of 16
+    # positions, so S 17 at its first decode step and 37 at its last)
     cases = [(128, 16, torch.bfloat16, None), (128, 23, torch.bfloat16, None),
              (128, 38, torch.bfloat16, None), (128, 38, torch.bfloat16, 50.0),
              (128, 38, torch.bfloat16, 2.0), (128, 38, torch.float32, None),
-             (256, 23, torch.bfloat16, None)]
+             (256, 23, torch.bfloat16, None), (FS_BATCH, 17, torch.bfloat16, None),
+             (FS_BATCH, 37, torch.bfloat16, None)]
     for B, S, dtype, cap in cases:
         q = torch.randn(B, 32, 1, 64, generator=gen, device=dev).to(dtype)
         kc = torch.randn(B, 8, 38, 64, generator=gen, device=dev).to(dtype)
@@ -167,15 +258,71 @@ def kernel_phase(torch, dev):
             bound = TOL[str(dtype)[6:]] * max(1.0, ref.float().abs().max().item())
             print(f"    softcap moves the twin's output by {move!r} (bound {bound!r})")
             cap_moves.append(move > bound)
-        k_ms = time_ms(torch, lambda: da.fused_decode_attention(*args), iters=100)
-        p_ms = time_ms(torch, lambda: da._decode_attn_plain(*args), iters=100)
-        print(f"    kernel {k_ms * 1e3!r} us/call, plain {p_ms * 1e3!r} us/call")
-        if (B, S, dtype, cap) == (128, 23, torch.bfloat16, None):
-            times = (k_ms, p_ms)  # mid-decode on the serving path
+        if (B, S, dtype, cap) == (128, 23, torch.bfloat16, None):  # mid-decode, serving
+            q, k, v, bias = args[:4]
+            times = {**device_times(
+                torch, lambda: da.fused_decode_attention(*args),
+                lambda: da._decode_attn_plain(*args),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                         enable_gqa=True)),
+                     **least_time(nbytes(q, k, v, bias, q), 4 * B * 32 * S * 64, dtype)}
+            print(f"    {report_times(times)}; library: scaled_dot_product_attention, GQA")
     if not any(cap_moves):
         raise AssertionError("no softcap case binds: the kernel's softcap is unchecked")
-    results["decode_attention"] = (max(errs), *times)
+    results["decode_attention"] = {"max_abs_err": max(errs), **times}
     return results
+
+
+def lora0_phase(torch, dev):
+    """fused_lora_layer0 against its twin at stage 2's shapes (mm 768, lm
+    2048, r 32): f32 at B 4 (a micro-batch), 44 (a ragged row tile) and 64
+    (stage 3's few-shot step over the hypernet), 4 adapter groups of 4 rows
+    (the coalesced step), bf16 at B 64; the wiring of the Function's
+    backward; the times of the micro-batch call."""
+    from dmi_tpu_torch.ops.cuda import lora0 as l0
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    mm, lm, r = TRAIN_MM_DIM, 2048, HN_RANK
+
+    def args(G, B, dtype):
+        shapes = [(G, B, mm), (mm, lm), (lm,), (G, mm, r), (G, r, lm), (G, lm)]
+        scales = [1.0, mm ** -0.5, 0.1, mm ** -0.5, r ** -0.5, 0.1]
+        return [(torch.randn(sh, generator=gen, device=dev) * c).to(dtype)
+                for sh, c in zip(shapes, scales)]
+
+    print(f"kernel fused_lora_layer0 vs _lora0_plain (mm {mm}, lm {lm}, r {r}):")
+    errs = []
+    for G, B, dtype in ((1, 4, torch.float32), (1, 44, torch.float32), (1, 64, torch.float32),
+                        (4, 4, torch.float32), (1, 64, torch.bfloat16)):
+        a = args(G, B, dtype)
+        dname = str(dtype)[6:]
+        errs.append(compare(torch, f"G={G} B={B} {dname}", l0.fused_lora_layer0(*a),
+                            l0._lora0_plain(*a), TOL[dname]))
+    # the backward is the twin's gradient, recomputed (no kernel): this
+    # checks only that the Function hands each input its own gradient on
+    # the card and none to the frozen w0 and b0
+    a = [t.requires_grad_(i in (0, 3, 4, 5)) for i, t in enumerate(args(2, 4, torch.float32))]
+    cot = torch.randn(2, 4, lm, generator=gen, device=dev)
+    wanted = [a[i] for i in (0, 3, 4, 5)]
+    got = torch.autograd.grad((l0.fused_lora_layer0(*a) * cot).sum(), wanted)
+    want = torch.autograd.grad((l0._lora0_plain(*a) * cot).sum(), wanted)
+    for name, g, w in zip(("x", "a", "b", "d"), got, want):
+        compare(torch, f"backward wiring d/d{name}", g, w, TOL["float32"])
+
+    x, w0, b0, A, Bm, d = args(1, HN_BATCH, torch.float32)
+    x, A, Bm, d = x[0], A[0], Bm[0], d[0]  # the sequential step's ungrouped call
+    call = (x, w0, b0, A, Bm, d)
+    B = x.shape[0]
+    times = {**device_times(torch, lambda: l0.fused_lora_layer0(*call),
+                            lambda: l0._lora0_plain(*call),
+                            lambda: torch.nn.functional.gelu(
+                                torch.addmm(torch.addmm(b0 + d, x, w0), x @ A, Bm),
+                                approximate="tanh")),
+             **least_time(nbytes(*call) + B * lm * 4, 2 * B * (mm * lm + mm * r + r * lm),
+                          torch.float32)}
+    print(f"    B={B} f32: {report_times(times)}; library: add, addmm, matmul, addmm, gelu "
+          f"(at f32 the plain twin is this chain)")
+    return {"lora0": {"max_abs_err": max(errs), **times}}
 
 
 def decode_step_phase(torch, dev, cfg, params):
@@ -199,21 +346,11 @@ def decode_step_phase(torch, dev, cfg, params):
     print(f"  next-token agreement {agree!r}")
 
 
-def profile_run(torch, label, run) -> dict:
-    """Where one call of run() goes: its wall time unprofiled (median of 3,
-    synchronised), then one call under torch.profiler.  Device busy time is
-    the union of the trace's kernel, memcpy and memset intervals; the idle
-    share is 1 - busy / unprofiled wall.  Prints the five kernels that take
-    most."""
+def device_spans(torch, run) -> list:
+    """(start us, end us, name) of every kernel, memcpy and memset that the
+    device ran during one run() under torch.profiler, in order."""
     from torch.profiler import ProfilerActivity, profile
 
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall_ms = sorted(walls)[1] * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -226,6 +363,47 @@ def profile_run(torch, label, run) -> dict:
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     if not spans:
         raise AssertionError("the profiler saw no device activity")
+    return spans
+
+
+def device_ms(torch, fn, iters=20) -> float:
+    """Device time of one fn() call in ms: the summed spans of the kernels,
+    copies and fills of `iters` calls (after 3 warm-ups), over iters.  Unlike
+    CUDA events around a loop, it leaves out the gaps where the device waits
+    for the host to launch: a call whose bound is microseconds is shorter
+    than its launch cost from Python."""
+    for _ in range(3):
+        fn()
+    spans = device_spans(torch, lambda: [fn() for _ in range(iters)])
+    return sum(e - s for s, e, _ in spans) / iters / 1e3
+
+
+def device_times(torch, kernel, plain, library) -> dict:
+    """ms, plain_ms and library_ms of one call each (device_ms)."""
+    return {"ms": device_ms(torch, kernel), "plain_ms": device_ms(torch, plain),
+            "library_ms": device_ms(torch, library)}
+
+
+def report_times(t: dict) -> str:
+    return (f"device time per call: kernel {t['ms'] * 1e3!r} us, plain {t['plain_ms'] * 1e3!r} "
+            f"us, library {t['library_ms'] * 1e3!r} us; bound {t['bound_ms'] * 1e3!r} us "
+            f"({t['bound_by']})")
+
+
+def profile_run(torch, label, run) -> dict:
+    """Where one call of run() goes: its wall time unprofiled (median of 3,
+    synchronised), then one call under torch.profiler.  Device busy time is
+    the union of the trace's kernel, memcpy and memset intervals; the idle
+    share is 1 - busy / unprofiled wall.  Prints the five kernels that take
+    most."""
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = sorted(walls)[1] * 1e3
+    spans = device_spans(torch, run)
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy_us += max(0.0, e - max(s, end))
@@ -319,21 +497,65 @@ def slice_phase(torch, dev, cfg, params, max_new, n_requests=N_REQUESTS, mm_dim=
     return launches
 
 
+def flash_timings(torch, fa, q, k, v, do) -> dict:
+    """Device times (device_ms) of one bf16 call without a mask: each kernel,
+    the twin's forward and backward, and scaled_dot_product_attention's;
+    with each kernel's bound."""
+    nh, hd = q.shape[1], q.shape[3]
+    B, T = q.shape[0], q.shape[2]
+    o, lse = fa._fwd_kernel(q, k, v, None, 0.125)
+    delta = fa._delta(do, o)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def plain_fwd_bwd():
+        torch.autograd.grad(fa._flash_attn_plain(qg, kg, vg, None, 0.125), (qg, kg, vg), do)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, scale=0.125, enable_gqa=True)
+
+    t = {"fwd": device_ms(torch, lambda: fa._fwd_kernel(q, k, v, None, 0.125)),
+         "dkv": device_ms(torch, lambda: fa._bwd_dkv_kernel(q, k, v, None, do, lse, delta,
+                                                            0.125)),
+         "dq": device_ms(torch, lambda: fa._bwd_dq_kernel(q, k, v, None, do, lse, delta,
+                                                          0.125)),
+         "plain_fwd": device_ms(torch, lambda: fa._flash_attn_plain(q, k, v, None, 0.125)),
+         "plain_fwd_bwd": device_ms(torch, plain_fwd_bwd),
+         "lib_fwd": device_ms(torch, torch.no_grad()(sdpa)),
+         "lib_fwd_bwd": device_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do))}
+    # causal work: T(T+1)/2 (query, key) pairs per (row, head), each pair a
+    # length-hd dot product per matrix product: forward QK^T, PV; dK/dV
+    # recomputes QK^T, then dO V^T, P^T dO, dS^T Q; dQ recomputes QK^T and
+    # dO V^T, then dS K
+    pair_flops = 2 * hd * B * nh * T * (T + 1) // 2
+    grads_in = nbytes(q, k, v, o, lse, lse)  # q, k, v, dO, lse, delta
+    plain_bwd = t["plain_fwd_bwd"] - t["plain_fwd"]
+    lib_bwd = t["lib_fwd_bwd"] - t["lib_fwd"]
+    return {
+        "flash_fwd": {"ms": t["fwd"], "plain_ms": t["plain_fwd"], "library_ms": t["lib_fwd"],
+                      **least_time(nbytes(q, k, v, o, lse), 2 * pair_flops, q.dtype)},
+        "flash_bwd_dkv": {"ms": t["dkv"], "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                          **least_time(grads_in + nbytes(k, v), 4 * pair_flops, q.dtype)},
+        "flash_bwd_dq": {"ms": t["dq"], "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                         **least_time(grads_in + nbytes(q), 3 * pair_flops, q.dtype)},
+    }
+
+
 def flash_phase(torch, dev):
     """The flash attention kernels against their twin's autograd: output,
-    dQ, dK and dV, at Llama-3.2-1B's heads, B 32; then the times of each
-    kernel and of the twin at bf16 without a mask (the training path's
-    call)."""
+    dQ, dK and dV, at Llama-3.2-1B's heads and each (B, T) of FLASH_CASES;
+    the times of each training path's call (bf16, no mask).  Returns the
+    errors and stage 1's times."""
     from dmi_tpu_torch.ops.cuda import flash_attn as fa
 
     nh, nkv, hd = FLASH_HEADS
-    B = TRAIN_BATCH
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    errs = {"fwd": [], "dkv": [], "dq": []}
+    errs = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
     times = {}
-    print(f"kernels flash attention vs _flash_attn_plain ({nh}/{nkv} heads, hd {hd}, B {B}, "
+    print(f"kernels flash attention vs _flash_attn_plain ({nh}/{nkv} heads, hd {hd}, "
           "q/k/v in a block's [B, T, heads, hd] layout):")
-    for T in (TRAIN_TEXT + 1, 128, 606):
+    for B, T in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
             for masked in (False, True):
@@ -344,68 +566,51 @@ def flash_phase(torch, dev):
                     lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
                     mask = (torch.arange(T, device=dev)[None] < lens[:, None]).to(torch.int32)
                 do = torch.randn(B, nh, T, hd, generator=gen, device=dev).to(dtype)
-                name = f"T={T} {dname}" + (" key-mask" if masked else "")
+                name = f"B={B} T={T} {dname}" + (" key-mask" if masked else "")
                 out = fa.flash_attention(q, k, v, mask, 0.125)
                 ref = fa._flash_attn_plain(q, k, v, mask, 0.125)
                 got = torch.autograd.grad(out, (q, k, v), do)
                 want = torch.autograd.grad(ref, (q, k, v), do)
-                errs["fwd"].append(compare(torch, f"{name} out", out.detach(), ref.detach(),
-                                           TOL[dname]))
-                errs["dq"].append(compare(torch, f"{name} dq", got[0], want[0],
-                                          GRAD_TOL[dname]))
-                errs["dkv"].append(max(
+                errs["flash_fwd"].append(compare(torch, f"{name} out", out.detach(),
+                                                 ref.detach(), TOL[dname]))
+                errs["flash_bwd_dq"].append(compare(torch, f"{name} dq", got[0], want[0],
+                                                    GRAD_TOL[dname]))
+                errs["flash_bwd_dkv"].append(max(
                     compare(torch, f"{name} dk", got[1], want[1], GRAD_TOL[dname]),
                     compare(torch, f"{name} dv", got[2], want[2], GRAD_TOL[dname])))
-                if masked or dtype != torch.bfloat16:
+                if masked or dtype != torch.bfloat16 or (B, T) not in FLASH_PATHS:
                     continue
-                q, k, v = (t.detach() for t in (q, k, v))
-                o, lse = fa._fwd_kernel(q, k, v, None, 0.125)
-                delta = fa._delta(do, o)
-                qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-
-                def plain_fwd_bwd():
-                    torch.autograd.grad(fa._flash_attn_plain(qg, kg, vg, None, 0.125),
-                                        (qg, kg, vg), do)
-
-                t = {
-                    "fwd": time_ms(torch, lambda: fa._fwd_kernel(q, k, v, None, 0.125)),
-                    "dkv": time_ms(torch, lambda: fa._bwd_dkv_kernel(q, k, v, None, do, lse,
-                                                                     delta, 0.125)),
-                    "dq": time_ms(torch, lambda: fa._bwd_dq_kernel(q, k, v, None, do, lse,
-                                                                   delta, 0.125)),
-                    "plain_fwd": time_ms(torch, lambda: fa._flash_attn_plain(q, k, v, None,
-                                                                             0.125)),
-                    "plain_fwd_bwd": time_ms(torch, plain_fwd_bwd),
-                }
-                print(f"    T={T} bf16: kernels forward {t['fwd'] * 1e3!r} us, backward dK/dV "
-                      f"{t['dkv'] * 1e3!r} us, dQ {t['dq'] * 1e3!r} us; twin forward "
-                      f"{t['plain_fwd'] * 1e3!r} us, forward+backward "
-                      f"{t['plain_fwd_bwd'] * 1e3!r} us")
-                if T == TRAIN_TEXT + 1:
-                    times = t  # the training path's call
-    plain_bwd = times["plain_fwd_bwd"] - times["plain_fwd"]
-    return {"flash_fwd": (max(errs["fwd"]), times["fwd"], times["plain_fwd"]),
-            "flash_bwd_dkv": (max(errs["dkv"]), times["dkv"], plain_bwd),
-            "flash_bwd_dq": (max(errs["dq"]), times["dq"], plain_bwd)}
+                t = flash_timings(torch, fa, *(x.detach() for x in (q, k, v)), do)
+                for key, kt in t.items():
+                    print(f"    {key} B={B} T={T} bf16: {report_times(kt)}; library: "
+                          "scaled_dot_product_attention, causal, GQA (backward: its "
+                          "forward+backward less its forward, as the twin's)")
+                if not times:  # stage 1's call: the kernels line
+                    times = t
+    return {key: {"max_abs_err": max(errs[key]), **times[key]} for key in errs}
 
 
 class SyntheticCaptions:
-    """A stage-1 data source: TRAIN_BATCH rows of a chat prompt (PREFIX_IDS),
-    caption tokens and an end token, right-padded to TRAIN_TEXT, in the
+    """A training data source: `batch` rows of a chat prompt (PREFIX_IDS),
+    caption tokens and an end token, right-padded to `text` tokens, in the
     collator's schema (input_ids, attention_mask, labels with -100 over the
-    prompt and the pad id on right pads) with embs [TRAIN_BATCH, mm].  Made
-    with numpy from (SEED, step)."""
+    prompt and the pad id on right pads) with embs [batch, mm]; with
+    `subset`, also a conditioning subset (mm rows, text rows, the prefix
+    embedding) as the hypernet's loader gives it with feed_txt_embs.  Made
+    with numpy from (SEED, stream, step)."""
 
-    def __init__(self, steps, vocab):
-        self.steps, self.vocab = steps, vocab
+    def __init__(self, steps, batch=TRAIN_BATCH, text=TRAIN_TEXT, mm=TRAIN_MM_DIM,
+                 subset=None, stream=5):
+        self.steps, self.batch, self.text, self.mm = steps, batch, text, mm
+        self.subset, self.stream = subset, stream
 
     def total_train_steps(self):
         return self.steps
 
     def train_batch(self, step):
-        rng = np.random.default_rng((SEED, 5, step))
-        B, T, P = TRAIN_BATCH, TRAIN_TEXT, len(PREFIX_IDS)
-        lens = rng.integers(P + 8, T + 1, size=B)
+        rng = np.random.default_rng((SEED, self.stream, step))
+        B, T, P = self.batch, self.text, len(PREFIX_IDS)
+        lens = rng.integers(P + min(8, T - P - 1), T + 1, size=B)
         lens[0] = T
         ids = np.full((B, T), PAD_ID, np.int32)
         mask = np.zeros((B, T), np.int32)
@@ -416,8 +621,15 @@ class SyntheticCaptions:
             mask[b, :n] = 1
             labels[b, :n] = row
             labels[b, :P] = -100
-        embs = rng.normal(size=(B, TRAIN_MM_DIM)).astype(np.float32)
+        embs = rng.normal(size=(B, self.mm)).astype(np.float32)
         return {"input_ids": ids, "attention_mask": mask, "labels": labels, "embs": embs}
+
+    def subset_batch(self, step, split="train"):
+        rng = np.random.default_rng((SEED, self.stream + 1, step))
+        n, d = self.subset, self.mm
+        return (rng.normal(size=(n, d)).astype(np.float32),
+                rng.normal(size=(n, d)).astype(np.float32),
+                rng.normal(size=(1, d)).astype(np.float32))
 
 
 def train_phase(torch, dev, cfg, params):
@@ -434,23 +646,16 @@ def train_phase(torch, dev, cfg, params):
     spec = proj.ProjectorSpec(mm_dim=TRAIN_MM_DIM, lm_dim=cfg.hidden_size,
                               dropout=TRAIN_DROPOUT)
     pp = proj.init(spec, torch.Generator(device=dev).manual_seed(SEED + 4), device=dev)
-    data = SyntheticCaptions(TRAIN_STEPS, cfg.vocab_size)
+    data = SyntheticCaptions(TRAIN_STEPS)
     with tempfile.TemporaryDirectory() as tmp:
         args = types.SimpleNamespace(**TRAIN_ARGS, checkpoint_dir=tmp)
         trainer = ProjectorTrainer("smoke", cfg, params, spec, pp, [data],
                                    [EmbeddingManager("smoke-encoder", device=dev)], None, args)
         batches = [(0, data.train_batch(step)) for step in range(TRAIN_STEPS)]
 
-        print("training step 0, kernel path vs plain path (loss and projector gradients):")
-        step0 = {}
-        for plain in (False, True):
-            loss = trainer.micro_loss(0, batches[0], plain=plain)
-            step0[plain] = (loss.detach(), torch.autograd.grad(loss, trainer.leaves))
-        compare(torch, "loss", step0[False][0], step0[True][0], TOL["logits"])
-        for i, (g, gp) in enumerate(zip(step0[False][1], step0[True][1])):
-            err = compare(torch, f"grad leaf {i} {tuple(g.shape)}", g, gp, TOL["logits"])
-            print(f"    max |plain grad| {gp.abs().max().item()!r}, relative error "
-                  f"{err / max(gp.abs().max().item(), 1e-30)!r}")
+        step0_check(torch, "stage 1", lambda plain: trainer.micro_loss(0, batches[0],
+                                                                       plain=plain),
+                    trainer.params)
 
         llm_before = [t.clone() for lw in trainer.llm_params["layers"] for t in lw.values()]
         llm_before += [trainer.llm_params["embed"].clone(),
@@ -507,6 +712,375 @@ def train_phase(torch, dev, cfg, params):
     return launches
 
 
+def step0_check(torch, label, loss_fn, tree, zero=None):
+    """Step 0 of a training path, kernel path (loss_fn(False)) against plain
+    path (loss_fn(True)): the loss within TOL["loss"], and each trainable
+    leaf of `tree` within TOL["logits"] of that leaf's own largest plain
+    gradient.  A leaf the loss never reaches must get no gradient on either
+    path.  zero maps a leaf whose gradient is 0 in exact arithmetic (both
+    paths give rounding noise) to the leaf whose bound it is held to."""
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    names, leaves = zip(*named_leaves(tree))
+    print(f"{label} step 0, kernel path vs plain path (loss and trainable gradients):")
+    out = {}
+    for plain in (False, True):
+        loss = loss_fn(plain)
+        out[plain] = (loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True))
+    compare(torch, "loss", out[False][0], out[True][0], TOL["loss"])
+    scale = {n: gp.abs().max().item() for n, gp in zip(names, out[True][1]) if gp is not None}
+    for n, g, gp in zip(names, out[False][1], out[True][1]):
+        if gp is None:
+            if g is not None:
+                raise AssertionError(f"{label} leaf {n}: a gradient the twin does not have")
+            continue
+        compare(torch, f"grad {n} {tuple(g.shape)}", g, gp, TOL["logits"],
+                scale=scale[(zero or {}).get(n, n)])
+
+
+def _tensors(tree):
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    return [t.detach() for _, t in named_leaves(tree)]
+
+
+def _snapshot(params):
+    return [t.clone() for t in _tensors(params)]
+
+
+def _unchanged(before, tree) -> bool:
+    return all(a.equal(b) for a, b in zip(before, _tensors(tree)))
+
+
+def _reset_counts():
+    from dmi_tpu_torch.ops.cuda import decode_attn as da
+    from dmi_tpu_torch.ops.cuda import flash_attn as fa
+    from dmi_tpu_torch.ops.cuda import lora0 as l0
+    from dmi_tpu_torch.ops.cuda import projector as pk
+
+    pk.launches = da.launches = l0.launches = 0
+    fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+
+
+def _counts() -> dict:
+    from dmi_tpu_torch.ops.cuda import decode_attn as da
+    from dmi_tpu_torch.ops.cuda import flash_attn as fa
+    from dmi_tpu_torch.ops.cuda import lora0 as l0
+    from dmi_tpu_torch.ops.cuda import projector as pk
+
+    return {"mlp2": pk.launches, "decode_attention": da.launches, "lora0": l0.launches,
+            "flash_fwd": fa.fwd_launches, "flash_bwd_dkv": fa.dkv_launches,
+            "flash_bwd_dq": fa.dq_launches}
+
+
+def _expect(label, counts, want):
+    """The launch counts of a run against the expected ones (absent: 0)."""
+    full = {k: want.get(k, 0) for k in counts}
+    print(f"  {label} launches {counts} (expected {full})")
+    if counts != full:
+        raise AssertionError(f"{label}: kernel launches {counts} != {full}")
+
+
+def frozen_projector(torch, dev):
+    """The frozen stage-1 projector of stages 2-3 and the LoRA baseline: 2
+    layers, f32, mm 768 -> 2048, from a seed."""
+    from dmi_tpu_torch.models import projector as proj
+
+    spec = proj.ProjectorSpec(mm_dim=TRAIN_MM_DIM, lm_dim=2048, dropout=TRAIN_DROPOUT)
+    return spec, proj.init(spec, torch.Generator(device=dev).manual_seed(SEED + 7), device=dev)
+
+
+def hypernet_phase(torch, dev, cfg, params):
+    """Stage 2 through HypernetTrainer at full width; returns the stage-2
+    run's launch counts and the trained hypernet's parameters."""
+    import types
+
+    from dmi_tpu_torch.models import hypernet as hn
+    from dmi_tpu_torch.ops.linalg import random_orthogonal
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.hypernet_trainer import HypernetTrainer
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    spec, frozen = frozen_projector(torch, dev)
+    hspec = hn.HypnetSpec(**HN_SPEC)
+    hparams = hn.init(hspec, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev)
+    n_hn = sum(t.numel() for t in _tensors(hparams))
+    data = SyntheticCaptions(HN_STEPS + HN_ACCUM, batch=HN_BATCH, text=HN_TEXT, mm=spec.mm_dim,
+                             subset=HN_SUBSET, stream=7)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = types.SimpleNamespace(**HN_ARGS, checkpoint_dir=tmp)
+        trainer = HypernetTrainer("smoke-hypernet", cfg, params, spec, frozen, hspec, hparams,
+                                  [data], [EmbeddingManager("smoke-encoder", device=dev)], [],
+                                  [], None, args, types.SimpleNamespace(**FEWSHOT))
+    print(f"stage 2: hypernet {n_hn} parameters (context {hspec.context_len}), micro-batch "
+          f"{HN_BATCH} x T {HN_TEXT + 1}, accumulation {HN_ACCUM}")
+    batches = [trainer.fetch_batch(step) for step in range(HN_STEPS + HN_ACCUM)]
+
+    # the loss never reaches the generator heads past layer 0; the key
+    # bias adds one constant to every logit of a query's row, which the
+    # softmax cancels, so its gradient is 0 in exact arithmetic and is held
+    # to the bound of the key weight's
+    step0_check(torch, "stage 2", lambda plain: trainer.micro_loss(0, batches[0], plain=plain),
+                trainer.params, zero={"attn.k.b": "attn.k.w"})
+
+    llm_before = _snapshot(trainer.llm_params)
+    frozen_before = _snapshot(trainer.frozen_proj)
+    hn_before = _snapshot(trainer.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(step, HN_STEPS, batches[step])[0] for step in range(HN_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu() * HN_ACCUM
+    positions = HN_STEPS * HN_BATCH * (HN_TEXT + 1)
+    print(f"stage-2 run: {HN_STEPS} micro-steps, {secs!r} s, {HN_STEPS / secs!r} micro-steps/s, "
+          f"{positions / secs!r} tokens/s (sequence positions); peak device memory "
+          f"{peak / 2**30!r} GiB; losses first {losses[:3].tolist()} last "
+          f"{losses[-3:].tolist()}")
+    L = cfg.num_hidden_layers
+    _expect("stage-2 run", launches, {"lora0": HN_STEPS, "flash_fwd": L * HN_STEPS,
+                                      "flash_bwd_dkv": L * HN_STEPS,
+                                      "flash_bwd_dq": L * HN_STEPS})
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("a stage-2 loss is not finite")
+    names = [n for n, _ in named_leaves(trainer.params)]
+    moved = {n: not a.equal(b) for n, a, b in zip(names, hn_before, _tensors(trainer.params))}
+    # the reference runs only layer 0's adapter (projector.py:11-19): the
+    # layer-1 generator head gets no gradient, and weight decay at lr ~1e-4
+    # moves an f32 weight by less than its rounding
+    unreached = {n for n in names if n.startswith("generators.1.")}
+    print(f"  hypernet leaves moved {moved}")
+    print(f"  frozen projector and every LLM parameter bit-unchanged "
+          f"{_unchanged(frozen_before, trainer.frozen_proj)}, "
+          f"{_unchanged(llm_before, trainer.llm_params)}")
+    if (not all(moved[n] for n in names if n not in unreached)
+            or not _unchanged(frozen_before, trainer.frozen_proj)
+            or not _unchanged(llm_before, trainer.llm_params)):
+        raise AssertionError("the hypernet must move, the frozen projector and the LLM must not")
+    del llm_before, frozen_before, hn_before
+
+    idx, batch, subset_raw = batches[0]
+    mgr = trainer.emb_mgrs[0]
+    _reset_counts()
+    ev = trainer.eval_loss(mgr.get_embeddings(batch["embs"]), mgr.get_embeddings(subset_raw),
+                           *trainer._device_batch(batch))
+    print(f"stage-2 eval loss {ev.item()!r}")
+    _expect("eval loss", _counts(), {"lora0": 1, "flash_fwd": L})
+
+    trainer.coalesce = HN_COALESCE  # the micro_batch_coalesce path
+    window = [(step, *batches[step]) for step in range(HN_STEPS, HN_STEPS + HN_ACCUM)]
+    _reset_counts()
+    t0 = time.perf_counter()
+    acc = trainer.run_window(window)
+    trainer._update(window[-1][0])
+    torch.cuda.synchronize()
+    secs_k = time.perf_counter() - t0
+    n_chunks = HN_ACCUM // HN_COALESCE
+    print(f"stage-2 coalesced window: {HN_ACCUM} micro-steps as {n_chunks} chunks of "
+          f"{HN_COALESCE}, {secs_k!r} s, {HN_ACCUM / secs_k!r} micro-steps/s (update "
+          f"included); mean micro-step loss {acc.item()!r}")
+    _expect("coalesced window", _counts(), {"lora0": n_chunks, "flash_fwd": L * n_chunks,
+                                            "flash_bwd_dkv": L * n_chunks,
+                                            "flash_bwd_dq": L * n_chunks})
+    trainer.coalesce = 1
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    qr_ms = time_ms(torch, lambda: random_orthogonal(spec.mm_dim, gen), iters=10)
+    print(f"random_orthogonal({spec.mm_dim}) on the card: {qr_ms!r} ms/call")
+
+    print("where one stage-2 micro-step's time goes:")
+    extra = iter(range(HN_STEPS, HN_STEPS + HN_ACCUM))
+    profile_run(torch, f"stage-2 micro-step, batch {HN_BATCH}, T {HN_TEXT + 1}",
+                lambda: trainer.train_step(next(extra), 10**9, batches[1]))
+    trained = trainer.param_tree()
+    del trainer
+    return launches, trained
+
+
+def fewshot_phase(torch, dev, cfg, params, hn_params):
+    """Stage 3: the generated projector from one subset of the stage-2
+    hypernet, step 0 against the plain path, FS_STEPS few-shot micro-steps
+    over it, then one generate batch through it; returns the few-shot run's
+    launch counts."""
+    import types
+
+    from dmi_tpu_torch.models import hypernet as hn
+    from dmi_tpu_torch.models import mmmodel
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.hypernet_trainer import HypernetTrainer
+
+    spec, frozen = frozen_projector(torch, dev)
+    data = SyntheticCaptions(FS_STEPS, batch=FS_BATCH, text=FS_TEXT, mm=spec.mm_dim,
+                             subset=HN_SUBSET, stream=9)
+    mgr = EmbeddingManager("smoke-fewshot-encoder", device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = types.SimpleNamespace(**FS_ARGS, checkpoint_dir=tmp)
+        trainer = HypernetTrainer("smoke-fewshot", cfg, params, spec, frozen,
+                                  hn.HypnetSpec(**HN_SPEC), hn_params, [], [], [data], [mgr],
+                                  None, args, types.SimpleNamespace(**FEWSHOT))
+    trainer.fewshot_generate_adapters(0)
+    step0_check(torch, "stage 3", lambda plain: trainer.fewshot_micro_loss(
+        0, data.train_batch(0), None, mgr, plain=plain), trainer.generated_projector)
+    opt = trainer.fewshot_optimizer()
+    llm_before = _snapshot(trainer.llm_params)
+    hn_before = _snapshot(trainer.params)
+    gp_before = _snapshot(trainer.generated_projector)
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.fewshot_train_step(step, FS_STEPS, data.train_batch(step), None, mgr,
+                                         opt)[0] for step in range(FS_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = torch.stack(losses).float().cpu()
+    L = cfg.num_hidden_layers
+    print(f"stage 3: {FS_STEPS} few-shot micro-steps at batch {FS_BATCH}, T {FS_TEXT + 1}: "
+          f"{secs!r} s, {FS_STEPS / secs!r} micro-steps/s; losses {losses.tolist()}")
+    launches = _counts()
+    _expect("few-shot run", launches, {"flash_fwd": L * FS_STEPS, "flash_bwd_dkv": L * FS_STEPS,
+                                       "flash_bwd_dq": L * FS_STEPS})
+    moved = [not a.equal(b) for a, b in zip(gp_before, _tensors(trainer.generated_projector))]
+    print(f"  generated projector leaves moved {moved}; hypernet and LLM bit-unchanged "
+          f"{_unchanged(hn_before, trainer.params)}, {_unchanged(llm_before, trainer.llm_params)}")
+    if (not all(moved) or not bool(torch.isfinite(losses).all())
+            or not _unchanged(hn_before, trainer.params)
+            or not _unchanged(llm_before, trainer.llm_params)):
+        raise AssertionError("stage 3: the generated projector must move, the rest must not")
+    del llm_before
+
+    mm = mgr.get_embeddings(data.train_batch(0)["embs"])
+    prefix = torch.tensor([PREFIX_IDS] * FS_BATCH, device=dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        soft = trainer._soft_for_generate(mm, None)
+        ids = mmmodel.caption_generate(cfg, trainer.llm_params, soft, prefix, MAX_NEW, PAD_ID)
+    torch.cuda.synchronize()
+    print(f"stage-3 generate: one batch of {FS_BATCH} through the generated projector in "
+          f"{time.perf_counter() - t0!r} s, ids {tuple(ids.shape)}")
+    _expect("stage-3 generate", _counts(), {"mlp2": 1,
+                                            "decode_attention": L * (MAX_NEW - 1)})
+    if tuple(ids.shape) != (FS_BATCH, MAX_NEW) or not bool(((ids >= 0)
+                                                             & (ids < cfg.vocab_size)).all()):
+        raise AssertionError(f"stage-3 caption ids {tuple(ids.shape)} outside [0, vocab)")
+    with torch.no_grad():
+        soft = proj.apply(spec, trainer.generated_projector, mm, plain=True)
+        ids_plain = mmmodel.caption_generate(cfg, trainer.llm_params, soft, prefix, MAX_NEW,
+                                             PAD_ID, plain=True)
+    print(f"  token agreement with the plain path {(ids == ids_plain).float().mean().item()!r} "
+          "(information: bf16 argmax ties may flip)")
+    return launches
+
+
+def fewshot_hypernet_phase(torch, dev, cfg, params, hn_params):
+    """Stage 3 with finetune_generated_projector false: FS_HN_STEPS few-shot
+    micro-steps that tune the hypernet itself, each through lora0 at batch
+    64; returns the run's launch counts."""
+    import types
+
+    from dmi_tpu_torch.models import hypernet as hn
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.hypernet_trainer import HypernetTrainer
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    spec, frozen = frozen_projector(torch, dev)
+    data = SyntheticCaptions(FS_HN_STEPS, batch=FS_BATCH, text=FS_TEXT, mm=spec.mm_dim,
+                             subset=HN_SUBSET, stream=13)
+    mgr = EmbeddingManager("smoke-fewshot-encoder", device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = types.SimpleNamespace(**FS_ARGS, checkpoint_dir=tmp)
+        trainer = HypernetTrainer(
+            "smoke-fewshot-hypernet", cfg, params, spec, frozen, hn.HypnetSpec(**HN_SPEC),
+            hn_params, [], [], [data], [mgr], None, args,
+            types.SimpleNamespace(**dict(FEWSHOT, finetune_generated_projector=False)))
+    trainer.fewshot_generate_adapters(0)  # no generated projector: the hypernet is tuned
+    opt = trainer.fewshot_optimizer()
+    llm_before = _snapshot(trainer.llm_params)
+    frozen_before = _snapshot(trainer.frozen_proj)
+    hn_before = _snapshot(trainer.params)
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.fewshot_train_step(step, FS_HN_STEPS, data.train_batch(step),
+                                         data.subset_batch(step), mgr, opt)[0]
+              for step in range(FS_HN_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = torch.stack(losses).float().cpu()
+    L = cfg.num_hidden_layers
+    print(f"stage 3 over the hypernet: {FS_HN_STEPS} few-shot micro-steps at batch {FS_BATCH}, "
+          f"T {FS_TEXT + 1}: {secs!r} s; losses {losses.tolist()}")
+    launches = _counts()
+    _expect("few-shot run over the hypernet", launches,
+            {"lora0": FS_HN_STEPS, "flash_fwd": L * FS_HN_STEPS,
+             "flash_bwd_dkv": L * FS_HN_STEPS, "flash_bwd_dq": L * FS_HN_STEPS})
+    names = [n for n, _ in named_leaves(trainer.params)]
+    moved = {n: not a.equal(b) for n, a, b in zip(names, hn_before, _tensors(trainer.params))}
+    print(f"  hypernet leaves moved {moved}; frozen projector and LLM bit-unchanged "
+          f"{_unchanged(frozen_before, trainer.frozen_proj)}, "
+          f"{_unchanged(llm_before, trainer.llm_params)}")
+    # the layer-1 generator head gets no gradient (see hypernet_phase)
+    if (not all(moved[n] for n in names if not n.startswith("generators.1."))
+            or not bool(torch.isfinite(losses).all())
+            or not _unchanged(frozen_before, trainer.frozen_proj)
+            or not _unchanged(llm_before, trainer.llm_params)):
+        raise AssertionError("stage 3 over the hypernet: the hypernet must move, the rest not")
+    return launches
+
+
+def lora_phase(torch, dev, cfg, params):
+    """The LoRA baseline through LoraTrainer at v3's shapes; returns its
+    run's launch counts."""
+    import types
+
+    from dmi_tpu_torch.models import lora
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.lora_trainer import LoraTrainer
+
+    spec, frozen = frozen_projector(torch, dev)
+    lspec = lora.LoraSpec(rank=HN_RANK, alpha=32)
+    adapters = lora.init(lspec, spec, torch.Generator(device=dev).manual_seed(SEED + 10),
+                         device=dev)
+    data = SyntheticCaptions(FS_STEPS, batch=FS_BATCH, text=FS_TEXT, mm=spec.mm_dim, stream=11)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = types.SimpleNamespace(**LORA_ARGS, checkpoint_dir=tmp)
+        trainer = LoraTrainer(lora_spec=lspec, lora_params=adapters, frozen_proj_params=frozen,
+                              name="smoke-lora", llm_cfg=cfg, llm_params=params, proj_spec=spec,
+                              loaders=[data],
+                              emb_mgrs=[EmbeddingManager("smoke-encoder", device=dev)],
+                              tokenizer=None, train_args=args)
+    step0_check(torch, "LoRA baseline", lambda plain: trainer.micro_loss(
+        0, (0, data.train_batch(0)), plain=plain), trainer.params)
+    llm_before = _snapshot(trainer.llm_params)
+    frozen_before = _snapshot(trainer._frozen_proj)
+    ad_before = _snapshot(trainer.params)
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(step, FS_STEPS, (0, data.train_batch(step)))[0]
+              for step in range(FS_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = torch.stack(losses).float().cpu()
+    L = cfg.num_hidden_layers
+    print(f"LoRA baseline: {FS_STEPS} micro-steps at batch {FS_BATCH}, T {FS_TEXT + 1}: "
+          f"{secs!r} s, {FS_STEPS / secs!r} micro-steps/s; losses {losses.tolist()}")
+    launches = _counts()
+    _expect("LoRA run", launches, {"flash_fwd": L * FS_STEPS, "flash_bwd_dkv": L * FS_STEPS,
+                                   "flash_bwd_dq": L * FS_STEPS})
+    moved = [not a.equal(b) for a, b in zip(ad_before, _tensors(trainer.params))]
+    print(f"  adapter leaves moved {moved}; frozen projector and LLM bit-unchanged "
+          f"{_unchanged(frozen_before, trainer._frozen_proj)}, "
+          f"{_unchanged(llm_before, trainer.llm_params)}")
+    if (not all(moved) or not bool(torch.isfinite(losses).all())
+            or not _unchanged(frozen_before, trainer._frozen_proj)
+            or not _unchanged(llm_before, trainer.llm_params)):
+        raise AssertionError("LoRA: the adapters must move, the rest must not")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -537,39 +1111,49 @@ def main() -> int:
 
     kernels = kernel_phase(torch, dev)
     kernels.update(flash_phase(torch, dev))
+    kernels.update(lora0_phase(torch, dev))
 
     # Llama-3.2-1B at full width, EOS off as bench.py:252 has it
     cfg = dataclasses.replace(llama.llama32_1b(), eos_token_ids=())
     params = llama.fuse_projections(
         llama.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
     decode_step_phase(torch, dev, cfg, params)
-    launches = slice_phase(torch, dev, cfg, params, MAX_NEW)
-    launches.update(train_phase(torch, dev, cfg, params))
+    # each path's launch counts, set to 0 just before its run and read just after
+    paths = {"serving": slice_phase(torch, dev, cfg, params, MAX_NEW),
+             "stage 1": train_phase(torch, dev, cfg, params)}
+    paths["stage 2"], hn_params = hypernet_phase(torch, dev, cfg, params)
+    paths["stage 3"] = fewshot_phase(torch, dev, cfg, params, hn_params)
+    paths["stage 3 over the hypernet"] = fewshot_hypernet_phase(torch, dev, cfg, params,
+                                                                hn_params)
+    paths["LoRA"] = lora_phase(torch, dev, cfg, params)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("dmi_tpu", "jax"))
     if jax_side:
         raise AssertionError(f"the smoke loaded modules of the JAX side: {jax_side}")
 
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    # kernel: (name, source, TPU kernel it replaces, the path whose run's count is reported)
     sources = {"mlp2": ("fused_mlp2", "dmi_tpu_torch/csrc/mlp2.cu",
-                        "dmi_tpu/ops/pallas/projector.py:167"),
+                        "dmi_tpu/ops/pallas/projector.py:167", "serving"),
                "decode_attention": ("fused_decode_attention",
                                     "dmi_tpu_torch/csrc/decode_attn.cu",
-                                    "dmi_tpu/ops/pallas/decode_attn.py:121"),
+                                    "dmi_tpu/ops/pallas/decode_attn.py:121", "serving"),
                "flash_fwd": ("flash_attention forward", "dmi_tpu_torch/csrc/flash_attn_fwd.cu",
                              f"dmi_tpu/models/llama.py:1086 ({flash}:758 "
-                             "_flash_attention_impl)"),
+                             "_flash_attention_impl)", "stage 1"),
                "flash_bwd_dkv": ("flash_attention backward dK/dV",
                                  "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
                                  f"dmi_tpu/models/llama.py:1086 ({flash}:1121 "
-                                 "_flash_attention_bwd_dkv)"),
+                                 "_flash_attention_bwd_dkv)", "stage 1"),
                "flash_bwd_dq": ("flash_attention backward dQ",
                                 "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
                                 f"dmi_tpu/models/llama.py:1086 ({flash}:1456 "
-                                "_flash_attention_bwd_dq)")}
+                                "_flash_attention_bwd_dq)", "stage 1"),
+               "lora0": ("fused_lora_layer0", "dmi_tpu_torch/csrc/lora0.cu",
+                         "dmi_tpu/ops/pallas/projector.py:251", "stage 2")}
+    print(f"launches by path: {paths}")
     report = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": launches[key], "max_abs_err": kernels[key][0],
-               "ms": kernels[key][1], "plain_ms": kernels[key][2]}
-              for key, (name, src, rep) in sources.items()]
+               "launches": paths[path][key], **kernels[key]}
+              for key, (name, src, rep, path) in sources.items()]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

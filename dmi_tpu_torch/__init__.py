@@ -2,16 +2,20 @@
 
 A second package beside dmi_tpu, which stays the reference the port is held
 against: the same weights and inputs go through both packages in the tests
-(bridge.py converts dmi_tpu's parameters).  The port imports torch and never
-JAX; it reuses dmi_tpu's framework-free modules (registry, config,
-chat_templates, the data loaders, evals, results and logging, and the
-tokenizer fixture), lazily, where they are used.
+(bridge.py converts dmi_tpu's parameters).  The port imports torch and
+nothing of JAX or dmi_tpu: it carries its own copies of dmi_tpu's
+framework-free modules (config, registry, chat_templates, data, evals,
+training/results, utils/logging), which tests/test_torch_isolation.py holds
+equal to the originals.  Its entry points run on the card unless asked for
+the CPU (device="cpu", --device cpu).
 
-Ported so far: greedy serving on the llama-3.x body (serve.Captioner) and
-stage-1 projector training (train_projector, training.projector_trainer),
-with the projector MLP2, the single-token decode attention and the causal
-flash attention (forward and backward) as hand-written CUDA kernels for
-sm_90a (csrc/, bound through ops/cuda/).  ROADMAP.md lists what comes next.
+Ported so far: greedy serving on the llama-3.x body (serve.Captioner);
+stage-1 projector training (train_projector); stage-2 hypernetwork training
+and stage-3 few-shot integration (train_hypernet); the LoRA baseline
+(train_lora).  The projector MLP2, the single-token decode attention, the
+causal flash attention (forward and backward) and the fused LoRA layer 0
+are hand-written CUDA kernels for sm_90a (csrc/, bound through ops/cuda/).
+ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from dmi_tpu_torch.models import hypernet as hn
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.models import projector as proj
+from dmi_tpu_torch.utils.grad_stats import tree_map
 
 # dmi_tpu LlamaConfig fields with no meaning for serving on the card
 _IGNORED = {"attention_impl"}
@@ -85,6 +87,23 @@ def projector_spec_from_jax(jspec) -> proj.ProjectorSpec:
     """dmi_tpu ProjectorSpec -> the port's (the same fields)."""
     return proj.ProjectorSpec(**{f.name: getattr(jspec, f.name)
                                  for f in dataclasses.fields(proj.ProjectorSpec)})
+
+
+def hypnet_spec_from_jax(jspec) -> hn.HypnetSpec:
+    """dmi_tpu HypnetSpec -> the port's (the same fields)."""
+    return hn.HypnetSpec(**{f.name: getattr(jspec, f.name)
+                            for f in dataclasses.fields(hn.HypnetSpec)})
+
+
+def hypernet_params_from_jax(jparams: dict, device="cpu") -> dict:
+    """dmi_tpu hypernet pytree (any arch) -> the port's: the same tree of
+    dicts and lists, with tensors for leaves."""
+    return tree_map(lambda a: to_torch(a, device), jparams)
+
+
+def lora_params_from_jax(jparams, device="cpu") -> list:
+    """dmi_tpu LoRA-baseline adapters [{"a", "b"}, ...] -> the port's."""
+    return tree_map(lambda a: to_torch(a, device), list(jparams))
 
 
 def llm_params_to_numpy(params: dict) -> dict:

@@ -33,6 +33,13 @@ struct Num<__nv_bfloat16> {
   }
 };
 
+// tanh-approximated GELU in f32 (jax.nn.gelu(approximate=True), torch's
+// gelu(approximate="tanh"))
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

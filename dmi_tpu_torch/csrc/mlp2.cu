@@ -28,16 +28,12 @@
 
 namespace {
 
+using dmi::gelu_tanh;
 using dmi::Num;
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kCols = 4;       // output columns per thread per pass
 constexpr int kMaxRows = 16;   // upper bound of tb (rows of x per block)
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-}
 
 // rows x K tile in shared memory (f32, row stride K) times W [K, N].
 // kHidden: epilogue gelu(acc + bias) rounded to T, stored f32 into hid_s

@@ -360,3 +360,19 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     nll = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
                           shift_labels.reshape(-1), ignore_index=-100, reduction="sum")
     return nll / valid.sum().clamp(min=1)
+
+
+def causal_lm_loss_grouped(logits: torch.Tensor, labels: torch.Tensor,
+                           groups: int) -> torch.Tensor:
+    """causal_lm_loss of G stacked micro-batches in one [G*B, T] forward ->
+    [G] per-group token-mean losses, each equal to causal_lm_loss on that
+    group's rows alone (dmi_tpu's llama.causal_lm_loss_grouped).  Rows padded
+    past their own micro-batch length must carry -100 labels."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != -100
+    nll = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
+                          shift_labels.reshape(-1), ignore_index=-100, reduction="none")
+    gb, t = shift_labels.shape
+    nll = nll.reshape(groups, gb // groups * t).sum(1)
+    return nll / valid.reshape(groups, -1).sum(1).clamp(min=1)

@@ -62,6 +62,31 @@ def caption_loss(
     return llama.causal_lm_loss(logits, labels)
 
 
+def caption_loss_grouped(
+    cfg: LlamaConfig,
+    llm_params: dict,
+    soft_tokens: torch.Tensor,     # [G*B, lm_dim]
+    input_ids: torch.Tensor,       # [G*B, T]
+    attention_mask: torch.Tensor,
+    labels: torch.Tensor,
+    groups: int,
+    mask_padding: bool = False,
+    plain: bool = False,
+) -> torch.Tensor:
+    """caption_loss of G stacked micro-batches in one LLM forward -> [G]
+    per-group losses (dmi_tpu's mmmodel.caption_loss_grouped), for the
+    coalesced stage-2 step.  Groups padded to a common T extend labels with
+    -100 and the mask with 0: causal attention keeps the extension invisible
+    to real positions, so each group's loss equals its own caption_loss up
+    to summation order."""
+    inputs_embeds, attention_mask, labels = assemble_inputs(
+        cfg, llm_params, soft_tokens, input_ids, attention_mask, labels
+    )
+    logits = llama.forward(cfg, llm_params, inputs_embeds,
+                           attention_mask if mask_padding else None, plain=plain)
+    return llama.causal_lm_loss_grouped(logits, labels, groups)
+
+
 def assemble_prompt(
     cfg: LlamaConfig,
     llm_params: dict,

@@ -34,6 +34,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # x, w0, b0, w1, b1, out, B, mm, lm, lm2, tb, dtype, stream
     "dmi_mlp2": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w0, b0, a, bm, d, out, G, B, mm, lm, r, tb, dtype, stream
+    "dmi_lora0": [_P] * 7 + [_I] * 7 + [_P],
     # q, k, v, bias, out, B, nkv, group, S, hd, k_sb, k_sh, v_sb, v_sh,
     # scale, softcap, dtype, stream
     "dmi_decode_attn": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _P],

@@ -13,7 +13,10 @@ kernel on every layer of every step).  The tail batch is padded to the
 batch size, as in the JAX package.
 
 CLI:  python -m dmi_tpu_torch.serve --lm test:tiny --projector-ckpt P
-      --dataset sydney --embs embs.npy --out captions.json
+      --dataset sydney --embs embs.npy --out captions.json [--device cpu]
+
+It runs on the card unless asked for the CPU, and fails before loading
+anything when no card is visible.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import fuse_projections
 from dmi_tpu_torch.ops import l2_normalize
 from dmi_tpu_torch.training.checkpoint import load_pytree
-from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer
+from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer, require_device
 
 
 def _not_ported(what: str, item: str):
@@ -103,14 +106,14 @@ class Captioner:
         projector_ckpt: str,
         dataset: str,
         lm_dtype: str = "bfloat16",
-        device="cpu",
+        device="cuda",
         **kwargs,
     ) -> "Captioner":
-        # dmi_tpu's framework-free config and registry modules (no JAX);
-        # imported here so that serving from parameters loads no dmi_tpu module
-        from dmi_tpu.config import LMArgs
-        from dmi_tpu.registry import dataset_spec
+        # imported here so that serving from parameters loads neither
+        from dmi_tpu_torch.config import LMArgs
+        from dmi_tpu_torch.registry import dataset_spec
 
+        device = require_device(device)
         spec = dataset_spec(dataset)
         lm_args = LMArgs(lm_name_or_path=lm, lm_dtype=lm_dtype)
         tokenizer = build_tokenizer(lm_args)
@@ -216,7 +219,7 @@ def main(argv=None) -> None:
     ap.add_argument("--embs", required=True, help=".npy array or reference-schema .pkl")
     ap.add_argument("--out", default="captions.json")
     ap.add_argument("--batch-size", type=int, default=256)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cap = Captioner.from_checkpoint(

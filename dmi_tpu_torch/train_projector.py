@@ -1,14 +1,16 @@
 """Projector training CLI, stage 1 and the scratch/fine-tuned baselines
 (counterpart of dmi_tpu/train_projector.py).
 
-    python -m dmi_tpu_torch.train_projector <config.json> [--device cuda|cpu]
+    python -m dmi_tpu_torch.train_projector <config.json> [--device cpu]
 
 Mirrors the reference entry point (dmi/train_projector.py:186-347): a sweep over
 (epochs, dataset_size) pairs x seeds with an idempotent skip of completed
 runs, then per-dataset seed averaging.  Accepts the reference's projector
 config JSONs unchanged.  The LM comes from the port's build_lm (`test:tiny`,
-`test:1b`); loading one from the HF cache is not ported yet.  dmi_tpu's
-framework-free config, data, registry and results modules do the host work.
+`test:1b`); loading one from the HF cache is not ported yet.  The port's
+copies of dmi_tpu's framework-free config, data, registry and results
+modules do the host work.  It runs on the card unless given --device cpu
+(device="cpu"), and fails before loading anything when no card is visible.
 """
 
 from __future__ import annotations
@@ -22,23 +24,29 @@ import torch
 
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.training.embeddings import build_embedding_managers
-from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer, is_instruct_lm
+from dmi_tpu_torch.training.model_utils import (
+    build_lm,
+    build_tokenizer,
+    is_instruct_lm,
+    require_device,
+)
 from dmi_tpu_torch.training.projector_trainer import ProjectorTrainer
 
 log = logging.getLogger("dmi_tpu_torch")
 
 
 def _groups():
-    from dmi_tpu.config import DatasetArgs, LMArgs, MEncArgs, ProjectorArgs, TrainArgs
+    from dmi_tpu_torch.config import DatasetArgs, LMArgs, MEncArgs, ProjectorArgs, TrainArgs
 
     return (DatasetArgs, LMArgs, MEncArgs, ProjectorArgs, TrainArgs)
 
 
-def main(name, data_args, lm_args, menc_args, projector_args, train_args, device="cpu"):
-    from dmi_tpu.config import apply_debug_overrides, projector_post_init
-    from dmi_tpu.data.loader import DatasetLoader
-    from dmi_tpu.registry import dataset_spec
-    from dmi_tpu.utils.logging import dump_config_snapshot
+def main(name, data_args, lm_args, menc_args, projector_args, train_args, device="cuda"):
+    device = require_device(device)
+    from dmi_tpu_torch.config import apply_debug_overrides, projector_post_init
+    from dmi_tpu_torch.data.loader import DatasetLoader
+    from dmi_tpu_torch.registry import dataset_spec
+    from dmi_tpu_torch.utils.logging import dump_config_snapshot
 
     is_instruct = is_instruct_lm(lm_args.lm_name_or_path)
     apply_debug_overrides(train_args, "projector")
@@ -82,9 +90,10 @@ def main(name, data_args, lm_args, menc_args, projector_args, train_args, device
     return trainer.train(start_step)
 
 
-def run(config_path: str, device="cpu") -> None:
-    from dmi_tpu.config import parse_config
-    from dmi_tpu.training.results import average_seed_results, run_exists
+def run(config_path: str, device="cuda") -> None:
+    require_device(device)
+    from dmi_tpu_torch.config import parse_config
+    from dmi_tpu_torch.training.results import average_seed_results, run_exists
 
     data_args, lm_args, menc_args, projector_args, train_args = parse_config(
         config_path, _groups()
@@ -126,7 +135,7 @@ def cli(argv=None):
 
     ap = argparse.ArgumentParser(prog="python -m dmi_tpu_torch.train_projector")
     ap.add_argument("config")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(
         level=logging.INFO,

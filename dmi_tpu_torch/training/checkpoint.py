@@ -8,8 +8,9 @@ checkpoints.  The optimizer states differ: dmi_tpu's holds optax named
 tuples, whose classes live in a JAX package, and the port's holds its AdamW
 moments and step counts as numpy arrays (ADAMW_FORMAT).  The port never
 imports JAX, so its unpickler builds numpy and builtin objects only and
-turns every other class into an opaque `ForeignObject` that keeps its
-arguments.  The reference's torch `.pt` (zip) envelope is not ported yet.
+turns every other class into a `ForeignObject` that keeps its arguments;
+optim.load_adamw_state reads the AdamW moments out of them.  The
+reference's torch `.pt` (zip) envelope is not ported yet (ROADMAP.md A.12).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import zipfile
 from glob import glob
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 # optimizer_state_dict["format"] of the port's AdamW state
@@ -63,7 +65,7 @@ def load_pytree(path: str) -> Dict[str, Any]:
     if zipfile.is_zipfile(path):
         raise NotImplementedError(
             f"{path} is a torch .pt (zip) checkpoint: the reference envelope "
-            "is not ported yet (ROADMAP.md A.2)"
+            "is not ported yet (ROADMAP.md A.12)"
         )
     with open(path, "rb") as f:
         return _EnvelopeUnpickler(f).load()
@@ -78,6 +80,14 @@ def to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree
+
+
+def to_tensor(value, device) -> torch.Tensor:
+    """A checkpoint or parameter leaf (numpy array or tensor) as a detached
+    tensor on `device`; a numpy array is copied."""
+    if torch.is_tensor(value):
+        return value.detach().to(device)
+    return torch.as_tensor(np.array(value), device=device)
 
 
 def save_pytree(path: str, obj: Dict[str, Any]) -> None:

@@ -46,3 +46,11 @@ def build_embedding_managers(menc_args, device="cpu") -> list:
         EmbeddingManager(name, ext, device)
         for name, ext in zip(menc_args.menc_names_or_paths, menc_args.load_extracted_features)
     ]
+
+
+def build_fewshot_embedding_managers(menc_args, device="cpu") -> list:
+    return [
+        EmbeddingManager(name, ext, device)
+        for name, ext in zip(menc_args.fewshot_menc_names_or_paths,
+                             menc_args.fewshot_load_extracted_features)
+    ]

@@ -1,7 +1,8 @@
 """Shared generate/eval helpers for the trainers (counterpart of
-dmi_tpu/training/generation.py).  dmi_tpu's data and eval modules are
-imported where they are used: they are framework-free, and a trainer that
-never generates loads none of them."""
+dmi_tpu/training/generation.py).  The data and eval modules (the port's
+copies of dmi_tpu's framework-free ones) are imported where they are used:
+a trainer that never generates loads none of them, nor the scorers'
+dependencies."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ def prefix_prompt_ids(tokenizer, loader, batch_size: int, device="cpu") -> torch
     """Chat-template generation prompt for the loader's instruction
     (dmi/train.py:198-204: fixed PREFIX, else prefixes[0]), tiled to
     [batch_size, P] int64 on `device`."""
-    from dmi_tpu.data.loader import TOKENIZER_LOCK
+    from dmi_tpu_torch.data.loader import TOKENIZER_LOCK
 
     prefix = loader.PREFIX if loader.PREFIX is not None else loader.prefixes[0]
     with TOKENIZER_LOCK:
@@ -31,7 +32,7 @@ def prefix_prompt_ids(tokenizer, loader, batch_size: int, device="cpu") -> torch
 def safe_batch_decode(tokenizer, token_array, **kw):
     """tokenizer.batch_decode under the shared tokenizer lock (the batch
     prefetcher tokenizes concurrently in its worker thread)."""
-    from dmi_tpu.data.loader import TOKENIZER_LOCK
+    from dmi_tpu_torch.data.loader import TOKENIZER_LOCK
 
     with TOKENIZER_LOCK:
         return tokenizer.batch_decode(token_array, **kw)
@@ -54,10 +55,10 @@ def metrics_for(loader, preds: List[str], ids: List[str], gts: List[str],
     pretrain datasets (no GT files; the reference crashes there) score
     against the decoded references."""
     if loader.dataset_name in ("chebi20", "sydney", "candels"):
-        from dmi_tpu.evals.metrics import calc_metrics
+        from dmi_tpu_torch.evals.metrics import calc_metrics
 
         return calc_metrics(preds, ids, loader.dataset_name, run_name, mode, data_root)
-    from dmi_tpu.evals.captions import caption_evaluate
+    from dmi_tpu_torch.evals.captions import caption_evaluate
 
     return caption_evaluate(preds, gts)
 

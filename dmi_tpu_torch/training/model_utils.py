@@ -8,6 +8,10 @@
 The weights are the port's own seeded random init.  Loading a model from
 the HF cache is not ported yet (ROADMAP.md A.2).  The tokenizer fixture
 needs transformers and tokenizers, so it is imported only here, lazily.
+
+`require_device` is the entry points' device check: they run on the card
+unless asked for the CPU, and fail before loading anything when no card is
+visible.
 """
 
 from __future__ import annotations
@@ -22,6 +26,19 @@ from dmi_tpu_torch.models import llama
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.bfloat16}
 
 
+def require_device(device="cuda") -> torch.device:
+    """The device an entry point was asked for.  Raises when that is a CUDA
+    device and torch sees none: the port never falls back to the CPU, which
+    runs only when asked for (device="cpu", --device cpu)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: dmi_tpu_torch's entry points run on the card; "
+            "pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    return dev
+
+
 def is_test_lm(name: str) -> bool:
     return name.startswith("test:")
 
@@ -31,7 +48,7 @@ def is_instruct_lm(name: str) -> bool:
     (dmi/train_projector.py:188); test models run the instruct path."""
     if is_test_lm(name):
         return True
-    from dmi_tpu.chat_templates import LLMS_CHATTEMPLATES
+    from dmi_tpu_torch.chat_templates import LLMS_CHATTEMPLATES
 
     return name in LLMS_CHATTEMPLATES
 
@@ -46,7 +63,7 @@ def _not_ported(name: str):
 def build_tokenizer(lm_args):
     if not is_test_lm(lm_args.lm_name_or_path):
         raise _not_ported(lm_args.lm_name_or_path)
-    from dmi_tpu.data.tok_fixture import build_test_tokenizer
+    from dmi_tpu_torch.data.tok_fixture import build_test_tokenizer
 
     return build_test_tokenizer()
 

@@ -11,6 +11,12 @@ installs lr = base * lambda(sched_step) with `set_lr` before each update.
 The update is global-norm clipping (torch.nn.utils.clip_grad_norm_, as the
 reference, dmi/train_projector.py:71) then torch.optim.AdamW (decoupled
 weight decay scaled by lr), which dmi_tpu reproduces with optax.
+
+`adamw_state` and `load_adamw_state` move the AdamW moments in and out of a
+checkpoint's optimizer_state_dict.  The port writes its own format
+(checkpoint.ADAMW_FORMAT); it also reads dmi_tpu's optax state, taking
+(count, mu, nu) from its ScaleByAdamState: the other direction of
+dmi_tpu.training.optim.set_adamw_moments.
 """
 
 from __future__ import annotations
@@ -18,7 +24,11 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
+
+from dmi_tpu_torch.training.checkpoint import ADAMW_FORMAT, ForeignObject
+from dmi_tpu_torch.utils.grad_stats import named_leaves, tree_map
 
 
 def cosine_warmup_lambda(num_warmup_steps: int, num_training_steps: int,
@@ -76,7 +86,78 @@ def clip_and_step(opt: torch.optim.Optimizer, max_grad_norm: float) -> None:
     """Clip the gradients of every parameter of `opt` to a global norm of
     max_grad_norm, then take the AdamW step.  torch's clip divides by
     norm + 1e-6 where optax's divides by the norm (a relative difference of
-    1e-6 / norm on clipped steps)."""
-    torch.nn.utils.clip_grad_norm_([p for g in opt.param_groups for p in g["params"]],
-                                   max_grad_norm)
+    1e-6 / norm on clipped steps).  A parameter the loss does not reach gets
+    a zero gradient (the stage-2 hypernet's generator heads past layer 0):
+    optax updates every leaf, so AdamW's weight decay applies there too."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
     opt.step()
+
+
+def adamw_state(opt: torch.optim.AdamW, params) -> dict:
+    """The AdamW moments and per-parameter step counts of `params` (a tree
+    of the optimizer's leaves), shaped like the tree: a checkpoint's
+    optimizer_state_dict in the port's format."""
+    def per(key, empty):
+        return tree_map(lambda t: opt.state[t][key] if opt.state[t] else empty(t), params)
+
+    return {
+        "format": ADAMW_FORMAT,
+        "step": per("step", lambda t: torch.zeros(())),
+        "exp_avg": per("exp_avg", torch.zeros_like),
+        "exp_avg_sq": per("exp_avg_sq", torch.zeros_like),
+    }
+
+
+def _optax_adam_moments(state):
+    """(count, mu, nu) of the one ScaleByAdamState in an unpickled optax
+    state (ForeignObjects holding their constructor arguments)."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, ForeignObject):
+            if node.cls_name.endswith(".ScaleByAdamState") and len(node.args) == 3:
+                found.append(node.args)
+                return
+            node = node.args
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(state)
+    if len(found) != 1:
+        raise ValueError(f"expected one optax ScaleByAdamState, found {len(found)}")
+    return found[0]
+
+
+def load_adamw_state(opt: torch.optim.AdamW, params, state, device) -> None:
+    """Install a checkpoint's optimizer_state_dict for `params` (a tree of
+    the optimizer's leaves): the port's format, or dmi_tpu's optax state,
+    whose mu and nu are trees shaped like the parameters and whose count is
+    the number of updates taken (torch's per-parameter `step`)."""
+    if isinstance(state, dict) and state.get("format") == ADAMW_FORMAT:
+        flat = {key: [np.asarray(v) for _, v in named_leaves(state[key])]
+                for key in ("step", "exp_avg", "exp_avg_sq")}
+    else:
+        count, mu, nu = _optax_adam_moments(state)
+        mu = [np.asarray(v) for _, v in named_leaves(mu)]
+        flat = {"step": [np.asarray(count)] * len(mu), "exp_avg": mu,
+                "exp_avg_sq": [np.asarray(v) for _, v in named_leaves(nu)]}
+    leaves = [t for _, t in named_leaves(params)]
+    if any(len(v) != len(leaves) for v in flat.values()):
+        raise ValueError(f"optimizer state for {len(flat['exp_avg'])} leaves, "
+                         f"parameters have {len(leaves)}")
+    for i, leaf in enumerate(leaves):
+        if flat["exp_avg"][i].shape != tuple(leaf.shape):
+            raise ValueError(f"optimizer moment {i}: shape {flat['exp_avg'][i].shape}, "
+                             f"parameter {tuple(leaf.shape)}")
+        opt.state[leaf] = {
+            "step": torch.tensor(float(flat["step"][i]), dtype=torch.float32),
+            "exp_avg": torch.as_tensor(flat["exp_avg"][i], device=device).clone(),
+            "exp_avg_sq": torch.as_tensor(flat["exp_avg_sq"][i], device=device).clone(),
+        }

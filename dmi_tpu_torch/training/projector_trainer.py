@@ -22,9 +22,9 @@ torch.no_grad().  Dropout draws from one generator per micro-step, seeded
 from (seed, step): the counterpart of jax.random.fold_in(base_key, step),
 so a resumed run draws what the uninterrupted run drew.
 
-dmi_tpu's data, eval, results and logging modules are framework-free and
-imported where they are used: a trainer fed batches directly (as the card
-smoke feeds it) loads no dmi_tpu module.
+The data, eval, results and logging modules (the port's copies of
+dmi_tpu's framework-free ones) are imported where they are used: a trainer
+fed batches directly, as the card smoke feeds it, loads none of them.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ import torch
 from dmi_tpu_torch.models import mmmodel
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import LlamaConfig, fuse_projections
-from dmi_tpu_torch.training.checkpoint import ADAMW_FORMAT, BestCheckpointer, load_pytree
+from dmi_tpu_torch.training.checkpoint import BestCheckpointer, load_pytree, to_tensor
 from dmi_tpu_torch.training.generation import (
     comp_metric,
     metrics_for,
@@ -47,9 +47,16 @@ from dmi_tpu_torch.training.generation import (
     prefix_prompt_ids,
     safe_batch_decode,
 )
-from dmi_tpu_torch.training.optim import clip_and_step, make_lr_fn, make_optimizer, set_lr
+from dmi_tpu_torch.training.optim import (
+    adamw_state,
+    clip_and_step,
+    load_adamw_state,
+    make_lr_fn,
+    make_optimizer,
+    set_lr,
+)
 from dmi_tpu_torch.training.trainer import StepConditions, pick_loader, strip_to_assistant
-from dmi_tpu_torch.utils.grad_stats import grad_summary, host_grad_summary, named_leaves
+from dmi_tpu_torch.utils.grad_stats import grad_summary, host_grad_summary, named_leaves, tree_map
 from dmi_tpu_torch.utils.profiling import trace
 
 log = logging.getLogger("dmi_tpu_torch")
@@ -62,12 +69,34 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+def device_batch(batch, device):
+    """(input_ids, attention_mask, labels) of a collated batch on `device`,
+    ids and labels as int64."""
+    return (
+        torch.as_tensor(np.asarray(batch["input_ids"]), dtype=torch.long, device=device),
+        torch.as_tensor(np.asarray(batch["attention_mask"]), device=device),
+        torch.as_tensor(np.asarray(batch["labels"]), dtype=torch.long, device=device),
+    )
+
+
+def load_projector(path: str, spec: proj.ProjectorSpec) -> dict:
+    """A pretrained projector from a checkpoint, numpy leaves, its layer-0
+    input features pruned when the checkpoint is wider than spec.mm_dim
+    (dmi/train_projector.py:166-176, dmi/model/projector.py:46-54): the
+    fine-tune source of stage 1 and the frozen projector of stages 2-3 and
+    the LoRA baseline."""
+    params = load_pytree(path)["projector_state_dict"]
+    if params["layers"][0]["w"].shape[0] > spec.mm_dim:
+        params = proj.prune(params, spec.mm_dim)
+    return tree_map(np.asarray, params)
+
+
+def set_leaves(leaves_tree, values_tree) -> None:
+    """Copy a tree of values (numpy or tensors) into a tree of leaves of the
+    same structure, in place."""
+    with torch.no_grad():
+        for (_, leaf), (_, value) in zip(named_leaves(leaves_tree), named_leaves(values_tree)):
+            leaf.copy_(to_tensor(value, leaf.device))
 
 
 class ProjectorTrainer:
@@ -107,12 +136,10 @@ class ProjectorTrainer:
 
         if train_args.finetune_from_checkpoint:
             self.TRAINER_TYPE = "ft_projector"
-            proj_params = self._load_pruned(train_args.finetune_from_checkpoint)
+            proj_params = load_projector(train_args.finetune_from_checkpoint, proj_spec)
         # the trainer's own leaves: the optimizer updates them in place
-        self.params = _tree_map(
-            lambda t: torch.as_tensor(t, device=self.device).detach().clone().requires_grad_(),
-            proj_params,
-        )
+        self.params = tree_map(lambda t: to_tensor(t, self.device).clone().requires_grad_(),
+                               proj_params)
         self.leaves = [t for _, t in named_leaves(self.params)]
         self.opt = make_optimizer(train_args, self.leaves)
         self.total_steps = sum(ld.total_train_steps() for ld in loaders)
@@ -122,20 +149,8 @@ class ProjectorTrainer:
 
     # ------------------------------------------------------------------
 
-    def _load_pruned(self, path: str) -> dict:
-        """A pretrained projector, its layer-0 input features pruned when the
-        checkpoint is wider than this run's mm_dim
-        (dmi/train_projector.py:166-176)."""
-        params = load_pytree(path)[f"{self.SAVE_TYPE}_state_dict"]
-        if params["layers"][0]["w"].shape[0] > self.proj_spec.mm_dim:
-            params = proj.prune(params, self.proj_spec.mm_dim)
-        return _tree_map(np.asarray, params)
-
     def _set_params(self, tree) -> None:
-        """Copy a parameter tree (numpy or tensors) into the trainer's leaves."""
-        with torch.no_grad():
-            for (_, leaf), (_, value) in zip(named_leaves(self.params), named_leaves(tree)):
-                leaf.copy_(torch.as_tensor(np.asarray(value)))
+        set_leaves(self.params, tree)
 
     def _soft_train(self, params, embs, generator):
         return proj.apply(self.proj_spec, params, embs, train=True, generator=generator)
@@ -144,11 +159,7 @@ class ProjectorTrainer:
         return proj.apply(self.proj_spec, params, embs)
 
     def _device_batch(self, batch):
-        return (
-            torch.as_tensor(np.asarray(batch["input_ids"]), dtype=torch.long, device=self.device),
-            torch.as_tensor(np.asarray(batch["attention_mask"]), device=self.device),
-            torch.as_tensor(np.asarray(batch["labels"]), dtype=torch.long, device=self.device),
-        )
+        return device_batch(batch, self.device)
 
     # ------------------------------------------------------------------
 
@@ -180,7 +191,7 @@ class ProjectorTrainer:
         do_update = self.cond.grad_acc(step, total_steps)
         if do_update:
             # summary of the full accumulated gradient the optimizer consumes
-            self._last_grad_stats = grad_summary(_tree_map(lambda t: t.grad, self.params))
+            self._last_grad_stats = grad_summary(tree_map(lambda t: t.grad, self.params))
             set_lr(self.opt, self.lr_fn(self.sched_step))
             clip_and_step(self.opt, self.train_args.max_grad_norm)
             self.opt.zero_grad(set_to_none=True)
@@ -196,7 +207,7 @@ class ProjectorTrainer:
     def evaluate(self) -> float:
         """Mean of per-batch losses across all eval loaders
         (dmi/train_projector.py:100-129); one host sync at the end."""
-        from dmi_tpu.data.collator import pad_batch_dim
+        from dmi_tpu_torch.data.collator import pad_batch_dim
 
         bsz = self.train_args.eval_batch_size
         losses = []
@@ -249,37 +260,12 @@ class ProjectorTrainer:
     # ------------------------------------------------------------------
 
     def param_tree(self) -> dict:
-        return _tree_map(torch.Tensor.detach, self.params)
+        return tree_map(torch.Tensor.detach, self.params)
 
     def optimizer_state(self) -> dict:
-        """The AdamW moments and per-parameter step counts, shaped like the
-        parameters (the checkpoint's optimizer_state_dict)."""
-        def per(key, empty):
-            return _tree_map(lambda t: self.opt.state[t][key] if self.opt.state[t] else empty(t),
-                             self.params)
-
-        return {
-            "format": ADAMW_FORMAT,
-            "step": per("step", lambda t: torch.zeros(())),
-            "exp_avg": per("exp_avg", torch.zeros_like),
-            "exp_avg_sq": per("exp_avg_sq", torch.zeros_like),
-        }
-
-    def _load_optimizer_state(self, state) -> None:
-        if not (isinstance(state, dict) and state.get("format") == ADAMW_FORMAT):
-            raise NotImplementedError(
-                "resuming the optimizer from a dmi_tpu (optax) or reference torch "
-                "checkpoint is not ported yet (ROADMAP.md A.3)"
-            )
-        flat = {key: [np.asarray(v) for _, v in named_leaves(state[key])]
-                for key in ("step", "exp_avg", "exp_avg_sq")}
-        for i, leaf in enumerate(self.leaves):
-            self.opt.state[leaf] = {
-                "step": torch.tensor(float(flat["step"][i]), dtype=torch.float32),
-                "exp_avg": torch.as_tensor(flat["exp_avg"][i], device=self.device).clone(),
-                "exp_avg_sq": torch.as_tensor(flat["exp_avg_sq"][i],
-                                              device=self.device).clone(),
-            }
+        """The checkpoint's optimizer_state_dict: the AdamW moments and
+        per-parameter step counts, shaped like the parameters."""
+        return adamw_state(self.opt, self.params)
 
     def comp_metric_value(self, all_metrics) -> tuple:
         return comp_metric(all_metrics)
@@ -293,15 +279,16 @@ class ProjectorTrainer:
             return 0
         self._set_params(best[f"{self.SAVE_TYPE}_state_dict"])
         if best.get("optimizer_state_dict") is not None:
-            self._load_optimizer_state(best["optimizer_state_dict"])
+            load_adamw_state(self.opt, self.params, best["optimizer_state_dict"],
+                             self.device)
             self.sched_step = int(best["step_idx"])
         return int(best["step_idx"]) + 1
 
     def train(self, start_step: int = 0):
-        from dmi_tpu.data.prefetch import Prefetcher
-        from dmi_tpu.evals.environment import eval_environment
-        from dmi_tpu.training.results import save_run_results
-        from dmi_tpu.utils.logging import MetricLogger
+        from dmi_tpu_torch.data.prefetch import Prefetcher
+        from dmi_tpu_torch.evals.environment import eval_environment
+        from dmi_tpu_torch.training.results import save_run_results
+        from dmi_tpu_torch.utils.logging import MetricLogger
 
         total = self.total_steps
         accum = self.train_args.gradient_accumulation_steps

@@ -32,6 +32,16 @@ def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
         yield prefix[:-1], tree
 
 
+def tree_map(fn, tree):
+    """fn applied to every leaf of a tree of dicts, lists and tuples (lists
+    and tuples come back as lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def grad_summary(grads, prefix: str = "grad") -> Dict[str, torch.Tensor]:
     """A flat dict of device scalars plus one histogram-count vector under
     '<prefix>_hist' (len(HIST_EDGES) + 1 buckets)."""

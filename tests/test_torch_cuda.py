@@ -22,6 +22,7 @@ from dmi_tpu_torch.models import decode as dec
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.ops.cuda import decode_attn as tda
 from dmi_tpu_torch.ops.cuda import flash_attn as tfa
+from dmi_tpu_torch.ops.cuda import lora0 as tl0
 from dmi_tpu_torch.ops.cuda import projector as tpk
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +98,73 @@ def test_mlp2_kernel_refuses_mixed_dtypes(cuda):
     args = _mlp2_args(4, 32, 64, 64, torch.float32, cuda)
     with pytest.raises(TypeError, match="one dtype"):
         tpk.fused_mlp2(args[0].bfloat16(), *args[1:])
+
+
+def _lora0_args(G, B, mm, lm, r, dtype, dev, seed=0):
+    """x, w0, b0, a, b, d; x, a, b and d grouped when G is not None."""
+    rng = np.random.default_rng(seed)
+    lead = () if G is None else (G,)
+    shapes = [lead + (B, mm), (mm, lm), (lm,), lead + (mm, r), lead + (r, lm), lead + (lm,)]
+    scales = [1.0, mm ** -0.5, 0.1, mm ** -0.5, r ** -0.5, 0.1]
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32) * c).to(dev, dtype)
+            for s, c in zip(shapes, scales)]
+
+
+@pytest.mark.parametrize("G,B,mm,lm,r,dtype", [
+    (None, 4, 768, 2048, 32, torch.float32),   # the stage-2 micro-batch
+    (None, 44, 768, 2048, 32, torch.float32),  # ragged last row tile
+    (None, 64, 768, 2048, 32, torch.float32),  # eval and few-shot batch
+    (4, 4, 768, 2048, 32, torch.float32),      # coalesced: 4 adapter groups
+    (None, 64, 768, 2048, 32, torch.bfloat16),
+    (None, 8, 768, 2048, 32, torch.float32),   # the 8-row tile
+    (3, 5, 96, 200, 7, torch.float32),         # a rank off every multiple: scalar loads of a
+    (2, 3, 97, 130, 8, torch.float32),         # widths off 4: scalar loads of x, w0 and b
+    (None, 6, 64, 202, 5, torch.bfloat16),     # all loads scalar
+])
+def test_lora0_kernel_matches_twin(cuda, G, B, mm, lm, r, dtype):
+    args = _lora0_args(G, B, mm, lm, r, dtype, cuda)
+    n0 = tl0.launches
+    out = tl0.fused_lora_layer0(*args)
+    assert tl0.launches == n0 + 1
+    _close(out, tl0._lora0_plain(*args), TOL[dtype])
+
+
+def test_lora0_kernel_differentiates_like_twin(cuda):
+    """The hypernet's gradient path: x, a, b and d require grad (w0 and b0,
+    the frozen projector, do not)."""
+    args = _lora0_args(2, 4, 96, 160, 8, torch.float32, cuda)
+    for i in (0, 3, 4, 5):
+        args[i].requires_grad_()
+    cot = torch.randn(2, 4, 160, device=cuda)
+    want = torch.autograd.grad((tl0._lora0_plain(*args) * cot).sum(),
+                               [args[i] for i in (0, 3, 4, 5)])
+    got = torch.autograd.grad((tl0.fused_lora_layer0(*args) * cot).sum(),
+                              [args[i] for i in (0, 3, 4, 5)])
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+
+
+def test_lora0_kernel_takes_unaligned_inputs(cuda):
+    """Tensors that start off a 16-byte boundary take the scalar loads."""
+    args = _lora0_args(None, 4, 96, 160, 8, torch.float32, cuda)
+    shifted = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
+        shifted.append(buf[1:].view(t.shape))
+        shifted[-1].copy_(t)
+    _close(tl0.fused_lora_layer0(*shifted), tl0._lora0_plain(*args), TOL[torch.float32])
+
+
+def test_lora0_kernel_refuses_what_it_cannot_take(cuda):
+    args = _lora0_args(None, 4, 32, 64, 8, torch.float32, cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        tl0.fused_lora_layer0(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        tl0.fused_lora_layer0(args[0], args[1], args[2], args[3].t().contiguous().t(),
+                              *args[4:])
+    big = _lora0_args(None, 4, 32, 64, 300, torch.float32, cuda)
+    with pytest.raises(ValueError, match="rank"):
+        tl0.fused_lora_layer0(*big)
 
 
 def _attn_args(B, nh, nkv, S, hd, dtype, dev, cache_len=None, seed=0):

@@ -394,8 +394,8 @@ def test_trainer_resume_reproduces_uninterrupted_run(fixture_data):
 def test_checkpoints_read_across_packages(fixture_data, tmp_path):
     """The port's checkpoint is dmi_tpu's envelope: dmi_tpu loads its
     projector and fine-tunes from it (pruned to a narrower mm_dim).
-    dmi_tpu's checkpoint loads in the port, which fine-tunes from it too;
-    resuming the port's optimizer from dmi_tpu's optax state is refused."""
+    dmi_tpu's checkpoint loads in the port, which fine-tunes from it too and
+    resumes from it, with the AdamW moments of dmi_tpu's optax state."""
     from dmi_tpu.training.checkpoint import BestCheckpointer as JaxCheckpointer
     from dmi_tpu.training.checkpoint import load_pytree as jload
 
@@ -409,13 +409,20 @@ def test_checkpoints_read_across_packages(fixture_data, tmp_path):
     for (_, t), a in zip(bridge_leaves(tt), jax.tree.leaves(env["projector_state_dict"])):
         np.testing.assert_array_equal(a, t.detach().numpy())
 
+    jt.train_step(0, 8)
     jck = JaxCheckpointer(str(tmp_path / "jck"), "jax", "projector")
     jck.save(2, 0.25, "coco_cider", jt.state.params, optimizer_state=jt.state.opt_state)
     env = tckpt.load_pytree(jck.best_path)
     for (_, t), a in zip(bridge_leaves(tt), jax.tree.leaves(env["projector_state_dict"])):
         assert a.shape == tuple(t.shape)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tt.resume(jck.best_path)
+    port_w = tt.params["layers"][0]["w"].detach().clone()
+    assert tt.resume(jck.best_path) == 3 and tt.sched_step == 2
+    adam = jt.state.opt_state[1].inner_state[0]
+    for leaf, mu, nu in zip(tt.leaves, jax.tree.leaves(adam.mu), jax.tree.leaves(adam.nu)):
+        state = tt.opt.state[leaf]
+        assert state["step"].item() == int(adam.count) == 1
+        np.testing.assert_array_equal(state["exp_avg"].numpy(), np.asarray(mu))
+        np.testing.assert_array_equal(state["exp_avg_sq"].numpy(), np.asarray(nu))
 
     # fine-tune each package from the other's checkpoint at mm_dim 20
     ft_args = _train_args(finetune_from_checkpoint=tt.ckpt.best_path)
@@ -428,7 +435,7 @@ def test_checkpoints_read_across_packages(fixture_data, tmp_path):
                      train_args=ft_args)
     assert jft.TRAINER_TYPE == "ft_projector"
     np.testing.assert_array_equal(np.asarray(jft.state.params["layers"][0]["w"]),
-                                  tt.params["layers"][0]["w"].detach().numpy()[:20])
+                                  port_w.numpy()[:20])
     ft_args = _train_args(finetune_from_checkpoint=jck.best_path)
     tft = ProjectorTrainer(name="ft", llm_cfg=tt.llm_cfg, llm_params=tt.llm_params,
                            proj_spec=tproj.ProjectorSpec(mm_dim=20, lm_dim=64),
@@ -492,7 +499,7 @@ def test_projector_end_to_end_through_run(tmp_path, monkeypatch):
     generate_dataset("data", "sydney", "RemoteCLIP-RN50-Unchanged", mm_dim=32,
                      n_train=4, n_eval=2, seed=0)
     cfg_path = _e2e_config(tmp_path)
-    run(cfg_path)
+    run(cfg_path, device="cpu")
     run_file = osp.join("outputs", "projector:cfg_projector_smoke-dszfull-seed7-results.json")
     results = json.load(open(run_file))
     assert set(results) == {"metrics", "gts", "preds", "ids", "eval_env"}
@@ -504,7 +511,7 @@ def test_projector_end_to_end_through_run(tmp_path, monkeypatch):
                     "cfg_projector_smoke-dszfull-seed7-checkpoint-projector-best.pt")
     assert osp.exists(best)
     mtime = os.path.getmtime(run_file)
-    run(cfg_path)  # idempotent skip
+    run(cfg_path, device="cpu")  # idempotent skip
     assert os.path.getmtime(run_file) == mtime
 
     tok = build_test_tokenizer()
