@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of dmi_tpu_torch's serving path and its three training stages
-(with the LoRA baseline) on one CUDA card.
+"""Smoke run of dmi_tpu_torch's serving paths (batch-first, batch-last,
+quantized) and its three training stages (with the LoRA baseline) on one
+CUDA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -16,20 +17,36 @@
    stage 3 and the LoRA baseline, of T 128 and of T 606 (sharegpt4video's
    budget), bf16 and f32, with and without a key mask; the LoRA layer-0
    kernel at stage 2's and stage 3's shapes, f32 and bf16, one and four
-   adapter groups.
+   adapter groups; the packed W4A8 matmul (and its W8A8 variant) at
+   Llama-3.2-1B's four layer matmuls, bit for bit, at batch 128, 8, 64, 100
+   and at shapes off every vector width; the decode MLP (silu, tanh-GELU) at
+   H 2048, I 8192, batch 128, 8, 64, 100, bf16 and f32; the fused head +
+   argmax in its three weight modes at V 128256 and at a V no slice divides,
+   with ties planted across vocab slices (q8 bit for bit; bf16 and q by the
+   share of equal ids and, for every other column, the twin's two logits
+   within one bf16 step per rounding).
 3. Runs one decode step of a full-width Llama-3.2-1B from a common cache
-   through the kernel path and through the plain path, and compares logits.
-4. Serves 300 requests through dmi_tpu_torch.serve.Captioner: Llama-3.2-1B
-   at full width (16 layers, bf16 weights from a seeded init, EOS off so
-   every request decodes sydney's 22-token budget), a 2-layer f32 projector
-   (mm 1024) loaded from a dmi_tpu-format checkpoint, a fixed 15-token chat
-   prefix, batch 128 (3 batches, the last one padded).  The kernels' launch
-   counters, set to 0 just before, must show that the run went through them.
-   Then captions/s at batch 128 and 256 on the same 300 requests, the
-   greedy-token agreement of the kernel and plain paths (information only),
-   and one batch of each size under torch.profiler: device busy time and
-   idle share.
-5. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
+   through the kernel path and through the plain path, batch-first and
+   batch-last, and compares logits.
+4. Serves 300 requests through dmi_tpu_torch.serve.Captioner on the
+   batch-first loop: Llama-3.2-1B at full width (16 layers, bf16 weights
+   from a seeded init, EOS off so every request decodes sydney's 22-token
+   budget), a 2-layer f32 projector (mm 1024) loaded from a dmi_tpu-format
+   checkpoint, a fixed 15-token chat prefix, batch 128 (3 batches, the last
+   one padded).  The kernels' launch counters, set to 0 just before, must
+   show that the run went through them.  Then captions/s at batch 128 and
+   256 on the same 300 requests, the greedy-token agreement of the kernel
+   and plain paths (information only), and one batch of each size under
+   torch.profiler: device busy time and idle share.
+5. Serves the same 300 requests on the batch-last loop, the Captioner's
+   default, in four configurations with the counters set to 0 before each:
+   (a) the bf16 tree (per batch: 16 x 21 decode-MLP and decode-attention
+   launches, 21 head + argmax launches, 1 mlp2), also against the plain
+   path and against batch_first=True by token agreement; (b) int8="w4a8" (4
+   x 16 x 21 packed-matmul launches per batch), also against its plain path;
+   and one batch each of (c) int8=True and (d) int8="w8a8".  Captions/s of
+   each, and one bf16 and one w4a8 batch under torch.profiler.
+6. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
    projector (mm 768, dropout 0.1) and the optimizer of configs/experiments/
    projector/v1:llama1b_inst_all_extracted.json (warmup cut to 2), on
    synthetic batches of 32 captions (64 text tokens and the soft token).
@@ -39,7 +56,7 @@
    that moves and an LLM that does not; one eval-loss call through
    fused_mlp2; micro-steps/s, tokens/s, peak memory and one step under
    torch.profiler.
-6. Stage 2: HypernetTrainer at the v4 hypernet config's shapes (attention
+7. Stage 2: HypernetTrainer at the v4 hypernet config's shapes (attention
    hypernet, positional encodings, width 768, rank 32, subsets of 128,
    rotation augmentation and text interleave, AdamW and accumulation 40,
    warmup cut to 2) over a frozen f32 projector (mm 768), micro-batches of
@@ -49,13 +66,14 @@
    loss; one coalesced window of 40 at micro_batch_coalesce 4 (10 grouped
    lora0 launches); the card's time of one 768 x 768 random_orthogonal;
    throughput, peak memory and one micro-step under torch.profiler.
-7. Stage 3: the generated projector from one subset of the stage-2
+8. Stage 3: the generated projector from one subset of the stage-2
    hypernet; step 0 kernel vs plain path; 5 few-shot micro-steps over it at
    batch 64 on sydney-length captions, then one generate batch of 64 through
-   it (1 mlp2 launch, 16 x 21 decode-attention launches); then 2 few-shot
+   it on the batch-last loop (1 mlp2 launch, 16 x 21 decode-attention and
+   decode-MLP launches, 21 head + argmax launches); then 2 few-shot
    micro-steps that tune the hypernet itself (finetune_generated_projector
    false: 1 lora0 launch each).
-8. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
+9. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
    32, alpha 32): step 0 kernel vs plain path, then 5 micro-steps (each
    flash kernel 16 x 5).
 
@@ -101,9 +119,15 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_HEADS = (32, 8, 64)  # Llama-3.2-1B: query heads, kv heads, head dim
 # the card's peak rates for a kernel's bound (NVIDIA's H100 SXM data sheet,
 # dense): device memory, f32 on the CUDA cores (the kernels use no TF32),
-# bf16 on the tensor cores
+# bf16 and int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# greedy tokens of two paths over random bf16 weights: the logits are nearly
+# flat, a near-tie argmax flips under another summation order and the row's
+# continuation then differs, so agreement is held to a share of the tokens.
+# Two paths that computed different functions would agree on about none of
+# the 128256-way choices
+TOKEN_AGREEMENT = 0.3
 TRAIN_STEPS = 10
 TRAIN_BATCH, TRAIN_TEXT = 32, 64  # the v1 config's train_batch_size; text tokens
 TRAIN_MM_DIM, TRAIN_DROPOUT = 768, 0.1  # the v1 config's mm_dim and proj_dropout
@@ -340,10 +364,269 @@ def decode_step_phase(torch, dev, cfg, params):
         for plain in (False, True):
             c = (caches[0].clone(), caches[1].clone())
             out[plain] = dec.decode_step(cfg, params, emb, c, T, plain=plain)
+        bl = {}
+        h = emb[:, 0, :].t().contiguous()
+        for plain in (False, True):
+            c = (caches[0].clone(), caches[1].clone())
+            bl[plain] = dec._decode_step_bl(cfg, params, h, c, T, plain=plain)
     print("decode step (B 128, position 16) kernel path vs plain path:")
     compare(torch, "logits bf16", out[False], out[True], TOL["logits"])
     agree = (out[False].argmax(-1) == out[True].argmax(-1)).float().mean().item()
     print(f"  next-token agreement {agree!r}")
+    print("batch-last decode step (decode-attention and decode-MLP kernels) vs its plain path, "
+          "and vs the batch-first step:")
+    compare(torch, "logits bf16 [V, B]", bl[False], bl[True], TOL["logits"])
+    compare(torch, "batch-last vs batch-first logits", bl[False].t(), out[False], TOL["logits"])
+
+
+def _normal(torch, dev, gen, shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device=dev) * scale
+
+
+def head_check(torch, tha, name, params, h, mode) -> float:
+    """head_argmax against its twin.  q8 is integer work: the ids are equal.
+    bf16 and q accumulate in another order than the library matmul, so a
+    near-tie may round to the other bf16 value: at least 0.9 of the ids are
+    equal and, in every other column, the twin's two logits lie within one
+    bf16 step (2**-7 relative) per rounding of the mode (q rounds twice).
+    Returns the largest such gap (0.0 when all ids are equal)."""
+    ids = tha.head_argmax(params, h)
+    torch.cuda.synchronize()
+    logits = tha.head_logits_bl(params["embed"], h).float()
+    want = logits.argmax(dim=0)
+    share = (ids == want).float().mean().item()
+    cols = torch.nonzero(ids != want).flatten()
+    top, got = logits[want[cols], cols], logits[ids[cols], cols]
+    gap = (top - got).abs().max().item() if cols.numel() else 0.0
+    rel = ((top - got).abs() / top.abs()).max().item() if cols.numel() else 0.0
+    steps = {"bf16": 1, "q": 2, "q8": 0}[mode]
+    ok = share >= (1.0 if mode == "q8" else 0.9) and rel <= steps * 2.0 ** -7
+    print(f"  {name}: ids equal {share!r}, largest logit gap of the others {gap!r} "
+          f"(relative {rel!r}, bound {steps * 2.0 ** -7!r}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name}: the fused head disagrees with its plain twin")
+    return gap
+
+
+def bl_kernel_phase(torch, dev):
+    """The batch-last serving kernels against their twins at Llama-3.2-1B's
+    shapes and at odd ones, with the times of the serving call of each."""
+    import torch.nn.functional as F
+
+    from dmi_tpu_torch.models import quant
+    from dmi_tpu_torch.ops.cuda import decode_mlp as dm
+    from dmi_tpu_torch.ops.cuda import head_argmax as tha
+    from dmi_tpu_torch.ops.cuda import w4_matmul as w4
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    results = {}
+    H, I, V, B = 2048, 8192, 128256, 128
+
+    def equal(name, out, ref):
+        torch.cuda.synchronize()
+        ok = out.dtype == ref.dtype and torch.equal(out, ref)
+        print(f"  {name}: bit-equal {ok}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel differs from its plain twin")
+
+    print("kernels w4_mm_bl (packed W4A8) and w8_mm_bl (W8A8) vs their twins, bit for bit:")
+    # the four layer matmuls of a w4a8 step (w_qkv, wo, w_gu, w_down) at the
+    # serving batch; batches the TPU kernel's gate kept out; odd shapes
+    times = None
+    for K, out_dim, b in ((H, 3072, B), (H, H, B), (H, 2 * I, B), (I, H, B), (H, H, 8),
+                          (H, H, 64), (H, 3072, 100), (H, H, 256), (70, 37, 5), (6, 33, 130)):
+        wf = _normal(torch, dev, gen, (K, out_dim), 0.02)
+        hq, a = quant.quantize_act(_normal(torch, dev, gen, (K, b)), axis=0)
+        w4w, w8w = quant.quantize_tensor_int4(wf), quant.quantize_tensor(wf, native=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            equal(f"w4 K={K} out={out_dim} B={b} {dname}", w4.w4_mm_bl(w4w, hq, a, dtype),
+                  w4._w4_mm_plain(w4w, hq, a, dtype))
+            equal(f"w8 K={K} out={out_dim} B={b} {dname}", w4.w8_mm_bl(w8w, hq, a, dtype),
+                  w4._w8_mm_plain(w8w, hq, a, dtype))
+        if b != B:
+            continue
+        # the library chain: unpack, torch._int_mm (batch-first: its row count
+        # must exceed 16), rescale
+        hq_t = hq.t().contiguous()
+
+        def chain():
+            acc = torch._int_mm(hq_t, quant.unpack_w4(w4w["qp"]))
+            return (acc.t().float() * w4w["s"].reshape(-1, 1) * a).to(torch.bfloat16)
+
+        try:
+            lib_ms = device_ms(torch, chain)
+            equal(f"   library chain K={K} out={out_dim}", chain(),
+                  w4._w4_mm_plain(w4w, hq, a, torch.bfloat16))
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            print(f"    torch._int_mm refused the shape: {str(e)[:200]}")
+            lib_ms = None
+        t = {"ms": device_ms(torch, lambda: w4.w4_mm_bl(w4w, hq, a, torch.bfloat16)),
+             "plain_ms": device_ms(torch, lambda: w4._w4_mm_plain(w4w, hq, a, torch.bfloat16)),
+             "library_ms": lib_ms,
+             **least_time(nbytes(w4w["qp"], w4w["s"], hq, a) + out_dim * b * 2,
+                          2 * K * out_dim * b, "int8")}
+        w8_ms = device_ms(torch, lambda: w4.w8_mm_bl(w8w, hq, a, torch.bfloat16))
+        print(f"    K={K} out={out_dim} B={b} bf16: kernel {t['ms'] * 1e3!r} us, plain "
+              f"{t['plain_ms'] * 1e3!r} us, library "
+              f"{None if lib_ms is None else lib_ms * 1e3!r} us (unpack, _int_mm, rescale); "
+              f"bound {t['bound_ms'] * 1e3!r} us ({t['bound_by']}); the W8A8 variant "
+              f"{w8_ms * 1e3!r} us")
+        if out_dim == 2 * I:  # w_gu, the largest of a step's four: the kernels line
+            times = t
+    results["w4_mm"] = {"max_abs_err": 0.0, **times}
+
+    print(f"kernel fused_decode_mlp_bl vs _decode_mlp_plain (H {H}, I {I}):")
+    errs, times = [], None
+    for h_dim, i_dim, b, dtype, act in (
+            (H, I, B, torch.bfloat16, "silu"), (H, I, B, torch.bfloat16, "gelu_tanh"),
+            (H, I, 8, torch.bfloat16, "silu"), (H, I, 64, torch.bfloat16, "silu"),
+            (H, I, 100, torch.bfloat16, "silu"), (H, I, 256, torch.bfloat16, "silu"),
+            (H, I, B, torch.float32, "silu"), (72, 136, 5, torch.float32, "gelu_tanh"),
+            (72, 136, 5, torch.bfloat16, "silu")):
+        w_gu = _normal(torch, dev, gen, (h_dim, 2 * i_dim), h_dim ** -0.5).to(dtype)
+        w_down = _normal(torch, dev, gen, (i_dim, h_dim), i_dim ** -0.5).to(dtype)
+        h = _normal(torch, dev, gen, (h_dim, b)).to(dtype)
+        args = (w_gu, w_down, h, act)
+        dname = str(dtype)[6:]
+        errs.append(compare(torch, f"H={h_dim} I={i_dim} B={b} {dname} {act}",
+                            dm.fused_decode_mlp_bl(*args), dm._decode_mlp_plain(*args),
+                            TOL[dname]))
+        if times is None:  # the serving call: bf16, B 128, silu
+            def chain():
+                g, u = (w_gu.t() @ h).chunk(2, dim=0)
+                return w_down.t() @ (F.silu(g) * u)
+
+            times = {**device_times(torch, lambda: dm.fused_decode_mlp_bl(*args),
+                                    lambda: dm._decode_mlp_plain(*args), chain),
+                     **least_time(nbytes(w_gu, w_down, h, h), 2 * b * 3 * h_dim * i_dim, dtype)}
+            print(f"    {report_times(times)}; library: matmul, silu * mul, matmul (the twin "
+                  f"is this chain)")
+    again = dm.fused_decode_mlp_bl(*args)
+    if not torch.equal(again, dm.fused_decode_mlp_bl(*args)):
+        raise AssertionError("decode MLP: two calls on the same inputs differ")
+    results["decode_mlp"] = {"max_abs_err": max(errs), **times}
+
+    print(f"kernel head_argmax vs its twin (logits + argmax), V {V}, H {H}:")
+    embed = _normal(torch, dev, gen, (V, H))
+    trees = {"bf16": {"embed": embed.bfloat16()},
+             "q": {"embed": quant.quantize_embed_tensor(embed)},
+             "q8": {"embed": quant.quantize_embed_tensor(embed, native=True)}}
+    gaps = []
+    for mode, params in trees.items():
+        for b in (B, 8, 64, 100):
+            h = _normal(torch, dev, gen, (H, b)).bfloat16()
+            gaps.append(head_check(torch, tha, f"{mode} V={V} B={b}", params, h, mode))
+            if b != B:
+                continue
+            e = params["embed"] if mode == "bf16" else params["embed"][mode]
+
+            def library():
+                return (e.to(torch.bfloat16) @ h).argmax(dim=0)
+
+            extra = () if mode == "bf16" else (params["embed"]["s"],)
+            t = {**device_times(torch, lambda: tha.head_argmax(params, h),
+                                lambda: tha._head_argmax_plain(params["embed"], h), library),
+                 **least_time(nbytes(e, h, *extra) + 4 * b, 2 * V * H * b,
+                              "int8" if mode == "q8" else "bfloat16")}
+            print(f"    {mode}: {report_times(t)}; library: matmul (the int8 embed widened "
+                  f"to bf16 first), argmax")
+            if mode == "bf16":  # the mode of the bf16 tree's serving run: the kernels line
+                times = t
+    # a V that no slice size divides, and ties planted across vocab slices
+    small = _normal(torch, dev, gen, (1001, H))
+    u = _normal(torch, dev, gen, (H,))
+    tied = _normal(torch, dev, gen, (9000, H), 0.1)
+    tied[7000] = tied[300] = 4.0 * u
+    for mode in trees:
+        def tree(x):
+            return {"embed": x.bfloat16() if mode == "bf16"
+                    else quant.quantize_embed_tensor(x, native=(mode == "q8"))}
+
+        gaps.append(head_check(torch, tha, f"{mode} V=1001 B=64", tree(small),
+                               _normal(torch, dev, gen, (H, 64)).bfloat16(), mode))
+        ids = tha.head_argmax(tree(tied), u[:, None].repeat(1, 32).bfloat16().contiguous())
+        first = bool((ids == 300).all())
+        print(f"  {mode}: one winning row planted in vocab slices 2 and 54: first wins {first}")
+        if not first:
+            raise AssertionError(f"head argmax {mode}: a tie across slices went to {ids.tolist()}")
+    del trees, embed
+    results["head_argmax"] = {"max_abs_err": max(gaps), **times}
+    return results
+
+
+def bl_serving_phase(torch, dev, cfg, params, projector, embs):
+    """The batch-last loop, the Captioner's default, at full width and depth:
+    the same requests as slice_phase at batch 128 over (a) the bf16 tree and
+    (b) int8="w4a8", then one batch each of (c) int8=True and (d)
+    int8="w8a8"; launch counts set to 0 before each run and checked after;
+    (a) and (b) against their plain paths, (a) also against the batch-first
+    loop.  Returns the launch counts of (a) and (b)."""
+    from dmi_tpu_torch.serve import Captioner
+
+    spec, pparams = projector
+    n, L, steps = embs.shape[0], cfg.num_hidden_layers, MAX_NEW - 1
+    card = nvidia_smi()
+
+    def captioner(**kw):
+        return Captioner(cfg, params, spec, pparams, max_new_tokens=MAX_NEW, batch_size=128,
+                         prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID, **kw)
+
+    def serve(label, cap, requests, want):
+        cap.caption_ids(requests[:128])  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        ids = cap.caption_ids(requests)
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        print(f"{label}: {len(requests)} requests at batch 128, {secs!r} s, "
+              f"{len(requests) / secs!r} captions/s ({card})")
+        batches = -(-len(requests) // 128)
+        _expect(label, counts, {k: v * batches for k, v in want.items()})
+        if tuple(ids.shape) != (len(requests), MAX_NEW) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"{label}: caption ids {tuple(ids.shape)} outside [0, vocab)")
+        return ids, counts
+
+    def agreement(label, ids, other):
+        share = (ids == other).float().mean().item()
+        first = (ids[:, 0] == other[:, 0]).float().mean().item()
+        rows = (ids == other).all(dim=1).float().mean().item()
+        ok = share >= TOKEN_AGREEMENT
+        print(f"  token agreement with {label}: {share!r} (limit {TOKEN_AGREEMENT}), rows "
+              f"identical {rows!r}, first tokens equal {first!r} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"tokens disagree with {label}")
+
+    print("batch-last serving (the Captioner's default loop):")
+    per_batch = {"mlp2": 1, "decode_attention": L * steps, "head_argmax": steps}
+    cap = captioner()
+    ids, counts_a = serve("(a) bf16 tree", cap, embs, {**per_batch, "decode_mlp": L * steps})
+    t0 = time.perf_counter()
+    plain = cap.caption_ids(embs, plain=True)
+    print(f"  plain path: {len(embs) / (time.perf_counter() - t0)!r} captions/s")
+    agreement("its plain path", ids, plain)
+    agreement("the batch-first loop", ids, captioner(batch_first=True).caption_ids(embs))
+    print("where one batch-last bf16 batch's time goes:")
+    profile_run(torch, "batch 128, bf16 tree", lambda: cap.caption_ids(embs[:128]))
+
+    cap = captioner(int8="w4a8")
+    ids, counts_b = serve('(b) int8="w4a8"', cap, embs, {**per_batch, "w4_mm": 4 * L * steps})
+    t0 = time.perf_counter()
+    plain = cap.caption_ids(embs, plain=True)
+    print(f"  plain path: {len(embs) / (time.perf_counter() - t0)!r} captions/s")
+    agreement("its plain path", ids, plain)
+    print("where one batch-last w4a8 batch's time goes:")
+    profile_run(torch, "batch 128, w4a8 tree", lambda: cap.caption_ids(embs[:128]))
+
+    serve("(c) int8=True (int8 weights widened at each matmul)", captioner(int8=True),
+          embs[:128], per_batch)
+    serve('(d) int8="w8a8"', captioner(int8="w8a8"), embs[:128],
+          {**per_batch, "w8_mm": 4 * L * steps})
+    del cap
+    torch.cuda.empty_cache()
+    return {"serving batch-last": counts_a, "serving w4a8": counts_b}
 
 
 def device_spans(torch, run) -> list:
@@ -421,9 +704,10 @@ def profile_run(torch, label, run) -> dict:
 
 
 def slice_phase(torch, dev, cfg, params, max_new, n_requests=N_REQUESTS, mm_dim=MM_DIM):
-    """Serve n_requests through the Captioner at batch 128 with the launch
-    counters set to 0 just before; check ids and counts; then the plain
-    path and batch 256 on the same requests.  Returns the launch counts."""
+    """Serve n_requests through the Captioner on the batch-first loop at
+    batch 128 with the launch counters set to 0 just before; check ids and
+    counts; then the plain path and batch 256 on the same requests.  Returns
+    the launch counts, the projector and the requests."""
     from dmi_tpu_torch.models import projector as proj
     from dmi_tpu_torch.ops.cuda import decode_attn as da
     from dmi_tpu_torch.ops.cuda import projector as pk
@@ -450,7 +734,8 @@ def slice_phase(torch, dev, cfg, params, max_new, n_requests=N_REQUESTS, mm_dim=
 
     def captioner(batch_size):
         return Captioner(cfg, params, spec, pparams, max_new_tokens=max_new,
-                         batch_size=batch_size, prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID)
+                         batch_size=batch_size, batch_first=True, prefix_ids=PREFIX_IDS,
+                         pad_token_id=PAD_ID)
 
     embs = np.random.default_rng(SEED).normal(size=(n_requests, mm_dim)).astype(np.float32)
     cap = captioner(128)
@@ -464,7 +749,7 @@ def slice_phase(torch, dev, cfg, params, max_new, n_requests=N_REQUESTS, mm_dim=
     n_batches = -(-n_requests // 128)
     want = {"mlp2": n_batches,
             "decode_attention": cfg.num_hidden_layers * (max_new - 1) * n_batches}
-    print(f"slice run: {n_requests} requests at batch 128, {secs!r} s, "
+    print(f"slice run (batch-first loop): {n_requests} requests at batch 128, {secs!r} s, "
           f"{n_requests / secs!r} captions/s; launches {launches} (expected {want})")
     if tuple(ids.shape) != (n_requests, max_new):
         raise AssertionError(f"caption ids shape {tuple(ids.shape)}")
@@ -494,7 +779,7 @@ def slice_phase(torch, dev, cfg, params, max_new, n_requests=N_REQUESTS, mm_dim=
     for c in (cap, cap256):
         profile_run(torch, f"batch {c.batch_size}",
                     lambda c=c: c.caption_ids(embs[:c.batch_size]))
-    return launches
+    return launches, (spec, pparams), embs
 
 
 def flash_timings(torch, fa, q, k, v, do) -> dict:
@@ -758,8 +1043,13 @@ def _reset_counts():
     from dmi_tpu_torch.ops.cuda import lora0 as l0
     from dmi_tpu_torch.ops.cuda import projector as pk
 
+    from dmi_tpu_torch.ops.cuda import decode_mlp as dm
+    from dmi_tpu_torch.ops.cuda import head_argmax as ha
+    from dmi_tpu_torch.ops.cuda import w4_matmul as w4
+
     pk.launches = da.launches = l0.launches = 0
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+    dm.launches = ha.launches = w4.launches = w4.w8_launches = 0
 
 
 def _counts() -> dict:
@@ -768,9 +1058,14 @@ def _counts() -> dict:
     from dmi_tpu_torch.ops.cuda import lora0 as l0
     from dmi_tpu_torch.ops.cuda import projector as pk
 
+    from dmi_tpu_torch.ops.cuda import decode_mlp as dm
+    from dmi_tpu_torch.ops.cuda import head_argmax as ha
+    from dmi_tpu_torch.ops.cuda import w4_matmul as w4
+
     return {"mlp2": pk.launches, "decode_attention": da.launches, "lora0": l0.launches,
             "flash_fwd": fa.fwd_launches, "flash_bwd_dkv": fa.dkv_launches,
-            "flash_bwd_dq": fa.dq_launches}
+            "flash_bwd_dq": fa.dq_launches, "decode_mlp": dm.launches,
+            "head_argmax": ha.launches, "w4_mm": w4.launches, "w8_mm": w4.w8_launches}
 
 
 def _expect(label, counts, want):
@@ -962,8 +1257,9 @@ def fewshot_phase(torch, dev, cfg, params, hn_params):
     torch.cuda.synchronize()
     print(f"stage-3 generate: one batch of {FS_BATCH} through the generated projector in "
           f"{time.perf_counter() - t0!r} s, ids {tuple(ids.shape)}")
-    _expect("stage-3 generate", _counts(), {"mlp2": 1,
-                                            "decode_attention": L * (MAX_NEW - 1)})
+    _expect("stage-3 generate", _counts(), {"mlp2": 1, "decode_attention": L * (MAX_NEW - 1),
+                                            "decode_mlp": L * (MAX_NEW - 1),
+                                            "head_argmax": MAX_NEW - 1})
     if tuple(ids.shape) != (FS_BATCH, MAX_NEW) or not bool(((ids >= 0)
                                                              & (ids < cfg.vocab_size)).all()):
         raise AssertionError(f"stage-3 caption ids {tuple(ids.shape)} outside [0, vocab)")
@@ -1112,6 +1408,7 @@ def main() -> int:
     kernels = kernel_phase(torch, dev)
     kernels.update(flash_phase(torch, dev))
     kernels.update(lora0_phase(torch, dev))
+    kernels.update(bl_kernel_phase(torch, dev))
 
     # Llama-3.2-1B at full width, EOS off as bench.py:252 has it
     cfg = dataclasses.replace(llama.llama32_1b(), eos_token_ids=())
@@ -1119,8 +1416,10 @@ def main() -> int:
         llama.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
     decode_step_phase(torch, dev, cfg, params)
     # each path's launch counts, set to 0 just before its run and read just after
-    paths = {"serving": slice_phase(torch, dev, cfg, params, MAX_NEW),
-             "stage 1": train_phase(torch, dev, cfg, params)}
+    paths = {}
+    paths["serving"], projector, embs = slice_phase(torch, dev, cfg, params, MAX_NEW)
+    paths.update(bl_serving_phase(torch, dev, cfg, params, projector, embs))
+    paths["stage 1"] = train_phase(torch, dev, cfg, params)
     paths["stage 2"], hn_params = hypernet_phase(torch, dev, cfg, params)
     paths["stage 3"] = fewshot_phase(torch, dev, cfg, params, hn_params)
     paths["stage 3 over the hypernet"] = fewshot_hypernet_phase(torch, dev, cfg, params,
@@ -1149,7 +1448,13 @@ def main() -> int:
                                 f"dmi_tpu/models/llama.py:1086 ({flash}:1456 "
                                 "_flash_attention_bwd_dq)", "stage 1"),
                "lora0": ("fused_lora_layer0", "dmi_tpu_torch/csrc/lora0.cu",
-                         "dmi_tpu/ops/pallas/projector.py:251", "stage 2")}
+                         "dmi_tpu/ops/pallas/projector.py:251", "stage 2"),
+               "head_argmax": ("head_argmax", "dmi_tpu_torch/csrc/head_argmax.cu",
+                               "dmi_tpu/ops/pallas/head_argmax.py:97", "serving batch-last"),
+               "decode_mlp": ("fused_decode_mlp_bl", "dmi_tpu_torch/csrc/decode_mlp.cu",
+                              "dmi_tpu/ops/pallas/decode_mlp.py:97", "serving batch-last"),
+               "w4_mm": ("w4_mm_bl", "dmi_tpu_torch/csrc/w4_matmul.cu",
+                         "dmi_tpu/ops/pallas/w4_matmul.py:99", "serving w4a8")}
     print(f"launches by path: {paths}")
     report = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": paths[path][key], **kernels[key]}

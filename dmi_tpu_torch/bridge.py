@@ -57,16 +57,26 @@ def config_from_jax(jcfg) -> llama.LlamaConfig:
 
 
 def llm_params_from_jax(jparams: dict, device="cpu") -> dict:
-    """dmi_tpu LLM pytree (stacked [L, ...] layers) -> the port's params."""
-    stacked = {k: np.asarray(v) for k, v in jparams["layers"].items()}
-    n_layers = len(next(iter(stacked.values())))
+    """dmi_tpu LLM pytree (stacked [L, ...] layers) -> the port's params.
+
+    A tree quantized by dmi_tpu.models.quant.quantize_llama converts too: a
+    leaf that is a dict of stacked arrays ({"q"|"q8"|"qp", "s"|"s4g"})
+    becomes per-layer dicts of tensors, the int8 and uint8 payloads carried
+    exactly."""
+    def leaf(v, i=None):
+        if isinstance(v, dict):
+            return {k: leaf(a, i) for k, a in v.items()}
+        a = np.asarray(v)
+        return to_torch(a if i is None else a[i], device)
+
+    stacked = first = jparams["layers"]
+    while isinstance(first, dict):  # any stacked array: its length is the depth
+        first = next(iter(first.values()))
+    n_layers = len(np.asarray(first))
     return {
-        "embed": to_torch(jparams["embed"], device),
-        "layers": [
-            {k: to_torch(v[i], device) for k, v in stacked.items()}
-            for i in range(n_layers)
-        ],
-        "final_norm": to_torch(jparams["final_norm"], device),
+        "embed": leaf(jparams["embed"]),
+        "layers": [{k: leaf(v, i) for k, v in stacked.items()} for i in range(n_layers)],
+        "final_norm": leaf(jparams["final_norm"]),
     }
 
 

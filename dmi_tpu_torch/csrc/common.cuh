@@ -52,4 +52,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// r[i] holds bytes (i, 0..3) of a 4x4 byte block; afterwards r[j] holds bytes
+// (0..3, j): the four rows' values of column j, row 0 in the low byte.  It
+// turns four rows of int8 into words of four consecutive rows, which is what
+// __dp4a contracts.
+__device__ __forceinline__ void transpose4x4(unsigned (&r)[4]) {
+  const unsigned a = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+  const unsigned b = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+  const unsigned c = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned d = __byte_perm(r[2], r[3], 0x7362);
+  r[0] = __byte_perm(a, c, 0x5410);
+  r[1] = __byte_perm(a, c, 0x7632);
+  r[2] = __byte_perm(b, d, 0x5410);
+  r[3] = __byte_perm(b, d, 0x7632);
+}
+
 }  // namespace dmi

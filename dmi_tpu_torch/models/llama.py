@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from dmi_tpu_torch.models.quant import int_matmul, quantize_act, unpack_w4
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
 from dmi_tpu_torch.ops.cuda.flash_attn import _flash_attn_plain, flash_attention
 
@@ -223,20 +224,55 @@ def scale_embeds(cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][input_ids]
+    """Embedding rows; a quantized embed ({"q"|"q8", "s" [V, 1]}) gathers
+    int8 rows and rescales them by their row scales in cfg.dtype."""
+    embed = params["embed"]
+    if isinstance(embed, dict):
+        qk = "q8" if "q8" in embed else "q"
+        return embed[qk][input_ids].to(cfg.dtype) * embed["s"][input_ids].to(cfg.dtype)
+    return embed[input_ids]
 
 
 def _mm(h: torch.Tensor, w) -> torch.Tensor:
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (ROADMAP.md A.5, quantized serving)"
-        )
-    return h @ w
+    """h [..., in] @ w [in, out], dispatching on the quantized weight dicts
+    of models/quant.py (dmi_tpu's llama._mm): h @ (q * s) == (h @ q) * s
+    with per-output-column scales.  "q8" and "qp" weights quantize the
+    activations per token and take the exact integer product
+    (quant.int_matmul), rescaled by both factors in dmi_tpu's order.  This
+    is the prefill's form; the decode loop's is decode._mm_bl."""
+    if not isinstance(w, dict):
+        return h @ w
+    if "q8" in w:
+        hq, a = quantize_act(h, axis=-1)
+        return (int_matmul(hq, w["q8"]) * a * w["s"]).to(h.dtype)
+    if "qp" in w:
+        hq, a = quantize_act(h, axis=-1)
+        q8 = unpack_w4(w["qp"])
+        if "s4g" in w:
+            # grouped scales: G partial products, each weighted by its
+            # group's scales, then summed
+            s4g = w["s4g"]
+            G, K = s4g.shape[-2], q8.shape[-2]
+            hg = hq.reshape(*hq.shape[:-1], G, 1, K // G)
+            qg = q8.reshape(G, K // G, q8.shape[-1])
+            acc = int_matmul(hg, qg).squeeze(-2)  # [..., G, out]
+            return ((acc * s4g).sum(dim=-2) * a).to(h.dtype)
+        return (int_matmul(hq, q8) * a * w["s"]).to(h.dtype)
+    if "q" in w:
+        return (h @ w["q"].to(h.dtype)) * w["s"].to(h.dtype)
+    raise ValueError(f"unknown quantized dict keys {sorted(w)}")
 
 
 def _head_matmul(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor:
-    """Tied head: logits = x @ embed.T (a transposed view, no copy)."""
-    return _mm(x, params["embed"].t())
+    """Tied head: logits = x @ embed.T (a transposed view, no copy); a
+    quantized embed's per-row scales are the head's output-channel scales."""
+    embed = params["embed"]
+    if isinstance(embed, dict) and "q8" in embed:
+        hq, a = quantize_act(x, axis=-1)
+        return (int_matmul(hq, embed["q8"].t()) * a * embed["s"][:, 0]).to(x.dtype)
+    if isinstance(embed, dict):
+        return (x @ embed["q"].to(x.dtype).t()) * embed["s"].to(x.dtype)[:, 0]
+    return x @ embed.t()
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

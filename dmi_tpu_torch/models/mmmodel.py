@@ -108,10 +108,24 @@ def caption_generate(
     prefix_ids: Optional[torch.Tensor],
     max_new_tokens: int,
     pad_token_id: int,
+    prefill_params: Optional[dict] = None,
+    batch_first: bool = False,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Greedy decode from soft token (+ optional chat prefix) on the
-    batch-first loop -> [B, max_new_tokens] ids."""
-    embeds = assemble_prompt(cfg, llm_params, soft_tokens, prefix_ids)
-    return dec.greedy_generate(cfg, llm_params, embeds, max_new_tokens,
-                               pad_token_id, plain=plain)
+    """Greedy decode from soft token (+ optional chat prefix) ->
+    [B, max_new_tokens] ids (reference: dmi/model/mmmodel.py:149-169).
+
+    Runs the batch-last loop (dec.greedy_generate_bl), token-identical to
+    dec.greedy_generate; batch_first=True pins the batch-first loop.
+    prefill_params: unquantized weights for the prompt pass (and the
+    prompt's embedding rows) when llm_params are W8A8- or W4A8-quantized
+    (see dec.greedy_generate_bl).  The batch-first loop has no such split:
+    it runs wholly on llm_params, so it stays a coherent parity oracle."""
+    if batch_first:
+        embeds = assemble_prompt(cfg, llm_params, soft_tokens, prefix_ids)
+        return dec.greedy_generate(cfg, llm_params, embeds, max_new_tokens,
+                                   pad_token_id, plain=plain)
+    embeds = assemble_prompt(cfg, llm_params if prefill_params is None else prefill_params,
+                             soft_tokens, prefix_ids)
+    return dec.greedy_generate_bl(cfg, llm_params, embeds, max_new_tokens, pad_token_id,
+                                  prefill_params=prefill_params, plain=plain)

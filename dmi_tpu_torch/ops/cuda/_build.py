@@ -47,6 +47,12 @@ _SIGNATURES = {
     # q, k, v, key_mask, dout, lse, delta, dq, B, nh, nkv, T, hd, strides[15],
     # scale, dtype, stream
     "dmi_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
+    # weights (packed uint8 or int8), hq, a, s, out, K, out_dim, B, packed, dtype, stream
+    "dmi_w4_mm": [_P] * 5 + [_I] * 5 + [_P],
+    # w_gu, w_down, h, act_buf, partial, out, H, I, B, splits, act, dtype, stream
+    "dmi_decode_mlp": [_P] * 6 + [_I] * 6 + [_P],
+    # embed, scales, h, act_scales, part_val, part_idx, ids, V, H, B, mode, stream
+    "dmi_head_argmax": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lib = None

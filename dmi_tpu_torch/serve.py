@@ -8,12 +8,15 @@ dmi_tpu/serve.py, greedy batch engine).
     captions = captioner.caption(embeddings)   # [N, mm_dim] -> N strings
 
 Per batch: l2-normalize, project (the fused MLP2 CUDA kernel), prepend the
-soft token to the chat prefix, greedy-decode (the decode-attention CUDA
-kernel on every layer of every step).  The tail batch is padded to the
+soft token to the chat prefix, greedy-decode on the batch-last loop (per
+step: the decode-attention and decode-MLP CUDA kernels on every layer, the
+fused head + argmax kernel once; with int8="w8a8"|"w4a8" the int8 matmul
+kernels in place of the layers' matmuls).  The tail batch is padded to the
 batch size, as in the JAX package.
 
 CLI:  python -m dmi_tpu_torch.serve --lm test:tiny --projector-ckpt P
-      --dataset sydney --embs embs.npy --out captions.json [--device cpu]
+      --dataset sydney --embs embs.npy --out captions.json
+      [--int8 [1|w8a8|w4a8]] [--device cpu]
 
 It runs on the card unless asked for the CPU, and fails before loading
 anything when no card is visible.
@@ -30,6 +33,7 @@ import torch
 from dmi_tpu_torch.models import mmmodel
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import fuse_projections
+from dmi_tpu_torch.models.quant import quantize_llama
 from dmi_tpu_torch.ops import l2_normalize
 from dmi_tpu_torch.training.checkpoint import load_pytree
 from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer, require_device
@@ -42,9 +46,17 @@ def _not_ported(what: str, item: str):
 class Captioner:
     """Greedy captioner over one LLM and one projector.
 
+    int8: False serves the weights as they are; True quantizes them to int8
+    and widens them at each matmul; "w8a8" runs int8 x int8 matmuls in the
+    token loop; "w4a8" packs the layer weights to int4 for the token loop
+    (its embed stays int8).  The last two keep the unquantized originals for
+    the compute-bound prefill (llm_params_prefill), as dmi_tpu does.
+    batch_first=True pins the batch-first decode loop (a parity oracle: the
+    batch-last loop is the default and is token-identical).
+
     Surface difference from dmi_tpu.serve.Captioner: the default engine is
     "batch" (fixed batches, tail padded), the only engine ported so far;
-    engine="auto"|"bulk", sampling (temperature), int8, mesh_shape and
+    engine="auto"|"bulk", sampling (temperature), mesh_shape and
     speculative raise NotImplementedError naming their ROADMAP item.
 
     The chat prefix comes from `tokenizer` + `prefix` (the chat template
@@ -61,15 +73,16 @@ class Captioner:
         prefix: Optional[str] = None,
         max_new_tokens: int = 22,
         batch_size: int = 256,
-        int8: bool = False,
+        int8=False,
         mesh_shape: Optional[tuple] = None,
         speculative: int = 0,
+        batch_first: bool = False,
         *,
         prefix_ids: Optional[Sequence[int]] = None,
         pad_token_id: Optional[int] = None,
     ):
-        if int8:
-            raise _not_ported("int8 serving", "A.5 (quantized serving)")
+        if int8 not in (False, True, "w8a8", "w4a8"):
+            raise ValueError(f"int8 must be False, True, 'w8a8' or 'w4a8', got {int8!r}")
         if mesh_shape:
             raise _not_ported("mesh_shape", "A.10 (parallelism)")
         if speculative:
@@ -87,14 +100,23 @@ class Captioner:
                 raise ValueError("pass pad_token_id when there is no tokenizer")
             pad_token_id = tokenizer.pad_token_id
         self.llm_cfg = llm_cfg
-        self.llm_params = fuse_projections(llm_params)
+        llm_params = fuse_projections(llm_params)
+        # w8a8 and w4a8 quantize the token loop only: prefill runs on the
+        # unquantized originals (one more weight copy in device memory)
+        self.llm_params_prefill = llm_params if int8 in ("w8a8", "w4a8") else None
+        if int8 == "w4a8":
+            llm_params = quantize_llama(llm_params, bits=4)
+        elif int8:
+            llm_params = quantize_llama(llm_params, native=(int8 == "w8a8"))
+        self.llm_params = llm_params
+        self.batch_first = batch_first
         self.proj_spec = proj_spec
         self.proj_params = proj_params
         self.tokenizer = tokenizer
         self.max_new_tokens = max_new_tokens
         self.batch_size = batch_size
         self.pad_token_id = pad_token_id
-        self.device = self.llm_params["embed"].device
+        self.device = self.llm_params["final_norm"].device
         self._prefix = torch.as_tensor(
             np.asarray(prefix_ids, np.int64), device=self.device
         )[None, :].expand(batch_size, -1)
@@ -156,7 +178,8 @@ class Captioner:
         soft = proj.apply(self.proj_spec, self.proj_params, embs, plain=plain)
         tokens = mmmodel.caption_generate(
             self.llm_cfg, self.llm_params, soft, self._prefix,
-            self.max_new_tokens, self.pad_token_id, plain=plain,
+            self.max_new_tokens, self.pad_token_id,
+            prefill_params=self.llm_params_prefill, batch_first=self.batch_first, plain=plain,
         )
         return tokens, real
 
@@ -219,12 +242,18 @@ def main(argv=None) -> None:
     ap.add_argument("--embs", required=True, help=".npy array or reference-schema .pkl")
     ap.add_argument("--out", default="captions.json")
     ap.add_argument("--batch-size", type=int, default=256)
+    ap.add_argument("--int8", nargs="?", const="1", default=None,
+                    choices=["1", "w8a8", "w4a8"],
+                    help="quantize the LLM: int8 weights widened at the matmul (1), int8 x "
+                         "int8 matmuls (w8a8) or int4 weights with int8 activations (w4a8) "
+                         "in the token loop")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cap = Captioner.from_checkpoint(
         args.lm, args.projector_ckpt, args.dataset, device=args.device,
         batch_size=args.batch_size,
+        int8={None: False, "1": True}.get(args.int8, args.int8),
     )
     ids, embs = _load_embs(args.embs)
     captions = cap.caption(embs)

@@ -20,10 +20,14 @@ import torch
 
 from dmi_tpu_torch.models import decode as dec
 from dmi_tpu_torch.models import llama
+from dmi_tpu_torch.models import quant
 from dmi_tpu_torch.ops.cuda import decode_attn as tda
+from dmi_tpu_torch.ops.cuda import decode_mlp as tdm
 from dmi_tpu_torch.ops.cuda import flash_attn as tfa
+from dmi_tpu_torch.ops.cuda import head_argmax as tha
 from dmi_tpu_torch.ops.cuda import lora0 as tl0
 from dmi_tpu_torch.ops.cuda import projector as tpk
+from dmi_tpu_torch.ops.cuda import w4_matmul as tw4
 
 pytestmark = pytest.mark.cuda
 
@@ -413,3 +417,256 @@ def test_full_width_trainer_kernel_path_matches_plain_path(cuda):
         assert bool(torch.isfinite(loss))
         _close(loss, plain, 5e-2)
     assert all(not torch.equal(a, b.detach()) for a, b in zip(before, trainer.leaves))
+
+
+# ---------------------------------------------------------------------------
+# The batch-last serving kernels: int8 matmuls, decode MLP, head + argmax
+# ---------------------------------------------------------------------------
+
+def _normal(shape, dev, seed, scale=1.0):
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(dev)
+
+
+# Llama-3.2-1B's four layer matmuls at the serving batch; the batch sizes the
+# TPU kernel's gate kept out (8, 64, 100); shapes off every vector width
+INT8_MM_SHAPES = [
+    (2048, 3072, 128), (2048, 2048, 128), (2048, 16384, 128), (8192, 2048, 128),
+    (2048, 2048, 8), (2048, 2048, 64), (2048, 3072, 100), (2048, 2048, 256),
+    (70, 37, 5), (6, 33, 130), (1024, 40, 1),
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K,out,B", INT8_MM_SHAPES)
+def test_w4_kernel_equals_twin_bit_for_bit(cuda, K, out, B, out_dtype):
+    w = quant.quantize_tensor_int4(_normal((K, out), cuda, 0, 0.05))
+    hq, a = quant.quantize_act(_normal((K, B), cuda, 1), axis=0)
+    n0 = tw4.launches
+    got = tw4.w4_mm_bl(w, hq, a, out_dtype)
+    assert tw4.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = tw4._w4_mm_plain(w, hq, a, out_dtype)
+    assert got.shape == (out, B) and got.dtype == out_dtype
+    assert torch.equal(got, want)
+
+
+def test_w4_kernel_sign_extends_every_nibble(cuda):
+    """Every byte value, -8 included (quantize_tensor_int4 never emits it)."""
+    K, out, B = 64, 256, 16
+    qp = torch.arange(256, dtype=torch.uint8, device=cuda).repeat(K // 2, 1).contiguous()
+    qp = qp[:, torch.randperm(256, device=cuda)].contiguous()
+    w = {"qp": qp, "s": torch.full((1, out), 0.01, device=cuda)}
+    hq, a = quant.quantize_act(_normal((K, B), cuda, 2), axis=0)
+    assert torch.equal(tw4.w4_mm_bl(w, hq, a, torch.float32),
+                       tw4._w4_mm_plain(w, hq, a, torch.float32))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K,out,B", INT8_MM_SHAPES)
+def test_w8_kernel_equals_twin_bit_for_bit(cuda, K, out, B, out_dtype):
+    w = quant.quantize_tensor(_normal((K, out), cuda, 0, 0.05), native=True)
+    hq, a = quant.quantize_act(_normal((K, B), cuda, 1), axis=0)
+    n0 = tw4.w8_launches
+    got = tw4.w8_mm_bl(w, hq, a, out_dtype)
+    assert tw4.w8_launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, tw4._w8_mm_plain(w, hq, a, out_dtype))
+
+
+def test_int8_mm_kernels_refuse_what_they_cannot_take(cuda):
+    w = quant.quantize_tensor_int4(_normal((64, 32), cuda, 0))
+    hq, a = quant.quantize_act(_normal((64, 8), cuda, 1), axis=0)
+    with pytest.raises(TypeError, match="int8"):
+        tw4.w4_mm_bl(w, hq.float(), a, torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        tw4.w4_mm_bl(w, hq, a.cpu(), torch.float32)
+    with pytest.raises(ValueError, match="shapes"):
+        tw4.w4_mm_bl(w, hq[:32].contiguous(), a, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tw4.w4_mm_bl(w, hq, a, torch.float16)
+    with pytest.raises(ValueError, match="per-channel"):
+        tw4.w4_mm_bl(quant.quantize_tensor_int4(_normal((64, 32), cuda, 0), 16), hq, a,
+                     torch.float32)
+    w8 = quant.quantize_tensor(_normal((64, 32), cuda, 0), native=True)
+    with pytest.raises(TypeError, match="int8"):
+        tw4.w8_mm_bl({"q8": w8["q8"].view(torch.uint8), "s": w8["s"]}, hq, a, torch.float32)
+
+
+def _mlp_args(H, I, B, dtype, dev):
+    return (_normal((H, 2 * I), dev, 0, H ** -0.5).to(dtype),
+            _normal((I, H), dev, 1, I ** -0.5).to(dtype), _normal((H, B), dev, 2).to(dtype))
+
+
+@pytest.mark.parametrize("H,I,B,dtype,act", [
+    (2048, 8192, 128, torch.bfloat16, "silu"),       # Llama-3.2-1B at the serving batch
+    (2048, 8192, 128, torch.bfloat16, "gelu_tanh"),
+    (2048, 8192, 8, torch.bfloat16, "silu"),
+    (2048, 8192, 64, torch.bfloat16, "silu"),
+    (2048, 8192, 100, torch.bfloat16, "silu"),       # a batch the wrapper pads
+    (2048, 8192, 256, torch.bfloat16, "silu"),       # two batch tiles
+    (2048, 8192, 128, torch.float32, "silu"),        # the CUDA-core path
+    (256, 512, 16, torch.float32, "gelu_tanh"),
+    (72, 136, 5, torch.float32, "silu"),             # ragged tiles on every axis
+    (72, 136, 5, torch.bfloat16, "gelu_tanh"),
+    (64, 8, 3, torch.bfloat16, "silu"),              # I below one tile
+])
+def test_decode_mlp_kernel_matches_twin(cuda, H, I, B, dtype, act):
+    args = _mlp_args(H, I, B, dtype, cuda)
+    n0 = tdm.launches
+    out = tdm.fused_decode_mlp_bl(*args, act)
+    assert tdm.launches == n0 + 1
+    _close(out, tdm._decode_mlp_plain(*args, act), TOL[dtype])
+
+
+def test_decode_mlp_kernel_is_deterministic(cuda):
+    """The partials are added in a fixed order: two calls agree bit for bit."""
+    args = _mlp_args(2048, 8192, 128, torch.bfloat16, cuda)
+    assert torch.equal(tdm.fused_decode_mlp_bl(*args), tdm.fused_decode_mlp_bl(*args))
+
+
+def test_decode_mlp_kernel_refuses_what_it_cannot_take(cuda):
+    w_gu, w_down, h = _mlp_args(64, 128, 4, torch.float32, cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        tdm.fused_decode_mlp_bl(w_gu, w_down, h.bfloat16())
+    with pytest.raises(ValueError, match="one device"):
+        tdm.fused_decode_mlp_bl(w_gu, w_down.cpu(), h)
+    with pytest.raises(ValueError, match="shapes"):
+        tdm.fused_decode_mlp_bl(w_gu, w_down[:64], h)
+    with pytest.raises(ValueError, match="mlp_act"):
+        tdm.fused_decode_mlp_bl(w_gu, w_down, h, "relu")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tdm.fused_decode_mlp_bl(*_mlp_args(60, 128, 4, torch.float32, cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tdm.fused_decode_mlp_bl(w_gu.half(), w_down.half(), h.half())
+
+
+def _head_params(mode, V, H, dev, seed=0):
+    embed = _normal((V, H), dev, seed)
+    if mode == "bf16":
+        return {"embed": embed.bfloat16()}
+    return {"embed": quant.quantize_embed_tensor(embed, native=(mode == "q8"))}
+
+
+def _check_head(params, h, mode):
+    n0 = tha.launches
+    ids = tha.head_argmax(params, h)
+    assert tha.launches == n0 + 1
+    torch.cuda.synchronize()
+    logits = tha.head_logits_bl(params["embed"], h).float()
+    want = logits.argmax(dim=0)
+    assert ids.shape == want.shape and ids.dtype == torch.long
+    if mode == "q8":  # integer work: bit equality with the twin
+        assert torch.equal(ids, want)
+        return
+    # another summation order than the library matmul's: a near-tie may round
+    # to the other bf16 value.  Most columns agree, and where one differs the
+    # twin's two logits lie within one bf16 step (2**-7 relative) per
+    # rounding of the mode (the q mode rounds twice)
+    assert (ids == want).float().mean().item() >= 0.9
+    cols = torch.nonzero(ids != want).flatten()
+    a, b = logits[ids[cols], cols], logits[want[cols], cols]
+    steps = 2 if mode == "q" else 1
+    assert bool(((a - b).abs() <= steps * 2.0 ** -7 * b.abs()).all())
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+@pytest.mark.parametrize("V,B", [(128256, 128), (128256, 8), (128256, 100), (1001, 64),
+                                 (100, 16), (5000, 256)])
+def test_head_argmax_kernel_matches_twin(cuda, mode, V, B):
+    """Llama-3.2-1B's vocabulary and width; a V no slice size divides."""
+    params = _head_params(mode, V, 2048, cuda)
+    _check_head(params, _normal((2048, B), cuda, 1).bfloat16(), mode)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+def test_head_argmax_kernel_ties_go_to_the_first_row(cuda, mode):
+    """Every row identical: every logit ties, across slices and blocks too."""
+    V, H, B = 1000, 64, 24
+    params = _head_params(mode, V, H, cuda)
+    row = _normal((1, H), cuda, 3)
+    if mode == "bf16":
+        params["embed"] = row.bfloat16().repeat(V, 1).contiguous()
+    else:
+        params["embed"] = quant.quantize_embed_tensor(row.repeat(V, 1), native=(mode == "q8"))
+    ids = tha.head_argmax(params, _normal((H, B), cuda, 4).bfloat16())
+    assert torch.equal(ids, torch.zeros(B, dtype=torch.long, device=cuda))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+def test_head_argmax_kernel_planted_tie_across_blocks(cuda, mode):
+    """The same winning row planted in two vocab slices: the first wins."""
+    V, H, B = 9000, 128, 32
+    u = _normal((H,), cuda, 5)
+    embed = _normal((V, H), cuda, 6, 0.1)
+    embed[7000] = embed[300] = 4.0 * u
+    params = ({"embed": embed.bfloat16()} if mode == "bf16" else
+              {"embed": quant.quantize_embed_tensor(embed, native=(mode == "q8"))})
+    h = u[:, None].repeat(1, B).bfloat16().contiguous()
+    ids = tha.head_argmax(params, h)
+    assert torch.equal(ids, torch.full((B,), 300, dtype=torch.long, device=cuda))
+
+
+def test_head_argmax_kernel_refuses_what_it_cannot_take(cuda):
+    params = _head_params("bf16", 256, 64, cuda)
+    h = _normal((64, 8), cuda, 1)
+    with pytest.raises(TypeError, match="bf16"):
+        tha.head_argmax(params, h)  # an f32 state
+    with pytest.raises(TypeError, match="bf16"):
+        tha.head_argmax({"embed": params["embed"].float()}, h.bfloat16())
+    with pytest.raises(ValueError, match="one device"):
+        tha.head_argmax(params, h.bfloat16().cpu())
+    with pytest.raises(ValueError, match="shapes"):
+        tha.head_argmax(params, h[:32].bfloat16())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tha.head_argmax(_head_params("bf16", 256, 40, cuda), _normal((40, 8), cuda, 1).bfloat16())
+
+
+def _bl_counts():
+    return (tda.launches, tdm.launches, tha.launches, tw4.launches, tw4.w8_launches)
+
+
+@pytest.mark.parametrize("tree", ["bf16", "q", "w8a8", "w4a8", "w4a8-grouped"])
+def test_greedy_bl_kernel_path_against_plain_path(cuda, tree):
+    """The batch-last loop on a tiny bf16 model, every weight kind: the
+    kernels the tree calls for are launched (3 layers, 11 steps), and the
+    tokens agree with the plain path's up to bf16 near-ties (the first
+    token, from the shared prefill, always)."""
+    cfg, params = _tiny_model(cuda, torch.bfloat16)
+    cfg = dataclasses.replace(cfg, eos_token_ids=())  # every step of the budget runs
+    prefill_params = None
+    if tree == "q":
+        params = quant.quantize_llama(params)
+    elif tree == "w8a8":
+        prefill_params, params = params, quant.quantize_llama(params, native=True)
+    elif tree.startswith("w4a8"):
+        prefill_params, params = params, quant.quantize_llama(
+            params, bits=4, group_size=32 if tree.endswith("grouped") else None)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    embeds = torch.randn(6, 9, 128, generator=gen, device=cuda).bfloat16()
+    n0 = _bl_counts()
+    ids = dec.greedy_generate_bl(cfg, params, embeds, 12, 1, prefill_params=prefill_params)
+    got = tuple(b - a for a, b in zip(n0, _bl_counts()))
+    steps = 11  # the last token is an argmax of the last step's selection
+    want = {"bf16": (3, 3, 1, 0, 0), "q": (3, 0, 1, 0, 0), "w8a8": (3, 0, 1, 0, 12),
+            "w4a8": (3, 0, 1, 12, 0), "w4a8-grouped": (3, 0, 1, 0, 0)}[tree]
+    assert got == tuple(steps * n for n in want)
+    plain = dec.greedy_generate_bl(cfg, params, embeds, 12, 1, prefill_params=prefill_params,
+                                   plain=True)
+    assert _bl_counts() == tuple(a + b for a, b in zip(n0, got))  # the twins launch nothing
+    assert torch.equal(ids[:, 0], plain[:, 0])
+    assert (ids == plain).float().mean().item() >= 0.7
+
+
+def test_greedy_bl_kernel_path_f32_and_batch_first(cuda):
+    """An f32 model takes the logits path for the head and the CUDA-core
+    decode MLP; its tokens equal the plain path's and the batch-first loop's."""
+    cfg, params = _tiny_model(cuda, torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    embeds = torch.randn(6, 9, 128, generator=gen, device=cuda)
+    n0 = _bl_counts()
+    ids = dec.greedy_generate_bl(cfg, params, embeds, 12, 1)
+    got = tuple(b - a for a, b in zip(n0, _bl_counts()))
+    assert got[1] > 0 and got[0] == got[1] and got[2:] == (0, 0, 0)
+    assert torch.equal(ids, dec.greedy_generate_bl(cfg, params, embeds, 12, 1, plain=True))
+    assert torch.equal(ids, dec.greedy_generate(cfg, params, embeds, 12, 1))

@@ -1,0 +1,91 @@
+"""The decode-MLP twin of dmi_tpu_torch against the JAX package: against the
+XLA oracle _mlp_xla_bl and against the Pallas kernel _mlp_pallas_bl under
+pltpu.force_tpu_interpret_mode() (as tests/test_pallas.py runs it), both
+activations.  At f32 the three differ by summation order only (atol 2e-5,
+rtol 1e-5, the JAX package's own bound for kernel against oracle).  At bf16
+the twin keeps the kernel's rounding points: g and u rounded to bf16,
+act(g) * u formed in bf16, one final rounding.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from dmi_tpu.ops.pallas import decode_mlp as jdm
+from dmi_tpu_torch.ops.cuda import decode_mlp as tdm
+
+torch.set_num_threads(1)
+
+ACTS = ["silu", "gelu_tanh"]
+
+
+def _case(H, I, B, seed=3):
+    rng = np.random.default_rng(seed)
+    return ((rng.normal(size=(H, 2 * I)) * 0.05).astype(np.float32),
+            (rng.normal(size=(I, H)) * 0.05).astype(np.float32),
+            rng.normal(size=(H, B)).astype(np.float32))
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_twin_matches_xla_oracle_and_pallas_interpret_f32(act):
+    arrays = _case(256, 512, 16)  # multi-tile grid, resident f32 accumulator
+    jargs = [jnp.asarray(a) for a in arrays]
+    targs = [torch.from_numpy(a) for a in arrays]
+    out = tdm._decode_mlp_plain(*targs, act).numpy()
+    np.testing.assert_allclose(out, np.asarray(jdm._mlp_xla_bl(*jargs, act)),
+                               atol=2e-5, rtol=1e-5)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jdm._mlp_pallas_bl(*jargs, act))
+    np.testing.assert_allclose(out, pallas, atol=2e-5, rtol=1e-5)
+    # on the CPU the wrapper is the twin, and launches nothing
+    n = tdm.launches
+    assert torch.equal(tdm.fused_decode_mlp_bl(*targs, act), torch.from_numpy(out))
+    assert tdm.launches == n
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("H,I,B", [(64, 96, 5), (128, 256, 8)])
+def test_twin_matches_xla_oracle_bf16(H, I, B, act):
+    """bf16 in both: the same rounding points, another summation order and
+    another exp: within 2 bf16 steps (2**-7) of the largest output."""
+    arrays = _case(H, I, B, seed=4)
+    out = tdm._decode_mlp_plain(*[torch.from_numpy(a).bfloat16() for a in arrays], act)
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(jdm._mlp_xla_bl(*[jnp.asarray(a, jnp.bfloat16) for a in arrays], act)
+                     .astype(jnp.float32))
+    assert np.abs(out.float().numpy() - ref).max() <= 2.0 ** -7 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_twin_rounding_points_at_bf16(act):
+    """Written out step by step in f32 with explicit roundings: g and u
+    rounded to bf16, the activation rounded, the product rounded, the down
+    product accumulated in f32 and rounded once."""
+    w_gu, w_down, h = [torch.from_numpy(a).bfloat16() for a in _case(64, 96, 6, seed=5)]
+
+    def r(x):
+        return x.bfloat16().float()
+
+    gu = r(w_gu.float().t() @ h.float())
+    g, u = gu[:96], gu[96:]
+    a = r(torch.nn.functional.silu(g) if act == "silu"
+          else torch.nn.functional.gelu(g, approximate="tanh"))
+    want = r(w_down.float().t() @ r(a * u))
+    got = tdm._decode_mlp_plain(w_gu, w_down, h, act).float()
+    # the bf16 matmuls accumulate in f32 in another order: a sum that lands
+    # on a rounding boundary may differ by one bf16 step
+    assert (got - want).abs().max().item() <= 2.0 ** -7 * want.abs().max().item()
+    assert (got == want).float().mean().item() > 0.9
+
+
+def test_wrapper_checks_shapes_and_names():
+    w_gu, w_down, h = [torch.from_numpy(a) for a in _case(64, 96, 4)]
+    with pytest.raises(ValueError, match="shapes"):
+        tdm.fused_decode_mlp_bl(w_gu, w_down[:48], h)
+    with pytest.raises(ValueError, match="mlp_act"):
+        tdm.fused_decode_mlp_bl(w_gu, w_down, h, "relu")
+    assert tdm.down_splits(2048, 8192, 128) == 4   # 32 tiles x 4 splits: 128 blocks
+    assert tdm.down_splits(2048, 8192, 256) == 2
+    assert tdm.down_splits(64, 32, 16) == 1        # never deeper than the I axis

@@ -121,3 +121,90 @@ def test_require_device(monkeypatch):
     assert require_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="--device cpu"):
         require_device()
+
+
+# the decode path: serving, the models and every op (the kernel build reads
+# CUDA_HOME to find nvcc, and nothing else)
+DECODE_PATH = [PORT / "serve.py", *sorted((PORT / "models").glob("*.py")),
+               *(p for p in sorted((PORT / "ops").rglob("*.py")) if p.name != "_build.py")]
+# dmi_tpu's switches of the same path
+JAX_SWITCHES = ("DMI_DECODE_BATCH_FIRST", "DMI_PALLAS_HEAD_ARGMAX", "DMI_PALLAS_DECODE_MLP",
+                "DMI_W4_XLA", "DMI_W4_BO", "DMI_PIN_WEIGHTS")
+
+
+def _reads_environment(path: Path):
+    """Lines of the file that import os or touch an environment."""
+    tree = ast.parse(path.read_text(), str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import) and any(a.name == "os" for a in node.names):
+            found.append(node.lineno)
+        elif isinstance(node, ast.ImportFrom) and node.module == "os":
+            found.append(node.lineno)
+        elif isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv", "putenv"):
+            found.append(node.lineno)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) and any(
+                s in node.value for s in JAX_SWITCHES):
+            found.append(node.lineno)
+    return found
+
+
+def test_decode_path_reads_no_environment_variable():
+    """dmi_tpu hides its decode kernels behind DMI_* switches; the port has
+    none: which loop and which kernel run follows from the arguments, the
+    weights' kind and the tensors' device alone."""
+    assert len(DECODE_PATH) > 15
+    names = {p.name for p in DECODE_PATH}
+    assert {"decode.py", "mmmodel.py", "quant.py", "decode_mlp.py", "head_argmax.py",
+            "w4_matmul.py"} <= names
+    bad = {str(p.relative_to(REPO)): lines for p in DECODE_PATH
+           if (lines := _reads_environment(p))}
+    assert not bad, bad
+
+
+def test_environment_check_sees_reads(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\n\ndef f():\n    return os.environ.get('DMI_W4_XLA') == '1'\n")
+    assert _reads_environment(src) == [1, 4, 4]
+
+
+def test_serving_defaults_to_the_batch_last_loop(monkeypatch):
+    """caption_generate and Captioner(int8="w4a8") take the batch-last loop
+    unless batch_first is passed; dmi_tpu's environment switches change
+    nothing."""
+    import inspect
+
+    import numpy as np
+
+    from dmi_tpu_torch import serve
+    from dmi_tpu_torch.models import decode as dec
+    from dmi_tpu_torch.models import llama, mmmodel
+    from dmi_tpu_torch.models import projector as proj
+
+    torch.set_num_threads(1)
+    assert inspect.signature(mmmodel.caption_generate).parameters["batch_first"].default is False
+    assert inspect.signature(serve.Captioner.__init__).parameters["batch_first"].default is False
+    for name in JAX_SWITCHES:
+        monkeypatch.setenv(name, "1")
+    calls = []
+    real_bl, real_bf = dec.greedy_generate_bl, dec.greedy_generate
+    monkeypatch.setattr(dec, "greedy_generate_bl",
+                        lambda *a, **kw: calls.append(("bl", kw)) or real_bl(*a, **kw))
+    monkeypatch.setattr(dec, "greedy_generate",
+                        lambda *a, **kw: calls.append(("bf", kw)) or real_bf(*a, **kw))
+    cfg = llama.tiny_config(vocab_size=64, hidden_size=32, n_layers=1, n_heads=2, n_kv=1,
+                            intermediate=64)
+    gen = torch.Generator().manual_seed(0)
+    params = llama.init(cfg, gen)
+    spec = proj.ProjectorSpec(mm_dim=8, lm_dim=32)
+    cap = serve.Captioner(cfg, params, spec, proj.init(spec, gen), max_new_tokens=3,
+                          batch_size=2, int8="w4a8", prefix_ids=[1, 2], pad_token_id=0)
+    ids = cap.caption_ids(np.ones((2, 8), np.float32))
+    assert tuple(ids.shape) == (2, 3)
+    assert [c[0] for c in calls] == ["bl"]
+    assert calls[0][1]["prefill_params"] is cap.llm_params_prefill is not None
+    assert "qp" in cap.llm_params["layers"][0]["w_gu"]
+    serve.Captioner(cfg, params, spec, cap.proj_params, max_new_tokens=3, batch_size=2,
+                    batch_first=True, prefix_ids=[1, 2], pad_token_id=0).caption_ids(
+                        np.ones((2, 8), np.float32))
+    assert [c[0] for c in calls] == ["bl", "bf"]

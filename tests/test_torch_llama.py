@@ -115,5 +115,10 @@ def test_fuse_projections_is_idempotent_and_exact():
 
 
 def test_quantized_weights_refused():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tllama._mm(torch.zeros(1, 2), {"q": torch.zeros(2, 2), "s": torch.ones(2)})
+    """Quantized weight dicts are served (tests/test_torch_quant.py holds them
+    against dmi_tpu); what is refused is a dict of none of the known modes."""
+    out = tllama._mm(torch.ones(1, 2), {"q": torch.full((2, 2), 3, dtype=torch.int8),
+                                        "s": torch.full((1, 2), 0.5)})
+    assert torch.equal(out, torch.full((1, 2), 3.0))
+    with pytest.raises(ValueError, match="unknown quantized"):
+        tllama._mm(torch.zeros(1, 2), {"fp8": torch.zeros(2, 2), "s": torch.ones(2)})

@@ -5,6 +5,8 @@ JAX package's loops (greedy_generate, batch-first; greedy_generate_bl,
 batch-last) and the same caption strings as dmi_tpu.serve.Captioner.  Also
 covered: checkpoint loading from a pickle dmi_tpu wrote, the CLI, the
 surface the port refuses for now, and that the port never imports JAX.
+The Captioner serves on the batch-last loop by default; that loop and the
+int8 modes are held against dmi_tpu in tests/test_torch_decode_bl.py.
 """
 
 import ast
@@ -137,11 +139,14 @@ def test_captioner_prefix_ids_without_tokenizer(tokenizer):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"int8": True}, "A.5"), ({"mesh_shape": (1, 1)}, "A.10"), ({"speculative": 2}, "A.8"),
+    ({"int8": "fp8"}, "int8 must be"), ({"mesh_shape": (1, 1)}, "A.10"),
+    ({"speculative": 2}, "A.8"),
 ])
 def test_captioner_refuses_unported_options(tokenizer, kwargs, item):
+    """int8 serving is ported (tests/test_torch_decode_bl.py): of int8 only a
+    mode dmi_tpu does not have is refused."""
     _, tcap = _captioners(tokenizer)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError if "int8" in kwargs else NotImplementedError, match=item):
         Captioner(tcap.llm_cfg, tcap.llm_params, tcap.proj_spec, tcap.proj_params,
                   tokenizer, PREFIX, 10, **kwargs)
 
