@@ -25,10 +25,17 @@ CUDA card.
    with ties planted across vocab slices (q8 bit for bit; bf16 and q by the
    share of equal ids and, for every other column, the twin's two logits
    within one bf16 step per rounding).
-3. Runs one decode step of a full-width Llama-3.2-1B from a common cache
+3. The kernel probes (dmi_tpu_torch.probes), each through its run() at its
+   default shapes with the launch counters set to 0 just before: the
+   blocked int8/bf16 matmul at N 4096, the weight-stream matmul at the
+   decode MLP's gate-up shape at each output-tile width, the packed-W4
+   matmuls (split-OUT, split-K) at K 2048, OUT 16384, batch 256.  Each
+   probe's gate holds its kernels against their twins (int outputs bit for
+   bit) before it times kernel, twin and library call.
+4. Runs one decode step of a full-width Llama-3.2-1B from a common cache
    through the kernel path and through the plain path, batch-first and
    batch-last, and compares logits.
-4. Serves 300 requests through dmi_tpu_torch.serve.Captioner on the
+5. Serves 300 requests through dmi_tpu_torch.serve.Captioner on the
    batch-first loop: Llama-3.2-1B at full width (16 layers, bf16 weights
    from a seeded init, EOS off so every request decodes sydney's 22-token
    budget), a 2-layer f32 projector (mm 1024) loaded from a dmi_tpu-format
@@ -38,7 +45,7 @@ CUDA card.
    256 on the same 300 requests, the greedy-token agreement of the kernel
    and plain paths (information only), and one batch of each size under
    torch.profiler: device busy time and idle share.
-5. Serves the same 300 requests on the batch-last loop, the Captioner's
+6. Serves the same 300 requests on the batch-last loop, the Captioner's
    default, in four configurations with the counters set to 0 before each:
    (a) the bf16 tree (per batch: 16 x 21 decode-MLP and decode-attention
    launches, 21 head + argmax launches, 1 mlp2), also against the plain
@@ -46,7 +53,7 @@ CUDA card.
    x 16 x 21 packed-matmul launches per batch), also against its plain path;
    and one batch each of (c) int8=True and (d) int8="w8a8".  Captions/s of
    each, and one bf16 and one w4a8 batch under torch.profiler.
-6. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
+7. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
    projector (mm 768, dropout 0.1) and the optimizer of configs/experiments/
    projector/v1:llama1b_inst_all_extracted.json (warmup cut to 2), on
    synthetic batches of 32 captions (64 text tokens and the soft token).
@@ -56,7 +63,7 @@ CUDA card.
    that moves and an LLM that does not; one eval-loss call through
    fused_mlp2; micro-steps/s, tokens/s, peak memory and one step under
    torch.profiler.
-7. Stage 2: HypernetTrainer at the v4 hypernet config's shapes (attention
+8. Stage 2: HypernetTrainer at the v4 hypernet config's shapes (attention
    hypernet, positional encodings, width 768, rank 32, subsets of 128,
    rotation augmentation and text interleave, AdamW and accumulation 40,
    warmup cut to 2) over a frozen f32 projector (mm 768), micro-batches of
@@ -66,14 +73,14 @@ CUDA card.
    loss; one coalesced window of 40 at micro_batch_coalesce 4 (10 grouped
    lora0 launches); the card's time of one 768 x 768 random_orthogonal;
    throughput, peak memory and one micro-step under torch.profiler.
-8. Stage 3: the generated projector from one subset of the stage-2
+9. Stage 3: the generated projector from one subset of the stage-2
    hypernet; step 0 kernel vs plain path; 5 few-shot micro-steps over it at
    batch 64 on sydney-length captions, then one generate batch of 64 through
    it on the batch-last loop (1 mlp2 launch, 16 x 21 decode-attention and
    decode-MLP launches, 21 head + argmax launches); then 2 few-shot
    micro-steps that tune the hypernet itself (finetune_generated_projector
    false: 1 lora0 launch each).
-9. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
+10. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
    32, alpha 32): step 0 kernel vs plain path, then 5 micro-steps (each
    flash kernel 16 x 5).
 
@@ -90,12 +97,14 @@ import dataclasses
 import json
 import os
 import pickle
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+
+from dmi_tpu_torch.utils.profiling import (device_ms, device_spans, least_time, nbytes,
+                                           nvidia_smi)
 
 SEED = 0
 N_REQUESTS = 300
@@ -117,11 +126,6 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2, "logits": 5e-2, "loss": 1e-3}
 # products in the kernels, as on the TPU
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_HEADS = (32, 8, 64)  # Llama-3.2-1B: query heads, kv heads, head dim
-# the card's peak rates for a kernel's bound (NVIDIA's H100 SXM data sheet,
-# dense): device memory, f32 on the CUDA cores (the kernels use no TF32),
-# bf16 and int8 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # greedy tokens of two paths over random bf16 weights: the logits are nearly
 # flat, a near-tie argmax flips under another summation order and the row's
 # continuation then differs, so agreement is held to a share of the tokens.
@@ -165,16 +169,7 @@ FS_HN_STEPS = 2  # few-shot micro-steps that tune the hypernet itself
 # (the paths' own calls, timed), then longer sequences at stage 1's batch
 FLASH_PATHS = ((TRAIN_BATCH, TRAIN_TEXT + 1), (HN_BATCH, HN_TEXT + 1), (FS_BATCH, FS_TEXT + 1))
 FLASH_CASES = FLASH_PATHS + ((TRAIN_BATCH, 128), (TRAIN_BATCH, 606))
-
-
-def nvidia_smi() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if r.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
+PROBE_INNER = 5  # timed calls per probe variant (the scripts' --inner is 30-100)
 
 
 def time_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -206,20 +201,6 @@ def compare(torch, name, out, ref, tol, scale=None) -> float:
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
     return err
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def least_time(nbytes_moved, flops, dtype) -> dict:
-    """The least time the card could take: the larger of the bytes moved
-    (each input read once, each output written once) over the memory rate
-    and the operations over the peak rate of the inputs' type."""
-    t_bytes = nbytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def kernel_phase(torch, dev):
@@ -455,18 +436,18 @@ def bl_kernel_phase(torch, dev):
             return (acc.t().float() * w4w["s"].reshape(-1, 1) * a).to(torch.bfloat16)
 
         try:
-            lib_ms = device_ms(torch, chain)
+            lib_ms = device_ms(chain)
             equal(f"   library chain K={K} out={out_dim}", chain(),
                   w4._w4_mm_plain(w4w, hq, a, torch.bfloat16))
         except RuntimeError as e:  # a yardstick only: the port never calls it
             print(f"    torch._int_mm refused the shape: {str(e)[:200]}")
             lib_ms = None
-        t = {"ms": device_ms(torch, lambda: w4.w4_mm_bl(w4w, hq, a, torch.bfloat16)),
-             "plain_ms": device_ms(torch, lambda: w4._w4_mm_plain(w4w, hq, a, torch.bfloat16)),
+        t = {"ms": device_ms(lambda: w4.w4_mm_bl(w4w, hq, a, torch.bfloat16)),
+             "plain_ms": device_ms(lambda: w4._w4_mm_plain(w4w, hq, a, torch.bfloat16)),
              "library_ms": lib_ms,
              **least_time(nbytes(w4w["qp"], w4w["s"], hq, a) + out_dim * b * 2,
                           2 * K * out_dim * b, "int8")}
-        w8_ms = device_ms(torch, lambda: w4.w8_mm_bl(w8w, hq, a, torch.bfloat16))
+        w8_ms = device_ms(lambda: w4.w8_mm_bl(w8w, hq, a, torch.bfloat16))
         print(f"    K={K} out={out_dim} B={b} bf16: kernel {t['ms'] * 1e3!r} us, plain "
               f"{t['plain_ms'] * 1e3!r} us, library "
               f"{None if lib_ms is None else lib_ms * 1e3!r} us (unpack, _int_mm, rescale); "
@@ -629,42 +610,10 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
     return {"serving batch-last": counts_a, "serving w4a8": counts_b}
 
 
-def device_spans(torch, run) -> list:
-    """(start us, end us, name) of every kernel, memcpy and memset that the
-    device ran during one run() under torch.profiler, in order."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    if not spans:
-        raise AssertionError("the profiler saw no device activity")
-    return spans
-
-
-def device_ms(torch, fn, iters=20) -> float:
-    """Device time of one fn() call in ms: the summed spans of the kernels,
-    copies and fills of `iters` calls (after 3 warm-ups), over iters.  Unlike
-    CUDA events around a loop, it leaves out the gaps where the device waits
-    for the host to launch: a call whose bound is microseconds is shorter
-    than its launch cost from Python."""
-    for _ in range(3):
-        fn()
-    spans = device_spans(torch, lambda: [fn() for _ in range(iters)])
-    return sum(e - s for s, e, _ in spans) / iters / 1e3
-
-
 def device_times(torch, kernel, plain, library) -> dict:
     """ms, plain_ms and library_ms of one call each (device_ms)."""
-    return {"ms": device_ms(torch, kernel), "plain_ms": device_ms(torch, plain),
-            "library_ms": device_ms(torch, library)}
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library)}
 
 
 def report_times(t: dict) -> str:
@@ -686,7 +635,7 @@ def profile_run(torch, label, run) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = sorted(walls)[1] * 1e3
-    spans = device_spans(torch, run)
+    spans = device_spans(run)
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy_us += max(0.0, e - max(s, end))
@@ -800,15 +749,13 @@ def flash_timings(torch, fa, q, k, v, do) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, scale=0.125, enable_gqa=True)
 
-    t = {"fwd": device_ms(torch, lambda: fa._fwd_kernel(q, k, v, None, 0.125)),
-         "dkv": device_ms(torch, lambda: fa._bwd_dkv_kernel(q, k, v, None, do, lse, delta,
-                                                            0.125)),
-         "dq": device_ms(torch, lambda: fa._bwd_dq_kernel(q, k, v, None, do, lse, delta,
-                                                          0.125)),
-         "plain_fwd": device_ms(torch, lambda: fa._flash_attn_plain(q, k, v, None, 0.125)),
-         "plain_fwd_bwd": device_ms(torch, plain_fwd_bwd),
-         "lib_fwd": device_ms(torch, torch.no_grad()(sdpa)),
-         "lib_fwd_bwd": device_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do))}
+    t = {"fwd": device_ms(lambda: fa._fwd_kernel(q, k, v, None, 0.125)),
+         "dkv": device_ms(lambda: fa._bwd_dkv_kernel(q, k, v, None, do, lse, delta, 0.125)),
+         "dq": device_ms(lambda: fa._bwd_dq_kernel(q, k, v, None, do, lse, delta, 0.125)),
+         "plain_fwd": device_ms(lambda: fa._flash_attn_plain(q, k, v, None, 0.125)),
+         "plain_fwd_bwd": device_ms(plain_fwd_bwd),
+         "lib_fwd": device_ms(torch.no_grad()(sdpa)),
+         "lib_fwd_bwd": device_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do))}
     # causal work: T(T+1)/2 (query, key) pairs per (row, head), each pair a
     # length-hd dot product per matrix product: forward QK^T, PV; dK/dV
     # recomputes QK^T, then dO V^T, P^T dO, dS^T Q; dQ recomputes QK^T and
@@ -1046,10 +993,14 @@ def _reset_counts():
     from dmi_tpu_torch.ops.cuda import decode_mlp as dm
     from dmi_tpu_torch.ops.cuda import head_argmax as ha
     from dmi_tpu_torch.ops.cuda import w4_matmul as w4
+    from dmi_tpu_torch.ops.cuda import block_mm as bm
+    from dmi_tpu_torch.ops.cuda import stream_mm as sm
+    from dmi_tpu_torch.ops.cuda import w4_probe as wp
 
     pk.launches = da.launches = l0.launches = 0
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
     dm.launches = ha.launches = w4.launches = w4.w8_launches = 0
+    bm.launches = sm.launches = wp.split_out_launches = wp.split_k_launches = 0
 
 
 def _counts() -> dict:
@@ -1061,11 +1012,16 @@ def _counts() -> dict:
     from dmi_tpu_torch.ops.cuda import decode_mlp as dm
     from dmi_tpu_torch.ops.cuda import head_argmax as ha
     from dmi_tpu_torch.ops.cuda import w4_matmul as w4
+    from dmi_tpu_torch.ops.cuda import block_mm as bm
+    from dmi_tpu_torch.ops.cuda import stream_mm as sm
+    from dmi_tpu_torch.ops.cuda import w4_probe as wp
 
     return {"mlp2": pk.launches, "decode_attention": da.launches, "lora0": l0.launches,
             "flash_fwd": fa.fwd_launches, "flash_bwd_dkv": fa.dkv_launches,
             "flash_bwd_dq": fa.dq_launches, "decode_mlp": dm.launches,
-            "head_argmax": ha.launches, "w4_mm": w4.launches, "w8_mm": w4.w8_launches}
+            "head_argmax": ha.launches, "w4_mm": w4.launches, "w8_mm": w4.w8_launches,
+            "block_mm": bm.launches, "stream_mm": sm.launches,
+            "w4_split_out": wp.split_out_launches, "w4_split_k": wp.split_k_launches}
 
 
 def _expect(label, counts, want):
@@ -1377,6 +1333,65 @@ def lora_phase(torch, dev, cfg, params):
     return launches
 
 
+def probe_phase(torch):
+    """The three kernel probes through their entry points' run() at the
+    default shapes, with the launch counters set to 0 just before; each
+    probe's gate holds its kernels against their twins before it times
+    them.  Returns the run's launch counts and the kernels line's entries."""
+    from dmi_tpu_torch.ops.cuda.stream_mm import BLOCK_OUT
+    from dmi_tpu_torch.probes import profile_int8_mxu, profile_mlp_stream, profile_w4_matmul
+
+    print("kernel probes at their default shapes:")
+    _reset_counts()
+    t0 = time.perf_counter()
+    r9 = profile_int8_mxu.run(inner=PROBE_INNER)
+    r10 = profile_mlp_stream.run(inner=PROBE_INNER)
+    r11 = profile_w4_matmul.run(inner=PROBE_INNER)
+    counts = _counts()
+    print(f"probes: {time.perf_counter() - t0!r} s")
+    # a kernel's variant: its gate's call, 3 warm-ups and PROBE_INNER timed calls
+    per = 1 + 3 + PROBE_INNER
+    _expect("probes", counts, {"block_mm": 2 * per, "stream_mm": len(BLOCK_OUT) * per,
+                               "w4_split_out": per, "w4_split_k": per})
+
+    def entry(r, kernel, plain, library, bound_key, err_key):
+        return {"max_abs_err": r[err_key], "ms": r[f"{kernel}_ms"], "plain_ms": r[f"{plain}_ms"],
+                "library_ms": r.get(f"{library}_ms"),
+                "bound_ms": r[f"{bound_key}_bound_us"] / 1e3,
+                "bound_by": r[f"{bound_key}_bound_by"]}
+
+    print(f"  block_mm N {r9['N']}, block_m {r9['block_m']} ({r9['device']}): int8 "
+          f"{r9['cuda_int8_ms'] * 1e3!r} us ({r9['cuda_int8_tflops']!r} TOP/s), bf16 "
+          f"{r9['cuda_bf16_ms'] * 1e3!r} us ({r9['cuda_bf16_tflops']!r} TFLOP/s), int8 speedup "
+          f"{r9.get('cuda_int8_speedup')!r}; library _int_mm {r9.get('torch_int8_ms')!r} ms, "
+          f"matmul bf16 (bf16 out) {r9['torch_bf16_ms']!r} ms, speedup "
+          f"{r9.get('torch_int8_speedup')!r}; twins {r9['plain_int8_ms']!r} (f64), "
+          f"{r9['plain_bf16_ms']!r} ms; bounds {r9['cuda_int8_bound_us']!r} / "
+          f"{r9['cuda_bf16_bound_us']!r} us")
+    best = r10["cuda_best_bo"]
+    widths = {bo: (r10[f"cuda_bo{bo}_ms"] * 1e3, r10[f"cuda_bo{bo}_gbps"]) for bo in BLOCK_OUT}
+    print(f"  stream_mm I {r10['I']}, O {r10['O']}, B {r10['B']}: us and GB/s by block_out "
+          f"{widths}; w.t() @ h {r10['torch_ms'] * 1e3!r} us ({r10['torch_gbps']!r} GB/s); "
+          f"bound {r10['cuda_bound_us']!r} us")
+    print(f"  w4 K {r11['K']}, OUT {r11['OUT']}, batch {r11['batch']}: split-OUT "
+          f"{r11['cuda_split_out_ms'] * 1e3!r} us, split-K {r11['cuda_split_k_ms'] * 1e3!r} us; "
+          f"library chains (ms): int8 stream {r11.get('torch_w8_int8_stream_ms')!r}, packed "
+          f"stream {r11.get('torch_w4_packed_stream_ms')!r}, split-OUT "
+          f"{r11.get('torch_w4_split_out_ms')!r}, split-K {r11.get('torch_w4_split_k_ms')!r}; "
+          f"bound {r11['cuda_split_k_bound_us']!r} us")
+    kernels = {
+        "block_mm": entry(r9, "cuda_int8", "plain_int8", "torch_int8", "cuda_int8",
+                          "cuda_int8_max_abs_err"),
+        "stream_mm": entry(r10, f"cuda_bo{best}", "plain", "torch", "cuda",
+                           f"cuda_bo{best}_max_abs_err"),
+        "w4_split_out": entry(r11, "cuda_split_out", "plain_split_out", "torch_w4_split_out",
+                              "cuda_split_out", "cuda_split_out_max_abs_err"),
+        "w4_split_k": entry(r11, "cuda_split_k", "plain_split_k", "torch_w4_split_k",
+                            "cuda_split_k", "cuda_split_k_max_abs_err"),
+    }
+    return counts, kernels
+
+
 def main() -> int:
     import torch
 
@@ -1409,14 +1424,16 @@ def main() -> int:
     kernels.update(flash_phase(torch, dev))
     kernels.update(lora0_phase(torch, dev))
     kernels.update(bl_kernel_phase(torch, dev))
+    # each path's launch counts, set to 0 just before its run and read just after
+    paths = {}
+    paths["probes"], probe_kernels = probe_phase(torch)
+    kernels.update(probe_kernels)
 
     # Llama-3.2-1B at full width, EOS off as bench.py:252 has it
     cfg = dataclasses.replace(llama.llama32_1b(), eos_token_ids=())
     params = llama.fuse_projections(
         llama.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
     decode_step_phase(torch, dev, cfg, params)
-    # each path's launch counts, set to 0 just before its run and read just after
-    paths = {}
     paths["serving"], projector, embs = slice_phase(torch, dev, cfg, params, MAX_NEW)
     paths.update(bl_serving_phase(torch, dev, cfg, params, projector, embs))
     paths["stage 1"] = train_phase(torch, dev, cfg, params)
@@ -1454,7 +1471,15 @@ def main() -> int:
                "decode_mlp": ("fused_decode_mlp_bl", "dmi_tpu_torch/csrc/decode_mlp.cu",
                               "dmi_tpu/ops/pallas/decode_mlp.py:97", "serving batch-last"),
                "w4_mm": ("w4_mm_bl", "dmi_tpu_torch/csrc/w4_matmul.cu",
-                         "dmi_tpu/ops/pallas/w4_matmul.py:99", "serving w4a8")}
+                         "dmi_tpu/ops/pallas/w4_matmul.py:99", "serving w4a8"),
+               "block_mm": ("block_mm int8", "dmi_tpu_torch/csrc/block_mm.cu",
+                            "scripts/profile_int8_mxu.py:74 (pallas_mm)", "probes"),
+               "stream_mm": ("stream_mm_bl", "dmi_tpu_torch/csrc/stream_mm.cu",
+                             "scripts/profile_mlp_stream.py:67 (pallas_mm)", "probes"),
+               "w4_split_out": ("w4_dot_split_out", "dmi_tpu_torch/csrc/w4_probe.cu",
+                                "scripts/profile_w4_matmul.py:156 (dot_w4_pallas)", "probes"),
+               "w4_split_k": ("w4_dot_split_k", "dmi_tpu_torch/csrc/w4_probe.cu",
+                              "scripts/profile_w4_matmul.py:184 (dot_w4_pallas_k)", "probes")}
     print(f"launches by path: {paths}")
     report = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": paths[path][key], **kernels[key]}

@@ -67,4 +67,11 @@ __device__ __forceinline__ void transpose4x4(unsigned (&r)[4]) {
   r[3] = __byte_perm(b, d, 0x7632);
 }
 
+// The four nibbles at bit 0 of each byte of v, sign-extended to int8 in place
+// (nibble 8..15 -> 0xF8..0xFF): the sign bit times 0x1E fills the high nibble
+__device__ __forceinline__ unsigned sext_nibbles(unsigned v) {
+  v &= 0x0F0F0F0Fu;
+  return v | ((v & 0x08080808u) * 0x1Eu);
+}
+
 }  // namespace dmi

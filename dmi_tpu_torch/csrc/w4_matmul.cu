@@ -36,6 +36,7 @@
 namespace {
 
 using dmi::Num;
+using dmi::sext_nibbles;
 using dmi::transpose4x4;
 
 constexpr int kThreads = 128;
@@ -58,13 +59,6 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ m, int r, 
   for (int i = 0; i < 4; ++i)
     if (c + i < cols) v |= (uint32_t)__ldg(p + i) << (8 * i);
   return v;
-}
-
-// The four nibbles at bit 0 of each byte of v, sign-extended to int8 in place
-// (nibble 8..15 -> 0xF8..0xFF): the sign bit times 0x1E fills the high nibble
-__device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
-  v &= 0x0F0F0F0Fu;
-  return v | ((v & 0x08080808u) * 0x1Eu);
 }
 
 template <bool kPacked, typename TOut>

@@ -5,7 +5,9 @@ the CPU, and launches its kernel for tensors on a CUDA device, counting the
 launch in the module's launch counter.  The kernels are compiled from
 dmi_tpu_torch/csrc at first launch (_build.py).  The fused head + argmax is
 head_argmax.head_argmax: a function of its module's name is not re-exported
-here, where it would hide the module.
+here, where it would hide the module.  The probe kernels (block_mm,
+stream_mm, w4_probe) serve only dmi_tpu_torch.probes and are imported from
+their modules.
 """
 
 from dmi_tpu_torch.ops.cuda.decode_attn import fused_decode_attention

@@ -53,6 +53,12 @@ _SIGNATURES = {
     "dmi_decode_mlp": [_P] * 6 + [_I] * 6 + [_P],
     # embed, scales, h, act_scales, part_val, part_idx, ids, V, H, B, mode, stream
     "dmi_head_argmax": [_P] * 7 + [_I] * 4 + [_P],
+    # a, b, out, M, N, K, block_m, int8, stream
+    "dmi_block_mm": [_P] * 3 + [_I] * 5 + [_P],
+    # w, h, out, O, B, I, block_o, stream
+    "dmi_stream_mm": [_P] * 3 + [_I] * 4 + [_P],
+    # p, h, out, OUT, B, K, split_k, stream
+    "dmi_w4_probe": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lib = None

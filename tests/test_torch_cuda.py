@@ -13,6 +13,7 @@ ulps).
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -21,13 +22,18 @@ import torch
 from dmi_tpu_torch.models import decode as dec
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.models import quant
+from dmi_tpu_torch.ops.cuda import block_mm as tbm
 from dmi_tpu_torch.ops.cuda import decode_attn as tda
 from dmi_tpu_torch.ops.cuda import decode_mlp as tdm
 from dmi_tpu_torch.ops.cuda import flash_attn as tfa
 from dmi_tpu_torch.ops.cuda import head_argmax as tha
 from dmi_tpu_torch.ops.cuda import lora0 as tl0
 from dmi_tpu_torch.ops.cuda import projector as tpk
+from dmi_tpu_torch.ops.cuda import stream_mm as tsm
 from dmi_tpu_torch.ops.cuda import w4_matmul as tw4
+from dmi_tpu_torch.ops.cuda import w4_probe as twp
+from dmi_tpu_torch.probes import bf16_steps, f32_sum_slack
+from dmi_tpu_torch.utils.profiling import device_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -670,3 +676,124 @@ def test_greedy_bl_kernel_path_f32_and_batch_first(cuda):
     assert got[1] > 0 and got[0] == got[1] and got[2:] == (0, 0, 0)
     assert torch.equal(ids, dec.greedy_generate_bl(cfg, params, embeds, 12, 1, plain=True))
     assert torch.equal(ids, dec.greedy_generate(cfg, params, embeds, 12, 1))
+
+
+# ---------------------------------------------------------------------------
+# The probe kernels: blocked int8/bf16 matmul, weight-stream matmul, packed W4
+# ---------------------------------------------------------------------------
+
+def _ints(shape, lo, hi, dev, seed):
+    a = np.random.default_rng(seed).integers(lo, hi, size=shape).astype(np.int8)
+    return torch.from_numpy(a).to(dev)
+
+
+# (M, N, K): the probe's --small and default squares; tiles that divide
+# nothing, with whole 16-byte rows and without (K 70 and N 200 are not
+# multiples of an int8 vector)
+BLOCK_MM_SHAPES = [(256, 256, 256), (4096, 4096, 4096), (129, 136, 144), (130, 200, 70),
+                   (17, 5, 33)]
+
+
+@pytest.mark.parametrize("block_m", tbm.BLOCK_M)
+@pytest.mark.parametrize("M,N,K", BLOCK_MM_SHAPES)
+def test_block_mm_int8_kernel_is_exact(cuda, M, N, K, block_m):
+    a, b = _ints((M, K), -127, 128, cuda, 0), _ints((K, N), -127, 128, cuda, 1)
+    n0 = tbm.launches
+    got = tbm.block_mm(a, b, block_m)
+    assert tbm.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, tbm._block_mm_plain(a, b))
+
+
+@pytest.mark.parametrize("block_m", tbm.BLOCK_M)
+@pytest.mark.parametrize("M,N,K", BLOCK_MM_SHAPES)
+def test_block_mm_bf16_kernel_matches_twin(cuda, M, N, K, block_m):
+    """Both sum in f32, in another order: within 1e-5 of the largest |out|."""
+    a, b = _normal((M, K), cuda, 0).bfloat16(), _normal((K, N), cuda, 1).bfloat16()
+    got = tbm.block_mm(a, b, block_m)
+    torch.cuda.synchronize()
+    ref = tbm._block_mm_plain(a, b)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# (I, O, B): the probe's --small and default shapes, then odd ones (B 5 is
+# not a whole bf16 vector, O 200 fills no tile)
+STREAM_SHAPES = [(128, 256, 32), (2048, 16384, 256), (72, 136, 40), (100, 200, 5)]
+
+
+@pytest.mark.parametrize("block_out", tsm.BLOCK_OUT)
+@pytest.mark.parametrize("I,O,B", STREAM_SHAPES)
+def test_stream_mm_kernel_within_one_bf16_step(cuda, I, O, B, block_out):
+    w, h = _normal((I, O), cuda, 0).bfloat16(), _normal((I, B), cuda, 1).bfloat16()
+    n0 = tsm.launches
+    got = tsm.stream_mm_bl(w, h, block_out)
+    assert tsm.launches == n0 + 1
+    torch.cuda.synchronize()
+    ref = tsm._stream_mm_plain(w, h)
+    assert got.dtype == torch.bfloat16 and got.shape == (O, B)
+    # where a sum cancels, two f32 summation orders differ by many bf16
+    # steps of the result: the step is counted beyond that slack
+    assert bf16_steps(got, ref, f32_sum_slack(w.t(), h)) <= 1
+
+
+# (K, OUT, B): the probe's --small and default shapes, then odd ones
+W4_PROBE_SHAPES = [(64, 128, 4), (2048, 16384, 256), (70, 200, 5), (130, 96, 33), (2, 2, 1)]
+
+
+@pytest.mark.parametrize("layout", ["split_out", "split_k"])
+@pytest.mark.parametrize("K,OUT,B", W4_PROBE_SHAPES)
+def test_w4_probe_kernels_equal_the_int8_product(cuda, K, OUT, B, layout):
+    """Every nibble value, -8 included; exact against the twin and the int8
+    product."""
+    w8 = np.random.default_rng(0).integers(-8, 8, size=(K, OUT)).astype(np.int8)
+    h = _ints((K, B), -128, 128, cuda, 1)
+    pack, fn, plain, count = {
+        "split_out": (twp.pack_split_out, twp.w4_dot_split_out, twp._w4_split_out_plain,
+                      "split_out_launches"),
+        "split_k": (twp.pack_split_k, twp.w4_dot_split_k, twp._w4_split_k_plain,
+                    "split_k_launches")}[layout]
+    p = torch.from_numpy(pack(w8)).to(cuda)
+    n0 = getattr(twp, count)
+    got = fn(p, h)
+    assert getattr(twp, count) == n0 + 1
+    torch.cuda.synchronize()
+    want = (torch.from_numpy(w8).to(cuda).double().t() @ h.double()).to(torch.int32)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got, plain(p, h))
+
+
+def test_probe_kernels_refuse_what_they_cannot_take(cuda):
+    a = _ints((32, 32), -1, 1, cuda, 0)
+    with pytest.raises(TypeError, match="int8 or two bf16"):
+        tbm.block_mm(a, a.bfloat16())
+    with pytest.raises(ValueError, match="block_m"):
+        tbm.block_mm(a, a, 96)
+    with pytest.raises(ValueError, match="one device"):
+        tbm.block_mm(a, a.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        tbm.block_mm(a.t(), a)
+    w = a.bfloat16()
+    with pytest.raises(ValueError, match="block_out"):
+        tsm.stream_mm_bl(w, w, 512)
+    with pytest.raises(TypeError, match="bf16"):
+        tsm.stream_mm_bl(w.float(), w)
+    p = torch.zeros((32, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="shapes"):
+        twp.w4_dot_split_k(p, a)
+    with pytest.raises(TypeError, match="uint8"):
+        twp.w4_dot_split_out(p.view(torch.int8), a)
+
+
+def test_device_ms_holds_the_bound_after_the_process_idles(cuda):
+    """The timer of the smoke and the probes.  Summed torch.profiler kernel
+    spans lost the kernels of a short session once the process had idled
+    (a 4096³ bf16 matmul read faster than the card's peak); CUDA events
+    around calls enqueued behind a held stream do not."""
+    a = _normal((1024, 1024), cuda, 0).bfloat16()
+    bound_ms = 2 * 1024 ** 3 / 989e12 * 1e3
+    first = device_ms(lambda: a @ a)
+    time.sleep(40)
+    again = device_ms(lambda: a @ a)
+    assert first >= bound_ms and again >= bound_ms, (first, again, bound_ms)
+    assert 0.5 * first <= again <= 2 * first, (first, again)

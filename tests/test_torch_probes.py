@@ -1,0 +1,334 @@
+"""The probe kernels' twins and wrappers of dmi_tpu_torch against the probe
+scripts' Pallas kernels.
+
+The scripts define their kernels inside main(), so each test rebuilds the
+script's pl.pallas_call (its kernel body and BlockSpecs, cited by line) and
+runs it with interpret=True at the script's --small shapes, for the
+script's seed and two more:
+
+- scripts/profile_int8_mxu.py (pallas_mm): int8 exact, bf16 within 1e-5 of
+  the largest |output| (both sum in f32, in another order);
+- scripts/profile_mlp_stream.py (pallas_mm): within one bf16 step per
+  element (both round one f32 sum);
+- scripts/profile_w4_matmul.py (dot_w4_pallas, dot_w4_pallas_k): exact.
+
+On the CPU each wrapper is its twin and launches nothing; the probes'
+entry points run there only when asked (--device cpu).
+"""
+
+import json
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+from jax.experimental import pallas as pl
+
+from dmi_tpu_torch.ops.cuda import block_mm as tbm
+from dmi_tpu_torch.ops.cuda import stream_mm as tsm
+from dmi_tpu_torch.ops.cuda import w4_probe as twp
+from dmi_tpu_torch.probes import bf16_steps, f32_sum_slack, profile_int8_mxu, profile_mlp_stream
+from dmi_tpu_torch.probes import profile_w4_matmul
+
+torch.set_num_threads(1)
+
+SEEDS = [0, 1, 2]  # the scripts' default_rng(0), and two more
+
+
+def _torch(x):
+    """A jax array as a torch tensor of the same values (bf16 bits kept)."""
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+    return torch.from_numpy(np.array(x))
+
+
+# scripts/profile_int8_mxu.py:71-85, at --small's N 256, bm 128
+def _pallas_block_mm(a, b, acc_t, N=256, bm=128):
+    def mm_kernel(acc_t, a_ref, b_ref, o_ref):
+        o_ref[:] = jnp.dot(a_ref[:], b_ref[:], preferred_element_type=acc_t)
+
+    return pl.pallas_call(
+        partial(mm_kernel, acc_t),
+        out_shape=jax.ShapeDtypeStruct((N, N), acc_t),
+        grid=(N // bm, N // bm),
+        in_specs=[pl.BlockSpec((bm, N), lambda i, j: (i, 0)),
+                  pl.BlockSpec((N, bm), lambda i, j: (0, j))],
+        out_specs=pl.BlockSpec((bm, bm), lambda i, j: (i, j)),
+        interpret=True,
+    )(a, b)
+
+
+def _int8_mxu_operands(seed, N=256):
+    """The script's operands (:65-69), from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    a8 = jnp.asarray(rng.integers(-127, 128, size=(N, N)), jnp.int8)
+    b8 = jnp.asarray(rng.integers(-127, 128, size=(N, N)), jnp.int8)
+    abf = jnp.asarray(rng.normal(size=(N, N)), jnp.bfloat16)
+    bbf = jnp.asarray(rng.normal(size=(N, N)), jnp.bfloat16)
+    return a8, b8, abf, bbf
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_block_mm_int8_equals_pallas_exactly(seed):
+    a8, b8, _, _ = _int8_mxu_operands(seed)
+    want = np.asarray(_pallas_block_mm(a8, b8, jnp.int32))
+    for fn in (tbm._block_mm_plain, tbm.block_mm):  # on the CPU the wrapper is the twin
+        got = fn(_torch(a8), _torch(b8))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_block_mm_bf16_within_1e5_of_pallas(seed):
+    _, _, abf, bbf = _int8_mxu_operands(seed)
+    want = np.asarray(_pallas_block_mm(abf, bbf, jnp.float32))
+    for fn in (tbm._block_mm_plain, tbm.block_mm):
+        got = fn(_torch(abf), _torch(bbf))
+        assert got.dtype == torch.float32
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_block_mm_int8_twin_is_exact_past_f32():
+    """Sums past 2**24 (K 4096 of +-127 products reach 6.6e7): an f32
+    accumulator would round them."""
+    a = torch.full((2, 4096), 127, dtype=torch.int8)
+    b = torch.full((4096, 2), 127, dtype=torch.int8)
+    b[0, 0] = 126
+    got = tbm._block_mm_plain(a, b)
+    assert got[0, 0].item() == 127 * 127 * 4095 + 127 * 126
+    assert got[0, 1].item() == 127 * 127 * 4096
+
+
+# scripts/profile_mlp_stream.py:61-78, at --small's I 128, O 256, B 32, bo O
+def _pallas_stream_mm(w, h, bo):
+    I, O = w.shape
+    B = h.shape[1]
+
+    def mm_kernel(w_ref, h_ref, o_ref):
+        o_ref[:] = jax.lax.dot_general(
+            w_ref[...], h_ref[...], (((0,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32,
+        ).astype(jnp.bfloat16)
+
+    return pl.pallas_call(
+        mm_kernel,
+        out_shape=jax.ShapeDtypeStruct((O, B), jnp.bfloat16),
+        grid=(O // bo,),
+        in_specs=[pl.BlockSpec((I, bo), lambda j: (0, j)),
+                  pl.BlockSpec((I, B), lambda j: (0, 0))],
+        out_specs=pl.BlockSpec((bo, B), lambda j: (j, 0)),
+        interpret=True,
+    )(w, h)
+
+
+@pytest.mark.parametrize("bo", [256, 128])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_stream_mm_within_one_bf16_step_of_pallas(seed, bo):
+    I, O, B = 128, 256, 32
+    rng = np.random.default_rng(seed)  # the script's operands (:57-59)
+    w = jnp.asarray(rng.normal(size=(I, O)).astype(np.float32), jnp.bfloat16)
+    h = jnp.asarray(rng.normal(size=(I, B)).astype(np.float32), jnp.bfloat16)
+    want = _torch(_pallas_stream_mm(w, h, bo))
+    for fn in (tsm._stream_mm_plain, tsm.stream_mm_bl):
+        got = fn(_torch(w), _torch(h))
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (O, B)
+        assert bf16_steps(got, want) <= 1
+
+
+def test_bf16_steps_counts_spacings():
+    ref = torch.tensor([1.0, 1.0, -3.0, 0.0]).bfloat16()
+    assert bf16_steps(ref, ref) == 0
+    assert bf16_steps(torch.tensor([1.0078125, 1.0, -3.0, 0.0]), ref) == 1.0
+    assert bf16_steps(torch.tensor([1.015625, 1.0, -3.0, 0.0]), ref) == 2.0
+    assert bf16_steps(torch.tensor([0.0]), torch.tensor([0.0])) == 0
+    assert bf16_steps(torch.tensor([1.015625]), torch.tensor([1.0]), slack=0.0078125) == 1.0
+
+
+def test_f32_sum_slack_covers_a_cancelling_sum():
+    """1 + 2**-24 - 1 summed in two orders: 0 and 2**-24 apart, within
+    the slack, though many bf16 steps of the result."""
+    a = torch.tensor([[1.0, 2.0 ** -24, -1.0]])
+    b = torch.ones(3, 1)
+    one = (a[0, 0] + a[0, 1]) + a[0, 2]
+    other = (a[0, 0] + a[0, 2]) + a[0, 1]
+    assert one.item() != other.item()
+    slack = f32_sum_slack(a, b)
+    assert abs(one - other) <= slack.item()
+    assert bf16_steps(one.reshape(1, 1), other.reshape(1, 1)) > 1
+    assert bf16_steps(one.reshape(1, 1), other.reshape(1, 1), slack) == 0
+
+
+# scripts/profile_w4_matmul.py:145-197, at --small's K 64, OUT 128, B 4
+def _pallas_w4_split_out(p, h):
+    KK, half = p.shape
+    B = h.shape[1]
+    bo = min(512, half)
+
+    def _w4_kernel(h_ref, p_ref, o_ref):
+        p32 = p_ref[...].astype(jnp.int32)
+        lo = ((p32 << 28) >> 28).astype(jnp.int8)
+        hi = ((p32 << 24) >> 28).astype(jnp.int8)
+        hh = h_ref[...]
+        dn = (((0,), (0,)), ((), ()))
+        o_ref[0] = lax.dot_general(lo, hh, dn, preferred_element_type=jnp.int32)
+        o_ref[1] = lax.dot_general(hi, hh, dn, preferred_element_type=jnp.int32)
+
+    acc = pl.pallas_call(
+        _w4_kernel,
+        out_shape=jax.ShapeDtypeStruct((2, half, B), jnp.int32),
+        grid=(half // bo,),
+        in_specs=[pl.BlockSpec((KK, B), lambda i: (0, 0)),
+                  pl.BlockSpec((KK, bo), lambda i: (0, i))],
+        out_specs=pl.BlockSpec((2, bo, B), lambda i: (0, i, 0)),
+        interpret=True,
+    )(h, p)
+    return acc.reshape(2 * half, B)
+
+
+def _pallas_w4_split_k(p, h):
+    Kh, OO = p.shape
+    K, B = h.shape
+    bo = min(512, OO)
+
+    def _w4k_kernel(h_ref, p_ref, o_ref):
+        p32 = p_ref[...].astype(jnp.int32)
+        lo = ((p32 << 28) >> 28).astype(jnp.int8)
+        hi = ((p32 << 24) >> 28).astype(jnp.int8)
+        hh = h_ref[...]
+        dn = (((0,), (0,)), ((), ()))
+        o_ref[...] = lax.dot_general(
+            lo, hh[: K // 2], dn, preferred_element_type=jnp.int32
+        ) + lax.dot_general(hi, hh[K // 2:], dn, preferred_element_type=jnp.int32)
+
+    return pl.pallas_call(
+        _w4k_kernel,
+        out_shape=jax.ShapeDtypeStruct((OO, B), jnp.int32),
+        grid=(OO // bo,),
+        in_specs=[pl.BlockSpec((2 * Kh, B), lambda i: (0, 0)),
+                  pl.BlockSpec((Kh, bo), lambda i: (0, i))],
+        out_specs=pl.BlockSpec((bo, B), lambda i: (i, 0)),
+        interpret=True,
+    )(h, p)
+
+
+def _w4_operands(seed, K=64, OUT=128, B=4):
+    """The script's operands (:66, :72), from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    w8 = np.asarray(jnp.asarray(rng.integers(-7, 8, size=(K, OUT)), jnp.int8))
+    h = np.asarray(jnp.asarray(rng.integers(-64, 64, size=(K, B)), jnp.int8))
+    return w8, h
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_pack_helpers_equal_the_scripts_packing(seed):
+    w8, _ = _w4_operands(seed)
+    K, OUT = w8.shape
+    # scripts/profile_w4_matmul.py:93-96 and :110-113
+    p_so = ((w8[:, : OUT // 2] & 0xF) | ((w8[:, OUT // 2:] & 0xF) << 4)).astype(np.uint8)
+    p_sk = ((w8[: K // 2] & 0xF) | ((w8[K // 2:] & 0xF) << 4)).astype(np.uint8)
+    for got, want in ((twp.pack_split_out(w8), p_so), (twp.pack_split_k(w8), p_sk)):
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["split_out", "split_k"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_w4_probe_equals_pallas_exactly(seed, layout):
+    w8, h = _w4_operands(seed)
+    pack, pallas, plain, wrapper = {
+        "split_out": (twp.pack_split_out, _pallas_w4_split_out, twp._w4_split_out_plain,
+                      twp.w4_dot_split_out),
+        "split_k": (twp.pack_split_k, _pallas_w4_split_k, twp._w4_split_k_plain,
+                    twp.w4_dot_split_k)}[layout]
+    p = pack(w8)
+    want = np.asarray(pallas(jnp.asarray(p), jnp.asarray(h)))
+    np.testing.assert_array_equal(want, w8.astype(np.int64).T @ h.astype(np.int64))
+    for fn in (plain, wrapper):
+        got = fn(torch.from_numpy(p), torch.from_numpy(h))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_w4_twins_take_every_nibble():
+    """-8 as well, which the script's weights (-7..7) never hold."""
+    w8 = np.random.default_rng(3).integers(-8, 8, size=(32, 48)).astype(np.int8)
+    h = np.random.default_rng(4).integers(-128, 128, size=(32, 5)).astype(np.int8)
+    want = w8.astype(np.int64).T @ h.astype(np.int64)
+    ht = torch.from_numpy(h)
+    for pack, fn in ((twp.pack_split_out, twp.w4_dot_split_out),
+                     (twp.pack_split_k, twp.w4_dot_split_k)):
+        np.testing.assert_array_equal(fn(torch.from_numpy(pack(w8)), ht).numpy(), want)
+
+
+def _counts():
+    return (tbm.launches, tsm.launches, twp.split_out_launches, twp.split_k_launches)
+
+
+def _final_dict(out: str) -> dict:
+    lines = out.splitlines()
+    return json.loads("\n".join(lines[lines.index("{"):]))
+
+
+PROBES = {
+    "profile_int8_mxu": (profile_int8_mxu, [
+        "N", "block_m", "device", "timer", "cuda_int8_max_abs_err", "cuda_bf16_max_abs_err",
+        "torch_bf16_max_abs_err", "cuda_int8_bound_us", "cuda_int8_bound_by",
+        "cuda_bf16_bound_us", "cuda_bf16_bound_by", "plain_int8_cpu_wall_ms",
+        "plain_bf16_cpu_wall_ms", "torch_bf16_cpu_wall_ms"]),
+    "profile_mlp_stream": (profile_mlp_stream, [
+        "I", "O", "B", "device", "timer", "cuda_bo64_max_bf16_steps", "torch_max_bf16_steps",
+        "cuda_bound_us", "cuda_bound_by", "plain_cpu_wall_ms", "torch_cpu_wall_ms"]),
+    "profile_w4_matmul": (profile_w4_matmul, [
+        "batch", "K", "OUT", "device", "timer", "cuda_split_out_max_abs_err",
+        "cuda_split_k_max_abs_err", "plain_split_out_max_abs_err",
+        "cuda_split_out_bound_us", "cuda_split_out_bound_by", "cuda_split_k_bound_us",
+        "cuda_split_k_bound_by", "plain_split_out_cpu_wall_ms", "plain_split_k_cpu_wall_ms"]),
+}
+
+
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_main_on_the_cpu(name, capsys):
+    """--small --device cpu: the gate passes, a line per variant, then the
+    documented keys; no kernel launches and no device metric is written."""
+    module, keys = PROBES[name]
+    n0 = _counts()
+    module.main(["--small", "--device", "cpu"])
+    assert _counts() == n0
+    out = capsys.readouterr().out
+    assert "correctness:" in out
+    res = _final_dict(out)
+    assert set(keys) <= set(res), set(keys) - set(res)
+    assert res["device"] == "cpu" and "CPU" in res["timer"]
+    assert not [k for k in res if k.endswith(("_ms", "_tflops", "_gbps", "_speedup"))
+                and not k.endswith("_cpu_wall_ms")]
+    assert all(res[k] > 0 for k in keys if k.endswith(("_cpu_wall_ms", "_bound_us")))
+    variant_lines = [json.loads(x) for x in out.splitlines() if x.startswith("{\"")]
+    assert len(variant_lines) >= 2
+
+
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_needs_a_card_unless_asked_for_the_cpu(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--small"], ["--small", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            PROBES[name][0].main(argv)
+
+
+def test_probe_gate_raises_before_timing(monkeypatch, capsys):
+    """A twin that disagrees stops the probe before any variant is timed."""
+    monkeypatch.setattr(profile_w4_matmul, "_w4_split_k_plain",
+                        lambda p, h: twp._w4_split_k_plain(p, h) + 1)
+    with pytest.raises(AssertionError, match="plain_split_k"):
+        profile_w4_matmul.run(small=True, device="cpu")
+    assert "_cpu_wall_ms" not in capsys.readouterr().out
+
+
+def test_profile_timer_needs_a_card(monkeypatch):
+    from dmi_tpu_torch.probes import profile_timer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_timer.main(["--rounds", "1", "--idle", "0"])
