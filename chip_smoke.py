@@ -8,14 +8,18 @@ CUDA card.
 1. Builds the CUDA kernels from dmi_tpu_torch/csrc with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch twin at the shapes of every
    path that runs it, and times it, the twin and one PyTorch library call of
-   the same function (device time per call, from torch.profiler's kernel
-   spans) beside its bound (the bytes it must move over the memory rate or
-   its operations over the peak rate, whichever is larger): the projector
-   MLP2 at serving's and stage 3's shapes; the decode attention at serving's
-   and stage 3's; the flash attention forward and both backward kernels
-   (dK/dV, dQ) at Llama-3.2-1B's heads and the (B, T) of stage 1, stage 2,
-   stage 3 and the LoRA baseline, of T 128 and of T 606 (sharegpt4video's
-   budget), bf16 and f32, with and without a key mask; the LoRA layer-0
+   the same function (device time per call: CUDA events around calls queued
+   behind a spin kernel, utils.profiling.device_ms) beside its bound (the
+   bytes it must move over the memory rate or its operations over the peak
+   rate, whichever is larger) and its ratio to the library call: the
+   projector MLP2 at serving's and stage 3's shapes (timed at batch 64, 128
+   and 256); the decode attention at serving's and stage 3's, and over
+   caches of 3073 and 16384 positions (past one chunk of scores, with a
+   finfo.min tail; the longer timed); the flash attention forward and both
+   backward kernels (dK/dV, dQ) at Llama-3.2-1B's heads and the (B, T) of
+   stage 1, stage 2, stage 3 and the LoRA baseline (each path's call timed),
+   of T 128 and of T 606 (sharegpt4video's budget), bf16 and f32, with and
+   without a key mask; the LoRA layer-0
    kernel at stage 2's and stage 3's shapes, f32 and bf16, one and four
    adapter groups; the packed W4A8 matmul (and its W8A8 variant) at
    Llama-3.2-1B's four layer matmuls, bit for bit, at batch 128, 8, 64, 100
@@ -213,12 +217,14 @@ def kernel_phase(torch, dev):
     results = {}
 
     print("kernel fused_mlp2 vs _mlp2_plain (lm 2048):")
-    errs, times = [], None
-    # serving (mm 1024, B 128; ragged 44, 256, bf16), then stage 3's
-    # generate through the generated projector (mm 768, B 64)
+    errs, times = [], {}
+    # serving (mm 1024: B 128, a ragged 44, 1 row, 64, one row past a tile
+    # multiple, 256, bf16), then stage 3's generate through the generated
+    # projector (mm 768, B 64); the f32 serving batches are timed
     for B, mm, dtype in ((128, MM_DIM, torch.float32), (44, MM_DIM, torch.float32),
-                         (256, MM_DIM, torch.float32), (128, MM_DIM, torch.bfloat16),
-                         (FS_BATCH, TRAIN_MM_DIM, torch.float32)):
+                         (1, MM_DIM, torch.float32), (64, MM_DIM, torch.float32),
+                         (132, MM_DIM, torch.float32), (256, MM_DIM, torch.float32),
+                         (128, MM_DIM, torch.bfloat16), (FS_BATCH, TRAIN_MM_DIM, torch.float32)):
         spec = proj.ProjectorSpec(mm_dim=mm, lm_dim=2048)
         p = proj.init(spec, gen, dtype=dtype, device=dev)["layers"]
         x = l2_normalize(torch.randn(B, mm, generator=gen, device=dev)).to(dtype)
@@ -226,15 +232,16 @@ def kernel_phase(torch, dev):
         name = f"B={B} mm={mm} {str(dtype)[6:]}"
         errs.append(compare(torch, name, pk.fused_mlp2(*args), pk._mlp2_plain(*args),
                             TOL[str(dtype)[6:]]))
-        if times is None:  # the serving case: f32, B = 128
+        if mm == MM_DIM and dtype == torch.float32 and B in (64, 128, 256):
             x, w0, b0, w1, b1 = args
-            times = {**device_times(
+            times[B] = {**device_times(
                 torch, lambda: pk.fused_mlp2(*args), lambda: pk._mlp2_plain(*args),
                 lambda: torch.addmm(b1, torch.nn.functional.gelu(torch.addmm(b0, x, w0),
                                                                  approximate="tanh"), w1)),
                      **least_time(nbytes(*args) + B * w1.shape[1] * x.element_size(),
                                   2 * B * (w0.numel() + w1.numel()), dtype)}
-            print(f"    {report_times(times)}; library: addmm, gelu, addmm")
+            print(f"    {report_times(times[B])}; library: addmm, gelu, addmm")
+    times = times[128]  # the serving batch: the kernels line
     results["mlp2"] = {"max_abs_err": max(errs), **times}
 
     print("kernel fused_decode_attention vs _decode_attn_plain "
@@ -274,6 +281,27 @@ def kernel_phase(torch, dev):
             print(f"    {report_times(times)}; library: scaled_dot_product_attention, GQA")
     if not any(cap_moves):
         raise AssertionError("no softcap case binds: the kernel's softcap is unchecked")
+    # caches longer than the 3072 positions one chunk of scores holds at
+    # g = 4: the online softmax over 2 and 6 chunks, with a finfo.min tail
+    for S in (3073, 16384):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(2, 32, 1, 64, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(2, 8, S, 64, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            bias = torch.zeros(S, device=dev)
+            bias[S - 1000:] = torch.finfo(torch.float32).min
+            args = (q, k, v, bias)
+            errs.append(compare(torch, f"B=2 S={S} {str(dtype)[6:]} (finfo.min tail)",
+                                da.fused_decode_attention(*args), da._decode_attn_plain(*args),
+                                TOL[str(dtype)[6:]]))
+            if dtype == torch.bfloat16:
+                t = {**device_times(
+                    torch, lambda: da.fused_decode_attention(*args),
+                    lambda: da._decode_attn_plain(*args),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=bias.view(1, 1, 1, S), enable_gqa=True)),
+                     **least_time(nbytes(q, k, v, bias, q), 4 * 2 * 32 * S * 64, dtype)}
+                print(f"    {report_times(t)}; library: scaled_dot_product_attention, GQA")
     results["decode_attention"] = {"max_abs_err": max(errs), **times}
     return results
 
@@ -618,8 +646,8 @@ def device_times(torch, kernel, plain, library) -> dict:
 
 def report_times(t: dict) -> str:
     return (f"device time per call: kernel {t['ms'] * 1e3!r} us, plain {t['plain_ms'] * 1e3!r} "
-            f"us, library {t['library_ms'] * 1e3!r} us; bound {t['bound_ms'] * 1e3!r} us "
-            f"({t['bound_by']})")
+            f"us, library {t['library_ms'] * 1e3!r} us (kernel / library "
+            f"{t['ms'] / t['library_ms']!r}); bound {t['bound_ms'] * 1e3!r} us ({t['bound_by']})")
 
 
 def profile_run(torch, label, run) -> dict:

@@ -32,15 +32,16 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # x, w0, b0, w1, b1, out, B, mm, lm, lm2, tb, dtype, stream
-    "dmi_mlp2": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w0, b0, w1, b1, out, hidden, B, mm, lm, lm2, tm1, tm2, dtype, stream
+    "dmi_mlp2": [_P] * 7 + [_I] * 7 + [_P],
     # x, w0, b0, a, bm, d, out, G, B, mm, lm, r, tb, dtype, stream
     "dmi_lora0": [_P] * 7 + [_I] * 7 + [_P],
-    # q, k, v, bias, out, B, nkv, group, S, hd, k_sb, k_sh, v_sb, v_sh,
+    # q, k, v, bias, out, B, nkv, group, S, hd, chunk, k_sb, k_sh, v_sb, v_sh,
     # scale, softcap, dtype, stream
-    "dmi_decode_attn": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _P],
-    # q, k, v, key_mask, o, lse, B, nh, nkv, T, hd, strides[12], scale, dtype, stream
-    "dmi_flash_fwd": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _P],
+    "dmi_decode_attn": [_P] * 5 + [_I] * 6 + [_L] * 4 + [_F, _F, _I, _P],
+    # q, k, v, key_mask, o, lse, B, nh, nkv, T, hd, strides[12], scale, kd, hpb,
+    # vec, dtype, stream
+    "dmi_flash_fwd": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _I, _I, _I, _P],
     # q, k, v, key_mask, dout, lse, delta, dk, dv, B, nh, nkv, T, hd, strides[18],
     # scale, dtype, stream
     "dmi_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],

@@ -7,7 +7,9 @@ the TPU the kernel stayed unwired, because the pallas_call boundary forced a
 layout conversion of the cache; on Hopper the kernel reads the batch-first
 cache where it lies, so the port runs it on every layer of every decode
 step.  It reads the K/V cache once per call, ~g FLOPs per bf16 byte: bound
-by device memory bandwidth, and at caption lengths by launch latency.
+by device memory bandwidth, and at caption lengths by launch latency.  The
+kernel streams the keys in chunks with an online softmax, so the cache may
+have any length, as dmi_tpu's loops allow.
 
 `fused_decode_attention` runs `_decode_attn_plain` for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; there is no fallback
@@ -25,9 +27,16 @@ from dmi_tpu_torch.ops.cuda import _build
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
-SMEM_BYTES = 48 * 1024  # scores [group, S] f32: S <= 3072 at group 4
 MAX_HEAD_DIM = 256      # kMaxHdPerLane * 32 of csrc/decode_attn.cu
 MAX_GROUP = 32          # one warp per query head: 32 warps per block
+SCORE_FLOATS = 12288    # kScoreFloats: a block's [group, chunk] f32 scores, 48 KB
+
+
+def score_chunk(S: int, group: int) -> int:
+    """Keys per chunk of the kernel's online softmax: all S when their
+    [group, S] f32 scores fit SCORE_FLOATS (S <= 3072 at group 4: one
+    chunk, a plain softmax), else the most that fit."""
+    return max(1, min(S, SCORE_FLOATS // group))
 
 
 def _decode_attn_plain(q, k, v, bias, scale=None, softcap=None):
@@ -77,10 +86,10 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
         raise TypeError("decode attention kernel: q/k/v share one dtype, bias is f32")
     if any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("decode attention kernel is forward-only")
-    if hd > MAX_HEAD_DIM or group > MAX_GROUP or group * S * 4 > SMEM_BYTES:
+    if hd > MAX_HEAD_DIM or group > MAX_GROUP:
         raise ValueError(
             f"decode attention kernel: hd {hd} (<= {MAX_HEAD_DIM}), group "
-            f"{group} (<= {MAX_GROUP}), S {S} (<= {SMEM_BYTES // (4 * group)})"
+            f"{group} (<= {MAX_GROUP})"
         )
     if not (q.is_contiguous() and bias.is_contiguous()):
         raise ValueError("decode attention kernel: q and bias must be contiguous")
@@ -93,7 +102,8 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
         return out
     err = _build.lib().dmi_decode_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        B, nkv, group, S, hd, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        B, nkv, group, S, hd, score_chunk(S, group), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1),
         float(scale if scale is not None else 1.0 / math.sqrt(hd)),
         float(softcap) if softcap is not None else 0.0,
         code, torch.cuda.current_stream(q.device).cuda_stream,

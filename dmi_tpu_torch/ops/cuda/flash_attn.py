@@ -9,7 +9,11 @@ csrc/flash_attn_fwd.cu and csrc/flash_attn_bwd.cu, wrapped in one
 torch.autograd.Function.  Differences from the TPU path, none in the math:
 
   * GQA is native (query head h reads kv head h // group); the TPU wrapper
-    repeated k and v over the group for the library's layout.
+    repeated k and v over the group for the library's layout.  The bf16
+    forward packs the query heads of a kv head into one block, so they
+    share its staged K and V tiles.
+  * The bf16 forward runs both products on the tensor cores (mma.sync);
+    the f32 instance and the backward kernels run on the CUDA cores.
   * Any T: the kernels mask the ragged last tile; the TPU wrapper padded T
     to a multiple of 128.
   * q, k, v, the output and the gradients keep free batch, head and row
@@ -41,6 +45,30 @@ dkv_launches = 0
 dq_launches = 0
 
 MAX_HEAD_DIM = 128  # kMaxHd of csrc/flash_attn.cuh
+TILE = 64           # kTile: query rows and keys per tile
+HEAD_SLICES = (1, 2, 3, 4, 6, 8)  # the bf16 forward's instances: hd padded to 16 kd
+
+
+def fwd_plan(B: int, nh: int, nkv: int, T: int, hd: int, dtype) -> dict:
+    """The forward kernel's launch.  bf16 runs on the tensor cores: 128
+    threads, 4 warps of 16 query rows; a block packs hpb query heads of one
+    kv head (4, 2 or 1, the most that divide the group), 64 / hpb rows of
+    each, so the heads share every K and V tile it stages; hd is padded with
+    zeros to 16 kd (kd the least of HEAD_SLICES that holds it); shared
+    memory holds the warps' Q rows and two K and two V tiles of
+    [64, 16 kd + 8] bf16.  f32 runs on the CUDA cores: one block of 256
+    threads per (64-query tile, head), Q, K, V [64, hd + 1] and a [64, 65]
+    p tile of f32."""
+    if dtype == torch.bfloat16:
+        kd = next(d for d in HEAD_SLICES if 16 * d >= hd)
+        hpb = next(n for n in (4, 2, 1) if (nh // nkv) % n == 0)
+        rows = TILE // hpb
+        return {"grid": (-(-T // rows), nh // hpb, B), "threads": 128, "head_slices": kd,
+                "heads_per_block": hpb, "rows": rows,
+                "smem": 5 * TILE * (16 * kd + 8) * 2}
+    return {"grid": (-(-T // TILE), nh, B), "threads": 256, "head_slices": 0,
+            "heads_per_block": 1, "rows": TILE,
+            "smem": (3 * TILE * (hd + 1) + TILE * (TILE + 1)) * 4}
 
 
 def _flash_attn_plain(q, k, v, key_mask=None, scale=None):
@@ -84,9 +112,14 @@ def _fwd_kernel(q, k, v, key_mask, scale):
     B, nh, T, hd = q.shape
     o = torch.empty_like(q)  # q's layout: a block's reshape after it is free
     lse = torch.empty((B, nh, T), dtype=torch.float32, device=q.device)
+    plan = fwd_plan(B, nh, k.shape[1], T, hd, q.dtype)
+    # 16-byte copies of 8 bf16: every row of q, k, v and o starts on 16 bytes
+    vec = hd % 8 == 0 and all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+                              for t in (q, k, v, o))
     err = _build.lib().dmi_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), o.data_ptr(),
         lse.data_ptr(), B, nh, k.shape[1], T, hd, _strides(q, k, v, o), scale,
+        plan["head_slices"], plan["heads_per_block"], int(vec),
         _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash attention forward")

@@ -5,9 +5,11 @@ kernels (_mlp2_pallas, single block; _mlp2_pallas_tiled, column-tiled) are
 one hand-written CUDA kernel here, csrc/mlp2.cu.  The serving path runs it
 in f32 at B = 64-256 rows, mm = 1024, lm = lm2 = 2048: about 1.6 GFLOP at
 B = 128 against 24 MiB of weights, compute bound on the CUDA cores.  The
-kernel keeps each row tile's hidden activation in shared memory (the TPU
-kept both weights in VMEM, which does not fit an SM) and streams w1 against
-it; see the source for the design.
+kernel runs as two register-tiled passes over many blocks (the TPU kept
+both weights in VMEM, which does not fit an SM): the first writes the
+hidden activation into an f32 scratch buffer that stays in L2, the second
+multiplies it by w1; `mlp2_plan` picks each pass's tile and grid.  See the
+source for the design.
 
 `fused_mlp2` is a torch.autograd.Function.  Its forward runs `_mlp2_plain`
 for tensors on the CPU and launches the kernel for tensors on a CUDA
@@ -25,10 +27,17 @@ import torch.nn.functional as F
 
 from dmi_tpu_torch.ops.cuda import _build
 
-# launches of the CUDA kernel since the count was last set to 0
+# calls of the kernel (one per fused_mlp2 on a CUDA device, whose two
+# passes are two device launches) since the count was last set to 0
 launches = 0
 
-MAX_ROWS = 16                 # kMaxRows of csrc/mlp2.cu
+# the tiling of csrc/mlp2.cu
+K_SPLIT = 4                   # kSplit: groups of 128 threads, each a part of every K chunk
+BLOCK_COLS = 64               # kBN: output columns per block
+CHUNK_K = 128                 # kBK: K per staged chunk
+STAGES = 3                    # kStages: the cp.async ring
+ROWS_PER_THREAD = (8, 4, 2)   # kTM instances; a block owns 8 * kTM rows
+MIN_BLOCKS = 128              # blocks a pass should put on the 132 SMs
 SMEM_BYTES = 227 * 1024       # dynamic shared memory one H100 block may use
 
 
@@ -41,18 +50,35 @@ def _mlp2_plain(x, w0, b0, w1, b1):
     return y.to(x.dtype)
 
 
-def rows_per_block(mm: int, lm: int) -> int:
-    """Rows of x one block owns: as many as fit the x tile and the f32
-    hidden [rows, mm + lm] in shared memory, at most MAX_ROWS (16 at the
-    1B projector, mm = 1024, lm = 2048; 11 at an 8B-wide lm = 4096)."""
-    tb = min(MAX_ROWS, SMEM_BYTES // ((mm + lm) * 4))
-    if tb < 1:
-        raise ValueError(f"mlp2 kernel: mm + lm = {mm + lm} exceeds shared memory")
-    return tb
+def _pass_plan(B: int, K: int, N: int, a_size: int, w_size: int) -> dict:
+    """One pass, [B, K] @ [K, N]: the most rows per thread that still put
+    MIN_BLOCKS blocks in flight (the fewest, 2, when none does), the grid
+    (column tiles, row tiles) and the shared memory it takes (the ring of
+    A and w chunks, or the sums the other groups hand to the first,
+    whichever is larger)."""
+    cols = -(-N // BLOCK_COLS)
+    for tm in ROWS_PER_THREAD:
+        if -(-B // (8 * tm)) * cols >= MIN_BLOCKS:
+            break
+    rows = 8 * tm
+    stage = rows * (CHUNK_K + 16 // a_size) * a_size + CHUNK_K * BLOCK_COLS * w_size
+    smem = max(STAGES * stage, (K_SPLIT - 1) * 128 * tm * 4 * 4)
+    return {"rows_per_thread": tm, "block_rows": rows, "block_cols": BLOCK_COLS,
+            "k_split": K_SPLIT, "grid": (cols, -(-B // rows)), "smem": smem}
+
+
+def mlp2_plan(B: int, mm: int, lm: int, lm2: int, itemsize: int) -> tuple:
+    """The launch plans of the kernel's two passes for x [B, mm] @ w0
+    [mm, lm] (elements of `itemsize` bytes), then the f32 hidden [B, lm] @
+    w1 [lm, lm2].  At f32, lm = lm2 = 2048: B 64 takes 16-row tiles, B 128
+    32-row tiles, B 256 64-row tiles, each 128 blocks."""
+    return (_pass_plan(B, mm, lm, itemsize, itemsize),
+            _pass_plan(B, lm, lm2, 4, itemsize))
 
 
 def _mlp2_kernel(x, w0, b0, w1, b1):
-    """Launch csrc/mlp2.cu on contiguous CUDA tensors of one dtype."""
+    """Launch csrc/mlp2.cu's two passes on contiguous CUDA tensors of one
+    dtype; `launches` counts the call once."""
     global launches
     tensors = (x, w0, b0, w1, b1)
     B, mm = x.shape
@@ -62,12 +88,14 @@ def _mlp2_kernel(x, w0, b0, w1, b1):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mlp2 kernel: tensors must be contiguous")
     code = _build.dtype_code(x.dtype)
-    tb = rows_per_block(mm, lm)
     out = torch.empty((B, lm2), dtype=x.dtype, device=x.device)
     if B == 0:
         return out
+    hidden = torch.empty((B, lm), dtype=torch.float32, device=x.device)
+    plan1, plan2 = mlp2_plan(B, mm, lm, lm2, x.element_size())
     err = _build.lib().dmi_mlp2(
-        *(t.data_ptr() for t in tensors), out.data_ptr(), B, mm, lm, lm2, tb,
+        *(t.data_ptr() for t in tensors), out.data_ptr(), hidden.data_ptr(), B, mm, lm, lm2,
+        plan1["rows_per_thread"], plan2["rows_per_thread"],
         code, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "mlp2")

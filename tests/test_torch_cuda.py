@@ -73,7 +73,13 @@ def _mlp2_args(B, mm, lm, lm2, dtype, dev, seed=0):
     (256, 1024, 2048, 2048, torch.float32),   # the serving projector at batch 256
     (128, 1024, 2048, 2048, torch.bfloat16),
     (5, 96, 160, 72, torch.float32),          # widths off every multiple
-    (37, 1024, 4096, 4096, torch.bfloat16),   # an 8B-wide projector (11-row tiles)
+    (37, 1024, 4096, 4096, torch.bfloat16),   # an 8B-wide projector
+    (1, 1024, 2048, 2048, torch.float32),     # one row: a 16-row tile, 15 empty
+    (64, 1024, 2048, 2048, torch.float32),    # 16-row tiles, 128 blocks
+    (132, 1024, 2048, 2048, torch.float32),   # one row past a tile multiple
+    (64, 768, 2048, 2048, torch.float32),     # stage 3's generate
+    (7, 97, 161, 75, torch.float32),          # widths no 16-byte vector divides
+    (7, 97, 161, 75, torch.bfloat16),
 ])
 def test_mlp2_kernel_matches_twin(cuda, B, mm, lm, lm2, dtype):
     args = _mlp2_args(B, mm, lm, lm2, dtype, cuda)
@@ -197,7 +203,14 @@ def _attn_args(B, nh, nkv, S, hd, dtype, dev, cache_len=None, seed=0):
     (256, 32, 8, 23, 64, torch.bfloat16, None),   # batch 256
     (3, 24, 8, 70, 128, torch.bfloat16, None),    # Llama-3.2-3B heads (g = 3)
     (2, 8, 8, 1, 64, torch.float32, None),        # g = 1, one key
-    (1, 32, 8, 3000, 64, torch.float32, None),    # near the shared-memory cap
+    (1, 32, 8, 3000, 64, torch.float32, None),    # one chunk of scores
+    (2, 32, 8, 3073, 64, torch.float32, None),    # g = 4: one key past a chunk
+    (2, 32, 8, 3073, 64, torch.bfloat16, None),
+    (2, 32, 8, 8192, 64, torch.float32, None),
+    (2, 32, 8, 8192, 64, torch.bfloat16, 2.0),
+    (2, 32, 8, 20000, 64, torch.float32, None),
+    (2, 32, 8, 20000, 64, torch.bfloat16, None),
+    (1, 256, 8, 4000, 64, torch.float32, None),   # g = 32: chunks of 384
 ])
 def test_decode_attn_kernel_matches_twin(cuda, B, nh, nkv, S, hd, dtype, softcap):
     q, k, v, bias = _attn_case(B, nh, nkv, S, hd, dtype, cuda)
@@ -236,10 +249,27 @@ def test_decode_attn_kernel_masks_like_twin(cuda):
     _close(out, tda._decode_attn_plain(q, k, v, bias, 0.1), 1e-4)
 
 
+@pytest.mark.parametrize("start,stop", [(0, 3100), (3000, 8192), (9, 8192)],
+                         ids=["head-chunk", "tail-chunks", "all-but-9"])
+def test_decode_attn_kernel_masks_across_chunks(cuda, start, stop):
+    """finfo.min over whole chunks of the online softmax (3072 keys each at
+    g = 4): a first chunk whose keys are all masked is wiped by the next
+    chunk's rescale, later masked chunks add nothing, and no NaN appears."""
+    q, k, v = _attn_args(2, 32, 8, 8192, 64, torch.float32, cuda)
+    bias = torch.zeros(8192, device=cuda)
+    bias[start:stop] = torch.finfo(torch.float32).min
+    out = tda.fused_decode_attention(q, k, v, bias)
+    assert bool(torch.isfinite(out).all())
+    _close(out, tda._decode_attn_plain(q, k, v, bias), 1e-4)
+
+
 def test_decode_attn_kernel_refuses_what_it_cannot_take(cuda):
+    """S is no limit (a cache of 5000 positions matches the twin, where the
+    first kernel refused it); rows that are not contiguous are refused."""
     q, k, v = _attn_args(2, 8, 2, 5000, 64, torch.float32, cuda)
-    with pytest.raises(ValueError, match="S 5000"):
-        tda.fused_decode_attention(q, k, v, torch.zeros(5000, device=cuda))
+    bias = torch.zeros(5000, device=cuda)
+    _close(tda.fused_decode_attention(q, k, v, bias), tda._decode_attn_plain(q, k, v, bias),
+           TOL[torch.float32])
     q, k, v = _attn_args(2, 8, 2, 10, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="rows must be contiguous"):
         tda.fused_decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v,
@@ -328,6 +358,35 @@ def test_flash_kernels_match_twin(cuda, B, T, dtype, masked):
 def test_flash_kernels_other_heads(cuda, nh, nkv, hd):
     _flash_vs_twin(*_flash_args(2, nh, nkv, 70, hd, torch.float32, cuda, True),
                    torch.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "key-mask"])
+@pytest.mark.parametrize("B,nh,nkv,T,hd", [
+    (2, 4, 4, 70, 16), (2, 8, 1, 70, 40), (2, 6, 2, 70, 128),  # head dims of 1, 3, 8 slices
+    (2, 6, 2, 33, 80), (2, 6, 2, 33, 96),                      # 80 padded to 96
+    (4, 32, 8, 1, 64), (2, 32, 8, 64, 64), (32, 32, 8, 65, 64),
+    (4, 32, 8, 329, 64), (1, 32, 8, 2048, 64),                 # stage 2, a long sequence
+])
+def test_flash_bf16_tensor_core_forward(cuda, B, nh, nkv, T, hd, masked):
+    """The bf16 forward (mma.sync on the tensor cores, hd padded to 16
+    kd) and the backward that reads its o and lse, against the twin, at
+    every head-slice instance and at T that fill one tile, pass one by one
+    row, run six tiles and 32."""
+    _flash_vs_twin(*_flash_args(B, nh, nkv, T, hd, torch.bfloat16, cuda, masked),
+                   torch.bfloat16)
+
+
+def test_flash_bf16_unaligned_rows_are_staged_by_elements(cuda):
+    """q, k and v whose rows are no 16-byte multiple apart (a [B, T, heads,
+    hd] buffer one element off the start) take the element-wise staging."""
+    q, k, v, mask = _flash_args(2, 8, 2, 40, 64, torch.bfloat16, cuda, True)
+    off = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)[1:]
+        off.append(buf.view(t.shape[0], t.shape[2], t.shape[1], t.shape[3])
+                   .copy_(t.transpose(1, 2)).transpose(1, 2))
+    assert off[0].data_ptr() % 16
+    _flash_vs_twin(*off, mask, torch.bfloat16)
 
 
 def test_flash_contiguous_inputs(cuda):

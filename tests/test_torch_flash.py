@@ -133,3 +133,30 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError, match="flash attention shapes"):
         tfa.flash_attention(q[:, :3], k, v, mask)  # 3 query heads over 2 kv heads
 
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_forward_plan_covers_every_row_in_shared_memory(dtype):
+    """The forward's grid covers every query row of every head and batch
+    row once: bf16 blocks pack 4, 2 or 1 query heads of one kv head (the
+    most that divide the group), 64 rows across their warps; bf16 pads hd
+    to the least of its instances' 16-wide multiples (fewer than 32
+    columns past hd); every block fits the H100's 227 KB of shared memory
+    at every hd up to 128."""
+    for nh, nkv, hpb in ((32, 8, 4), (24, 8, 1), (12, 2, 2), (8, 8, 1), (8, 1, 4)):
+        for hd in range(1, tfa.MAX_HEAD_DIM + 1):
+            for T in (1, 15, 16, 17, 63, 64, 65, 329, 2048):
+                plan = tfa.fwd_plan(3, nh, nkv, T, hd, dtype)
+                n_qt, n_hb, B = plan["grid"]
+                rows, per = plan["rows"], plan["heads_per_block"]
+                assert B == 3 and n_hb * per == nh and (nh // nkv) % per == 0
+                assert n_qt * rows >= T > (n_qt - 1) * rows
+                assert plan["smem"] <= 227 * 1024
+                if dtype == torch.bfloat16:
+                    kd = plan["head_slices"]
+                    assert kd in tfa.HEAD_SLICES and hd <= 16 * kd < hd + 32
+                    assert (per, rows, plan["threads"]) == (hpb, 64 // hpb, 128)
+                else:
+                    assert (per, rows) == (1, tfa.TILE)
+    plan = tfa.fwd_plan(32, 32, 8, 65, 64, torch.bfloat16)  # stage 1's call
+    assert (plan["grid"], plan["head_slices"]) == ((5, 8, 32), 4)

@@ -113,13 +113,67 @@ def test_mlp2_autograd_function_matches_xla_twin_gradient():
     np.testing.assert_allclose(gx.numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-6)
 
 
-def test_rows_per_block_fits_shared_memory():
-    assert tpk.rows_per_block(1024, 2048) == 16      # the 1B projector
-    assert tpk.rows_per_block(1024, 4096) == 11      # an 8B-wide projector
-    for mm, lm in ((1024, 2048), (1024, 3072), (1024, 4096)):
-        assert tpk.rows_per_block(mm, lm) * (mm + lm) * 4 <= tpk.SMEM_BYTES
-    with pytest.raises(ValueError):
-        tpk.rows_per_block(40000, 40000)
+@pytest.mark.parametrize("mm,lm,lm2,itemsize", [
+    (1024, 2048, 2048, 4),   # the serving projector, f32
+    (768, 2048, 2048, 4),    # stage 3's generated projector
+    (1024, 2048, 2048, 2),   # bf16
+    (1024, 4096, 4096, 2),   # an 8B-wide projector
+    (96, 160, 72, 4),        # widths off every tile
+])
+def test_mlp2_plan_covers_every_output_once_in_shared_memory(mm, lm, lm2, itemsize):
+    """Each pass's grid covers every row of x and every output column
+    exactly once (the last tiles may be ragged, never empty), in a block
+    that fits the H100's shared memory, for every batch of 1-512."""
+    for B in range(1, 513):
+        for plan, N in zip(tpk.mlp2_plan(B, mm, lm, lm2, itemsize), (lm, lm2)):
+            cols, rows = plan["grid"]
+            assert plan["block_rows"] == 8 * plan["rows_per_thread"]
+            assert plan["rows_per_thread"] in tpk.ROWS_PER_THREAD
+            assert cols * plan["block_cols"] >= N > (cols - 1) * plan["block_cols"]
+            assert rows * plan["block_rows"] >= B > (rows - 1) * plan["block_rows"]
+            assert plan["smem"] <= tpk.SMEM_BYTES
+
+
+@pytest.mark.parametrize("mm", [1024, 768])
+def test_mlp2_plan_fills_the_card_at_serving_batches(mm):
+    """B 64-256 at lm 2048 put at least 128 blocks on the 132 SMs in both
+    passes; the rows per thread grow with B (16-row tiles at B 64, 32 at
+    128, 64 at 256)."""
+    for B in range(64, 257):
+        for plan in tpk.mlp2_plan(B, mm, 2048, 2048, 4):
+            assert plan["grid"][0] * plan["grid"][1] >= tpk.MIN_BLOCKS
+    tiles = [tpk.mlp2_plan(B, mm, 2048, 2048, 4)[1]["block_rows"] for B in (64, 128, 256)]
+    assert tiles == [16, 32, 64]
+
+
+def test_decode_attn_score_chunk():
+    """One chunk holds all of S while the [group, S] f32 scores fit 48 KB
+    (S <= 3072 at Llama-3.2-1B's group of 4: the serving shapes run one
+    plain softmax); longer caches stream in chunks of that size, never
+    more than 48 KB a block, for any group the kernel takes."""
+    assert tda.score_chunk(23, 4) == 23
+    assert tda.score_chunk(3072, 4) == 3072
+    assert tda.score_chunk(3073, 4) == 3072
+    assert tda.score_chunk(20000, 4) == 3072
+    for group in range(1, tda.MAX_GROUP + 1):
+        for S in (1, 5, 383, 384, 3073, 20000):
+            chunk = tda.score_chunk(S, group)
+            assert 1 <= chunk <= S and group * chunk * 4 <= 48 * 1024
+            assert chunk == S or group * (chunk + 1) > tda.SCORE_FLOATS
+
+
+@pytest.mark.parametrize("B,S,valid", [(2, 4096, None), (2, 4096, 3001), (1, 5000, 4500)])
+def test_decode_attn_twin_has_no_length_cap(B, S, valid):
+    """fused_decode_attention (its twin, on the CPU) against dmi_tpu's
+    llama._decode_attention at cache lengths past the 3072 positions a
+    single shared-memory chunk holds at group 4, with and without a
+    finfo.min tail: the port's function takes any S, as dmi_tpu's loops
+    do."""
+    q, k, v, bias = _attn_data(B=B, nh=8, nkv=2, S=S, hd=16, valid=valid, seed=7)
+    jb = jnp.broadcast_to(jnp.asarray(bias)[None, None], (B, 1, S))
+    ref = np.asarray(jllama._decode_attention(*map(jnp.asarray, (q, k, v)), jb))
+    out = tda.fused_decode_attention(*_t(q, k, v, bias)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("valid", [None, 7], ids=["all-valid", "masked-tail"])
