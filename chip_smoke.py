@@ -5,7 +5,8 @@ CUDA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-1. Builds the CUDA kernels from dmi_tpu_torch/csrc with nvcc (sm_90a).
+1. Builds the CUDA kernels from dmi_tpu_torch/csrc with nvcc (sm_90a) and
+   prints ptxas's register and spill counts of every kernel instance.
 2. Holds each kernel against its plain PyTorch twin at the shapes of every
    path that runs it, and times it, the twin and one PyTorch library call of
    the same function (device time per call: CUDA events around calls queued
@@ -17,9 +18,10 @@ CUDA card.
    caches of 3073 and 16384 positions (past one chunk of scores, with a
    finfo.min tail; the longer timed); the flash attention forward and both
    backward kernels (dK/dV, dQ) at Llama-3.2-1B's heads and the (B, T) of
-   stage 1, stage 2, stage 3 and the LoRA baseline (each path's call timed),
-   of T 128 and of T 606 (sharegpt4video's budget), bf16 and f32, with and
-   without a key mask; the LoRA layer-0
+   stage 1, stage 2, stage 3 and the LoRA baseline (each path's call timed,
+   and the whole backward as training runs it, _delta with both kernels,
+   against SDPA's backward), of T 128 and of T 606 (sharegpt4video's
+   budget), bf16 and f32, with and without a key mask; the LoRA layer-0
    kernel at stage 2's and stage 3's shapes, f32 and bf16, one and four
    adapter groups; the packed W4A8 matmul (and its W8A8 variant) at
    Llama-3.2-1B's four layer matmuls, bit for bit, at batch 128, 8, 64, 100
@@ -761,8 +763,9 @@ def slice_phase(torch, dev, cfg, params, max_new, n_requests=N_REQUESTS, mm_dim=
 
 def flash_timings(torch, fa, q, k, v, do) -> dict:
     """Device times (device_ms) of one bf16 call without a mask: each kernel,
-    the twin's forward and backward, and scaled_dot_product_attention's;
-    with each kernel's bound."""
+    the whole backward as training runs it (_delta, dK/dV, dQ), the twin's
+    forward and backward, and scaled_dot_product_attention's; with each
+    kernel's bound.  Prints the backward against SDPA's."""
     nh, hd = q.shape[1], q.shape[3]
     B, T = q.shape[0], q.shape[2]
     o, lse = fa._fwd_kernel(q, k, v, None, 0.125)
@@ -777,9 +780,15 @@ def flash_timings(torch, fa, q, k, v, do) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, scale=0.125, enable_gqa=True)
 
+    def backward():  # as _FlashAttention.backward runs it
+        d = fa._delta(do, o)
+        fa._bwd_dkv_kernel(q, k, v, None, do, lse, d, 0.125)
+        fa._bwd_dq_kernel(q, k, v, None, do, lse, d, 0.125)
+
     t = {"fwd": device_ms(lambda: fa._fwd_kernel(q, k, v, None, 0.125)),
          "dkv": device_ms(lambda: fa._bwd_dkv_kernel(q, k, v, None, do, lse, delta, 0.125)),
          "dq": device_ms(lambda: fa._bwd_dq_kernel(q, k, v, None, do, lse, delta, 0.125)),
+         "bwd": device_ms(backward),
          "plain_fwd": device_ms(lambda: fa._flash_attn_plain(q, k, v, None, 0.125)),
          "plain_fwd_bwd": device_ms(plain_fwd_bwd),
          "lib_fwd": device_ms(torch.no_grad()(sdpa)),
@@ -792,6 +801,17 @@ def flash_timings(torch, fa, q, k, v, do) -> dict:
     grads_in = nbytes(q, k, v, o, lse, lse)  # q, k, v, dO, lse, delta
     plain_bwd = t["plain_fwd_bwd"] - t["plain_fwd"]
     lib_bwd = t["lib_fwd_bwd"] - t["lib_fwd"]
+    plan = fa.bwd_plan(B, nh, k.shape[1], T, hd, q.dtype)["dkv"]
+    alt = {(hpb, rows): device_ms(lambda hpb=hpb, rows=rows: fa._bwd_dkv_kernel(
+        q, k, v, None, do, lse, delta, 0.125, heads_per_block=hpb, query_rows=rows))
+        for hpb, rows in ((1, 32), (1, 64), (2, 32), (2, 64), (4, 16), (4, 32))}
+    print(f"    flash dK/dV B={B} T={T} bf16 by plan (query heads a block, query rows a step; "
+          f"bwd_plan takes {plan['heads_per_block']}, {plan['query_rows']}): "
+          + ", ".join(f"{h}, {r}: {ms * 1e3!r} us" for (h, r), ms in alt.items()))
+    print(f"    flash backward B={B} T={T} bf16: dK/dV + dQ {(t['dkv'] + t['dq']) * 1e3!r} us, "
+          f"with _delta as training runs it {t['bwd'] * 1e3!r} us; SDPA's backward "
+          f"{lib_bwd * 1e3!r} us; (dK/dV + dQ) / SDPA {(t['dkv'] + t['dq']) / lib_bwd!r}, "
+          f"whole / SDPA {t['bwd'] / lib_bwd!r}")
     return {
         "flash_fwd": {"ms": t["fwd"], "plain_ms": t["plain_fwd"], "library_ms": t["lib_fwd"],
                       **least_time(nbytes(q, k, v, o, lse), 2 * pair_flops, q.dtype)},
@@ -1444,9 +1464,9 @@ def main() -> int:
     built = (f"nvcc build {_build.build_seconds!r} s" if _build.build_seconds is not None
              else "library reused from dmi_tpu_torch/_build")
     print(f"kernels: {built}, loaded in {time.perf_counter() - t0!r} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    print("ptxas (kernel: registers, spill store / load bytes): "
+          + "; ".join(f"{n}: {r}, {st}/{ld}" for n, r, st, ld in _build.ptxas_usage(
+              _build.build_log)))
 
     kernels = kernel_phase(torch, dev)
     kernels.update(flash_phase(torch, dev))

@@ -60,9 +60,8 @@
 //   K and V as f32 in shared memory (pitch hd + 1), computes its 64 x 64
 //   score tile (4 x 4 per thread), updates each row's max and sum with
 //   16-lane shuffles, stages p, and accumulates p . v into registers.
-#include <cuda_pipeline.h>
-
 #include "flash_attn.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -183,75 +182,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
 // ---- the bf16 instance: mma.sync on the tensor cores ----
 
-using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;         // warps of a block, 16 query rows each
 constexpr int kMmaThreads = 32 * kWarps;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the SFU (ex2.approx: ~2^-22 relative error, far inside the bf16
-// rounding of p; results below 2^-126 flush to 0, exp2(-inf) = 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two f32 rounded to bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + kRows) of one head into dst [kRows][kD * 16 + 8] as
-// bf16, by threads tid0 + i * n_threads; rows at or past n_rows and columns
-// at or past hd are zeros.  vec: hd is a multiple of 8 and every row 16-byte
-// aligned, so one cp.async per 8 elements; else element by element.
-template <int kD, int kRows>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* head, long long row_stride,
-                                           int row0, int n_rows, int hd, bool vec, int tid0,
-                                           int n_threads) {
-  constexpr int kLd = kD * 16 + 8, kVPR = kD * 2;
-  for (int v = tid0; v < kRows * kVPR; v += n_threads) {
-    const int r = v / kVPR, c = (v % kVPR) * 8;
-    const int row = row0 + r;
-    bf16* d = dst + r * kLd + c;
-    if (vec) {
-      const bool ok = row < n_rows && c < hd;
-      __pipeline_memcpy_async(d, ok ? head + row * row_stride + c : head, 16, ok ? 0 : 16);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        d[i] = (row < n_rows && c + i < hd) ? head[row * row_stride + c + i]
-                                            : __float2bfloat16(0.f);
-    }
-  }
-}
 
 // One warp's 16 query rows in the bf16 kernel; a thread holds rows g and
 // g + 8: the running max (log2 units), its share of the running sum, O as

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,11 +44,11 @@ _SIGNATURES = {
     # vec, dtype, stream
     "dmi_flash_fwd": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _I, _I, _I, _P],
     # q, k, v, key_mask, dout, lse, delta, dk, dv, B, nh, nkv, T, hd, strides[18],
-    # scale, dtype, stream
-    "dmi_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],
+    # scale, kd, hpb, qrows, vec, dtype, stream
+    "dmi_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_P, _F] + [_I] * 5 + [_P],
     # q, k, v, key_mask, dout, lse, delta, dq, B, nh, nkv, T, hd, strides[15],
-    # scale, dtype, stream
-    "dmi_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
+    # scale, kd, hpb, vec, dtype, stream
+    "dmi_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F] + [_I] * 4 + [_P],
     # weights (packed uint8 or int8), hq, a, s, out, K, out_dim, B, packed, dtype, stream
     "dmi_w4_mm": [_P] * 5 + [_I] * 5 + [_P],
     # w_gu, w_down, h, act_buf, partial, out, H, I, B, splits, act, dtype, stream
@@ -64,7 +65,7 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of the nvcc build, None when it was reused
-build_log = ""        # nvcc's output (ptxas register and spill report)
+build_log = ""        # nvcc's output (ptxas register and spill report), kept beside the library
 
 
 def _sources():
@@ -116,14 +117,15 @@ def _build(out: Path) -> None:
         obj.unlink()
     if r.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{r.stdout}{r.stderr}")
+    build_log = "".join(logs)
+    out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)  # atomic: concurrent builders never load a torn file
     build_seconds = time.perf_counter() - t0
-    build_log = "".join(logs)
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    global _lib
+    global _lib, build_log
     if _lib is None:
         h = hashlib.sha256(" ".join(FLAGS).encode())
         for src in _sources():
@@ -132,6 +134,8 @@ def lib() -> ctypes.CDLL:
         out = BUILD_DIR / f"libdmi_kernels_{h.hexdigest()[:16]}.so"
         if not out.exists():
             _build(out)
+        elif out.with_suffix(".log").exists():  # the build that made it
+            build_log = out.with_suffix(".log").read_text()
         loaded = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(loaded, name)
@@ -141,6 +145,41 @@ def lib() -> ctypes.CDLL:
         loaded.dmi_error_string.restype = ctypes.c_char_p
         _lib = loaded
     return _lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """`flash_bwd_dkv_mma_kernel<4, 1>` from an Itanium-mangled kernel name:
+    the length-prefixed identifier that ends in `_kernel`, then its integer
+    (and `float`) template arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("_kernel") and name.isidentifier():
+            rest = mangled[m.end() + len(name):]
+            if not rest.startswith("I"):
+                return name
+            body = rest[1:rest.find("Ev")]
+            args = re.findall(r"L[a-z](\d+)E", body) or (["float"] if body[:1] == "f" else [])
+            return f"{name}<{', '.join(args)}>"
+    return mangled
+
+
+def ptxas_usage(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel instance in nvcc's `-Xptxas -v` output."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = _kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
 
 
 def check(code: int, what: str) -> None:

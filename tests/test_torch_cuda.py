@@ -389,6 +389,77 @@ def test_flash_bf16_unaligned_rows_are_staged_by_elements(cuda):
     _flash_vs_twin(*off, mask, torch.bfloat16)
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "key-mask"])
+@pytest.mark.parametrize("T", [1, 39, 64, 65, 329, 2048])
+@pytest.mark.parametrize("hd", [16, 40, 56, 64, 80, 96, 128])
+def test_flash_bf16_tensor_core_backward(cuda, hd, T, masked):
+    """The bf16 dK/dV and dQ kernels (mma.sync on the tensor cores, query
+    heads packed to a block by bwd_plan) against the twin's autograd at
+    groups 1, 3, 4 and 8 over 2 kv heads: head dims of 1, 3, 4 (TMA tiles,
+    zero-filled past hd 56), 6 (80 padded to 96) and 8 slices; T of one
+    key, of stage 3, one tile, one tile and a key (stage 1), stage 2's, and
+    32 tiles."""
+    B = 1 if T == 2048 else 2
+    for group in (1, 3, 4, 8):
+        _flash_vs_twin(*_flash_args(B, 2 * group, 2, T, hd, torch.bfloat16, cuda, masked),
+                       torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [36, 64])
+def test_flash_bf16_backward_unaligned_rows(cuda, hd):
+    """q, k and v one element off 16 bytes (and at hd 36 no 16-byte vector
+    of 8 bf16 fits a row): the backward stages rows and writes dK/dV element
+    by element, with no TMA at hd 64."""
+    q, k, v, mask = _flash_args(2, 6, 2, 40, hd, torch.bfloat16, cuda, True)
+    off = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)[1:]
+        off.append(buf.view(t.shape[0], t.shape[2], t.shape[1], t.shape[3])
+                   .copy_(t.transpose(1, 2)).transpose(1, 2))
+    assert off[0].data_ptr() % 16
+    _flash_vs_twin(*off, mask, torch.bfloat16)
+
+
+def test_flash_bf16_fully_masked_row_gives_zero_gradients(cuda):
+    """bf16: rows with no key to attend (lse = -inf) write zeros and get
+    zero dQ, no NaN anywhere; with their cotangent zeroed (the twin spreads
+    such a row over its masked keys) every gradient matches the twin's."""
+    q, k, v, _ = _flash_args(2, 8, 2, 70, 64, torch.bfloat16, cuda, False)
+    mask = torch.ones(2, 70, dtype=torch.int32, device=cuda)
+    mask[1, :3] = 0  # rows 0-2 of batch row 1 see no key
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = tfa.flash_attention(q, k, v, mask)
+    assert torch.equal(out[1, :, :3], torch.zeros_like(out[1, :, :3]))
+    do = torch.randn(out.shape, generator=torch.Generator(cuda).manual_seed(2),
+                     device=cuda).bfloat16()
+    do[1, :, :3] = 0
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(tfa._flash_attn_plain(q, k, v, mask), (q, k, v), do)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert torch.equal(got[0][1, :, :3], torch.zeros_like(got[0][1, :, :3]))
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """Two identical backward calls at stage 2's shape (B 4, 32/8 heads, T
+    329, a key mask) give bit-identical dQ, dK and dV: the group's sum is
+    taken in a fixed order, with no atomics."""
+    q, k, v, _ = _flash_args(4, 32, 8, 329, 64, dtype, cuda, False)
+    mask = torch.ones(4, 329, dtype=torch.int32, device=cuda)
+    mask[1:, 300:] = 0
+    o, lse = tfa._fwd_kernel(q, k, v, mask, 0.125)
+    do = torch.randn(o.shape, generator=torch.Generator(cuda).manual_seed(3),
+                     device=cuda).to(dtype)
+    delta = tfa._delta(do, o)
+    runs = [tfa._bwd_dkv_kernel(q, k, v, mask, do, lse, delta, 0.125)
+            + (tfa._bwd_dq_kernel(q, k, v, mask, do, lse, delta, 0.125),) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(bool(torch.isfinite(g).all()) for g in runs[0])
+
+
 def test_flash_contiguous_inputs(cuda):
     q, k, v, mask = _flash_args(2, 8, 2, 33, 64, torch.float32, cuda, True)
     _flash_vs_twin(q.contiguous(), k.contiguous(), v.contiguous(), mask, torch.float32)

@@ -160,3 +160,62 @@ def test_forward_plan_covers_every_row_in_shared_memory(dtype):
                     assert (per, rows) == (1, tfa.TILE)
     plan = tfa.fwd_plan(32, 32, 8, 65, 64, torch.bfloat16)  # stage 1's call
     assert (plan["grid"], plan["head_slices"]) == ((5, 8, 32), 4)
+
+
+@pytest.mark.parametrize("T", [1, 39, 65, 329, 2048])
+@pytest.mark.parametrize("kd", tfa.HEAD_SLICES)
+def test_backward_plan_covers_every_tile_once_in_shared_memory(kd, T):
+    """The bf16 backward's grids at each head-slice instance: the dK/dV
+    blocks cover every key of every kv head once and walk each head of its
+    group once (hpb heads a step, 64 / hpb keys a block); the dQ blocks,
+    the forward's grid, cover every (query row, head) once; every block
+    fits the H100's 227 KB of shared memory."""
+    for nh, nkv in ((32, 8), (24, 8), (12, 2), (8, 8), (8, 1)):
+        for hd in (16 * kd - 15, 16 * kd):
+            plan = tfa.bwd_plan(2, nh, nkv, T, hd, torch.bfloat16)
+            dkv, dq = plan["dkv"], plan["dq"]
+            group = nh // nkv
+            for p in (dkv, dq):
+                assert p["head_slices"] == kd and p["threads"] == 128
+                assert p["smem"] <= 227 * 1024
+            hpb, keys = dkv["heads_per_block"], dkv["keys"]
+            assert group % hpb == 0 and keys == 64 // hpb and dkv["query_rows"] % 16 == 0
+            n_kt, n_kv, B = dkv["grid"]
+            assert (n_kv, B) == (nkv, 2) and len(dkv["walk"]) == n_kt
+            cover = np.zeros((B, nkv, n_kt * keys), np.int64)
+            for kt in range(n_kt):
+                cover[:, :, kt * keys:(kt + 1) * keys] += 1
+                # hpb head slots over group // hpb steps: each head of the group once
+                heads = sorted(step * hpb + s for step in range(group // hpb) for s in range(hpb))
+                assert heads == list(range(group))
+                n_qs = -(-(T - kt * keys) // dkv["query_rows"])  # rows [first key, T)
+                assert dkv["walk"][kt] == group // hpb * n_qs
+            assert (cover[:, :, :T] == 1).all() and n_kt * keys - T < keys
+            n_qt, n_hb, B = dq["grid"]
+            rows, per = dq["rows"], dq["heads_per_block"]
+            fwd = tfa.fwd_plan(2, nh, nkv, T, hd, torch.bfloat16)
+            assert (dq["grid"], per, rows) == (fwd["grid"], fwd["heads_per_block"], fwd["rows"])
+            assert rows == 64 // per and n_hb * per == nh and group % per == 0 and B == 2
+            cover = np.zeros((B, nh, n_qt * rows), np.int64)
+            for qt in range(n_qt):
+                for hb in range(n_hb):
+                    cover[:, hb * per:(hb + 1) * per, qt * rows:(qt + 1) * rows] += 1
+                assert dq["walk"][qt] == (min(T, (qt + 1) * rows) - 1) // tfa.TILE + 1
+            assert (cover[:, :, :T] == 1).all() and n_qt * rows - T < rows
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_backward_plan_fills_the_card_at_stage_2(dtype):
+    """Stage 2's call (B 4, 32/8 heads, T 329, hd 64): each backward kernel
+    puts at least one block on each of the H100's 132 SMs, and no block's
+    walk is more than twice the mean (the causal triangle's longest column
+    against its average), so the longest blocks, started first, end near
+    the rest."""
+    plan = tfa.bwd_plan(4, 32, 8, 329, 64, dtype)
+    for name, p in plan.items():
+        blocks = int(np.prod(p["grid"]))
+        walk = np.asarray(p["walk"], np.float64)  # the same for every (head, batch) column
+        print(f"{name}: {blocks} blocks, longest walk {float(walk.max())!r}, "
+              f"mean {float(walk.mean())!r}")
+        assert blocks >= 132
+        assert walk.max() <= 2 * walk.mean()
