@@ -14,23 +14,28 @@ CUDA card.
    bytes it must move over the memory rate or its operations over the peak
    rate, whichever is larger) and its ratio to the library call: the
    projector MLP2 at serving's and stage 3's shapes (timed at batch 64, 128
-   and 256); the decode attention at serving's and stage 3's, and over
-   caches of 3073 and 16384 positions (past one chunk of scores, with a
-   finfo.min tail; the longer timed); the flash attention forward and both
-   backward kernels (dK/dV, dQ) at Llama-3.2-1B's heads and the (B, T) of
-   stage 1, stage 2, stage 3 and the LoRA baseline (each path's call timed,
-   and the whole backward as training runs it, _delta with both kernels,
-   against SDPA's backward), of T 128 and of T 606 (sharegpt4video's
-   budget), bf16 and f32, with and without a key mask; the LoRA layer-0
-   kernel at stage 2's and stage 3's shapes, f32 and bf16, one and four
-   adapter groups; the packed W4A8 matmul (and its W8A8 variant) at
+   and 256); the decode attention at serving's and stage 3's (S 1 to 38;
+   timed at B 128 and 256, S 23 and at B 64, S 37, with each call's launch
+   plan and, at B 128, the wrapper's host time per call), and over caches of
+   3073 and 16384 positions (S split over blocks and merged; a finfo.min
+   tail, and finfo.min over whole splits; both timed), two calls held
+   bit-equal at B 128, S 23 and at B 2, S 16384; the flash attention forward
+   and both backward kernels (dK/dV, dQ) at Llama-3.2-1B's heads and the
+   (B, T) of stage 1, stage 2, stage 3 and the LoRA baseline (each path's
+   call timed, and the whole backward as training runs it, _delta with both
+   kernels, against SDPA's backward), of T 128 and of T 606
+   (sharegpt4video's budget), bf16 and f32, with and without a key mask; the
+   LoRA layer-0 kernel at stage 2's and stage 3's shapes, f32 and bf16, one
+   and four adapter groups; the packed W4A8 matmul (and its W8A8 variant) at
    Llama-3.2-1B's four layer matmuls, bit for bit, at batch 128, 8, 64, 100
    and at shapes off every vector width; the decode MLP (silu, tanh-GELU) at
-   H 2048, I 8192, batch 128, 8, 64, 100, bf16 and f32; the fused head +
-   argmax in its three weight modes at V 128256 and at a V no slice divides,
-   with ties planted across vocab slices (q8 bit for bit; bf16 and q by the
-   share of equal ids and, for every other column, the twin's two logits
-   within one bf16 step per rounding).
+   H 2048, I 8192, batch 128, 8, 16, 64, 100, 256, bf16 and f32 (bf16 silu
+   timed at batch 8, 64, 100, 128 and 256 with each call's launch plan, and
+   at 128 the wrapper's host time per call); the fused head + argmax in its
+   three weight modes at V 128256 and at a V no slice divides, with ties
+   planted across vocab slices (q8 bit for bit; bf16 and q by the share of
+   equal ids and, for every other column, the twin's two logits within one
+   bf16 step per rounding).
 3. The kernel probes (dmi_tpu_torch.probes), each through its run() at its
    default shapes with the launch counters set to 0 just before: the
    blocked int8/bf16 matmul at N 4096, the weight-stream matmul at the
@@ -58,7 +63,8 @@ CUDA card.
    path and against batch_first=True by token agreement; (b) int8="w4a8" (4
    x 16 x 21 packed-matmul launches per batch), also against its plain path;
    and one batch each of (c) int8=True and (d) int8="w8a8".  Captions/s of
-   each, and one bf16 and one w4a8 batch under torch.profiler.
+   each, and one bf16 and one w4a8 batch under torch.profiler.  No weight's
+   TMA descriptor is encoded again after each run's warm-up batch.
 7. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
    projector (mm 768, dropout 0.1) and the optimizer of configs/experiments/
    projector/v1:llama1b_inst_all_extracted.json (warmup cut to 2), on
@@ -195,6 +201,20 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, n=200) -> float:
+    """Host time of one fn() in us: a host clock around n calls that are
+    enqueued, read before the synchronise (what a loop whose host sets its
+    pace pays a call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def compare(torch, name, out, ref, tol, scale=None) -> float:
     """Max |out - ref| against tol * scale, where scale defaults to
     max(1, max |ref|)."""
@@ -249,9 +269,28 @@ def kernel_phase(torch, dev):
     print("kernel fused_decode_attention vs _decode_attn_plain "
           "(32/8 heads, hd 64, k/v views of a 38-slot cache):")
     errs, times, cap_moves = [], None, []
+
+    def attn_times(B, S, args, mask=None):
+        q, k, v, bias = args[:4]
+        t = {**device_times(
+            torch, lambda: da.fused_decode_attention(*args), lambda: da._decode_attn_plain(*args),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)),
+             **least_time(nbytes(q, k, v, bias, q), 4 * B * 32 * S * 64, q.dtype)}
+        print(f"    B={B} S={S}: {report_times(t)}; library: scaled_dot_product_attention, GQA"
+              f"{', with the mask' if mask is not None else ''}; plan "
+              f"{da.plan(B, 8, 4, S, 64, q.element_size())}")
+        return t
+
+    def bit_equal(name, fn):
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+        print(f"    {name}: two calls bit-equal")
+
     # serving at B 128 and 256; stage 3's generate at B 64 (a prompt of 16
     # positions, so S 17 at its first decode step and 37 at its last)
-    cases = [(128, 16, torch.bfloat16, None), (128, 23, torch.bfloat16, None),
+    cases = [(128, 1, torch.bfloat16, None), (128, 16, torch.bfloat16, None),
+             (128, 23, torch.bfloat16, None),
              (128, 38, torch.bfloat16, None), (128, 38, torch.bfloat16, 50.0),
              (128, 38, torch.bfloat16, 2.0), (128, 38, torch.float32, None),
              (256, 23, torch.bfloat16, None), (FS_BATCH, 17, torch.bfloat16, None),
@@ -272,38 +311,41 @@ def kernel_phase(torch, dev):
             bound = TOL[str(dtype)[6:]] * max(1.0, ref.float().abs().max().item())
             print(f"    softcap moves the twin's output by {move!r} (bound {bound!r})")
             cap_moves.append(move > bound)
-        if (B, S, dtype, cap) == (128, 23, torch.bfloat16, None):  # mid-decode, serving
-            q, k, v, bias = args[:4]
-            times = {**device_times(
-                torch, lambda: da.fused_decode_attention(*args),
-                lambda: da._decode_attn_plain(*args),
-                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
-                                                                         enable_gqa=True)),
-                     **least_time(nbytes(q, k, v, bias, q), 4 * B * 32 * S * 64, dtype)}
-            print(f"    {report_times(times)}; library: scaled_dot_product_attention, GQA")
+        if (S, dtype, cap) in ((23, torch.bfloat16, None), (37, torch.bfloat16, None)):
+            # mid-decode at serving's batches, stage 3's last step
+            t = attn_times(B, S, args)
+            if da.plan(B, 8, 4, S, 64, 2)["splits"] != 1:
+                raise AssertionError(f"decode attention at B {B}, S {S}: S was split")
+            if B == 128:  # the serving batch: the kernels line
+                times = t
+                us = host_us(torch, lambda: da.fused_decode_attention(*args))
+                print(f"    host time per call: {us!r} us (perf_counter around enqueued calls)")
+                bit_equal(f"B={B} S={S}", lambda: da.fused_decode_attention(*args))
     if not any(cap_moves):
         raise AssertionError("no softcap case binds: the kernel's softcap is unchecked")
-    # caches longer than the 3072 positions one chunk of scores holds at
-    # g = 4: the online softmax over 2 and 6 chunks, with a finfo.min tail
+    # caches longer than one chunk, split over blocks and merged: a
+    # finfo.min tail (the JAX loops' mask of a fixed-length cache) that
+    # starts mid-split, and finfo.min over whole splits
+    fmin = torch.finfo(torch.float32).min
     for S in (3073, 16384):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(2, 32, 1, 64, generator=gen, device=dev).to(dtype)
             k, v = (torch.randn(2, 8, S, 64, generator=gen, device=dev).to(dtype)
                     for _ in range(2))
-            bias = torch.zeros(S, device=dev)
-            bias[S - 1000:] = torch.finfo(torch.float32).min
-            args = (q, k, v, bias)
-            errs.append(compare(torch, f"B=2 S={S} {str(dtype)[6:]} (finfo.min tail)",
-                                da.fused_decode_attention(*args), da._decode_attn_plain(*args),
-                                TOL[str(dtype)[6:]]))
-            if dtype == torch.bfloat16:
-                t = {**device_times(
-                    torch, lambda: da.fused_decode_attention(*args),
-                    lambda: da._decode_attn_plain(*args),
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        q, k, v, attn_mask=bias.view(1, 1, 1, S), enable_gqa=True)),
-                     **least_time(nbytes(q, k, v, bias, q), 4 * 2 * 32 * S * 64, dtype)}
-                print(f"    {report_times(t)}; library: scaled_dot_product_attention, GQA")
+            p = da.plan(2, 8, 4, S, 64, q.element_size())
+            for label, start, stop in (("finfo.min tail", S - 1000, S),
+                                       ("finfo.min over whole splits", p["keys_per_split"],
+                                        3 * p["keys_per_split"])):
+                bias = torch.zeros(S, device=dev)
+                bias[start:stop] = fmin
+                args = (q, k, v, bias)
+                errs.append(compare(torch, f"B=2 S={S} {str(dtype)[6:]} ({label})",
+                                    da.fused_decode_attention(*args),
+                                    da._decode_attn_plain(*args), TOL[str(dtype)[6:]]))
+                if dtype == torch.bfloat16 and stop == S:
+                    attn_times(2, S, args, bias.view(1, 1, 1, S))
+                    if S == 16384:
+                        bit_equal(f"B=2 S={S}", lambda: da.fused_decode_attention(*args))
     results["decode_attention"] = {"max_abs_err": max(errs), **times}
     return results
 
@@ -491,7 +533,8 @@ def bl_kernel_phase(torch, dev):
     errs, times = [], None
     for h_dim, i_dim, b, dtype, act in (
             (H, I, B, torch.bfloat16, "silu"), (H, I, B, torch.bfloat16, "gelu_tanh"),
-            (H, I, 8, torch.bfloat16, "silu"), (H, I, 64, torch.bfloat16, "silu"),
+            (H, I, 8, torch.bfloat16, "silu"), (H, I, 16, torch.bfloat16, "silu"),
+            (H, I, 64, torch.bfloat16, "silu"),
             (H, I, 100, torch.bfloat16, "silu"), (H, I, 256, torch.bfloat16, "silu"),
             (H, I, B, torch.float32, "silu"), (72, 136, 5, torch.float32, "gelu_tanh"),
             (72, 136, 5, torch.bfloat16, "silu")):
@@ -503,16 +546,27 @@ def bl_kernel_phase(torch, dev):
         errs.append(compare(torch, f"H={h_dim} I={i_dim} B={b} {dname} {act}",
                             dm.fused_decode_mlp_bl(*args), dm._decode_mlp_plain(*args),
                             TOL[dname]))
-        if times is None:  # the serving call: bf16, B 128, silu
+        if (h_dim, i_dim, dtype, act) == (H, I, torch.bfloat16, "silu") and b != 16:
             def chain():
                 g, u = (w_gu.t() @ h).chunk(2, dim=0)
                 return w_down.t() @ (F.silu(g) * u)
 
-            times = {**device_times(torch, lambda: dm.fused_decode_mlp_bl(*args),
-                                    lambda: dm._decode_mlp_plain(*args), chain),
-                     **least_time(nbytes(w_gu, w_down, h, h), 2 * b * 3 * h_dim * i_dim, dtype)}
-            print(f"    {report_times(times)}; library: matmul, silu * mul, matmul (the twin "
-                  f"is this chain)")
+            t = {**device_times(torch, lambda: dm.fused_decode_mlp_bl(*args),
+                                lambda: dm._decode_mlp_plain(*args), chain),
+                 **least_time(nbytes(w_gu, w_down, h, h), 2 * b * 3 * h_dim * i_dim, dtype)}
+            print(f"    B={b}: {report_times(t)}; library: matmul, silu * mul, matmul (the twin "
+                  f"is this chain); plan {dm.plan(h_dim, i_dim, dm.padded_batch(b))}")
+            if b == B:  # the serving call: the kernels line
+                times = t
+                us = host_us(torch, lambda: dm.fused_decode_mlp_bl(*args))
+                print(f"    host time per call: {us!r} us (perf_counter around enqueued "
+                      f"calls); tensor maps encoded so far {dm.map_encodes()}")
+            if b in (8, B, 256):
+                again = dm.fused_decode_mlp_bl(*args)
+                if not torch.equal(again, dm.fused_decode_mlp_bl(*args)):
+                    raise AssertionError(f"decode MLP at B {b}: two calls on the same inputs "
+                                         "differ")
+                print(f"    B={b}: two calls bit-equal")
     again = dm.fused_decode_mlp_bl(*args)
     if not torch.equal(again, dm.fused_decode_mlp_bl(*args)):
         raise AssertionError("decode MLP: two calls on the same inputs differ")
@@ -573,6 +627,7 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
     int8="w8a8"; launch counts set to 0 before each run and checked after;
     (a) and (b) against their plain paths, (a) also against the batch-first
     loop.  Returns the launch counts of (a) and (b)."""
+    from dmi_tpu_torch.ops.cuda import decode_mlp as dm
     from dmi_tpu_torch.serve import Captioner
 
     spec, pparams = projector
@@ -587,12 +642,17 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
         cap.caption_ids(requests[:128])  # warm-up
         torch.cuda.synchronize()
         _reset_counts()
+        maps = dm.map_encodes()
         t0 = time.perf_counter()
         ids = cap.caption_ids(requests)
         secs = time.perf_counter() - t0
         counts = _counts()
+        maps = {k: v - maps[k] for k, v in dm.map_encodes().items()}
         print(f"{label}: {len(requests)} requests at batch 128, {secs!r} s, "
-              f"{len(requests) / secs!r} captions/s ({card})")
+              f"{len(requests) / secs!r} captions/s ({card}); decode-MLP tensor maps "
+              f"encoded after the warm-up batch: {maps}")
+        if maps["weights"]:
+            raise AssertionError(f"{label}: weight tensor maps encoded again after the warm-up")
         batches = -(-len(requests) // 128)
         _expect(label, counts, {k: v * batches for k, v in want.items()})
         if tuple(ids.shape) != (len(requests), MAX_NEW) or not bool(

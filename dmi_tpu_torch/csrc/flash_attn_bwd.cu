@@ -81,8 +81,6 @@
 //     ds for the 64 x 64 tile and accumulating dK and dV in registers.
 //   - dQ: one block per (query tile, head, batch row), walking the key
 //     tiles at or before its query tile.
-#include <cudaTypedefs.h>
-
 #include "flash_attn.cuh"
 #include "flash_mma.cuh"
 
@@ -794,17 +792,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 // strides do not nest.
 bool rows_map(CUtensorMap* m, bool* t_inner, const void* x, const Strides& st, int B,
               int heads, int T, int hd, int rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  static bool looked = false;
-  if (!looked) {
-    looked = true;
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t sh = st.h * sizeof(bf16), stt = st.t * sizeof(bf16), sb = st.b * sizeof(bf16);
   *t_inner = stt <= sh;

@@ -1,7 +1,10 @@
 // Tensor-core fragment routines of the bf16 flash-attention kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu): ldmatrix, mma.sync m16n8k16 with
 // f32 accumulators, exp2 on the SFU, bf16 packing and the cp.async tile
-// stager.
+// stager, which decode attention's tensor-core kernel (decode_attn.cu) uses
+// too; and the TMA and mbarrier helpers, with the driver's tensor-map
+// encoder, that the flash backward shares with the decode MLP
+// (decode_mlp.cu).
 //
 // Fragments of mma.sync.m16n8k16 (g = lane / 4, tig = lane % 4):
 //   A, 16 x 16 row-major: a[0] (row g, cols 2 tig, +1), a[1] (row g + 8,
@@ -17,8 +20,10 @@
 // K.  The pitch of 16 kD + 8 keeps all of them free of bank conflicts.
 #pragma once
 
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace dmi {
@@ -119,6 +124,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one plain arrival (a consumer releasing a stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
       "{\n"
@@ -128,6 +138,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "@!p bra WAIT;\n"
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
+      : "memory");
+}
+
+// The driver's tensor-map encoder (cuTensorMapEncodeTiled), looked up once
+// per process; nullptr where the driver has none.  Host code: a kernel's
+// maps are encoded before its launch and passed as __grid_constant__.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const bool ok = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                     cudaEnableDefault, &found) == cudaSuccess &&
+                    found == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn) : nullptr;
+  }();
+  return encode;
+}
+
+// the box of `map` at coordinates (c0, c1), innermost first
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 

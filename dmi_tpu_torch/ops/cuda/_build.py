@@ -37,9 +37,9 @@ _SIGNATURES = {
     "dmi_mlp2": [_P] * 7 + [_I] * 7 + [_P],
     # x, w0, b0, a, bm, d, out, G, B, mm, lm, r, tb, dtype, stream
     "dmi_lora0": [_P] * 7 + [_I] * 7 + [_P],
-    # q, k, v, bias, out, B, nkv, group, S, hd, chunk, k_sb, k_sh, v_sb, v_sh,
-    # scale, softcap, dtype, stream
-    "dmi_decode_attn": [_P] * 5 + [_I] * 6 + [_L] * 4 + [_F, _F, _I, _P],
+    # q, k, v, bias, out, part, B, nkv, group, S, hd, chunk, keys_per_split,
+    # splits, stages, warps, k_sb, k_sh, v_sb, v_sh, scale, softcap, dtype, stream
+    "dmi_decode_attn": [_P] * 6 + [_I] * 10 + [_L] * 4 + [_F, _F, _I, _P],
     # q, k, v, key_mask, o, lse, B, nh, nkv, T, hd, strides[12], scale, kd, hpb,
     # vec, dtype, stream
     "dmi_flash_fwd": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _I, _I, _I, _P],
@@ -51,8 +51,9 @@ _SIGNATURES = {
     "dmi_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F] + [_I] * 4 + [_P],
     # weights (packed uint8 or int8), hq, a, s, out, K, out_dim, B, packed, dtype, stream
     "dmi_w4_mm": [_P] * 5 + [_I] * 5 + [_P],
-    # w_gu, w_down, h, act_buf, partial, out, H, I, B, splits, act, dtype, stream
-    "dmi_decode_mlp": [_P] * 6 + [_I] * 6 + [_P],
+    # w_gu, w_down, h, act_buf, partial, counters, out, H, I, B, n, wgs, stages,
+    # down_stages, splits, per_split, act, dtype, stream
+    "dmi_decode_mlp": [_P] * 7 + [_I] * 11 + [_P],
     # embed, scales, h, act_scales, part_val, part_idx, ids, V, H, B, mode, stream
     "dmi_head_argmax": [_P] * 7 + [_I] * 4 + [_P],
     # a, b, out, M, N, K, block_m, int8, stream
@@ -141,6 +142,8 @@ def lib() -> ctypes.CDLL:
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        loaded.dmi_decode_mlp_map_encodes.argtypes = [ctypes.c_int]
+        loaded.dmi_decode_mlp_map_encodes.restype = ctypes.c_longlong
         loaded.dmi_error_string.argtypes = [ctypes.c_int]
         loaded.dmi_error_string.restype = ctypes.c_char_p
         _lib = loaded

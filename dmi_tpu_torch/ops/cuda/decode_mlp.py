@@ -11,7 +11,10 @@ most of a llama layer's bytes (3·H·I of them).  Every weight byte is read
 once per call.  One TPU core walks the I tiles in order with one resident
 f32 accumulator; on the card the I axis is spread over blocks, so the
 [H, B] sum is formed from per-split partials added in a fixed order (no
-float atomics: greedy tokens must not change from run to run).
+float atomics: greedy tokens must not change from run to run).  bf16 runs
+on a TMA ring and wgmma (launch plan: `plan`), the last split of each tile
+adding the partials; f32 on the CUDA cores, with a reduce launch
+(`down_splits`).
 
 Rounding points, as the Pallas body (decode_mlp.py:62-80): g and u
 accumulate in f32 and are rounded to h's dtype; act(g) * u is formed in h's
@@ -25,6 +28,8 @@ by Mosaic's tile shapes; here every unquantized fused w_gu takes it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -34,10 +39,16 @@ from dmi_tpu_torch.ops.cuda import _build
 launches = 0
 
 ACTS = {"silu": 0, "gelu_tanh": 1}
-TILE_M = 64      # kTileM of csrc/decode_mlp.cu: weight columns per block
-TILE_B = 128     # kTileN: batch columns per block
-MAX_SPLITS = 16  # splits of the I axis in the down product
-TARGET_BLOCKS = 128  # blocks the down product should reach on 132 SMs
+TILE_M = 64      # kTileM of csrc/decode_mlp.cu (f32): weight columns per block
+TILE_B = 128     # kTileN (f32): batch columns per block
+MAX_SPLITS = 16  # f32: splits of the I axis in the down product
+TARGET_BLOCKS = 128  # f32: blocks the down product should reach on 132 SMs
+SMS = 132        # streaming multiprocessors of the H100
+TILE_COLS = 64   # bf16 (kTileCols of csrc/decode_mlp.cu): weight columns of a wgmma tile
+TILE_K = 64      # bf16 kKc: K rows of a ring stage
+DOWN_COLS = 64   # bf16: columns of H of a down block
+SMEM_LIMIT = 232448  # 227 KB: a block's shared memory on the H100
+MAX_STAGES = 8
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -58,11 +69,85 @@ def _decode_mlp_plain(w_gu, w_down, h, act="silu"):
     return w_down.t() @ (_act(act, gate) * up)
 
 
+def _whole_chunks(rows: int) -> int:
+    """rows rounded up to whole 64-row chunks of the contraction axis."""
+    return -(-rows // TILE_K) * TILE_K
+
+
 def down_splits(H: int, I: int, B: int) -> int:
-    """Splits of the I axis in the down product: enough that its blocks
+    """f32: splits of the I axis in the down product: enough that its blocks
     cover the card, each split at least one tile of rows deep."""
     tiles = -(-H // TILE_M) * -(-B // TILE_B)
     return max(1, min(MAX_SPLITS, -(-TARGET_BLOCKS // tiles), I // TILE_M))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(H: int, I: int, Bp: int) -> dict:
+    """bf16 launch plan at a padded batch Bp.  The C entry dispatches on n
+    and wgs, checks the stages against its rings (Ring in
+    csrc/decode_mlp.cu) and splits the down product by splits and
+    per_split; the rest is what the wrapper allocates and what the tests
+    read.
+
+    The wgmma tile takes n = 64 batch columns up to Bp 64, else 128, and
+    `wgs` consumer warpgroups (2 past 128) of n columns each share a block's
+    weight tiles; wider batches tile the grid (`batch_tiles`).  The gate-up
+    pass gives every 64 columns of I a block; the down pass every 64 columns
+    of H `splits` blocks over the I axis, whole K chunks each, as many as
+    one wave of one block an SM holds (the ring takes most of an SM's shared
+    memory), none empty.  The ring holds as many 64-row stages as 227 KB
+    allow, up to MAX_STAGES."""
+    n = 64 if Bp <= 64 else 128
+    wgs = 1 if Bp <= 128 else 2
+    batch_tiles = -(-Bp // (n * wgs))
+    m_tiles = -(-H // DOWN_COLS)
+    splits = max(1, min(SMS // (m_tiles * batch_tiles), -(-I // TILE_K)))
+    per_split = _whole_chunks(-(-I // splits))
+    splits = -(-I // per_split)
+
+    def ring(tiles):
+        stage = 8192 * (tiles + wgs * n // TILE_COLS)
+        stages = min(MAX_STAGES, (SMEM_LIMIT - 1024 - 16 * MAX_STAGES) // stage)
+        return stages, 1024 + stages * stage + 16 * stages
+
+    stages, smem = ring(2)  # gate-up: the gate and the up tile
+    down_stages, down_smem = ring(DOWN_COLS // TILE_COLS)
+    return {"n": n, "wgs": wgs, "stages": stages, "down_stages": down_stages,
+            "splits": splits, "per_split": per_split, "batch_tiles": batch_tiles,
+            "m_tiles": m_tiles, "gate_up_blocks": -(-I // TILE_COLS) * batch_tiles,
+            "down_blocks": m_tiles * splits * batch_tiles, "smem": smem, "down_smem": down_smem,
+            "counters": m_tiles * batch_tiles,
+            # f32 partials: every split's [DOWN_COLS, wgs * n] tile of every down tile
+            "partial_floats": splits * m_tiles * batch_tiles * DOWN_COLS * wgs * n}
+
+
+# (device, stream) -> int32 zeros, one per down tile: the last of a tile's
+# splits sets its counter back to 0, so a call leaves them as it found them.
+# One buffer per stream, so that calls that share one run in order.
+_counters = {}
+
+
+def _tile_counters(device, stream: int, n: int) -> torch.Tensor:
+    c = _counters.get((device, stream))
+    if c is None or c.numel() < n:
+        c = _counters[(device, stream)] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                                      device=device)
+    return c
+
+
+def padded_batch(B: int) -> int:
+    """The batch the kernels run at (zero columns give zero outputs): a
+    multiple of 16 columns, so that f32 rows are read 16 bytes at a time
+    and every bf16 TMA row stride is a multiple of 16 bytes."""
+    return -(-B // 16) * 16
+
+
+def map_encodes() -> dict:
+    """Tensor maps the kernel library has encoded since it was loaded, the
+    weights' and the activations' (cached apart)."""
+    lib = _build.lib()
+    return {"weights": lib.dmi_decode_mlp_map_encodes(0),
+            "activations": lib.dmi_decode_mlp_map_encodes(1)}
 
 
 def fused_decode_mlp_bl(w_gu, w_down, h, act="silu"):
@@ -95,20 +180,27 @@ def fused_decode_mlp_bl(w_gu, w_down, h, act="silu"):
     if H % 8 or I % 8:
         raise ValueError(f"decode MLP kernel: H {H} and I {I} must be multiples of 8 "
                          "(16-byte loads of weight rows)")
-    # the kernels read rows of h and of the activation 16 bytes at a time:
-    # pad the batch to a multiple of 16 columns (zeros give zeros)
-    Bp = -(-B // 16) * 16
+    Bp = padded_batch(B)
     hp = h.contiguous() if Bp == B else F.pad(h, (0, Bp - B))
-    splits = down_splits(H, I, Bp)
-    act_buf = torch.empty((I, Bp), dtype=h.dtype, device=h.device)
-    partial = torch.empty((splits, H, Bp), dtype=torch.float32, device=h.device)
     out = torch.empty((H, Bp), dtype=h.dtype, device=h.device)
     if B == 0:
         return out[:, :B]
+    act_buf = torch.empty((I, Bp), dtype=h.dtype, device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    if code == _build.DTYPE_CODES["bfloat16"]:
+        p = plan(H, I, Bp)
+        launch = (p["n"], p["wgs"], p["stages"], p["down_stages"], p["splits"], p["per_split"])
+        counters = _tile_counters(h.device, stream, p["counters"]).data_ptr()
+        partial = torch.empty(p["partial_floats"], dtype=torch.float32, device=h.device)
+    else:
+        splits = down_splits(H, I, Bp)
+        launch = (0, 0, 0, 0, splits, _whole_chunks(-(-I // splits)))
+        counters = None
+        partial = torch.empty((splits, H, Bp), dtype=torch.float32, device=h.device)
     err = _build.lib().dmi_decode_mlp(
         w_gu.data_ptr(), w_down.data_ptr(), hp.data_ptr(), act_buf.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), H, I, Bp, splits, ACTS[act], code,
-        torch.cuda.current_stream(h.device).cuda_stream,
+        partial.data_ptr(), counters, out.data_ptr(), H, I, Bp, *launch, ACTS[act], code,
+        stream,
     )
     _build.check(err, "decode MLP")
     launches += 1

@@ -276,6 +276,65 @@ def test_decode_attn_kernel_refuses_what_it_cannot_take(cuda):
                                    torch.zeros(10, device=cuda))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,group", [(64, 1), (64, 4), (64, 32), (128, 4), (256, 1), (256, 32)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 3073, 16384])
+def test_decode_attn_kernel_split_plans(cuda, S, hd, group, dtype):
+    """Every plan the wrapper makes at 2 x 2 kv heads (4 blocks before S is
+    split): one chunk, one split of several chunks, and S split over blocks
+    and merged; head widths 64-256, groups 1-32, views of a longer cache."""
+    q, k, v, bias = _attn_case(2, 2 * group, 2, S, hd, dtype, cuda)
+    p = tda.plan(2, 2, group, S, hd, q.element_size())
+    assert (p["splits"] > 1) == (S > tda.MIN_SPLIT_KEYS)
+    n0 = tda.launches
+    out = tda.fused_decode_attention(q, k, v, bias)
+    assert tda.launches == n0 + 1
+    _close(out, tda._decode_attn_plain(q, k, v, bias), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,S", [(1, 9), (36, 70), (36, 3000), (200, 65)])
+def test_decode_attn_kernel_odd_heads_and_rows(cuda, hd, S, dtype):
+    """Head widths off the 16-byte vector (rows staged element by element,
+    zeros past hd) and a q that is not 16-byte aligned: every shape the
+    first kernel took, on both instances."""
+    q, k, v, bias = _attn_case(2, 8, 2, S, hd, dtype, cuda)
+    q_off = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)[1:].view(q.shape)
+    q_off.copy_(q)
+    _close(tda.fused_decode_attention(q_off, k, v, bias),
+           tda._decode_attn_plain(q, k, v, bias), TOL[dtype])
+
+
+@pytest.mark.parametrize("mask", ["tail-from-mid-chunk", "head-to-mid-chunk", "whole-splits",
+                                  "every-key"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attn_kernel_masked_splits(cuda, mask, dtype):
+    """finfo.min, as the JAX loops mask a fixed-length cache, over the
+    plan's splits of whole 64-key chunks (B 2, 8 kv heads, S 16384): splits
+    whose every key is masked weigh 0 after the merge and splits cut by the
+    mask keep their other keys; with every key masked, the uniform average
+    a single softmax gives.  No NaN in any case."""
+    q, k, v = _attn_args(2, 32, 8, 16384, 64, dtype, cuda)
+    p = tda.plan(2, 8, 4, 16384, 64, q.element_size())
+    assert p["splits"] > 3 and p["chunk"] == 64 and p["keys_per_split"] % 64 == 0
+    start, stop = {"tail-from-mid-chunk": (16384 - 1000, 16384), "head-to-mid-chunk": (0, 5037),
+                   "whole-splits": (p["keys_per_split"], 3 * p["keys_per_split"]),
+                   "every-key": (0, 16384)}[mask]
+    bias = torch.zeros(16384, device=cuda)
+    bias[start:stop] = torch.finfo(torch.float32).min
+    out = tda.fused_decode_attention(q, k, v, bias)
+    assert bool(torch.isfinite(out).all())
+    _close(out, tda._decode_attn_plain(q, k, v, bias), TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S", [(128, 23), (2, 3073), (2, 16384)])
+def test_decode_attn_kernel_is_deterministic(cuda, B, S):
+    """The splits are merged in a fixed order: two calls agree bit for bit."""
+    q, k, v, bias = _attn_case(B, 32, 8, S, 64, torch.bfloat16, cuda)
+    assert torch.equal(tda.fused_decode_attention(q, k, v, bias),
+                       tda.fused_decode_attention(q, k, v, bias))
+
+
 def _tiny_model(dev, dtype):
     cfg = dataclasses.replace(
         llama.tiny_config(vocab_size=320, hidden_size=128, n_layers=3, n_heads=8, n_kv=2,
@@ -638,6 +697,7 @@ def _mlp_args(H, I, B, dtype, dev):
     (2048, 8192, 128, torch.bfloat16, "silu"),       # Llama-3.2-1B at the serving batch
     (2048, 8192, 128, torch.bfloat16, "gelu_tanh"),
     (2048, 8192, 8, torch.bfloat16, "silu"),
+    (2048, 8192, 16, torch.bfloat16, "silu"),
     (2048, 8192, 64, torch.bfloat16, "silu"),
     (2048, 8192, 100, torch.bfloat16, "silu"),       # a batch the wrapper pads
     (2048, 8192, 256, torch.bfloat16, "silu"),       # two batch tiles
@@ -659,6 +719,27 @@ def test_decode_mlp_kernel_is_deterministic(cuda):
     """The partials are added in a fixed order: two calls agree bit for bit."""
     args = _mlp_args(2048, 8192, 128, torch.bfloat16, cuda)
     assert torch.equal(tdm.fused_decode_mlp_bl(*args), tdm.fused_decode_mlp_bl(*args))
+
+
+@pytest.mark.parametrize("B", [8, 256])
+def test_decode_mlp_kernel_is_deterministic_at_other_tiles(cuda, B):
+    """m64n64 tiles (B 8) and two consumer warpgroups (B 256): bit-equal."""
+    args = _mlp_args(2048, 8192, B, torch.bfloat16, cuda)
+    assert torch.equal(tdm.fused_decode_mlp_bl(*args), tdm.fused_decode_mlp_bl(*args))
+
+
+def test_decode_mlp_kernel_encodes_weight_maps_once(cuda):
+    """The weights' TMA descriptors are cached: a second call on the same
+    weights encodes none, and the split counters are left at 0."""
+    args = _mlp_args(1024, 2048, 64, torch.bfloat16, cuda)
+    tdm.fused_decode_mlp_bl(*args)
+    before = tdm.map_encodes()
+    h2 = _normal((1024, 64), cuda, 7).bfloat16()
+    _close(tdm.fused_decode_mlp_bl(args[0], args[1], h2),
+           tdm._decode_mlp_plain(args[0], args[1], h2), TOL[torch.bfloat16])
+    assert tdm.map_encodes()["weights"] == before["weights"]
+    for c in tdm._counters.values():
+        assert int(c.abs().sum()) == 0
 
 
 def test_decode_mlp_kernel_refuses_what_it_cannot_take(cuda):

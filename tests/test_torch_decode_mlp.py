@@ -89,3 +89,89 @@ def test_wrapper_checks_shapes_and_names():
     assert tdm.down_splits(2048, 8192, 128) == 4   # 32 tiles x 4 splits: 128 blocks
     assert tdm.down_splits(2048, 8192, 256) == 2
     assert tdm.down_splits(64, 32, 16) == 1        # never deeper than the I axis
+
+
+@pytest.mark.parametrize("H,I", [(2048, 8192), (72, 136), (64, 8), (3072, 8192), (128, 520),
+                                 (64, 8192), (128, 4224)])
+def test_bf16_plan_covers_every_output_once(H, I):
+    """The bf16 launch plan, at any batch padded to 8 columns: gate-up
+    blocks tile I by 64 columns and the padded batch by n x wgs columns;
+    down blocks tile H by 64 columns and I by splits of whole 64-row chunks,
+    none empty, within what the C entry takes (a narrow H gives the I axis
+    up to 132 splits)."""
+    for Bp in range(8, 513, 8):
+        p = tdm.plan(H, I, Bp)
+        cols = p["n"] * p["wgs"]
+        assert (p["n"], p["wgs"]) in ((64, 1), (128, 1), (128, 2))
+        assert (p["batch_tiles"] - 1) * cols < Bp <= p["batch_tiles"] * cols
+        assert p["wgs"] == 1 or Bp > 128
+        assert p["gate_up_blocks"] == -(-I // tdm.TILE_COLS) * p["batch_tiles"]
+        assert (p["m_tiles"] - 1) * tdm.DOWN_COLS < H <= p["m_tiles"] * tdm.DOWN_COLS
+        assert p["per_split"] >= tdm.TILE_K and p["per_split"] % tdm.TILE_K == 0
+        assert (p["splits"] - 1) * p["per_split"] < I <= p["splits"] * p["per_split"]
+        assert 1 <= p["splits"] <= tdm.SMS
+        assert p["counters"] == p["m_tiles"] * p["batch_tiles"]
+        assert p["partial_floats"] == p["splits"] * p["counters"] * tdm.DOWN_COLS * cols
+
+
+def test_padded_batch():
+    """The batch pads to 16 columns (16-byte f32 loads, 16-byte TMA row
+    strides in bf16), never further."""
+    assert [tdm.padded_batch(B) for B in (1, 8, 16, 44, 100, 128, 250)] == \
+        [16, 16, 16, 48, 112, 128, 256]
+    for B in range(1, 513):
+        Bp = tdm.padded_batch(B)
+        assert Bp % 16 == 0 and B <= Bp < B + 16
+
+
+def test_bf16_plan_fits_shared_memory():
+    """Each ring holds as many 64-row stages as a block's 227 KB allow (at
+    least 4, at most MAX_STAGES), as Ring of csrc/decode_mlp.cu counts them."""
+    for Bp in range(8, 513, 8):
+        p = tdm.plan(2048, 8192, Bp)
+        for stages, smem, tiles in ((p["stages"], p["smem"], 2),
+                                    (p["down_stages"], p["down_smem"], 1)):
+            stage = 8192 * (tiles + p["wgs"] * p["n"] // 64)
+            assert 4 <= stages <= tdm.MAX_STAGES
+            assert smem == 1024 + stages * (stage + 16) <= tdm.SMEM_LIMIT
+
+
+def test_bf16_plan_fills_the_card_at_serving_batches():
+    """The down-split plan at Llama-3.2-1B's MLP, B 8-256: every 64 columns
+    of I has its own gate-up block (128, the finest wgmma split of I) and
+    the down product splits I until it reaches as many blocks as one wave
+    of the 132 SMs holds (one block an SM): 32 H tiles x 4 splits."""
+    for B in range(8, 257):
+        p = tdm.plan(2048, 8192, tdm.padded_batch(B))
+        assert p["gate_up_blocks"] == 128
+        assert 128 <= p["down_blocks"] <= tdm.SMS
+        assert (p["splits"], p["per_split"]) == (4, 2048)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_bf16_split_emulation_matches_xla_oracle(act):
+    """The bf16 kernel's arithmetic in plain torch: g and u summed in f32
+    and rounded, act(g) rounded, the product rounded, the down product as
+    f32 partials over the plan's splits of I, added in split order and
+    rounded once; against dmi_tpu's _mlp_xla_bl within 2 bf16 steps."""
+    H, I, B = 64, 520, 16
+    arrays = _case(H, I, B, seed=6)
+    w_gu, w_down, h = [torch.from_numpy(a).bfloat16() for a in arrays]
+    p = tdm.plan(H, I, B)
+    assert p["splits"] > 1
+
+    def r(x):
+        return x.bfloat16().float()
+
+    gu = w_gu.float().t() @ h.float()
+    g, u = r(gu[:I]), r(gu[I:])
+    a = r(torch.nn.functional.silu(g) if act == "silu"
+          else torch.nn.functional.gelu(g, approximate="tanh"))
+    x = r(a * u)
+    out = torch.zeros(H, B)
+    for sp in range(p["splits"]):
+        rows = slice(sp * p["per_split"], (sp + 1) * p["per_split"])
+        out = out + w_down.float()[rows].t() @ x[rows]
+    ref = np.asarray(jdm._mlp_xla_bl(*[jnp.asarray(a, jnp.bfloat16) for a in arrays], act)
+                     .astype(jnp.float32))
+    assert np.abs(r(out).numpy() - ref).max() <= 2.0 ** -7 * np.abs(ref).max()

@@ -147,19 +147,114 @@ def test_mlp2_plan_fills_the_card_at_serving_batches(mm):
 
 
 def test_decode_attn_score_chunk():
-    """One chunk holds all of S while the [group, S] f32 scores fit 48 KB
-    (S <= 3072 at Llama-3.2-1B's group of 4: the serving shapes run one
-    plain softmax); longer caches stream in chunks of that size, never
-    more than 48 KB a block, for any group the kernel takes."""
-    assert tda.score_chunk(23, 4) == 23
-    assert tda.score_chunk(3072, 4) == 3072
-    assert tda.score_chunk(3073, 4) == 3072
-    assert tda.score_chunk(20000, 4) == 3072
-    for group in range(1, tda.MAX_GROUP + 1):
-        for S in (1, 5, 383, 384, 3073, 20000):
-            chunk = tda.score_chunk(S, group)
-            assert 1 <= chunk <= S and group * chunk * 4 <= 48 * 1024
-            assert chunk == S or group * (chunk + 1) > tda.SCORE_FLOATS
+    """The plan's staged chunk (score_chunk's successor: the kernel no longer
+    keeps a whole [group, S] row of scores): at serving lengths one chunk
+    holds all of S, rounded up to 16 keys, so a call is one plain softmax;
+    longer caches stream in chunks of at most 64 keys, a multiple of 16,
+    whose stages fit a block's shared memory for any group and head width
+    the kernel takes."""
+    assert tda.plan(128, 8, 4, 23, 64, 2)["chunk"] == 32
+    assert tda.plan(64, 8, 4, 37, 64, 2)["chunk"] == 48
+    assert tda.plan(128, 8, 4, 1, 64, 2)["chunk"] == 16
+    assert tda.plan(2, 8, 4, 16384, 64, 2)["chunk"] == 64
+    for itemsize in (2, 4):
+        for group in (1, 4, 32):
+            for hd in (1, 64, 256):
+                for S in (1, 5, 383, 3073, 20000):
+                    p = tda.plan(1, 8, group, S, hd, itemsize)
+                    assert p["chunk"] % 16 == 0 and 16 <= p["chunk"] <= 64
+                    assert tda.smem_bytes(itemsize, group, hd, p["chunk"], 2) <= tda.SMEM_LIMIT
+                    assert p["stages"] == 2 or min(S, p["keys_per_split"]) <= p["chunk"]
+
+
+@pytest.mark.parametrize("B,S", [(1, 1), (2, 64), (2, 65), (2, 3073), (2, 16384), (1, 20000),
+                                 (3, 70), (8, 5000), (64, 4000), (1, 10 ** 7)])
+def test_decode_attn_plan_covers_every_key_once(B, S):
+    """Splits of whole chunks tile [0, S): every key in exactly one split,
+    none empty, the last one ragged where S is no multiple; within the
+    C entry's limits."""
+    for group in (1, 4, 32):
+        p = tda.plan(B, 8, group, S, 64, 2)
+        starts = [i * p["keys_per_split"] for i in range(p["splits"])]
+        assert starts[-1] < S <= p["splits"] * p["keys_per_split"]
+        assert p["splits"] == 1 or p["keys_per_split"] % p["chunk"] == 0
+        assert 1 <= p["splits"] <= tda.MAX_SPLITS and p["blocks"] == B * 8 * p["splits"]
+        assert p["stages"] == (1 if min(S, p["keys_per_split"]) <= p["chunk"] else 2)
+        # the C entry's terms: tensor cores at bf16, hd <= 128, group <= 16,
+        # with 16 keys a warp at least; else the CUDA cores' 4 warps
+        if p["tensor_cores"]:
+            assert group <= 16 and p["warps"] in (1, 4) and 16 * p["warps"] <= p["chunk"] <= 64
+        else:
+            assert group > 16 and p["warps"] == 4
+
+
+def test_decode_attn_plan_one_split_at_serving_shapes():
+    """B 64-256 x 8 kv heads at every step of a caption (S up to 38): one
+    split, one launch, no merge; so is any cache of up to MIN_SPLIT_KEYS
+    positions at any batch."""
+    for B in range(64, 257):
+        for S in range(1, 39):
+            p = tda.plan(B, 8, 4, S, 64, 2)
+            assert p["splits"] == 1 and p["keys_per_split"] == S and p["stages"] == 1
+            assert p["tensor_cores"] and p["warps"] == 1  # one warp: no combine of warps
+    for B in (1, 2, 7):
+        assert tda.plan(B, 8, 4, tda.MIN_SPLIT_KEYS, 64, 2)["splits"] == 1
+
+
+def test_decode_attn_plan_fills_the_card_for_long_caches():
+    """B 2 x 8 kv heads past 3072 positions: S is split until the blocks
+    come near TARGET_BLOCKS (half of it where splits need several chunks),
+    at least 3 an SM, where the first kernel ran 16 blocks."""
+    for S in (3073, 16384):
+        p = tda.plan(2, 8, 4, S, 64, 2)
+        assert p["splits"] > 1 and 3 * tda.SMS <= p["blocks"] <= tda.TARGET_BLOCKS, p
+    assert tda.plan(2, 8, 4, 3073, 64, 2)["keys_per_split"] == 64  # one chunk, one warp
+    assert tda.plan(2, 8, 4, 16384, 64, 2)["warps"] == 4
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_decode_attn_plan_fits_shared_memory(itemsize):
+    for group in (1, 3, 4, 32):
+        for hd in range(1, tda.MAX_HEAD_DIM + 1, 17):
+            for S in (1, 100, 5000):
+                p = tda.plan(1, 2, group, S, hd, itemsize)
+                assert p["smem"] == tda.smem_bytes(itemsize, group, hd, p["chunk"], p["stages"])
+                assert p["smem"] <= tda.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("S,keys,splits,chunk,masked,softcap", [
+    (300, None, None, None, None, None),     # the plan's own splits
+    (3100, None, None, None, (2050, 3100), None),  # a finfo.min tail over whole splits
+    (100, 40, 4, 16, None, 2.0),             # a ragged third split and an empty fourth
+    (100, 40, 3, 16, (40, 80), None),        # the middle split all finfo.min
+    (100, 32, 4, 16, (0, 64), 50.0),         # the first two splits all finfo.min
+    (100, 48, 3, 16, (37, 100), None),       # a tail that starts mid-chunk
+    (100, 40, 3, 16, (0, 100), None),        # every key finfo.min: the uniform average
+    (1, None, None, None, None, None),       # one key
+])
+def test_decode_attn_split_twin_matches_oracle(S, keys, splits, chunk, masked, softcap):
+    """_decode_attn_split_plain (the kernel's per-split (m, l, acc) and its
+    in-order merge) against dmi_tpu's llama._decode_attention and
+    _decode_attn_xla and the port's _decode_attn_plain: the same function,
+    with no NaN from an empty or fully masked split."""
+    q, k, v, bias = _attn_data(B=2, nh=8, nkv=2, S=S, hd=16, seed=9)
+    if masked:
+        bias[masked[0]:masked[1]] = NEG
+    p = tda.plan(2, 2, 4, S, 16, 4)
+    if keys:
+        p = {**p, "keys_per_split": keys, "splits": splits, "chunk": chunk}
+    assert p["splits"] * p["keys_per_split"] >= S
+    out = tda._decode_attn_split_plain(*_t(q, k, v, bias), p, None, softcap)
+    assert bool(torch.isfinite(out).all())
+    jb = jnp.broadcast_to(jnp.asarray(bias)[None, None], (2, 1, S))
+    ref = np.asarray(jllama._decode_attention(*map(jnp.asarray, (q, k, v)), jb, None, softcap))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        out.numpy(), tda._decode_attn_plain(*_t(q, k, v, bias), None, softcap).numpy(),
+        rtol=RTOL, atol=ATOL)
+    if softcap is None:
+        xla = np.asarray(jda._decode_attn_xla(*map(jnp.asarray, (q, k, v)), jb))
+        np.testing.assert_allclose(out.numpy(), xla, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("B,S,valid", [(2, 4096, None), (2, 4096, 3001), (1, 5000, 4500)])
