@@ -485,7 +485,8 @@ def bl_kernel_phase(torch, dev):
     print("kernels w4_mm_bl (packed W4A8) and w8_mm_bl (W8A8) vs their twins, bit for bit:")
     # the four layer matmuls of a w4a8 step (w_qkv, wo, w_gu, w_down) at the
     # serving batch; batches the TPU kernel's gate kept out; odd shapes
-    times = None
+    by_shape = {"w4_mm": {}, "w8_mm": {}}
+    layers = {(H, 3072): "w_qkv", (H, H): "wo", (H, 2 * I): "w_gu", (I, H): "w_down"}
     for K, out_dim, b in ((H, 3072, B), (H, H, B), (H, 2 * I, B), (I, H, B), (H, H, 8),
                           (H, H, 64), (H, 3072, 100), (H, H, 256), (70, 37, 5), (6, 33, 130)):
         wf = _normal(torch, dev, gen, (K, out_dim), 0.02)
@@ -499,35 +500,50 @@ def bl_kernel_phase(torch, dev):
                   w4._w8_mm_plain(w8w, hq, a, dtype))
         if b != B:
             continue
-        # the library chain: unpack, torch._int_mm (batch-first: its row count
-        # must exceed 16), rescale
+        # the library chains: (unpack,) torch._int_mm (batch-first: its row
+        # count must exceed 16), rescale
         hq_t = hq.t().contiguous()
 
-        def chain():
-            acc = torch._int_mm(hq_t, quant.unpack_w4(w4w["qp"]))
-            return (acc.t().float() * w4w["s"].reshape(-1, 1) * a).to(torch.bfloat16)
+        def chain(q, w):
+            return lambda: (torch._int_mm(hq_t, q()).t().float() * w["s"].reshape(-1, 1)
+                            * a).to(torch.bfloat16)
 
-        try:
-            lib_ms = device_ms(chain)
-            equal(f"   library chain K={K} out={out_dim}", chain(),
-                  w4._w4_mm_plain(w4w, hq, a, torch.bfloat16))
-        except RuntimeError as e:  # a yardstick only: the port never calls it
-            print(f"    torch._int_mm refused the shape: {str(e)[:200]}")
-            lib_ms = None
-        t = {"ms": device_ms(lambda: w4.w4_mm_bl(w4w, hq, a, torch.bfloat16)),
-             "plain_ms": device_ms(lambda: w4._w4_mm_plain(w4w, hq, a, torch.bfloat16)),
-             "library_ms": lib_ms,
-             **least_time(nbytes(w4w["qp"], w4w["s"], hq, a) + out_dim * b * 2,
-                          2 * K * out_dim * b, "int8")}
-        w8_ms = device_ms(lambda: w4.w8_mm_bl(w8w, hq, a, torch.bfloat16))
-        print(f"    K={K} out={out_dim} B={b} bf16: kernel {t['ms'] * 1e3!r} us, plain "
-              f"{t['plain_ms'] * 1e3!r} us, library "
-              f"{None if lib_ms is None else lib_ms * 1e3!r} us (unpack, _int_mm, rescale); "
-              f"bound {t['bound_ms'] * 1e3!r} us ({t['bound_by']}); the W8A8 variant "
-              f"{w8_ms * 1e3!r} us")
-        if out_dim == 2 * I:  # w_gu, the largest of a step's four: the kernels line
-            times = t
-    results["w4_mm"] = {"max_abs_err": 0.0, **times}
+        for key, w, kernel, plain, chain_fn, packed in (
+                ("w4_mm", w4w, w4.w4_mm_bl, w4._w4_mm_plain,
+                 chain(lambda: quant.unpack_w4(w4w["qp"]), w4w), True),
+                ("w8_mm", w8w, w4.w8_mm_bl, w4._w8_mm_plain, chain(lambda: w8w["q8"], w8w),
+                 False)):
+            try:
+                lib_ms = device_ms(chain_fn)
+                equal(f"   library chain of {key} K={K} out={out_dim}", chain_fn(),
+                      plain(w, hq, a, torch.bfloat16))
+            except RuntimeError as e:  # a yardstick only: the port never calls it
+                print(f"    torch._int_mm refused the shape: {str(e)[:200]}")
+                lib_ms = None
+            weights = w["qp"] if packed else w["q8"]
+            t = {"ms": device_ms(lambda: kernel(w, hq, a, torch.bfloat16)),
+                 "plain_ms": device_ms(lambda: plain(w, hq, a, torch.bfloat16)),
+                 "library_ms": lib_ms,
+                 **least_time(nbytes(weights, w["s"], hq, a) + out_dim * b * 2,
+                              2 * K * out_dim * b, "int8")}
+            us = host_us(torch, lambda: kernel(w, hq, a, torch.bfloat16))
+            again = kernel(w, hq, a, torch.bfloat16)
+            if not torch.equal(again, kernel(w, hq, a, torch.bfloat16)):
+                raise AssertionError(f"{key} K={K} out={out_dim}: two calls differ")
+            plan = {k: v for k, v in w4.plan(K, out_dim, b, packed).items()
+                    if k in ("splits", "per_split", "grid", "blocks", "tma")}
+            print(f"    {key} {layers[(K, out_dim)]} (K={K} out={out_dim} B={b}) bf16: kernel "
+                  f"{t['ms'] * 1e3!r} us, plain {t['plain_ms'] * 1e3!r} us, library "
+                  f"{None if lib_ms is None else lib_ms * 1e3!r} us (kernel / library "
+                  f"{None if lib_ms is None else t['ms'] / lib_ms!r}); bound "
+                  f"{t['bound_ms'] * 1e3!r} us ({t['bound_by']}); plan {plan}; host time per "
+                  f"call {us!r} us; two calls bit-equal")
+            by_shape[key][layers[(K, out_dim)]] = {k: t[k] for k in ("ms", "plain_ms",
+                                                                      "library_ms", "bound_ms")}
+            if out_dim == 2 * I:  # w_gu, the largest of a step's four: the kernels line
+                results[key] = {"max_abs_err": 0.0, **t}
+    for key in by_shape:
+        results[key]["by_shape"] = by_shape[key]
 
     print(f"kernel fused_decode_mlp_bl vs _decode_mlp_plain (H {H}, I {I}):")
     errs, times = [], None
@@ -577,11 +593,11 @@ def bl_kernel_phase(torch, dev):
     trees = {"bf16": {"embed": embed.bfloat16()},
              "q": {"embed": quant.quantize_embed_tensor(embed)},
              "q8": {"embed": quant.quantize_embed_tensor(embed, native=True)}}
-    gaps = []
+    gaps = {mode: [] for mode in trees}  # each mode's entry gets its own checks' largest gap
     for mode, params in trees.items():
-        for b in (B, 8, 64, 100):
+        for b in (B, 8, 64, 100, 256):
             h = _normal(torch, dev, gen, (H, b)).bfloat16()
-            gaps.append(head_check(torch, tha, f"{mode} V={V} B={b}", params, h, mode))
+            gaps[mode].append(head_check(torch, tha, f"{mode} V={V} B={b}", params, h, mode))
             if b != B:
                 continue
             e = params["embed"] if mode == "bf16" else params["embed"][mode]
@@ -594,10 +610,15 @@ def bl_kernel_phase(torch, dev):
                                 lambda: tha._head_argmax_plain(params["embed"], h), library),
                  **least_time(nbytes(e, h, *extra) + 4 * b, 2 * V * H * b,
                               "int8" if mode == "q8" else "bfloat16")}
+            us = host_us(torch, lambda: tha.head_argmax(params, h))
+            if not torch.equal(tha.head_argmax(params, h), tha.head_argmax(params, h)):
+                raise AssertionError(f"head argmax {mode}: two calls differ")
+            plan = {k: v for k, v in tha.plan(V, H, b, mode).items() if k != "runs"}
             print(f"    {mode}: {report_times(t)}; library: matmul (the int8 embed widened "
-                  f"to bf16 first), argmax")
-            if mode == "bf16":  # the mode of the bf16 tree's serving run: the kernels line
-                times = t
+                  f"to bf16 first), argmax; plan {plan}; host time per call {us!r} us; two "
+                  f"calls equal")
+            # one entry a mode: bf16 (the bf16 tree), q (int8=True), q8 (w4a8, w8a8)
+            results["head_argmax" if mode == "bf16" else f"head_argmax_{mode}"] = t
     # a V that no slice size divides, and ties planted across vocab slices
     small = _normal(torch, dev, gen, (1001, H))
     u = _normal(torch, dev, gen, (H,))
@@ -608,15 +629,19 @@ def bl_kernel_phase(torch, dev):
             return {"embed": x.bfloat16() if mode == "bf16"
                     else quant.quantize_embed_tensor(x, native=(mode == "q8"))}
 
-        gaps.append(head_check(torch, tha, f"{mode} V=1001 B=64", tree(small),
+        gaps[mode].append(head_check(torch, tha, f"{mode} V=1001 B=64", tree(small),
                                _normal(torch, dev, gen, (H, 64)).bfloat16(), mode))
         ids = tha.head_argmax(tree(tied), u[:, None].repeat(1, 32).bfloat16().contiguous())
         first = bool((ids == 300).all())
-        print(f"  {mode}: one winning row planted in vocab slices 2 and 54: first wins {first}")
+        print(f"  {mode}: one winning row planted in vocab tiles 1 and 27: first wins {first}")
         if not first:
             raise AssertionError(f"head argmax {mode}: a tie across slices went to {ids.tolist()}")
     del trees, embed
-    results["head_argmax"] = {"max_abs_err": max(gaps), **times}
+    for mode in gaps:
+        key = "head_argmax" if mode == "bf16" else f"head_argmax_{mode}"
+        results[key] = {"max_abs_err": max(gaps[mode]), **results[key]}
+    print(f"tensor maps encoded so far: head {tha.map_encodes()}, int8 matmul "
+          f"{w4.map_encodes()}")
     return results
 
 
@@ -628,6 +653,8 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
     (a) and (b) against their plain paths, (a) also against the batch-first
     loop.  Returns the launch counts of (a) and (b)."""
     from dmi_tpu_torch.ops.cuda import decode_mlp as dm
+    from dmi_tpu_torch.ops.cuda import head_argmax as tha
+    from dmi_tpu_torch.ops.cuda import w4_matmul as w4
     from dmi_tpu_torch.serve import Captioner
 
     spec, pparams = projector
@@ -638,20 +665,24 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
         return Captioner(cfg, params, spec, pparams, max_new_tokens=MAX_NEW, batch_size=128,
                          prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID, **kw)
 
+    def maps_now():  # the weights' tensor maps each TMA kernel has encoded
+        return {"decode_mlp": dm.map_encodes()["weights"],
+                "head_argmax": tha.map_encodes()["weights"], "w4_mm": w4.map_encodes()["weights"]}
+
     def serve(label, cap, requests, want):
         cap.caption_ids(requests[:128])  # warm-up
         torch.cuda.synchronize()
         _reset_counts()
-        maps = dm.map_encodes()
+        maps = maps_now()
         t0 = time.perf_counter()
         ids = cap.caption_ids(requests)
         secs = time.perf_counter() - t0
         counts = _counts()
-        maps = {k: v - maps[k] for k, v in dm.map_encodes().items()}
+        maps = {k: v - maps[k] for k, v in maps_now().items()}
         print(f"{label}: {len(requests)} requests at batch 128, {secs!r} s, "
-              f"{len(requests) / secs!r} captions/s ({card}); decode-MLP tensor maps "
-              f"encoded after the warm-up batch: {maps}")
-        if maps["weights"]:
+              f"{len(requests) / secs!r} captions/s ({card}); weight tensor maps encoded "
+              f"after the warm-up batch: {maps}")
+        if any(maps.values()):
             raise AssertionError(f"{label}: weight tensor maps encoded again after the warm-up")
         batches = -(-len(requests) // 128)
         _expect(label, counts, {k: v * batches for k, v in want.items()})
@@ -691,13 +722,14 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
     print("where one batch-last w4a8 batch's time goes:")
     profile_run(torch, "batch 128, w4a8 tree", lambda: cap.caption_ids(embs[:128]))
 
-    serve("(c) int8=True (int8 weights widened at each matmul)", captioner(int8=True),
-          embs[:128], per_batch)
-    serve('(d) int8="w8a8"', captioner(int8="w8a8"), embs[:128],
-          {**per_batch, "w8_mm": 4 * L * steps})
+    _, counts_c = serve("(c) int8=True (int8 weights widened at each matmul)",
+                        captioner(int8=True), embs[:128], per_batch)
+    _, counts_d = serve('(d) int8="w8a8"', captioner(int8="w8a8"), embs[:128],
+                        {**per_batch, "w8_mm": 4 * L * steps})
     del cap
     torch.cuda.empty_cache()
-    return {"serving batch-last": counts_a, "serving w4a8": counts_b}
+    return {"serving batch-last": counts_a, "serving w4a8": counts_b, "serving int8": counts_c,
+            "serving w8a8": counts_d}
 
 
 def device_times(torch, kernel, plain, library) -> dict:
@@ -1555,43 +1587,53 @@ def main() -> int:
         raise AssertionError(f"the smoke loaded modules of the JAX side: {jax_side}")
 
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
-    # kernel: (name, source, TPU kernel it replaces, the path whose run's count is reported)
+    # kernel: (name, source, TPU kernel it replaces, the path whose run's count is
+    # reported, the launch counter that counts it there)
+    head = ("dmi_tpu_torch/csrc/head_argmax.cu", "dmi_tpu/ops/pallas/head_argmax.py:97")
+    int8_mm = ("dmi_tpu_torch/csrc/w4_matmul.cu", "dmi_tpu/ops/pallas/w4_matmul.py:99")
     sources = {"mlp2": ("fused_mlp2", "dmi_tpu_torch/csrc/mlp2.cu",
-                        "dmi_tpu/ops/pallas/projector.py:167", "serving"),
+                        "dmi_tpu/ops/pallas/projector.py:167", "serving", "mlp2"),
                "decode_attention": ("fused_decode_attention",
                                     "dmi_tpu_torch/csrc/decode_attn.cu",
-                                    "dmi_tpu/ops/pallas/decode_attn.py:121", "serving"),
+                                    "dmi_tpu/ops/pallas/decode_attn.py:121", "serving",
+                                    "decode_attention"),
                "flash_fwd": ("flash_attention forward", "dmi_tpu_torch/csrc/flash_attn_fwd.cu",
                              f"dmi_tpu/models/llama.py:1086 ({flash}:758 "
-                             "_flash_attention_impl)", "stage 1"),
+                             "_flash_attention_impl)", "stage 1", "flash_fwd"),
                "flash_bwd_dkv": ("flash_attention backward dK/dV",
                                  "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
                                  f"dmi_tpu/models/llama.py:1086 ({flash}:1121 "
-                                 "_flash_attention_bwd_dkv)", "stage 1"),
+                                 "_flash_attention_bwd_dkv)", "stage 1", "flash_bwd_dkv"),
                "flash_bwd_dq": ("flash_attention backward dQ",
                                 "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
                                 f"dmi_tpu/models/llama.py:1086 ({flash}:1456 "
-                                "_flash_attention_bwd_dq)", "stage 1"),
+                                "_flash_attention_bwd_dq)", "stage 1", "flash_bwd_dq"),
                "lora0": ("fused_lora_layer0", "dmi_tpu_torch/csrc/lora0.cu",
-                         "dmi_tpu/ops/pallas/projector.py:251", "stage 2"),
-               "head_argmax": ("head_argmax", "dmi_tpu_torch/csrc/head_argmax.cu",
-                               "dmi_tpu/ops/pallas/head_argmax.py:97", "serving batch-last"),
+                         "dmi_tpu/ops/pallas/projector.py:251", "stage 2", "lora0"),
+               "head_argmax": ("head_argmax bf16", *head, "serving batch-last", "head_argmax"),
+               "head_argmax_q": ("head_argmax q", *head, "serving int8", "head_argmax"),
+               "head_argmax_q8": ("head_argmax q8", *head, "serving w4a8", "head_argmax"),
                "decode_mlp": ("fused_decode_mlp_bl", "dmi_tpu_torch/csrc/decode_mlp.cu",
-                              "dmi_tpu/ops/pallas/decode_mlp.py:97", "serving batch-last"),
-               "w4_mm": ("w4_mm_bl", "dmi_tpu_torch/csrc/w4_matmul.cu",
-                         "dmi_tpu/ops/pallas/w4_matmul.py:99", "serving w4a8"),
+                              "dmi_tpu/ops/pallas/decode_mlp.py:97", "serving batch-last",
+                              "decode_mlp"),
+               "w4_mm": ("w4_mm_bl", *int8_mm, "serving w4a8", "w4_mm"),
+               "w8_mm": ("w8_mm_bl (the W8A8 instance; dmi_tpu runs W8A8 on XLA)", *int8_mm,
+                         "serving w8a8", "w8_mm"),
                "block_mm": ("block_mm int8", "dmi_tpu_torch/csrc/block_mm.cu",
-                            "scripts/profile_int8_mxu.py:74 (pallas_mm)", "probes"),
+                            "scripts/profile_int8_mxu.py:74 (pallas_mm)", "probes", "block_mm"),
                "stream_mm": ("stream_mm_bl", "dmi_tpu_torch/csrc/stream_mm.cu",
-                             "scripts/profile_mlp_stream.py:67 (pallas_mm)", "probes"),
+                             "scripts/profile_mlp_stream.py:67 (pallas_mm)", "probes",
+                             "stream_mm"),
                "w4_split_out": ("w4_dot_split_out", "dmi_tpu_torch/csrc/w4_probe.cu",
-                                "scripts/profile_w4_matmul.py:156 (dot_w4_pallas)", "probes"),
+                                "scripts/profile_w4_matmul.py:156 (dot_w4_pallas)", "probes",
+                                "w4_split_out"),
                "w4_split_k": ("w4_dot_split_k", "dmi_tpu_torch/csrc/w4_probe.cu",
-                              "scripts/profile_w4_matmul.py:184 (dot_w4_pallas_k)", "probes")}
+                              "scripts/profile_w4_matmul.py:184 (dot_w4_pallas_k)", "probes",
+                              "w4_split_k")}
     print(f"launches by path: {paths}")
     report = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": paths[path][key], **kernels[key]}
-              for key, (name, src, rep, path) in sources.items()]
+               "launches": paths[path][count], **kernels[key]}
+              for key, (name, src, rep, path, count) in sources.items()]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

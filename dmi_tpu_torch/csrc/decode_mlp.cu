@@ -66,10 +66,8 @@
 #include <cuda_pipeline.h>
 #include <stdint.h>
 
-#include <mutex>
-
 #include "common.cuh"
-#include "flash_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -333,14 +331,13 @@ int launch_f32(const float* w_gu, const float* w_down, const float* h, float* ac
 // one's.  TMA zero-fills rows and columns outside the tensor, so ragged
 // edges multiply zeros.
 
-using namespace dmi::flash;  // bf16, smem_addr, the mbarrier and TMA helpers
+using namespace dmi::flash;   // bf16, smem_addr, the mbarrier and TMA helpers
+using namespace dmi::hopper;  // tensor maps, descriptors, wgmma
 
 constexpr int kKc = 64;                          // K rows per ring stage
 constexpr int kTileCols = 64;                    // columns of a box: one 128-byte swizzled row
 constexpr int kBoxBytes = kKc * kTileCols * 2;   // 8 KB
-constexpr int kSbo = 1024;                       // bytes between 8-row groups along K
 constexpr int kKStep = 16 * 128;                 // bytes of one wgmma's 16 K rows
-constexpr int kSmemMax = 232448;                 // 227 KB a block
 constexpr int kMaxStages = 8;
 
 // kStages stages of kMT weight boxes, then kWG x kN / 64 activation boxes,
@@ -356,65 +353,12 @@ struct Ring {
 
 // ---- host: tensor maps ----
 
-// A map of the row-major bf16 matrix at base ([rows, cols], row_bytes apart)
-// in boxes of 64 columns x kKc rows, 128-byte swizzled.  False where the
-// driver has no encoder or refuses the shape.
-bool encode_map(CUtensorMap* m, const void* base, uint64_t cols, uint64_t rows,
-                uint64_t row_bytes) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {kTileCols, kKc};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// The map of a row-major bf16 matrix ([rows, cols], row_bytes apart) in
+// boxes of 64 columns x kKc rows, 128-byte swizzled
+MapShape bf16_boxes(uint64_t cols, uint64_t rows, uint64_t row_bytes) {
+  return {CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, rows, row_bytes, kTileCols, kKc,
+          CU_TENSOR_MAP_SWIZZLE_128B};
 }
-
-// Tensor maps by (pointer, shape, row stride), each encoded at its first
-// use (every map here is of bf16, the one dtype that takes this path); when
-// the cache is full the least recently used map is replaced.  A map holds
-// only the address, shape and strides it was made from, so a new tensor at
-// a freed address with the same key gets a map that is right for it.
-template <int kEntries>
-struct MapCache {
-  struct Entry {
-    const void* base;
-    uint64_t cols, rows, row_bytes, used;
-    CUtensorMap map;
-  };
-  Entry entries[kEntries];
-  int n = 0;
-  uint64_t tick = 0;
-  long long encodes = 0;
-  std::mutex mu;
-
-  // the map of (base, cols, rows, row_bytes); false where it cannot be encoded
-  bool get(CUtensorMap* out, const void* base, uint64_t cols, uint64_t rows,
-           uint64_t row_bytes) {
-    std::lock_guard<std::mutex> lock(mu);
-    ++tick;
-    Entry* lru = nullptr;
-    for (int i = 0; i < n; ++i) {
-      Entry& e = entries[i];
-      if (e.base == base && e.cols == cols && e.rows == rows && e.row_bytes == row_bytes) {
-        e.used = tick;
-        *out = e.map;
-        return true;
-      }
-      if (lru == nullptr || e.used < lru->used) lru = &e;
-    }
-    Entry& e = n < kEntries ? entries[n] : *lru;
-    if (!encode_map(&e.map, base, cols, rows, row_bytes)) return false;
-    if (n < kEntries) ++n;  // e was entries[n]
-    e.base = base, e.cols = cols, e.rows = rows, e.row_bytes = row_bytes, e.used = tick;
-    ++encodes;
-    *out = e.map;
-    return true;
-  }
-};
 
 // The weights' maps (two a layer: a model of up to 128 layers keeps them
 // all), and apart from them the activations' (new addresses as the caching
@@ -430,115 +374,12 @@ MapCache<16>& act_maps() {
 
 // ---- device ----
 
-// the box of `map` at (column c0, row c1) into the L2 cache only
-__device__ __forceinline__ void tma_prefetch_2d(const CUtensorMap* map, int c0, int c1) {
-  asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global [%0, {%1, %2}];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(c0), "r"(c1)
-               : "memory");
-}
-
-// Programmatic dependent launch: a kernel launched right after this one with
-// the programmatic-serialization attribute may start (and run up to its
-// griddep_wait) once every block of this one has called
-// griddep_launch_dependents; griddep_wait returns when the kernel before has
-// finished and its writes are visible.
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// A shared-memory matrix descriptor: start address, leading byte offset
-// (between 64-column atoms along MN), stride byte offset (between 8-row
-// groups along K), 128-byte swizzle
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo) {
-  const uint32_t a = smem_addr(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)(kSbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x N f32, the warpgroup's fragment) += A (64 x 16, MN-major) *
-// B (16 x N, MN-major), both by descriptor; scale-d 1, both transposed
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <int kN>
 __device__ __forceinline__ void wgmma(float (&d)[kN / 2], uint64_t da, uint64_t db) {
   if constexpr (kN == 128)
-    wgmma_n128(d, da, db);
+    wgmma_bf16_n128<1, 1>(d, da, db);  // both operands MN-major
   else
-    wgmma_n64(d, da, db);
-}
-
-// Register r of a warpgroup thread's m64nN fragment holds C[row, col]:
-// warp w of the group owns rows 16 w .. 16 w + 15, as in mma.sync's
-// m16n8 C tile, one n8 tile per four registers.
-__device__ __forceinline__ int frag_row(int r, int t) {
-  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((r >> 1) & 1);
-}
-__device__ __forceinline__ int frag_col(int r, int t) {
-  return 8 * (r >> 2) + 2 * (t & 3) + (r & 1);
+    wgmma_bf16_n64<1, 1>(d, da, db);
 }
 
 // Producer: chunk c (rows k0 + 64 c ..) of the weight boxes at columns
@@ -589,11 +430,6 @@ __device__ __forceinline__ void consume(float (&acc)[kMT][kN / 2], const unsigne
     wgmma_wait0();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);
   }
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uintptr_t a = (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023);
-  return reinterpret_cast<unsigned char*>(a);
 }
 
 // With two consumer warpgroups the producer gives its registers to them
@@ -767,10 +603,10 @@ int launch_bf16(const void* w_gu, const void* w_down, const void* h, void* act_b
   if (e != 0) return e;
   CUtensorMap w_gu_map, h_map, w_down_map, act_map;
   const uint64_t hi = H, ii = I, bi = B;
-  if (!weight_maps().get(&w_gu_map, w_gu, 2 * ii, hi, 4 * ii) ||
-      !weight_maps().get(&w_down_map, w_down, hi, ii, 2 * hi) ||
-      !act_maps().get(&h_map, h, bi, hi, 2 * bi) ||
-      !act_maps().get(&act_map, act_buf, bi, ii, 2 * bi))
+  if (!weight_maps().get(&w_gu_map, w_gu, bf16_boxes(2 * ii, hi, 4 * ii)) ||
+      !weight_maps().get(&w_down_map, w_down, bf16_boxes(hi, ii, 2 * hi)) ||
+      !act_maps().get(&h_map, h, bf16_boxes(bi, hi, 2 * bi)) ||
+      !act_maps().get(&act_map, act_buf, bf16_boxes(bi, ii, 2 * bi)))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(128 * (kWG + 1));

@@ -49,13 +49,15 @@ _SIGNATURES = {
     # q, k, v, key_mask, dout, lse, delta, dq, B, nh, nkv, T, hd, strides[15],
     # scale, kd, hpb, vec, dtype, stream
     "dmi_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F] + [_I] * 4 + [_P],
-    # weights (packed uint8 or int8), hq, a, s, out, K, out_dim, B, packed, dtype, stream
-    "dmi_w4_mm": [_P] * 5 + [_I] * 5 + [_P],
+    # weights (packed uint8 or int8), hq, a, s, out, partial, counters, K, out_dim, B,
+    # ldh, packed, dtype, splits, per_split, stream
+    "dmi_w4_mm": [_P] * 7 + [_I] * 8 + [_P],
     # w_gu, w_down, h, act_buf, partial, counters, out, H, I, B, n, wgs, stages,
     # down_stages, splits, per_split, act, dtype, stream
     "dmi_decode_mlp": [_P] * 7 + [_I] * 11 + [_P],
-    # embed, scales, h, act_scales, part_val, part_idx, ids, V, H, B, mode, stream
-    "dmi_head_argmax": [_P] * 7 + [_I] * 4 + [_P],
+    # embed, scales, h, act_scales, part_val, part_idx, ids, V, H, B, mode, blocks,
+    # stream
+    "dmi_head_argmax": [_P] * 7 + [_I] * 5 + [_P],
     # a, b, out, M, N, K, block_m, int8, stream
     "dmi_block_mm": [_P] * 3 + [_I] * 5 + [_P],
     # w, h, out, O, B, I, block_o, stream
@@ -142,8 +144,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        loaded.dmi_decode_mlp_map_encodes.argtypes = [ctypes.c_int]
-        loaded.dmi_decode_mlp_map_encodes.restype = ctypes.c_longlong
+        for name in ("dmi_decode_mlp_map_encodes", "dmi_head_argmax_map_encodes",
+                     "dmi_w4_mm_map_encodes"):
+            getattr(loaded, name).argtypes = [ctypes.c_int]
+            getattr(loaded, name).restype = ctypes.c_longlong
         loaded.dmi_error_string.argtypes = [ctypes.c_int]
         loaded.dmi_error_string.restype = ctypes.c_char_p
         _lib = loaded

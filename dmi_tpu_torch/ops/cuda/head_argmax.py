@@ -2,12 +2,13 @@
 
 Counterpart of dmi_tpu/ops/pallas/head_argmax.py, whose TPU kernel
 (_head_argmax_pallas) is csrc/head_argmax.cu here.  Greedy decode needs only
-the argmax of the logits: the kernel streams the tied embedding's rows in
-vocab slices, forms each slice's scores in shared memory and keeps a (best
-score, first index) pair per batch column, so the [V, B] logits never reach
-device memory.  Blocks own vocab slices in parallel; a second small kernel
-merges their pairs by (score descending, index ascending), which is
-deterministic and is argmax's first-occurrence rule.
+the argmax of the logits: the kernel streams the tied embedding through a
+TMA ring into the tensor cores (wgmma), 256 vocab rows a tile against a
+staged chunk of the state, and keeps a (best score, first index) pair per
+batch column in registers, so the [V, B] logits never reach device memory.
+Persistent blocks walk contiguous runs of vocab tiles (launch plan: `plan`);
+a second small kernel merges their pairs by (score descending, index
+ascending), which is deterministic and is argmax's first-occurrence rule.
 
 Three weight modes (models/quant.py), each with the rounding order of the
 logits path it replaces (decode._head_logits_bl), so the compare sees the
@@ -25,10 +26,13 @@ round to the other bf16 value and pick the other index.
 `head_argmax` runs the twin for tensors on the CPU and launches the kernels
 for tensors on a CUDA device; there is no fallback between the two.  dmi_tpu
 gates its kernel by an environment variable and by the divisors of V; here
-any V is taken (the last slice is guarded, the embed is not padded).
+any V is taken (rows past V in the last tile are masked, the embed is not
+padded).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +44,35 @@ from dmi_tpu_torch.ops.cuda import _build
 launches = 0
 
 MODES = {"bf16": 0, "q": 1, "q8": 2}
-TILE_V = 128  # kTileV of csrc/head_argmax.cu: vocab rows per block
+TILE_V = 256  # kTileV of csrc/head_argmax.cu: vocab rows of a tile
+TILE_B = 128  # kTileB: batch columns of a block
+SMS = 132     # streaming multiprocessors of the H100
+
+
+@functools.lru_cache(maxsize=None)
+def plan(V: int, H: int, B: int, mode: str) -> dict:
+    """Launch plan at a padded batch B.  Every batch tile of TILE_B columns
+    gets `blocks` persistent blocks, as many as fill the SMs once and no more
+    than there are vocab tiles; block i walks vocab tiles runs[i] = [first,
+    end), contiguous and balanced (the kernel computes the same bounds from
+    its index).  `part` is the scratch of the blocks' (best, index) pairs."""
+    if mode not in MODES:
+        raise ValueError(f"head argmax: unknown mode {mode!r}")
+    tiles = -(-V // TILE_V)
+    batch_tiles = -(-B // TILE_B)
+    blocks = max(1, min(tiles, SMS // batch_tiles))
+    runs = tuple((i * tiles // blocks, (i + 1) * tiles // blocks) for i in range(blocks))
+    return {"tile_v": TILE_V, "tile_b": TILE_B, "vocab_tiles": tiles,
+            "batch_tiles": batch_tiles, "blocks": blocks, "grid": (blocks, batch_tiles),
+            "runs": runs, "part": blocks * B}
+
+
+def map_encodes() -> dict:
+    """Tensor maps the kernel has encoded since the library was loaded, the
+    embeds' and the states' (cached apart)."""
+    lib = _build.lib()
+    return {"weights": lib.dmi_head_argmax_map_encodes(0),
+            "activations": lib.dmi_head_argmax_map_encodes(1)}
 
 
 def head_logits_bl(embed, h) -> torch.Tensor:
@@ -100,33 +132,36 @@ def head_argmax(params: dict, h: torch.Tensor) -> torch.Tensor:
     if not e.is_contiguous():
         raise ValueError("head argmax kernel: the embed must be contiguous")
     if H % 16:
-        raise ValueError(f"head argmax kernel: H {H} must be a multiple of 16 (16-byte loads)")
+        raise ValueError(f"head argmax kernel: H {H} must be a multiple of 16 (TMA rows of "
+                         "16-byte multiples)")
+    if B == 0:
+        return torch.empty((0,), dtype=torch.long, device=h.device)
     dev = h.device
+    # the kernels take the batch in multiples of 16 columns (their ids are
+    # dropped): 16-byte rows of h for TMA
+    Bp = B + (-B % 16)
     scales = act_scales = None
     if mode == "q8":
+        # wgmma's int8 form takes K-major operands only: the quantized state
+        # goes over transposed, [Bp, H], one copy made where it is quantized
         x, a = quantize_act(h, axis=0)
-        act_scales = F.pad(a.reshape(-1), (0, -B % 16)).contiguous()
+        xp = F.pad(x, (0, Bp - B)).t().contiguous()
+        act_scales = F.pad(a.reshape(-1), (0, Bp - B)).contiguous()
     else:
-        x = h
+        xp = h.contiguous() if Bp == B else F.pad(h, (0, Bp - B))
     if mode != "bf16":
         scales = embed["s"].reshape(-1)
         if scales.dtype != torch.float32 or not scales.is_contiguous():
             raise TypeError("head argmax kernel: row scales are contiguous f32")
-    # the kernels read rows of h 16 bytes at a time: pad the batch to a
-    # multiple of 16 columns (their ids are dropped)
-    Bp = B + (-B % 16)
-    xp = x.contiguous() if Bp == B else F.pad(x, (0, Bp - B))
-    blocks = -(-V // TILE_V)
-    part_val = torch.empty((blocks, Bp), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((blocks, Bp), dtype=torch.int32, device=dev)
+    p = plan(V, H, Bp, mode)
+    part_val = torch.empty(p["part"], dtype=torch.float32, device=dev)
+    part_idx = torch.empty(p["part"], dtype=torch.int32, device=dev)
     ids = torch.empty((Bp,), dtype=torch.int32, device=dev)
-    if B == 0:
-        return ids[:0].long()
     err = _build.lib().dmi_head_argmax(
         e.data_ptr(), scales.data_ptr() if scales is not None else None, xp.data_ptr(),
         act_scales.data_ptr() if act_scales is not None else None,
         part_val.data_ptr(), part_idx.data_ptr(), ids.data_ptr(), V, H, Bp, MODES[mode],
-        torch.cuda.current_stream(dev).cuda_stream,
+        p["blocks"], torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "head argmax")
     launches += 1

@@ -5,10 +5,13 @@ Counterpart of dmi_tpu/ops/pallas/w4_matmul.py:w4_mm_bl, whose TPU kernel is
 csrc/w4_matmul.cu here.  The decode loop reads every layer weight once per
 token step; int4 halves that stream against int8 only if the nibbles are
 unpacked after the read from device memory.  The kernel streams the packed
-bytes, sign-extends the nibbles in registers, contracts each half against
-its contiguous slice of the int8 activations with `__dp4a` into int32, and
-rescales to the output dtype, so neither the unpacked weights nor the int32
-accumulator reach device memory.
+bytes through a TMA ring, builds the int8 tensor cores' fragments of both
+nibble halves in registers, contracts each half against its contiguous
+slice of the int8 activations (mma.sync, int32) and rescales to the output
+dtype, so the unpacked weights never reach device memory.  Where a layer has
+too few 128-channel tiles to fill the card, the contraction rows are split
+over blocks and the last block of a tile adds the splits' int32 partials
+(launch plan: `plan`).
 
 Layout (quant.pack_w4): byte (k, n) of qp [K/2, out] holds contraction rows
 k (low nibble) and k + K/2 (high nibble).  Scales are per output channel
@@ -29,7 +32,10 @@ between the two.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from dmi_tpu_torch.models.quant import int_matmul
 from dmi_tpu_torch.ops.cuda import _build
@@ -38,6 +44,57 @@ from dmi_tpu_torch.ops.cuda import _build
 # each count was last set to 0
 launches = 0
 w8_launches = 0
+
+TILE_M = 128     # kTileM of csrc/w4_matmul.cu: output channels of a block
+TILE_B = 128     # kTileB: batch columns of a block
+TILE_K = 64      # kKc: weight rows of a ring stage (packed rows for W4)
+SMS = 132        # streaming multiprocessors of the H100
+MAX_K = 131072   # the packed kernel's int32 sums hold 16 x the true ones
+
+
+@functools.lru_cache(maxsize=None)
+def plan(K: int, out: int, B: int, packed: bool) -> dict:
+    """Launch plan of the packed (W4) or int8 (W8) kernel at batch B: a block
+    owns TILE_M output channels, TILE_B batch columns and one split of the
+    weight rows (K/2 packed rows, or K), whole TILE_K-row chunks each; splits
+    are as many as fill the SMs once beside the (channel, batch) tiles, none
+    empty.  `tma`: the weights come by TMA (out a multiple of 16; the C
+    entry also needs their base 16-byte aligned), else the byte-copying
+    instance runs.  `partial_ints`: the int32 scratch of the splits'
+    partials (none with one split); `counters`: one per tile."""
+    rows = K // 2 if packed else K
+    m_tiles, batch_tiles = -(-out // TILE_M), -(-B // TILE_B)
+    chunks = -(-rows // TILE_K)
+    splits = max(1, min(SMS // (m_tiles * batch_tiles), chunks))
+    per_chunks = -(-chunks // splits)
+    splits = -(-chunks // per_chunks)
+    tiles = m_tiles * batch_tiles
+    return {"tile_m": TILE_M, "tile_b": TILE_B, "rows": rows, "splits": splits,
+            "per_split": per_chunks * TILE_K, "m_tiles": m_tiles, "batch_tiles": batch_tiles,
+            "blocks": splits * tiles, "grid": (splits, m_tiles, batch_tiles),
+            "tma": out % 16 == 0, "counters": tiles,
+            "partial_ints": splits * tiles * TILE_M * TILE_B if splits > 1 else 0}
+
+
+# (device, stream) -> int32 zeros, one per output tile: the last of a tile's
+# splits sets its counter back to 0, so a call leaves them as it found them.
+# One buffer per stream, so that calls that share one run in order.
+_counters = {}
+
+
+def _tile_counters(device, stream: int, n: int) -> torch.Tensor:
+    c = _counters.get((device, stream))
+    if c is None or c.numel() < n:
+        c = _counters[(device, stream)] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                      device=device)
+    return c
+
+
+def map_encodes() -> dict:
+    """Tensor maps the kernel library has encoded for this kernel since it
+    was loaded, the weights' and the activations' (cached apart)."""
+    lib = _build.lib()
+    return {"weights": lib.dmi_w4_mm_map_encodes(0), "activations": lib.dmi_w4_mm_map_encodes(1)}
 
 
 def _rescale(acc, s, a, out_dtype):
@@ -88,13 +145,26 @@ def _launch(wq, s, hq, a, out_dtype, packed: bool):
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int8 matmul kernel: tensors must be contiguous")
+    if packed and K > MAX_K:
+        raise ValueError(f"int8 matmul kernel: K {K} over {MAX_K} (int32 sums)")
+    code = _build.dtype_code(out_dtype)
     out = torch.empty((out_dim, B), dtype=out_dtype, device=hq.device)
     if out.numel() == 0:
         return out
+    # TMA reads hq in rows of a multiple of 16 bytes from a 16-byte aligned
+    # base: pad the batch (zero columns, never stored) where it is not so
+    Bp = -(-B // 16) * 16
+    hp = hq if Bp == B and hq.data_ptr() % 16 == 0 else F.pad(hq, (0, Bp - B))
+    p = plan(K, out_dim, B, packed)
+    stream = torch.cuda.current_stream(hq.device).cuda_stream
+    partial = counters = None
+    if p["splits"] > 1:
+        partial = torch.empty(p["partial_ints"], dtype=torch.int32, device=hq.device)
+        counters = _tile_counters(hq.device, stream, p["counters"]).data_ptr()
     err = _build.lib().dmi_w4_mm(
-        wq.data_ptr(), hq.data_ptr(), a.data_ptr(), s.data_ptr(), out.data_ptr(),
-        K, out_dim, B, int(packed), _build.dtype_code(out_dtype),
-        torch.cuda.current_stream(hq.device).cuda_stream,
+        wq.data_ptr(), hp.data_ptr(), a.data_ptr(), s.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), counters, K, out_dim, B, Bp,
+        int(packed), code, p["splits"], p["per_split"], stream,
     )
     _build.check(err, "int8 matmul")
     if packed:

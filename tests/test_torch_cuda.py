@@ -623,12 +623,14 @@ def _normal(shape, dev, seed, scale=1.0):
     return torch.from_numpy(a).to(dev)
 
 
-# Llama-3.2-1B's four layer matmuls at the serving batch; the batch sizes the
-# TPU kernel's gate kept out (8, 64, 100); shapes off every vector width
+# Llama-3.2-1B's four layer matmuls at the serving batch (one split of the
+# contraction rows at w_gu, 4-8 at the others); the batch sizes the TPU
+# kernel's gate kept out (8, 64, 100); 32 splits; shapes off every vector
+# width (the byte-copying instance)
 INT8_MM_SHAPES = [
     (2048, 3072, 128), (2048, 2048, 128), (2048, 16384, 128), (8192, 2048, 128),
     (2048, 2048, 8), (2048, 2048, 64), (2048, 3072, 100), (2048, 2048, 256),
-    (70, 37, 5), (6, 33, 130), (1024, 40, 1),
+    (4096, 256, 128), (70, 37, 5), (6, 33, 130), (1024, 40, 1),
 ]
 
 
@@ -646,15 +648,50 @@ def test_w4_kernel_equals_twin_bit_for_bit(cuda, K, out, B, out_dtype):
     assert torch.equal(got, want)
 
 
-def test_w4_kernel_sign_extends_every_nibble(cuda):
-    """Every byte value, -8 included (quantize_tensor_int4 never emits it)."""
-    K, out, B = 64, 256, 16
-    qp = torch.arange(256, dtype=torch.uint8, device=cuda).repeat(K // 2, 1).contiguous()
-    qp = qp[:, torch.randperm(256, device=cuda)].contiguous()
-    w = {"qp": qp, "s": torch.full((1, out), 0.01, device=cuda)}
+@pytest.mark.parametrize("K,out,B", [(64, 256, 16), (1024, 256, 128), (64, 250, 5)],
+                         ids=["one-split", "many-splits", "byte-copy"])
+def test_w4_kernel_sign_extends_every_nibble(cuda, K, out, B):
+    """Every byte value, -8 included (quantize_tensor_int4 never emits it), in
+    every row of the packed weights (out 250: in the rows together), at one
+    and many splits and through the byte-copying instance."""
+    rng = np.random.default_rng(3)
+    qp = np.stack([rng.permutation(np.resize(np.roll(np.arange(256), 7 * r), out))
+                   for r in range(K // 2)])
+    w = {"qp": torch.from_numpy(qp.astype(np.uint8)).to(cuda),
+         "s": torch.full((1, out), 0.01, device=cuda)}
     hq, a = quant.quantize_act(_normal((K, B), cuda, 2), axis=0)
     assert torch.equal(tw4.w4_mm_bl(w, hq, a, torch.float32),
                        tw4._w4_mm_plain(w, hq, a, torch.float32))
+
+
+def test_int8_mm_kernels_are_deterministic(cuda):
+    """Two calls bit-equal where the last split of a tile adds the others'
+    partials (wo, w_down) and where no split does (w_gu)."""
+    for K, out in ((2048, 2048), (8192, 2048), (2048, 16384)):
+        wf = _normal((K, out), cuda, 0, 0.05)
+        hq, a = quant.quantize_act(_normal((K, 128), cuda, 1), axis=0)
+        for fn, w in ((tw4.w4_mm_bl, quant.quantize_tensor_int4(wf)),
+                      (tw4.w8_mm_bl, quant.quantize_tensor(wf, native=True))):
+            first = fn(w, hq, a, torch.bfloat16)
+            assert torch.equal(first, fn(w, hq, a, torch.bfloat16))
+    for c in tw4._counters.values():
+        assert int(c.abs().sum()) == 0  # every tile's counter set back to 0
+
+
+def test_int8_mm_kernels_encode_weight_maps_once(cuda):
+    """A weight's tensor map is encoded at its first call only."""
+    wf = _normal((2048, 3072), cuda, 0, 0.05)
+    hq, a = quant.quantize_act(_normal((2048, 128), cuda, 1), axis=0)
+    w4w, w8w = quant.quantize_tensor_int4(wf), quant.quantize_tensor(wf, native=True)
+    tw4.w4_mm_bl(w4w, hq, a, torch.bfloat16)
+    tw4.w8_mm_bl(w8w, hq, a, torch.bfloat16)
+    before = tw4.map_encodes()
+    for _ in range(3):
+        hq, a = quant.quantize_act(_normal((2048, 128), cuda, 2), axis=0)
+        tw4.w4_mm_bl(w4w, hq, a, torch.bfloat16)
+        tw4.w8_mm_bl(w8w, hq, a, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tw4.map_encodes()["weights"] == before["weights"]
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -788,8 +825,8 @@ def _check_head(params, h, mode):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
-@pytest.mark.parametrize("V,B", [(128256, 128), (128256, 8), (128256, 100), (1001, 64),
-                                 (100, 16), (5000, 256)])
+@pytest.mark.parametrize("V,B", [(128256, 128), (128256, 8), (128256, 64), (128256, 100),
+                                 (128256, 256), (1001, 64), (100, 16), (5000, 256)])
 def test_head_argmax_kernel_matches_twin(cuda, mode, V, B):
     """Llama-3.2-1B's vocabulary and width; a V no slice size divides."""
     params = _head_params(mode, V, 2048, cuda)
@@ -810,18 +847,42 @@ def test_head_argmax_kernel_ties_go_to_the_first_row(cuda, mode):
     assert torch.equal(ids, torch.zeros(B, dtype=torch.long, device=cuda))
 
 
+@pytest.mark.parametrize("V,rows", [(9000, (300, 7000)), (50000, (255, 256)),
+                                    (50000, (767, 768)), (50000, (3, 49999))],
+                         ids=["two-blocks", "block-edge", "tile-edge-in-a-run", "first-last"])
 @pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
-def test_head_argmax_kernel_planted_tie_across_blocks(cuda, mode):
-    """The same winning row planted in two vocab slices: the first wins."""
-    V, H, B = 9000, 128, 32
+def test_head_argmax_kernel_planted_tie_across_blocks(cuda, mode, V, rows):
+    """The same winning row planted twice: the first wins, across two blocks'
+    runs, at the edge of two blocks, at a tile edge inside one block's run
+    (V 50000: 196 tiles over 132 blocks) and across the whole vocabulary."""
+    H, B = 128, 32
     u = _normal((H,), cuda, 5)
     embed = _normal((V, H), cuda, 6, 0.1)
-    embed[7000] = embed[300] = 4.0 * u
+    embed[rows[0]] = embed[rows[1]] = 4.0 * u
     params = ({"embed": embed.bfloat16()} if mode == "bf16" else
               {"embed": quant.quantize_embed_tensor(embed, native=(mode == "q8"))})
     h = u[:, None].repeat(1, B).bfloat16().contiguous()
     ids = tha.head_argmax(params, h)
-    assert torch.equal(ids, torch.full((B,), 300, dtype=torch.long, device=cuda))
+    assert torch.equal(ids, torch.full((B,), rows[0], dtype=torch.long, device=cuda))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+def test_head_argmax_kernel_is_deterministic(cuda, mode):
+    """Two calls give the same ids (the blocks' pairs merge in a fixed order)."""
+    params = _head_params(mode, 128256, 2048, cuda)
+    h = _normal((2048, 128), cuda, 1).bfloat16()
+    assert torch.equal(tha.head_argmax(params, h), tha.head_argmax(params, h))
+
+
+def test_head_argmax_kernel_encodes_embed_maps_once(cuda):
+    """The embed's tensor map is encoded at its first call only."""
+    params = _head_params("bf16", 4096, 256, cuda)
+    tha.head_argmax(params, _normal((256, 16), cuda, 1).bfloat16())
+    before = tha.map_encodes()
+    for seed in range(3):
+        tha.head_argmax(params, _normal((256, 16), cuda, 2 + seed).bfloat16())
+    torch.cuda.synchronize()
+    assert tha.map_encodes()["weights"] == before["weights"]
 
 
 def test_head_argmax_kernel_refuses_what_it_cannot_take(cuda):

@@ -141,3 +141,97 @@ def test_wrapper_refuses_what_the_kernel_does_not_bake_in():
         tha.head_argmax(_torch_params("bf16", embed), torch.from_numpy(h[:16]).bfloat16())
     with pytest.raises(ValueError, match="unknown"):
         tha.head_argmax({"embed": {"qp": torch.zeros(2, 2)}}, torch.from_numpy(h).bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch plan and a plain model of its reduction
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(128256, 128), (128256, 8), (128256, 256), (1001, 5), (1001, 130), (100, 16),
+               (50000, 64), (256, 16), (257, 144)]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+@pytest.mark.parametrize("V,B", PLAN_SHAPES)
+def test_plan_covers_every_vocab_tile_once(mode, V, B):
+    """Every vocab tile falls in exactly one block's run, in order, none
+    empty; the tiles cover V and the batch tiles the padded batch; the
+    blocks fill the card once."""
+    Bp = B + (-B % 16)
+    p = tha.plan(V, 2048, Bp, mode)
+    assert [t for first, end in p["runs"] for t in range(first, end)] == list(
+        range(p["vocab_tiles"]))
+    assert len(p["runs"]) == p["blocks"] and all(end > first for first, end in p["runs"])
+    assert (p["vocab_tiles"] - 1) * p["tile_v"] < V <= p["vocab_tiles"] * p["tile_v"]
+    assert (p["batch_tiles"] - 1) * p["tile_b"] < Bp <= p["batch_tiles"] * p["tile_b"]
+    assert p["grid"] == (p["blocks"], p["batch_tiles"])
+    assert p["blocks"] * p["batch_tiles"] <= tha.SMS or p["blocks"] == 1
+    assert p["part"] == p["blocks"] * Bp
+
+
+def test_plan_takes_every_shape_the_wrapper_takes():
+    """Any V and any padded batch get a plan whose runs cover the vocab."""
+    for V in (1, 2, 255, 256, 257, 33791, 33792, 33793, 128256, 200000):
+        for B in (1, 5, 16, 127, 128, 129, 256, 4000, 20000):
+            Bp = B + (-B % 16)
+            for mode in tha.MODES:
+                p = tha.plan(V, 16, Bp, mode)
+                assert p["blocks"] >= 1 and p["runs"][0][0] == 0
+                assert p["runs"][-1][1] == p["vocab_tiles"] == -(-V // tha.TILE_V)
+
+
+def _reduction_model(embed, h, mode):
+    """csrc/head_argmax.cu's reduction in plain torch at its launch plan: the
+    scores rounded as the mode rounds them (the logits path), each block's
+    running (best, first index) over its run of vocab tiles, then the merge
+    of the blocks' pairs (score descending, index ascending) -> [B]."""
+    logits = tha.head_logits_bl(embed, h).float()
+    V, B = logits.shape
+    p = tha.plan(V, h.shape[0], B + (-B % 16), mode)
+    pairs = []
+    for first, end in p["runs"]:
+        best = torch.full((B,), -float("inf"))
+        idx = torch.full((B,), 2 ** 31 - 1, dtype=torch.long)
+        for t in range(first, end):
+            rows = logits[t * tha.TILE_V:(t + 1) * tha.TILE_V]
+            i = rows.argmax(dim=0)  # the first of the tile's best rows
+            v = rows.gather(0, i[None])[0]
+            i = i + t * tha.TILE_V
+            better = (v > best) | ((v == best) & (i < idx))
+            best, idx = torch.where(better, v, best), torch.where(better, i, idx)
+        pairs.append((best, idx))
+    best, idx = pairs[0]
+    for v, i in pairs[1:]:
+        better = (v > best) | ((v == best) & (i < idx))
+        best, idx = torch.where(better, v, best), torch.where(better, i, idx)
+    return idx
+
+
+@pytest.mark.parametrize("rows", [(255, 256), (767, 768), (3, 49999), (40000, 40001)],
+                         ids=["block-edge", "tile-edge-in-a-run", "first-last", "same-tile"])
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+def test_reduction_model_equals_twin_with_planted_ties(mode, rows):
+    """V 50000 is 196 tiles over 132 blocks: rows 255 | 256 lie in two
+    blocks, 767 | 768 in two tiles of one block's run; the first row wins."""
+    V, H, B = 50000, 16, 16
+    rng = np.random.default_rng(9)
+    embed = (rng.normal(size=(V, H)) * 0.1).astype(np.float32)
+    u = rng.normal(size=(H,)).astype(np.float32)
+    embed[rows[0]] = embed[rows[1]] = 4.0 * u
+    h = np.repeat(u[:, None], B, axis=1)
+    h[:, B // 2:] = rng.normal(size=(H, B - B // 2))  # columns without the planted winner
+    params = _torch_params(mode, embed)
+    hb = torch.from_numpy(h).bfloat16()
+    want = tha._head_argmax_plain(params["embed"], hb)
+    got = _reduction_model(params["embed"], hb, mode)
+    assert torch.equal(got, want)
+    assert (got[:B // 2] == rows[0]).all()
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+def test_reduction_model_equals_twin_when_every_logit_ties(mode):
+    embed = np.ones((2000, 16), np.float32)
+    hb = torch.from_numpy(np.random.default_rng(3).normal(size=(16, 8)).astype(np.float32))
+    params = _torch_params(mode, embed)
+    got = _reduction_model(params["embed"], hb.bfloat16(), mode)
+    assert torch.equal(got, torch.zeros(8, dtype=torch.long))
