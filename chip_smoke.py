@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of dmi_tpu_torch's serving paths (batch-first, batch-last,
-quantized) and its three training stages (with the LoRA baseline) on one
-CUDA card.
+quantized, sampled, continuous batching) and its three training stages
+(with the LoRA baseline) on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -65,7 +65,29 @@ CUDA card.
    and one batch each of (c) int8=True and (d) int8="w8a8".  Captions/s of
    each, and one bf16 and one w4a8 batch under torch.profiler.  No weight's
    TMA descriptor is encoded again after each run's warm-up batch.
-7. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
+7. Where the w4a8 kernel path and its plain path part: one batch of (b)
+   through both with every kernel call, its twin's, quantize_act's and
+   prefill's outputs recorded in call order; the first op whose outputs
+   differ, with its max relative difference beside its tolerance, and each
+   kernel against its twin on the kernel path's own inputs.
+8. Sampled serving (temperature 0.7, top_k 50, top_p 0.9, seed 0;
+   request-indexed draws) of the same requests at batch 128 over the bf16
+   tree and one batch of int8="w4a8": launch counts, ids in range, two runs
+   identical, token agreement with the plain path; the warp + draw's device
+   time per step at V 128256, B 128; one sampled batch profiled.
+9. Continuous batching (engine="bulk", pool 128, admit 32) over the bf16
+   tree with up to three EOS ids chosen from the batch engine's greedy ids
+   so that captions end mid-budget: captions/s of the batch and bulk engines side
+   by side, token agreement of bulk with the batch engine and with its
+   plain path, launch counts from the engine's steps and admissions (every
+   decode-attention launch with a [B, S] bias), engine="auto"'s decision, a
+   sampled bulk run against the sampled batch engine, and both engines'
+   workloads profiled.  Step 2 also holds decode attention with a [B, S]
+   bias against its twin: the bulk shape (B 128, S 38, ring masks, a slot
+   never used) and B 2 over 3073 and 16384 positions with whole splits of
+   one row and all of another masked; two calls bit-equal; timed against
+   SDPA with the same float mask.
+10. Stage 1: ProjectorTrainer on the same Llama-3.2-1B with a 2-layer f32
    projector (mm 768, dropout 0.1) and the optimizer of configs/experiments/
    projector/v1:llama1b_inst_all_extracted.json (warmup cut to 2), on
    synthetic batches of 32 captions (64 text tokens and the soft token).
@@ -75,7 +97,7 @@ CUDA card.
    that moves and an LLM that does not; one eval-loss call through
    fused_mlp2; micro-steps/s, tokens/s, peak memory and one step under
    torch.profiler.
-8. Stage 2: HypernetTrainer at the v4 hypernet config's shapes (attention
+11. Stage 2: HypernetTrainer at the v4 hypernet config's shapes (attention
    hypernet, positional encodings, width 768, rank 32, subsets of 128,
    rotation augmentation and text interleave, AdamW and accumulation 40,
    warmup cut to 2) over a frozen f32 projector (mm 768), micro-batches of
@@ -85,14 +107,14 @@ CUDA card.
    loss; one coalesced window of 40 at micro_batch_coalesce 4 (10 grouped
    lora0 launches); the card's time of one 768 x 768 random_orthogonal;
    throughput, peak memory and one micro-step under torch.profiler.
-9. Stage 3: the generated projector from one subset of the stage-2
+12. Stage 3: the generated projector from one subset of the stage-2
    hypernet; step 0 kernel vs plain path; 5 few-shot micro-steps over it at
    batch 64 on sydney-length captions, then one generate batch of 64 through
    it on the batch-last loop (1 mlp2 launch, 16 x 21 decode-attention and
    decode-MLP launches, 21 head + argmax launches); then 2 few-shot
    micro-steps that tune the hypernet itself (finetune_generated_projector
    false: 1 lora0 launch each).
-10. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
+13. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
    32, alpha 32): step 0 kernel vs plain path, then 5 micro-steps (each
    flash kernel 16 x 5).
 
@@ -691,16 +713,6 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
             raise AssertionError(f"{label}: caption ids {tuple(ids.shape)} outside [0, vocab)")
         return ids, counts
 
-    def agreement(label, ids, other):
-        share = (ids == other).float().mean().item()
-        first = (ids[:, 0] == other[:, 0]).float().mean().item()
-        rows = (ids == other).all(dim=1).float().mean().item()
-        ok = share >= TOKEN_AGREEMENT
-        print(f"  token agreement with {label}: {share!r} (limit {TOKEN_AGREEMENT}), rows "
-              f"identical {rows!r}, first tokens equal {first!r} {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"tokens disagree with {label}")
-
     print("batch-last serving (the Captioner's default loop):")
     per_batch = {"mlp2": 1, "decode_attention": L * steps, "head_argmax": steps}
     cap = captioner()
@@ -708,8 +720,8 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
     t0 = time.perf_counter()
     plain = cap.caption_ids(embs, plain=True)
     print(f"  plain path: {len(embs) / (time.perf_counter() - t0)!r} captions/s")
-    agreement("its plain path", ids, plain)
-    agreement("the batch-first loop", ids, captioner(batch_first=True).caption_ids(embs))
+    token_agreement("its plain path", ids, plain)
+    token_agreement("the batch-first loop", ids, captioner(batch_first=True).caption_ids(embs))
     print("where one batch-last bf16 batch's time goes:")
     profile_run(torch, "batch 128, bf16 tree", lambda: cap.caption_ids(embs[:128]))
 
@@ -718,7 +730,7 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
     t0 = time.perf_counter()
     plain = cap.caption_ids(embs, plain=True)
     print(f"  plain path: {len(embs) / (time.perf_counter() - t0)!r} captions/s")
-    agreement("its plain path", ids, plain)
+    token_agreement("its plain path", ids, plain)
     print("where one batch-last w4a8 batch's time goes:")
     profile_run(torch, "batch 128, w4a8 tree", lambda: cap.caption_ids(embs[:128]))
 
@@ -730,6 +742,355 @@ def bl_serving_phase(torch, dev, cfg, params, projector, embs):
     torch.cuda.empty_cache()
     return {"serving batch-last": counts_a, "serving w4a8": counts_b, "serving int8": counts_c,
             "serving w8a8": counts_d}
+
+
+def token_agreement(label, ids, other):
+    """Held to TOKEN_AGREEMENT: the share of equal tokens of two runs."""
+    share = (ids == other).float().mean().item()
+    first = (ids[:, 0] == other[:, 0]).float().mean().item()
+    rows = (ids == other).all(dim=1).float().mean().item()
+    ok = share >= TOKEN_AGREEMENT
+    print(f"  token agreement with {label}: {share!r} (limit {TOKEN_AGREEMENT}), rows "
+          f"identical {rows!r}, first tokens equal {first!r} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"tokens disagree with {label}")
+    return share
+
+
+def _check_ids(cfg, label, ids, n):
+    if tuple(ids.shape) != (n, MAX_NEW) or not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label}: caption ids {tuple(ids.shape)} outside [0, vocab)")
+
+
+def row_bias_kernel_phase(torch, dev):
+    """Decode attention with a [B, S] bias, a row per slot (the
+    continuous-batching engine's), against its twin: at the bulk engine's
+    shape (B 128, 32/8 heads, hd 64, S 38 = T 16 + budget 22) with ring-shaped
+    masks and row 0 a slot never used (finfo.min everywhere), bf16 and f32;
+    at B 2 over 3073 and 16384 positions with finfo.min over whole splits of
+    row 0 only and row 1 fully masked.  Two calls bit-equal; timed against
+    its bound and SDPA with the same float mask [B, 1, 1, S] and GQA."""
+    from dmi_tpu_torch.ops.cuda import decode_attn as da
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    fmin = torch.finfo(torch.float32).min
+    T, budget = len(PREFIX_IDS) + 1, MAX_NEW
+    errs, times = [], None
+
+    def timed(label, args):
+        q, k, v, bias = args
+        B, S = bias.shape
+        mask = bias.view(B, 1, 1, S).to(q.dtype)
+        t = {**device_times(
+            torch, lambda: da.fused_decode_attention(*args), lambda: da._decode_attn_plain(*args),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)),
+             **least_time(nbytes(q, k, v, bias, q), 4 * B * 32 * S * 64, q.dtype)}
+        print(f"    {label}: {report_times(t)}; library: scaled_dot_product_attention, GQA, "
+              f"float mask [B, 1, 1, S]; plan {da.plan(B, 8, 4, S, 64, q.element_size())}")
+        if not torch.equal(da.fused_decode_attention(*args), da.fused_decode_attention(*args)):
+            raise AssertionError(f"{label}: two calls on the same inputs differ")
+        print(f"    {label}: two calls bit-equal")
+        return t
+
+    print("kernel fused_decode_attention with a [B, S] bias (a row per slot) vs "
+          "_decode_attn_plain (32/8 heads, hd 64):")
+    for dtype in (torch.bfloat16, torch.float32):
+        B, S = 128, T + budget
+        q = torch.randn(B, 32, 1, 64, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, 8, S, 64, generator=gen, device=dev).to(dtype) for _ in range(2))
+        bias = torch.full((B, S), fmin)
+        for b in range(1, B):  # prompt rows and a wrapped run of the slot's own ring rows
+            bias[b, :T] = 0.0
+            start, n = int(rng.integers(budget)), int(rng.integers(1, budget + 1))
+            bias[b, T + (start + np.arange(n)) % budget] = 0.0
+        args = (q, k, v, bias.to(dev))
+        label = f"B={B} S={S} {str(dtype)[6:]} (ring masks, row 0 never used)"
+        errs.append(compare(torch, label, da.fused_decode_attention(*args),
+                            da._decode_attn_plain(*args), TOL[str(dtype)[6:]]))
+        if dtype == torch.bfloat16:  # the bulk engine's call: the kernels line
+            times = timed(label, args)
+    for S in (3073, 16384):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(2, 32, 1, 64, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(2, 8, S, 64, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            ks = da.plan(2, 8, 4, S, 64, q.element_size())["keys_per_split"]
+            bias = torch.zeros(2, S, device=dev)
+            bias[0, ks:3 * ks] = fmin  # whole splits of row 0 only
+            bias[1] = fmin             # row 1 fully masked
+            args = (q, k, v, bias)
+            label = (f"B=2 S={S} {str(dtype)[6:]} (row 0: finfo.min over splits 1-2; "
+                     "row 1 fully masked)")
+            errs.append(compare(torch, label, da.fused_decode_attention(*args),
+                                da._decode_attn_plain(*args), TOL[str(dtype)[6:]]))
+            if dtype == torch.bfloat16:
+                timed(label, args)
+    return {"decode_attention_rows": {"max_abs_err": max(errs), **times}}
+
+
+SAMPLE = dict(temperature=0.7, top_k=50, top_p=0.9, seed=0)
+
+
+def sampling_phase(torch, dev, cfg, params, projector, embs):
+    """Sampled serving on the batch-last loop (request-indexed draws;
+    SAMPLE): the requests at batch 128 over the bf16 tree and one batch of
+    int8="w4a8", launch counts checked, ids in range, two runs identical,
+    token agreement with the plain path; the warp + draw's device time per
+    step at V 128256, B 128; one bf16 batch profiled."""
+    from dmi_tpu_torch.models import decode as dec
+    from dmi_tpu_torch.serve import Captioner
+
+    spec, pparams = projector
+    L, steps = cfg.num_hidden_layers, MAX_NEW - 1
+    card = nvidia_smi()
+    print(f"sampled serving (batch-last loop, request-indexed draws, {SAMPLE}):")
+    counts = {}
+    for label, int8, requests, extra in (("bf16 tree", False, embs, {"decode_mlp": L * steps}),
+                                         ('int8="w4a8"', "w4a8", embs[:128],
+                                          {"w4_mm": 4 * L * steps})):
+        cap = Captioner(cfg, params, spec, pparams, max_new_tokens=MAX_NEW, batch_size=128,
+                        prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID, int8=int8)
+        cap.caption_ids(requests[:128], **SAMPLE)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        ids = cap.caption_ids(requests, **SAMPLE)
+        secs = time.perf_counter() - t0
+        counts[label] = _counts()
+        print(f"sampled {label}: {len(requests)} requests at batch 128, {secs!r} s, "
+              f"{len(requests) / secs!r} captions/s ({card})")
+        batches = -(-len(requests) // 128)
+        _expect(f"sampled {label}", counts[label],
+                {k: v * batches for k, v in {"mlp2": 1, "decode_attention": L * steps,
+                                             **extra}.items()})
+        _check_ids(cfg, f"sampled {label}", ids, len(requests))
+        if not torch.equal(ids, cap.caption_ids(requests, **SAMPLE)):
+            raise AssertionError(f"sampled {label}: two runs of one (seed, workload) differ")
+        print("  two runs identical")
+        token_agreement("its plain path", ids, cap.caption_ids(requests, plain=True, **SAMPLE))
+        if int8 is False:
+            greedy = cap.caption_ids(requests)
+            print(f"  token agreement with greedy decoding: "
+                  f"{(ids == greedy).float().mean().item()!r} (sampling moved the tokens)")
+            print("where one sampled bf16 batch's time goes:")
+            profile_run(torch, "batch 128, sampled bf16 tree",
+                        lambda: cap.caption_ids(requests[:128], **SAMPLE))
+    V, B = cfg.vocab_size, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    logits = torch.randn(V, B, generator=gen, device=dev).to(torch.bfloat16)  # head_logits_bl's
+    keys = dec._req_keys(SAMPLE["seed"], torch.arange(B, device=dev), MAX_NEW, 5)
+    args = (SAMPLE["temperature"], SAMPLE["top_k"], SAMPLE["top_p"])
+    warped = dec._warp_bl(logits, *args)
+    t = {"pick": device_ms(lambda: dec._sample_pick_bl(logits, keys, *args)),
+         "warp": device_ms(lambda: dec._warp_bl(logits, *args)),
+         "draw": device_ms(lambda: dec._gumbel_pick(warped, keys))}
+    print(f"warp + draw per step at V {V}, B {B} (plain torch ops, device time per call): "
+          f"{t['pick'] * 1e3!r} us (the warp chain {t['warp'] * 1e3!r} us, the draw "
+          f"{t['draw'] * 1e3!r} us); {steps + 1} a batch ({card})")
+    return {"serving sampled": counts["bf16 tree"], "serving sampled w4a8": counts['int8="w4a8"']}
+
+
+def _mid_budget_eos(ids, most=3):
+    """EOS ids, at most `most` (Llama-3's count), that end captions nearest
+    the middle of the budget: chosen greedily from the ids of EOS-free
+    greedy ids [N, MAX_NEW], each added while it brings the mean caption
+    length (first occurrence of any chosen id, else the budget) nearer
+    MAX_NEW / 2 (the smallest id on ties; never the pad id).  Returns the
+    ids and the mean length."""
+    ids = ids.numpy()
+    toks = np.array([t for t in np.unique(ids) if t != PAD_ID])
+    hit = ids[:, :, None] == toks[None, None, :]  # [N, MAX_NEW, U]
+    first = np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, MAX_NEW)  # [N, U]
+    chosen, length = [], np.full(ids.shape[0], MAX_NEW)
+    while len(chosen) < most:
+        means = np.minimum(length[:, None], first).mean(axis=0)  # [U]
+        best = int(np.argmin(np.abs(means - MAX_NEW / 2)))
+        if abs(means[best] - MAX_NEW / 2) >= abs(length.mean() - MAX_NEW / 2):
+            break
+        chosen.append(int(toks[best]))
+        length = np.minimum(length, first[:, best])
+    return tuple(chosen), float(length.mean())
+
+
+def bulk_phase(torch, dev, cfg, params, projector, embs):
+    """The continuous-batching engine (engine="bulk") over the bf16 tree at
+    pool 128, admit 32 (the Captioner's at batch 128), with EOS ids chosen
+    from the batch engine's own greedy ids so that captions end mid-budget:
+    the batch engine and the bulk engine on the same requests (captions/s
+    side by side, token agreement), the bulk engine against its plain path, its
+    launch counts (L decode-attention launches a step, every one with a
+    [B, S] bias), engine="auto"'s decision, a sampled bulk run against the
+    sampled batch engine, and profiles of both engines' whole workload."""
+    from dmi_tpu_torch.serve import Captioner
+
+    spec, pparams = projector
+    L, n = cfg.num_hidden_layers, embs.shape[0]
+    card = nvidia_smi()
+
+    def captioner(c):
+        return Captioner(c, params, spec, pparams, max_new_tokens=MAX_NEW, batch_size=128,
+                         prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID)
+
+    eos, mean_len = _mid_budget_eos(captioner(cfg).caption_ids(embs))
+    print(f"continuous batching (engine=\"bulk\", pool 128, admit 32): EOS ids {eos}, whose "
+          f"first occurrences in the batch engine's EOS-free greedy ids give mean length "
+          f"{mean_len!r} of {MAX_NEW}")
+    cap = captioner(dataclasses.replace(cfg, eos_token_ids=eos))
+    for engine in ("batch", "bulk"):  # warm-up
+        cap.caption_ids(embs[:128], engine=engine)
+    runs = {}
+    for engine in ("batch", "bulk"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        ids = cap.caption_ids(embs, engine=engine)
+        secs = time.perf_counter() - t0
+        runs[engine] = (ids, secs, _counts())
+        _check_ids(cfg, f"engine={engine}", ids, n)
+        print(f"  engine={engine}: {n} requests, {secs!r} s, {n / secs!r} captions/s "
+              f"({card}); mean caption length {(ids != PAD_ID).sum(1).float().mean().item()!r}")
+    eng = cap.bulk_engine
+    print(f"  bulk engine: {eng.steps} steps, {eng.admissions} admissions; batch engine / bulk "
+          f"engine wall {runs['batch'][1] / runs['bulk'][1]!r}")
+    counts = runs["bulk"][2]
+    _expect("engine=bulk", counts, {"mlp2": eng.admissions, "decode_attention": L * eng.steps,
+                                    "decode_attention_rows": L * eng.steps,
+                                    "decode_mlp": L * eng.steps, "head_argmax": eng.steps})
+    ids = runs["bulk"][0]
+    token_agreement("the batch engine", ids, runs["batch"][0])
+    token_agreement("its plain path", ids, cap.caption_ids(embs, engine="bulk", plain=True))
+    auto = cap.caption_ids(embs, engine="auto")
+    _check_ids(cfg, "engine=auto", auto, n)
+    print(f"  engine=\"auto\": decision {cap.engine_decision}")
+    sampled = {e: cap.caption_ids(embs, engine=e, **SAMPLE) for e in ("batch", "bulk")}
+    print(f"  sampled ({SAMPLE}):")
+    token_agreement("the sampled batch engine", sampled["bulk"], sampled["batch"])
+    print("where the whole workload's time goes, per engine (same EOS):")
+    for engine in ("bulk", "batch"):
+        profile_run(torch, f"engine={engine}, {n} requests",
+                    lambda engine=engine: cap.caption_ids(embs, engine=engine))
+    return {"serving bulk": counts}
+
+
+def w4a8_divergence_phase(torch, dev, cfg, params, projector, embs):
+    """Where the w4a8 kernel path and its plain=True path part, on one
+    greedy batch of 128 at full width.  Every op the step runs through a
+    kernel or its twin (mlp2, quantize_act, the int8 matmuls, decode
+    attention, the head), and prefill's logits, is recorded in call order on
+    both paths; the first op whose outputs differ is printed with its max
+    relative difference (|a - b| / max(1, max |b|)) beside the tolerance that
+    op is held to against its twin.  Each kernel is also run against its
+    twin on the kernel path's own inputs, so an op that departs from its
+    twin by more than its tolerance shows as such (and raises)."""
+    from dmi_tpu_torch.models import decode as dec
+    from dmi_tpu_torch.models import projector as proj_mod
+    from dmi_tpu_torch.serve import Captioner
+
+    spec, pparams = projector
+    cap = Captioner(cfg, params, spec, pparams, max_new_tokens=MAX_NEW, batch_size=128,
+                    prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID, int8="w4a8")
+    tol = {"mlp2": TOL["float32"], "decode_attention": TOL["bfloat16"], "w4_mm": 0.0,
+           "head_argmax": 0.0, "quantize_act": 0.0, "prefill logits": TOL["logits"]}
+    log, own = {}, {}
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    def record(name, module, attr, twin=None):
+        """Wrap module.attr so that each call appends (name, output) to the
+        current path's log (and, on the kernel path, runs the twin)."""
+        fn = getattr(module, attr)
+
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            log[mode].append((name, (out[0] if isinstance(out, tuple) else out).clone()))
+            if twin is not None and mode == "kernel":
+                ref = twin(*args, **kw)
+                err = (1.0 - (out == ref).float().mean().item() if name == "head_argmax"
+                       else rel(out, ref))
+                own[name] = max(own.get(name, 0.0), err)
+            return out
+
+        setattr(module, attr, wrapped)
+
+    kernels = (("mlp2", proj_mod, "fused_mlp2", "_mlp2_plain"),
+               ("decode_attention", dec, "fused_decode_attention", "_decode_attn_plain"),
+               ("w4_mm", dec, "w4_mm_bl", "_w4_mm_plain"),
+               ("head_argmax", dec, "head_argmax", "_head_argmax_plain"))
+    saved = [(m, a, getattr(m, a)) for _, m, k, p in kernels for a in (k, p)]
+    saved += [(dec, "quantize_act", dec.quantize_act), (dec, "prefill", dec.prefill)]
+    requests = embs[:128]
+    try:
+        for name, m, k, p in kernels:
+            pfn = getattr(m, p)
+            twin = (lambda par, h, pfn=pfn: pfn(par["embed"], h)) if name == "head_argmax" \
+                else pfn
+            record(name, m, k, twin)
+            record(name, m, p)
+        record("quantize_act", dec, "quantize_act")
+        record("prefill logits", dec, "prefill")
+        ids = {}
+        for mode in ("kernel", "plain"):
+            log[mode] = []
+            ids[mode] = cap.caption_ids(requests, plain=(mode == "plain"))
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    print("w4a8 divergence (one batch of 128, EOS off, the kernel path against plain=True; "
+          "ops in call order):")
+    seq = [n for n, _ in log["kernel"]]
+    if seq != [n for n, _ in log["plain"]]:
+        raise AssertionError("the two paths ran different sequences of ops")
+    step, seen, first, first_over, prompt = 0, {}, None, None, None
+    for (name, a), (_, b) in zip(log["kernel"], log["plain"]):
+        if name == "prefill logits":
+            step, prompt = 1, (a.float(), b.float())
+        layer = seen.get((step, name), 0)
+        seen[(step, name)] = layer + 1
+        d = rel(a, b)
+        where = {"mlp2": "the projector, before the prompt pass",
+                 "prefill logits": "the prompt pass"}.get(name, f"decode step {step}")
+        if name in ("w4_mm", "quantize_act"):
+            where += f", layer {layer // 4}, matmul {('w_qkv', 'wo', 'w_gu', 'w_down')[layer % 4]}"
+        elif name == "decode_attention":
+            where += f", layer {layer}"
+        if d > 0 and first is None:
+            first = (name, where, d)
+        if d > tol[name] and first_over is None:
+            first_over = (name, where, d)
+        if name == "head_argmax":
+            step += 1
+    for label, hit in (("first op where the paths part", first),
+                       ("first op whose outputs part by more than that op's tolerance against "
+                        "its twin (its inputs may have parted before)", first_over)):
+        print(f"  {label}: " + ("none" if hit is None else
+                                f"{hit[0]} ({hit[1]}): max relative difference {hit[2]!r} "
+                                f"(tolerance {tol[hit[0]]!r})"))
+    rows = ids["kernel"] != ids["plain"]
+    positions = rows.any(dim=0).nonzero()
+    print(f"  first token position that differs: "
+          f"{int(positions[0]) if len(positions) else None}, in {int(rows[:, 0].sum())} of "
+          f"{rows.shape[0]} rows at position 0; token agreement {1 - rows.float().mean().item()!r}")
+    flipped = rows[:, 0].nonzero().flatten().tolist()
+    if flipped:  # token 0 is the argmax of the prompt pass's logits on each path
+        lk, lp = prompt
+        tk, tp = ids["kernel"][flipped, 0].to(lk.device), ids["plain"][flipped, 0].to(lk.device)
+        r = torch.tensor(flipped, device=lk.device)
+        margin_k = (lk[r, tk] - lk[r, tp]).abs().max().item()
+        margin_p = (lp[r, tp] - lp[r, tk]).abs().max().item()
+        moved = (lk[r] - lp[r]).abs().max().item()
+        print(f"  there the two picks' logits lie within {margin_k!r} on the kernel path and "
+              f"{margin_p!r} on the plain path, while the paths' logits of those rows differ by "
+              f"up to {moved!r}: near-ties, flipped by what parted first ({first[0]})")
+    over = {k: v for k, v in own.items() if v > tol[k]}
+    print("  each kernel against its twin on the kernel path's own inputs (max relative error; "
+          "head: share of ids that differ): " + ", ".join(
+              f"{k} {v!r} (tolerance {tol[k]!r})" for k, v in own.items()))
+    if over:
+        raise AssertionError(f"w4a8 path: kernels beyond their tolerance: {over}")
 
 
 def device_times(torch, kernel, plain, library) -> dict:
@@ -1137,7 +1498,7 @@ def _reset_counts():
     from dmi_tpu_torch.ops.cuda import stream_mm as sm
     from dmi_tpu_torch.ops.cuda import w4_probe as wp
 
-    pk.launches = da.launches = l0.launches = 0
+    pk.launches = da.launches = da.row_launches = l0.launches = 0
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
     dm.launches = ha.launches = w4.launches = w4.w8_launches = 0
     bm.launches = sm.launches = wp.split_out_launches = wp.split_k_launches = 0
@@ -1156,7 +1517,8 @@ def _counts() -> dict:
     from dmi_tpu_torch.ops.cuda import stream_mm as sm
     from dmi_tpu_torch.ops.cuda import w4_probe as wp
 
-    return {"mlp2": pk.launches, "decode_attention": da.launches, "lora0": l0.launches,
+    return {"mlp2": pk.launches, "decode_attention": da.launches,
+            "decode_attention_rows": da.row_launches, "lora0": l0.launches,
             "flash_fwd": fa.fwd_launches, "flash_bwd_dkv": fa.dkv_launches,
             "flash_bwd_dq": fa.dq_launches, "decode_mlp": dm.launches,
             "head_argmax": ha.launches, "w4_mm": w4.launches, "w8_mm": w4.w8_launches,
@@ -1564,6 +1926,7 @@ def main() -> int:
     kernels.update(flash_phase(torch, dev))
     kernels.update(lora0_phase(torch, dev))
     kernels.update(bl_kernel_phase(torch, dev))
+    kernels.update(row_bias_kernel_phase(torch, dev))
     # each path's launch counts, set to 0 just before its run and read just after
     paths = {}
     paths["probes"], probe_kernels = probe_phase(torch)
@@ -1576,6 +1939,9 @@ def main() -> int:
     decode_step_phase(torch, dev, cfg, params)
     paths["serving"], projector, embs = slice_phase(torch, dev, cfg, params, MAX_NEW)
     paths.update(bl_serving_phase(torch, dev, cfg, params, projector, embs))
+    w4a8_divergence_phase(torch, dev, cfg, params, projector, embs)
+    paths.update(sampling_phase(torch, dev, cfg, params, projector, embs))
+    paths.update(bulk_phase(torch, dev, cfg, params, projector, embs))
     paths["stage 1"] = train_phase(torch, dev, cfg, params)
     paths["stage 2"], hn_params = hypernet_phase(torch, dev, cfg, params)
     paths["stage 3"] = fewshot_phase(torch, dev, cfg, params, hn_params)
@@ -1597,6 +1963,10 @@ def main() -> int:
                                     "dmi_tpu_torch/csrc/decode_attn.cu",
                                     "dmi_tpu/ops/pallas/decode_attn.py:121", "serving",
                                     "decode_attention"),
+               "decode_attention_rows": ("fused_decode_attention, a [B, S] bias row per slot",
+                                         "dmi_tpu_torch/csrc/decode_attn.cu",
+                                         "dmi_tpu/ops/pallas/decode_attn.py:121",
+                                         "serving bulk", "decode_attention_rows"),
                "flash_fwd": ("flash_attention forward", "dmi_tpu_torch/csrc/flash_attn_fwd.cu",
                              f"dmi_tpu/models/llama.py:1086 ({flash}:758 "
                              "_flash_attention_impl)", "stage 1", "flash_fwd"),

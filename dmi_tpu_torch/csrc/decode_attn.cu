@@ -6,7 +6,10 @@
 //
 //   q [B, nh, 1, hd], k/v [B, nkv, S, hd] (rows contiguous, batch and head
 //   strides free, so a view of the first S positions of a longer cache is
-//   read in place), bias row [S] f32  ->  out [B, nh, 1, hd] in v's dtype.
+//   read in place), bias [S] f32 shared by the batch or [B, S] f32 (a row
+//   per batch row: the slots of a continuous-batching engine decode at
+//   different ages; row stride 0 reads the one shared row)  ->  out
+//   [B, nh, 1, hd] in v's dtype.
 //
 // Math, as the Pallas body (decode_attn.py:55-64): s = (q . k) * scale with
 // exact products and f32 sums, s = cap * tanh(s / cap) when a softcap is
@@ -61,7 +64,9 @@
 // against 8.06-8.12 us for SDPA (bound 2.11 us); B 256, S 23 9.64-9.78
 // against 13.31-13.36; B 64, S 37 7.60-7.64 against 7.61-7.67; B 2 with a
 // finfo.min tail, S 3073 14.63-14.83 against 11.15-11.20 (49 splits merged)
-// and S 16384 36.98-37.35 against 30.43-30.77 (32 splits).
+// and S 16384 36.98-37.35 against 30.43-30.77 (32 splits). A [B, S] bias
+// (the slot engine's ring masks) at B 128, S 38: 9.60-9.62 us against
+// 15.66-15.67 us for SDPA with the same float mask (two runs).
 #include <cuda_pipeline.h>
 #include <math.h>
 #include <stdint.h>
@@ -119,6 +124,11 @@ struct Params {
   void* out;
   float* part;  // splits > 1: m [B * nh, splits], l [B * nh, splits], acc [B * nh, splits, hd]
   int nkv, group, S, hd, chunk, keys_per_split, splits, stages;
+  // bias row stride: 0 (one row for the batch) or S (a row per batch row).
+  // An int among the ints, so that Params keeps its 128 bytes: as a long long
+  // after v_sh it cost the tensor-core instance 3 registers, and chip_smoke.py's
+  // call at B 128, S 23 took 7.87-8.06 us against 7.22-7.51 us.
+  int bias_sb;
   bool vec;  // hd a multiple of the 16-byte vector, every q, K and V row 16-byte aligned
   long long k_sb, k_sh, v_sb, v_sh;
   float scale, softcap;
@@ -194,13 +204,14 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
   const int nh = a.nkv * g;
   const T* kh = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vh = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const float* brow = a.bias + (size_t)b * a.bias_sb;  // this batch row's bias
   const int s0 = split * a.keys_per_split;
   const int s1 = min(a.S, s0 + a.keys_per_split);
   const int n_chunks = (s1 - s0 + chunk - 1) / chunk;  // >= 1: no split is empty
   auto k_buf = [&](int st) { return kv_s + (size_t)(2 * st) * chunk * width; };
   auto v_buf = [&](int st) { return kv_s + (size_t)(2 * st + 1) * chunk * width; };
 
-  stage_chunk<T>(k_buf(0), v_buf(0), bias_s, kh, vh, a.bias, s0, min(chunk, s1 - s0), hd, width,
+  stage_chunk<T>(k_buf(0), v_buf(0), bias_s, kh, vh, brow, s0, min(chunk, s1 - s0), hd, width,
                  a.vec);
   __pipeline_commit();
   // q while the first chunk is in flight
@@ -238,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
     __syncthreads();  // chunk c has landed; every thread is done with chunk c - 1
     if (c + 1 < n_chunks) {
       const int st = (c + 1) & 1;
-      stage_chunk<T>(k_buf(st), v_buf(st), bias_s + st * chunk, kh, vh, a.bias, c0 + chunk,
+      stage_chunk<T>(k_buf(st), v_buf(st), bias_s + st * chunk, kh, vh, brow, c0 + chunk,
                      min(chunk, s1 - c0 - chunk), hd, width, a.vec);
     }
     __pipeline_commit();
@@ -391,8 +402,9 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
 // bf16(p - hi), so that the product sees 16 significant bits of each
 // weight (error below 2^-16 of it, far inside the output's bf16 rounding)
 // where one bf16 rounding would keep 8: the TPU kernel multiplies V by f32
-// p.
-template <int kD>
+// p. kRows: a bias row per batch row (row stride bias_sb); the instances of
+// the one shared row keep the code they had before the per-row bias.
+template <int kD, bool kRows>
 __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params a) {
   using dmi::flash::bf16;
   constexpr int kLd = kD * 16 + 8;
@@ -406,6 +418,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
   float* sB = reinterpret_cast<float*>(sKV + a.stages * 2 * chunk * kLd);  // [stages][chunk]
   const bf16* kh = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const bf16* vh = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const float* brow = kRows ? a.bias + (size_t)b * a.bias_sb : a.bias;  // this batch row's bias
   const int s0 = split * a.keys_per_split;
   const int s1 = min(a.S, s0 + a.keys_per_split);
   const int n_chunks = (s1 - s0 + chunk - 1) / chunk;  // >= 1: no split is empty
@@ -421,7 +434,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
                                      a.vec, threadIdx.x, blockDim.x);
     }
     for (int j = threadIdx.x; j < min(chunk, s1 - c0); j += blockDim.x)
-      __pipeline_memcpy_async(sB + st * chunk + j, a.bias + c0 + j, 4);
+      __pipeline_memcpy_async(sB + st * chunk + j, brow + c0 + j, 4);
   };
   const bf16* qb = static_cast<const bf16*>(a.q) + ((size_t)b * nh + kvh * g) * hd;
   dmi::flash::stage_rows<kD, 16>(sQ, qb, hd, 0, g, hd, a.vec, threadIdx.x, blockDim.x);
@@ -700,7 +713,9 @@ int launch_fma(const Params& a, int B, cudaStream_t stream) {
 template <int kD>
 int launch_mma(const Params& a, int B, int warps, cudaStream_t stream) {
   const int smem = (16 + a.stages * 2 * a.chunk) * (kD * 16 + 8) * 2 + a.stages * a.chunk * 4;
-  return launch_kernel(decode_attn_mma_kernel<kD>, a, B, 32 * warps, smem, stream);
+  return a.bias_sb ? launch_kernel(decode_attn_mma_kernel<kD, true>, a, B, 32 * warps, smem, stream)
+                   : launch_kernel(decode_attn_mma_kernel<kD, false>, a, B, 32 * warps, smem,
+                                   stream);
 }
 
 int launch_bf16_mma(const Params& a, int B, int warps, cudaStream_t stream) {
@@ -720,7 +735,8 @@ int launch_bf16_mma(const Params& a, int B, int warps, cudaStream_t stream) {
 // stage only where a split is one chunk. bf16 at hd <= 128 and group <= 16
 // runs on the tensor cores with `warps` warps (at most one per 16-key tile of
 // a chunk of at most 64 keys); every other call (f32 always) on the CUDA
-// cores, with warps = 4. Strides are in elements; a softcap <= 0 means none.
+// cores, with warps = 4. Strides are in elements (bias_sb 0 for one bias row
+// shared by the batch, S for a row per batch row); a softcap <= 0 means none.
 // Rows move by 16-byte copies when hd is a multiple of the 16-byte vector and
 // every q, K and V row is 16-byte aligned, else element by element. part
 // (f32, splits > 1 only) is scratch of B * nh * splits * (hd + 2) floats the
@@ -729,12 +745,14 @@ extern "C" int dmi_decode_attn(const void* q, const void* k, const void* v, cons
                                void* out, void* part, int B, int nkv, int group, int S, int hd,
                                int chunk, int keys_per_split, int splits, int stages, int warps,
                                long long k_sb, long long k_sh, long long v_sb, long long v_sh,
-                               float scale, float softcap, int dtype, void* stream) {
+                               long long bias_sb, float scale, float softcap, int dtype,
+                               void* stream) {
   if (hd < 1 || hd > kMaxHd || group < 1 || group > kMaxGroup || S < 1 || chunk < 16 ||
       chunk % 16 || keys_per_split < 1 || splits < 1 || splits > kMaxSplits ||
       (long long)splits * keys_per_split < S || (long long)(splits - 1) * keys_per_split >= S ||
       stages < 1 || stages > 2 || (stages == 1 && std::min(keys_per_split, S) > chunk) ||
       (splits > 1 && part == nullptr) || (long long)B * nkv > 0x7fffffffLL ||
+      (bias_sb != 0 && bias_sb < S) || bias_sb < 0 || bias_sb > 0x7fffffffLL ||
       (dtype != dmi::kFloat32 && dtype != dmi::kBFloat16))
     return (int)cudaErrorInvalidValue;
   const bool mma = dtype == dmi::kBFloat16 && hd <= 128 && group <= 16;
@@ -745,8 +763,8 @@ extern "C" int dmi_decode_attn(const void* q, const void* k, const void* v, cons
   const bool vec = hd % vn == 0 && aligned(q) && aligned(k) && aligned(v) && k_sb % vn == 0 &&
                    k_sh % vn == 0 && v_sb % vn == 0 && v_sh % vn == 0;
   Params a{q, k, v, static_cast<const float*>(bias), out, static_cast<float*>(part), nkv, group,
-           S, hd, chunk, keys_per_split, splits, stages, vec, k_sb, k_sh, v_sb, v_sh, scale,
-           softcap};
+           S, hd, chunk, keys_per_split, splits, stages, (int)bias_sb, vec, k_sb, k_sh, v_sb,
+           v_sh, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;
   if (mma) e = launch_bf16_mma(a, B, warps, s);

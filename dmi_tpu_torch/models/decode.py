@@ -13,6 +13,16 @@ The caches are [L, B, nkv, S, hd] per K and V, preallocated at prompt
 length + max_new_tokens and written in place; each step attends to the
 positions written so far.  The loops stop when every row is done.
 
+The sampled loops (sample_generate_bl, and sample_generate batch-first)
+draw with request-indexed randomness: row r's token at age n is a pure
+function of (seed, req_ids[r] * budget + n), as dmi_tpu's fold_in keys
+are (_req_keys), so the batch loops and the continuous-batching engine
+(streaming.py) draw identical tokens for a request whatever its row, batch
+or slot.  The draw (uniform_draws) is a counter-based hash in integer
+torch ops, so the CPU and the card give the same bits; JAX's threefry
+streams are not reproduced, so the port's draws are held to dmi_tpu's by
+their law, not bit for bit.
+
 The batch-last loop (greedy_generate_bl) keeps a decode step's activations
 as [features, B], the form its kernels take: the whole gated MLP in one
 weight stream (ops/cuda/decode_mlp), the packed W4A8 and the W8A8 matmuls
@@ -134,6 +144,148 @@ def greedy_generate(
 
 
 # ---------------------------------------------------------------------------
+# Request-indexed sampling
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a constant c < 2**32,
+    in 16-bit halves so that no int64 product overflows."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser on int64 values in [0, 2**32): a
+    bijection in which every input bit flips each output bit with
+    probability about 1/2."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _req_keys(seed: int, req_ids: torch.Tensor, budget: int, n) -> torch.Tensor:
+    """Per-row draw keys [B] (int64 in [0, 2**32)) of (seed, stream), stream
+    = req_ids * budget + n: a request's age-n draw whatever its row, batch
+    or slot (dmi_tpu's _req_keys, fold_in(key(seed), req * budget + n)).
+    n is one age (the batch loops) or [B] ages (the engine's slots).  The
+    seed and the stream's two 32-bit halves go through _fmix32 in turn."""
+    stream = req_ids.long() * budget + n
+    h = _fmix32(torch.full_like(stream, (int(seed) ^ 0x9E3779B9) & _M32))
+    h = _fmix32(h ^ (stream & _M32))
+    return _fmix32(h ^ ((stream >> 32) & _M32))
+
+
+def uniform_draws(keys: torch.Tensor, V: int) -> torch.Tensor:
+    """The draw: u[v, b] in the open interval (0, 1), f64 [V, B], of row
+    key keys[b] and token index v, with 24 random bits:
+
+        u = ((fmix32(keys[b] ^ fmix32(v ^ 0x7F4A7C15)) >> 8) + 1/2) / 2**24
+
+    A stateless counter-based function in integer ops (no generator whose
+    state would make a row's draws depend on the rows beside it), so the
+    CPU and the card give the same bits.  Each fmix32 is a bijection, so
+    two token indices of a row never share their 32-bit hash."""
+    v = torch.arange(V, dtype=torch.long, device=keys.device)
+    h = _fmix32(keys.long()[None, :] ^ _fmix32(v ^ 0x7F4A7C15)[:, None])
+    return ((h >> 8).double() + 0.5) * 2.0 ** -24
+
+
+def _gumbel_pick(warped_vb: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max over [V, B] warped logits: argmax_v(warped - log(-log u)),
+    a draw from softmax(warped) per column, the law of
+    jax.random.categorical.  A filtered token (-inf) is never picked;
+    ties go to the first index.  -> [B] int64."""
+    u = uniform_draws(keys, warped_vb.shape[0])
+    g = (-torch.log(-torch.log(u))).float()
+    return (warped_vb + g).argmax(dim=0)
+
+
+def _warp_bl(logits_vb: torch.Tensor, temperature: float, top_k: int,
+             top_p: float = 1.0) -> torch.Tensor:
+    """dmi_tpu's _warp_bl: HF's warp chain over batch-last [V, B] logits,
+    in HF's order: temperature (at least 1e-6), then top-k (masks scores
+    below the k-th largest, so ties at the k-th value stay), then top-p
+    (keeps the smallest prefix of tokens in descending order whose
+    probability reaches top_p, the token that crosses it included, and every
+    token equal to that cutoff).  Returns f32 [V, B], -inf where filtered.
+    torch.topk gives the k-th value in place of a full sort; the mask is
+    the same."""
+    scaled = logits_vb.float() / max(temperature, 1e-6)
+    V = scaled.shape[0]
+    if top_k > 0:
+        kth = torch.topk(scaled, min(top_k, V), dim=0).values[-1:]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    if top_p < 1.0:
+        # per column, as [B, V] rows: the card's softmax and cumsum over the
+        # leading axis of [V, B] took 100x longer than over rows
+        desc = torch.sort(scaled.t(), dim=1, descending=True).values
+        exceeded = torch.cumsum(torch.softmax(desc, dim=1), dim=1) > top_p
+        keep = torch.cat([torch.ones_like(exceeded[:, :1]), ~exceeded[:, :-1]], dim=1)
+        kth_p = torch.where(keep, desc, float("inf")).amin(dim=1)
+        scaled = scaled.masked_fill(scaled < kth_p[None, :], float("-inf"))
+    return scaled
+
+
+def _sample_pick_bl(logits_vb: torch.Tensor, keys: torch.Tensor, temperature: float,
+                    top_k: int, top_p: float = 1.0) -> torch.Tensor:
+    """One token per column of [V, B] logits: the _warp_bl chain, then the
+    Gumbel-max draw with the column's key -> [B] int64."""
+    return _gumbel_pick(_warp_bl(logits_vb, temperature, top_k, top_p), keys)
+
+
+@torch.no_grad()
+def sample_generate(
+    cfg: LlamaConfig,
+    params: dict,
+    inputs_embeds: torch.Tensor,
+    max_new_tokens: int,
+    pad_token_id: int,
+    seed: int = 0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    prefill_params: Optional[dict] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Sampled decode (temperature, top-k) on the batch-first loop, with
+    greedy_generate's cache and EOS/pad semantics -> [B, max_new_tokens].
+
+    Row r's token at age n is drawn with _req_keys(seed, r, max_new_tokens,
+    n), the batch-last loop's request-indexed draw with req = row, so the
+    two loops' sampled tokens can be compared.  dmi_tpu's sample_generate
+    splits one key per step instead (the draws then depend on the batch)."""
+    B, T, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
+    if max_new_tokens == 0:
+        return tokens
+    caches = init_cache(cfg, B, T + max_new_tokens, device)
+    eos = torch.tensor(cfg.eos_token_ids, dtype=torch.long, device=device)
+    logits = prefill(cfg, params if prefill_params is None else prefill_params,
+                     inputs_embeds, caches, plain=plain)
+    rows = torch.arange(B, device=device)
+
+    def pick(logits, step):
+        keys = _req_keys(seed, rows, max_new_tokens, step)
+        return _sample_pick_bl(logits.t(), keys, temperature, top_k)
+
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    step = 0
+    while step < max_new_tokens - 1 and not (eos.numel() and bool(done.all())):
+        next_tok = torch.where(done, pad_token_id, pick(logits, step))
+        tokens[:, step] = next_tok
+        done |= torch.isin(next_tok, eos)
+        embeds = llama.embed_tokens(cfg, params, next_tok)[:, None, :]
+        logits = decode_step(cfg, params, embeds, caches, T + step, plain=plain)
+        step += 1
+    tokens[:, step] = torch.where(done, pad_token_id, pick(logits, step))
+    return tokens
+
+
+# ---------------------------------------------------------------------------
 # Batch-last decode: activations [features, B]
 # ---------------------------------------------------------------------------
 
@@ -210,12 +362,24 @@ def _decode_attention_bl(q, kc, vc, bias, scale=None, softcap=None):
     return out.to(vc.dtype)
 
 
-def _decode_step_bl(cfg, params, h, caches, pos: int, head: bool = True, plain: bool = False):
+def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = True,
+                    plain: bool = False, *, rope=None, write_row: Optional[int] = None,
+                    bias: Optional[torch.Tensor] = None):
     """One batch-last token step (the llama-3.x branch of dmi_tpu's
     _decode_step_bl).  h [H, B]; caches ([L, B, nkv, S, hd] x 2) as prefill
     wrote them, written IN PLACE at absolute position `pos`.  Returns the
     logits [V, B], or with head=False the final norm's output [H, B] for the
     fused head + argmax.
+
+    rope / write_row / bias: the continuous-batching engine (streaming.py)
+    shares this step with per-slot positions (dmi_tpu's rope=, write_row=
+    and [S, B] bias): per-slot rope tables (cos, sin) [hd, B], the shared
+    ring row every slot writes, and a [B, S] f32 bias over the whole
+    fixed-length cache (0 on a slot's own entries, finfo.min elsewhere),
+    which each layer attends over through the decode-attention kernel's
+    per-row bias; pos is then unused.  Without them the step attends to a
+    view of the pos + 1 written positions with a zero [pos + 1] row, as the
+    batch loops always have.
 
     On CUDA tensors an unquantized fused w_gu runs the decode-MLP kernel,
     quantized weights the int8 kernels (_mm_bl) and attention the
@@ -225,9 +389,20 @@ def _decode_step_bl(cfg, params, h, caches, pos: int, head: bool = True, plain: 
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     g = nh // nkv
     B = h.shape[1]
-    cos, sin = llama.rope_tables(cfg, torch.tensor(pos, device=h.device))  # [hd] each
-    # all valid: each layer attends to a view of the pos + 1 written positions
-    bias = torch.zeros(pos + 1, dtype=torch.float32, device=h.device)
+    per_slot = (rope is not None, write_row is not None, bias is not None)
+    if any(per_slot) and not all(per_slot):
+        raise ValueError("per-slot decode step: pass rope, write_row and bias together")
+    if rope is None:
+        cos, sin = llama.rope_tables(cfg, torch.tensor(pos, device=h.device))  # [hd] each
+        # all valid: each layer attends to a view of the pos + 1 written positions
+        bias = torch.zeros(pos + 1, dtype=torch.float32, device=h.device)
+        row, span = pos, pos + 1
+    else:
+        cos, sin = rope
+        if bias.shape != (B, k_cache.shape[3]):
+            raise ValueError(f"per-slot bias {tuple(bias.shape)}: [B, S] = "
+                             f"{(B, k_cache.shape[3])}")
+        row, span = write_row, k_cache.shape[3]
     scale = llama.attn_score_scale(cfg)
     attend = _decode_attn_plain if plain else fused_decode_attention
     mlp = _decode_mlp_plain if plain else fused_decode_mlp_bl
@@ -246,10 +421,10 @@ def _decode_step_bl(cfg, params, h, caches, pos: int, head: bool = True, plain: 
         k = _rope_bl(k.reshape(nkv, hd, B), cos, sin)
         v = v.reshape(nkv, hd, B)
         # only the step's own tensors change layout: [.., hd, B] -> [B, .., hd]
-        k_cache[li][:, :, pos] = k.permute(2, 0, 1)
-        v_cache[li][:, :, pos] = v.permute(2, 0, 1)
+        k_cache[li][:, :, row] = k.permute(2, 0, 1)
+        v_cache[li][:, :, row] = v.permute(2, 0, 1)
         attn = attend(q.reshape(nh, hd, B).permute(2, 0, 1)[:, :, None, :].contiguous(),
-                      k_cache[li][:, :, :pos + 1], v_cache[li][:, :, :pos + 1], bias,
+                      k_cache[li][:, :, :span], v_cache[li][:, :, :span], bias,
                       scale, cfg.attn_logit_softcap)
         attn = attn.reshape(B, nh * hd).t().contiguous()
         x = x + mm(lw["wo"], attn)
@@ -333,4 +508,64 @@ def greedy_generate_bl(
         step += 1
     tokens[:, step] = torch.where(done, pad_token_id,
                                   sel if fused_head else sel.argmax(dim=0))
+    return tokens
+
+
+@torch.no_grad()
+def sample_generate_bl(
+    cfg: LlamaConfig,
+    params: dict,
+    inputs_embeds: torch.Tensor,
+    max_new_tokens: int,
+    pad_token_id: int,
+    seed: int = 0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    req_ids: Optional[torch.Tensor] = None,
+    prefill_params: Optional[dict] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Batch-last sampled decode with request-indexed draws (dmi_tpu's
+    sample_generate_bl): row r's token at age n is drawn with
+    _req_keys(seed, req_ids[r], max_new_tokens, n), so the tokens are a
+    pure function of (seed, request, age) and the continuous-batching
+    engine draws the same ones under any slot assignment.  req_ids [B]
+    defaults to the rows.  The step is greedy_generate_bl's own
+    (_decode_step_bl) with head=True: the full [V, B] logits from
+    head_logits_bl (the fused head + argmax is greedy-only).  EOS/pad
+    semantics, prefill_params and plain as greedy_generate_bl.  Returns
+    [B, max_new_tokens] int64."""
+    B, T, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
+    if max_new_tokens == 0:
+        return tokens
+    if req_ids is None:
+        req_ids = torch.arange(B, device=device)
+    req_ids = torch.as_tensor(req_ids, dtype=torch.long, device=device)
+    caches = init_cache(cfg, B, T + max_new_tokens, device)
+    eos = torch.tensor(cfg.eos_token_ids, dtype=torch.long, device=device)
+    logits = prefill(cfg, params if prefill_params is None else prefill_params,
+                     inputs_embeds, caches, plain=plain).t()  # [V, B]
+
+    def pick(logits, step):
+        keys = _req_keys(seed, req_ids, max_new_tokens, step)
+        return _sample_pick_bl(logits, keys, temperature, top_k, top_p)
+
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    step = 0
+    # as greedy_generate_bl: the last token is drawn from the last logits
+    # with no extra layer-stack step
+    while step < max_new_tokens - 1 and not (eos.numel() and bool(done.all())):
+        next_tok = torch.where(done, pad_token_id, pick(logits, step))
+        tokens[:, step] = next_tok
+        done |= torch.isin(next_tok, eos)
+        h = llama.scale_embeds(cfg, llama.embed_tokens(cfg, params, next_tok).t().to(cfg.dtype))
+        logits = _decode_step_bl(cfg, params, h.contiguous(), caches, T + step, plain=plain)
+        # dmi_tpu applies llama.final_softcap to these logits here (sampling
+        # draws from the distribution, and the step skips the cap); no
+        # ported config has a final-logit softcap (UNPORTED_FIELDS)
+        step += 1
+    tokens[:, step] = torch.where(done, pad_token_id, pick(logits, step))
     return tokens

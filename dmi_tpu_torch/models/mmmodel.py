@@ -4,7 +4,7 @@ token; for the loss, prepend it to the text embeddings, extend the
 attention mask with 1 and the labels with -100, and run the frozen LM
 (reference: dmi/model/mmmodel.py:112-147); for generation, prepend it to
 the embedded chat prefix and greedy-decode (reference:
-dmi/model/mmmodel.py:149-169)."""
+dmi/model/mmmodel.py:149-169) or sample (caption_sample)."""
 
 from __future__ import annotations
 
@@ -128,4 +128,31 @@ def caption_generate(
     embeds = assemble_prompt(cfg, llm_params if prefill_params is None else prefill_params,
                              soft_tokens, prefix_ids)
     return dec.greedy_generate_bl(cfg, llm_params, embeds, max_new_tokens, pad_token_id,
+                                  prefill_params=prefill_params, plain=plain)
+
+
+def caption_sample(
+    cfg: LlamaConfig,
+    llm_params: dict,
+    soft_tokens: torch.Tensor,
+    prefix_ids: Optional[torch.Tensor],
+    max_new_tokens: int,
+    pad_token_id: int,
+    seed: int = 0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    req_ids: Optional[torch.Tensor] = None,
+    prefill_params: Optional[dict] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Sampled caption decode with request-indexed draws (dmi_tpu's
+    caption_sample; the reference decodes greedily only): the tokens of a
+    request id are a pure function of (seed, request, age), so the
+    continuous-batching engine reproduces them under any slot assignment
+    (dec.sample_generate_bl).  prefill_params and plain as caption_generate."""
+    embeds = assemble_prompt(cfg, llm_params if prefill_params is None else prefill_params,
+                             soft_tokens, prefix_ids)
+    return dec.sample_generate_bl(cfg, llm_params, embeds, max_new_tokens, pad_token_id, seed,
+                                  temperature, top_k, top_p, req_ids,
                                   prefill_params=prefill_params, plain=plain)

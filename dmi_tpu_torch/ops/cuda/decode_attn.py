@@ -16,7 +16,11 @@ atomics: two calls are bit-equal).  `_decode_attn_split_plain` is that
 split and merge in plain torch.  bf16 at hd <= 128 and group <= 16 (the
 serving path) forms the products on the tensor cores, f32 and wider bf16
 heads or groups on the CUDA cores (`tensor_cores`); both are the one
-function of the C entry, chosen by dtype and shape.
+function of the C entry, chosen by dtype and shape.  The bias is one [S]
+row shared by the batch (the batch loops: every row decodes at one
+position) or a [B, S] row per batch row (dmi_tpu's [B, 1, S]: the slots of
+the continuous-batching engine, streaming.py, decode at different ages);
+the kernel reads either through a row stride, 0 or S.
 
 `fused_decode_attention` runs `_decode_attn_plain` for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; there is no fallback
@@ -33,8 +37,10 @@ import torch
 from dmi_tpu_torch.ops.cuda import _build
 
 # launches of the CUDA kernels since the count was last set to 0 (a call
-# that splits S launches the kernel and its merge and counts once)
+# that splits S launches the kernel and its merge and counts once), and of
+# those, the launches with a [B, S] bias (a row per batch row)
 launches = 0
+row_launches = 0
 
 MAX_HEAD_DIM = 256      # kMaxHd of csrc/decode_attn.cu
 MAX_GROUP = 32          # kMaxGroup: query heads of a block
@@ -123,7 +129,8 @@ def _decode_attn_plain(q, k, v, bias, scale=None, softcap=None):
     the product, as the Pallas body does); output in v's dtype.  At f32 it
     is dmi_tpu's llama._decode_attention and _decode_attn_xla.
 
-    q [B, nh, 1, hd], k/v [B, nkv, S, hd], bias [S] f32 -> [B, nh, 1, hd]."""
+    q [B, nh, 1, hd], k/v [B, nkv, S, hd], bias [S] or [B, S] f32 ->
+    [B, nh, 1, hd]."""
     B, nh, _, hd = q.shape
     nkv = k.shape[1]
     qr = q.float().reshape(B, nkv, nh // nkv, 1, hd)
@@ -131,7 +138,7 @@ def _decode_attn_plain(q, k, v, bias, scale=None, softcap=None):
     s = s * (scale if scale is not None else 1.0 / math.sqrt(hd))
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    p = torch.softmax(s + bias.float(), dim=-1)
+    p = torch.softmax(s + _bias_rows(bias), dim=-1)
     out = (p[..., None] * v.float()[:, :, None]).sum(3)  # [B, nkv, g, hd]
     return out.reshape(B, nh, 1, hd).to(v.dtype)
 
@@ -147,7 +154,7 @@ def _decode_attn_split_plain(q, k, v, bias, p, scale=None, softcap=None):
     B, nh, _, hd = q.shape
     nkv, S = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, nkv, nh // nkv, hd)
-    kf, vf, bf = k.float(), v.float(), bias.float()
+    kf, vf, bf = k.float(), v.float(), _bias_rows(bias)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     neg = float("-inf")
     parts = []
@@ -161,7 +168,7 @@ def _decode_attn_split_plain(q, k, v, bias, p, scale=None, softcap=None):
             s = torch.einsum("bngd,bnsd->bngs", qf, kf[:, :, c0:c1]) * scale
             if softcap is not None:
                 s = softcap * torch.tanh(s / softcap)
-            s = s + bf[c0:c1]
+            s = s + bf[..., c0:c1]
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.where(m == neg, 0.0, torch.exp(m - m_new))
             e = torch.where(m_new[..., None] == neg, 0.0, torch.exp(s - m_new[..., None]))
@@ -177,20 +184,28 @@ def _decode_attn_split_plain(q, k, v, bias, p, scale=None, softcap=None):
     return (num / den[..., None]).reshape(B, nh, 1, hd).to(v.dtype)
 
 
+def _bias_rows(bias):
+    """The bias in f32, shaped to broadcast against [B, nkv, g, S] scores."""
+    b = bias.float()
+    return b[:, None, None, :] if b.ndim == 2 else b
+
+
 def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
     """q [B, nh, 1, hd], k/v [B, nkv, S, hd] (rows contiguous; a view of a
     longer cache's first S positions is read in place), bias [S] f32
-    (batch-uniform: every row decodes at one position) -> [B, nh, 1, hd].
+    (batch-uniform: every row decodes at one position) or [B, S] f32 (a row
+    per batch row) -> [B, nh, 1, hd].
 
-    The port's decode loop passes a view of the written positions and a
-    zero bias.  The bias row is there for a step over a fixed-length cache,
-    which masks the unwritten tail with it as the JAX loop does: a decode
-    step captured in a CUDA graph has static shapes and needs that."""
-    global launches
+    The batch loops pass a view of the written positions and a zero [S]
+    row.  The continuous-batching engine attends over its whole ring cache
+    with a [B, S] row of 0 on each slot's own entries and finfo.min
+    elsewhere; a row that is finfo.min everywhere (a slot never used) gives
+    the average of its V rows, finite, as the twin does."""
+    global launches, row_launches
     B, nh, T, hd = q.shape
     _, nkv, S, _ = k.shape
     if (T != 1 or k.shape != (B, nkv, S, hd) or v.shape != k.shape
-            or nh % nkv or bias.shape != (S,)):
+            or nh % nkv or tuple(bias.shape) not in ((S,), (B, S))):
         raise ValueError(
             f"decode attention shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}, bias {tuple(bias.shape)}"
@@ -230,10 +245,12 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
         None if part is None else part.data_ptr(),
         B, nkv, group, S, hd, p["chunk"], p["keys_per_split"], p["splits"], p["stages"],
         p["warps"], k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        S if bias.ndim == 2 else 0,
         float(scale if scale is not None else 1.0 / math.sqrt(hd)),
         float(softcap) if softcap is not None else 0.0,
         code, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "decode attention")
     launches += 1
+    row_launches += int(bias.ndim == 2)
     return out

@@ -1,5 +1,5 @@
-"""Batch captioning service: embeddings in, captions out (counterpart of
-dmi_tpu/serve.py, greedy batch engine).
+"""Captioning service: embeddings in, captions out (counterpart of
+dmi_tpu/serve.py).
 
     captioner = Captioner.from_checkpoint(
         lm="test:1b", projector_ckpt="checkpoints/...-projector-best.pt",
@@ -12,11 +12,15 @@ soft token to the chat prefix, greedy-decode on the batch-last loop (per
 step: the decode-attention and decode-MLP CUDA kernels on every layer, the
 fused head + argmax kernel once; with int8="w8a8"|"w4a8" the int8 matmul
 kernels in place of the layers' matmuls).  The tail batch is padded to the
-batch size, as in the JAX package.
+batch size, as in the JAX package.  With a temperature the loop samples
+(top-k, top-p) with request-indexed draws; engine="bulk" serves the
+workload on the continuous-batching engine (streaming.py), and the default
+engine="auto" picks between the two from the first batch.
 
 CLI:  python -m dmi_tpu_torch.serve --lm test:tiny --projector-ckpt P
       --dataset sydney --embs embs.npy --out captions.json
-      [--int8 [1|w8a8|w4a8]] [--device cpu]
+      [--int8 [1|w8a8|w4a8]] [--temperature T --top-k K --top-p P --seed S]
+      [--engine auto|batch|bulk] [--device cpu]
 
 It runs on the card unless asked for the CPU, and fails before loading
 anything when no card is visible.
@@ -35,8 +39,18 @@ from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import fuse_projections
 from dmi_tpu_torch.models.quant import quantize_llama
 from dmi_tpu_torch.ops import l2_normalize
+from dmi_tpu_torch.streaming import StreamingCaptioner
 from dmi_tpu_torch.training.checkpoint import load_pytree
 from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer, require_device
+
+
+# engine="auto" regime constants, dmi_tpu's (dmi_tpu/serve.py:47-53): never
+# bulk above _BULK_MAX_POOL slots; after a probe batch on the batch engine,
+# bulk only when the mean caption length is under _BULK_LEN_RATIO of the
+# budget (idle lanes to refill).  dmi_tpu chose them from TPU measurements;
+# the card's captions/s of both engines are in PERF.md.
+_BULK_MAX_POOL = 384
+_BULK_LEN_RATIO = 0.75
 
 
 def _not_ported(what: str, item: str):
@@ -44,7 +58,8 @@ def _not_ported(what: str, item: str):
 
 
 class Captioner:
-    """Greedy captioner over one LLM and one projector.
+    """Captioner over one LLM and one projector: greedy by default, sampled
+    with a temperature.
 
     int8: False serves the weights as they are; True quantizes them to int8
     and widens them at each matmul; "w8a8" runs int8 x int8 matmuls in the
@@ -54,10 +69,12 @@ class Captioner:
     batch_first=True pins the batch-first decode loop (a parity oracle: the
     batch-last loop is the default and is token-identical).
 
-    Surface difference from dmi_tpu.serve.Captioner: the default engine is
-    "batch" (fixed batches, tail padded), the only engine ported so far;
-    engine="auto"|"bulk", sampling (temperature), mesh_shape and
-    speculative raise NotImplementedError naming their ROADMAP item.
+    Surface difference from dmi_tpu.serve.Captioner: mesh_shape and
+    speculative raise NotImplementedError naming their ROADMAP item;
+    caption_ids takes the whole caption() surface (engine, sampling) and
+    returns ids, for callers with no tokenizer.  Sampling on the batch
+    engine always runs the batch-last loop (batch_first pins the greedy
+    loop only), as in dmi_tpu.
 
     The chat prefix comes from `tokenizer` + `prefix` (the chat template
     applied, as in dmi_tpu), or directly as `prefix_ids`, with no tokenizer
@@ -117,6 +134,8 @@ class Captioner:
         self.batch_size = batch_size
         self.pad_token_id = pad_token_id
         self.device = self.llm_params["final_norm"].device
+        self.engine_decision = None  # (engine, reason) of the last caption_ids call
+        self.bulk_engine = None  # the StreamingCaptioner of the last bulk run
         self._prefix = torch.as_tensor(
             np.asarray(prefix_ids, np.int64), device=self.device
         )[None, :].expand(batch_size, -1)
@@ -166,9 +185,14 @@ class Captioner:
             prefix, spec.max_new_tokens, **kwargs,
         )
 
-    def _dispatch_batch(self, chunk: np.ndarray, plain: bool = False):
+    def _dispatch_batch(self, chunk: np.ndarray, temperature=None, top_k: int = 0,
+                        seed: int = 0, row_start: int = 0, top_p: float = 1.0,
+                        plain: bool = False):
         """Pad one chunk to the batch size and decode it (asynchronously on
-        a CUDA device); returns (tokens [batch_size, max_new], real rows)."""
+        a CUDA device); returns (tokens [batch_size, max_new], real rows).
+        row_start: the chunk's first workload row.  Sampling draws with
+        request-indexed keys, request = workload row, so the bulk engine
+        draws the same tokens for the same rows."""
         real = chunk.shape[0]
         if real < self.batch_size:  # pad the tail to the batch shape
             chunk = np.concatenate(
@@ -176,43 +200,133 @@ class Captioner:
             )
         embs = l2_normalize(torch.as_tensor(chunk, dtype=torch.float32, device=self.device))
         soft = proj.apply(self.proj_spec, self.proj_params, embs, plain=plain)
-        tokens = mmmodel.caption_generate(
-            self.llm_cfg, self.llm_params, soft, self._prefix,
-            self.max_new_tokens, self.pad_token_id,
-            prefill_params=self.llm_params_prefill, batch_first=self.batch_first, plain=plain,
-        )
+        if temperature is None:
+            tokens = mmmodel.caption_generate(
+                self.llm_cfg, self.llm_params, soft, self._prefix,
+                self.max_new_tokens, self.pad_token_id,
+                prefill_params=self.llm_params_prefill, batch_first=self.batch_first,
+                plain=plain,
+            )
+        else:
+            tokens = mmmodel.caption_sample(
+                self.llm_cfg, self.llm_params, soft, self._prefix, self.max_new_tokens,
+                self.pad_token_id, seed, temperature, top_k, top_p,
+                req_ids=torch.arange(row_start, row_start + self.batch_size,
+                                     device=self.device),
+                prefill_params=self.llm_params_prefill, plain=plain,
+            )
         return tokens, real
 
+    def _caption_bulk(self, embeddings: np.ndarray, temperature=None, top_k: int = 0,
+                      seed: int = 0, req_base: int = 0, top_p: float = 1.0,
+                      plain: bool = False) -> torch.Tensor:
+        """The continuous-batching engine over a whole workload (greedy, or
+        request-indexed sampling with a temperature; streaming.py) ->
+        LongTensor [N, max_new] on the CPU.  The engine stays in
+        self.bulk_engine (its step and admission counts)."""
+        eng = self.bulk_engine = StreamingCaptioner(
+            self.llm_cfg, self.llm_params, self.proj_spec, self.proj_params,
+            self._prefix[0], self.max_new_tokens, self.pad_token_id,
+            # run_bulk uses every slot, but the pool invariant is >= 2
+            pool=max(2, self.batch_size), admit=max(1, min(64, self.batch_size // 4)),
+            prefill_params=self.llm_params_prefill, temperature=temperature, top_k=top_k,
+            top_p=top_p, seed=seed, req_base=req_base, plain=plain,
+        )
+        return eng.run_bulk(l2_normalize(torch.as_tensor(embeddings, device=self.device)))
+
     @torch.no_grad()
-    def caption_ids(self, embeddings: np.ndarray, plain: bool = False) -> torch.Tensor:
-        """Greedy caption ids, LongTensor [N, max_new_tokens] on the CPU,
-        pad-filled after each row's EOS.  plain=True runs the kernels'
-        plain twins in place of the CUDA kernels (a reference path)."""
+    def caption_ids(self, embeddings: np.ndarray, plain: bool = False,
+                    temperature: Optional[float] = None, top_k: int = 0, top_p: float = 1.0,
+                    seed: int = 0, engine: str = "batch") -> torch.Tensor:
+        """Caption ids, LongTensor [N, max_new_tokens] on the CPU, pad-filled
+        after each row's EOS.  plain=True runs the kernels' plain twins in
+        place of the CUDA kernels (a reference path).
+
+        Greedy by default (the reference's decode mode); a temperature
+        samples, with top_k (0: off) and top_p (1.0: off), request-indexed
+        by workload row and `seed`: the same tokens on every engine.
+
+        engine="batch" (this method's default): fixed batches of
+        batch_size, the tail padded.  engine="bulk": the continuous-batching
+        engine (streaming.py): finished slots refilled with new requests.
+        engine="auto" (caption()'s default, as in dmi_tpu): one batch or a pool over _BULK_MAX_POOL stays on the batch
+        engine; otherwise the first batch is served on the batch engine as a
+        probe, and the rest goes to bulk when its mean caption length is
+        under _BULK_LEN_RATIO of the budget.  The decision and its reason
+        land in self.engine_decision."""
+        if engine not in ("auto", "batch", "bulk"):
+            raise ValueError(f"unknown engine {engine!r}")
         embeddings = np.asarray(embeddings, np.float32)
+        n = embeddings.shape[0]
+        sampling = dict(temperature=temperature, top_k=top_k, seed=seed, top_p=top_p,
+                        plain=plain)
+        decision, reason, probe = engine, "explicit", False
+        if engine == "auto":
+            if n <= self.batch_size:
+                decision, reason = "batch", "single batch (nothing to amortize)"
+            elif self.batch_size > _BULK_MAX_POOL:
+                decision, reason = "batch", (
+                    f"pool {self.batch_size} > {_BULK_MAX_POOL} "
+                    "(bulk measured a wash at 512)")
+            else:
+                decision, probe = "batch", True
+        if decision == "bulk" and n > 0:
+            self.engine_decision = ("bulk", reason)
+            return self._caption_bulk(embeddings, **sampling)
+
+        out = []
+        start = 0
+        if probe:
+            # decide from the first batch, served on the batch engine
+            tokens, _ = self._dispatch_batch(embeddings[: self.batch_size], row_start=0,
+                                             **sampling)
+            tokens = tokens.cpu()
+            out.append(tokens)
+            # the loops write pad after a row ends: its non-pad count is
+            # the caption's length
+            lens = (tokens != self.pad_token_id).sum(dim=1).float()
+            ratio = float(lens.mean()) / max(1, self.max_new_tokens)
+            start = self.batch_size
+            if ratio < _BULK_LEN_RATIO:
+                self.engine_decision = (
+                    "bulk", f"probe: mean-length ratio {ratio:.2f} < "
+                    f"{_BULK_LEN_RATIO} (idle-lane waste; bulk regime)")
+                out.append(self._caption_bulk(embeddings[start:], req_base=start, **sampling))
+                return torch.cat(out)
+            self.engine_decision = (
+                "batch", f"probe: mean-length ratio {ratio:.2f} >= "
+                f"{_BULK_LEN_RATIO} (bulk eos-free overhead)")
+        else:
+            self.engine_decision = ("batch", reason)
+        # every batch is dispatched before the first is read back, so that
+        # host preparation overlaps the device's decode
         pending = [
-            self._dispatch_batch(embeddings[s : s + self.batch_size], plain=plain)
-            for s in range(0, embeddings.shape[0], self.batch_size)
+            self._dispatch_batch(embeddings[s: s + self.batch_size], row_start=s, **sampling)
+            for s in range(start, n, self.batch_size)
         ]
-        if not pending:
+        out.extend(tokens[:real].cpu() for tokens, real in pending)
+        if not out:
             return torch.zeros((0, self.max_new_tokens), dtype=torch.long)
-        return torch.cat([tokens[:real] for tokens, real in pending]).cpu()
+        return torch.cat(out)
 
     def caption(
         self,
         embeddings: np.ndarray,
         temperature: Optional[float] = None,
-        engine: str = "batch",
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int = 0,
+        engine: str = "auto",
     ) -> List[str]:
-        """Greedy captions, one string per row of embeddings [N, mm_dim]."""
+        """Captions, one string per row of embeddings [N, mm_dim]: greedy by
+        default, sampled with a temperature (see caption_ids; the captions
+        are the same on every engine)."""
         if engine not in ("auto", "batch", "bulk"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine != "batch":
-            raise _not_ported(f"engine={engine!r}", "A.7 (continuous batching)")
-        if temperature is not None:
-            raise _not_ported("sampling (temperature)", "A.6 (sampling)")
         if self.tokenizer is None:
             raise ValueError("caption() needs a tokenizer; use caption_ids()")
-        ids = self.caption_ids(embeddings)
+        ids = self.caption_ids(embeddings, temperature=temperature, top_k=top_k, top_p=top_p,
+                               seed=seed, engine=engine)
         return self.tokenizer.batch_decode(ids.numpy(), skip_special_tokens=True)
 
 
@@ -247,6 +361,15 @@ def main(argv=None) -> None:
                     help="quantize the LLM: int8 weights widened at the matmul (1), int8 x "
                          "int8 matmuls (w8a8) or int4 weights with int8 activations (w4a8) "
                          "in the token loop")
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="sample at this temperature (default: greedy)")
+    ap.add_argument("--top-k", type=int, default=0, help="top-k filter when sampling (0: off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass when sampling (1.0: off)")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the sampling draws")
+    ap.add_argument("--engine", choices=["auto", "batch", "bulk"], default="auto",
+                    help="batch: fixed batches; bulk: continuous batching; auto probes the "
+                         "first batch and picks (the captions are the same on every engine)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -256,7 +379,10 @@ def main(argv=None) -> None:
         int8={None: False, "1": True}.get(args.int8, args.int8),
     )
     ids, embs = _load_embs(args.embs)
-    captions = cap.caption(embs)
+    captions = cap.caption(embs, temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, seed=args.seed, engine=args.engine)
+    if cap.engine_decision is not None:
+        print("engine: {} ({})".format(*cap.engine_decision))
     with open(args.out, "w") as f:
         json.dump(dict(zip(ids, captions)), f, indent=2)
     print(f"wrote {len(captions)} captions -> {args.out}")

@@ -335,6 +335,62 @@ def test_decode_attn_kernel_is_deterministic(cuda, B, S):
                        tda.fused_decode_attention(q, k, v, bias))
 
 
+def _ring_bias(B, S, T, budget, dev, seed=0):
+    """[B, S] bias as the continuous-batching engine builds it: every row's
+    T prompt positions, then a run of its own ring rows (a slot's tenure,
+    starting at its own cursor and wrapping) at 0, finfo.min elsewhere;
+    row 0 a slot never used (finfo.min everywhere)."""
+    rng = np.random.default_rng(seed)
+    fmin = torch.finfo(torch.float32).min
+    bias = torch.full((B, S), fmin)
+    for b in range(1, B):
+        bias[b, :T] = 0.0
+        start, n = int(rng.integers(budget)), int(rng.integers(budget + 1))
+        for i in range(n):
+            bias[b, T + (start + i) % budget] = 0.0
+    return bias.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,budget", [(128, 16, 22), (5, 4, 7), (64, 16, 22)])
+def test_decode_attn_kernel_per_row_bias_ring(cuda, B, T, budget, dtype):
+    """A [B, S] bias, a row per slot (the engine's ring masks; one row
+    fully masked): the kernel against its twin, finite, one launch."""
+    S = T + budget
+    q, k, v = _attn_args(B, 32, 8, S, 64, dtype, cuda)
+    bias = _ring_bias(B, S, T, budget, cuda)
+    n0 = tda.launches
+    out = tda.fused_decode_attention(q, k, v, bias)
+    assert tda.launches == n0 + 1
+    assert bool(torch.isfinite(out.float()).all())
+    _close(out, tda._decode_attn_plain(q, k, v, bias), TOL[dtype])
+    assert torch.equal(out, tda.fused_decode_attention(q, k, v, bias))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [3073, 16384])
+def test_decode_attn_kernel_per_row_bias_masks_splits(cuda, S, dtype):
+    """B 2 split over blocks with a [B, S] bias: row 0 keeps keys in one
+    split only (its other splits weigh 0 in the merge, for that row alone),
+    row 1 is fully masked (the uniform average, finite); and a [B, S] bias
+    whose rows are one [S] row gives the [S] call's output bit for bit."""
+    q, k, v = _attn_args(2, 32, 8, S, 64, dtype, cuda)
+    p = tda.plan(2, 8, 4, S, 64, q.element_size())
+    assert p["splits"] > 2
+    fmin = torch.finfo(torch.float32).min
+    bias = torch.full((2, S), fmin, device=cuda)
+    ks = p["keys_per_split"]
+    bias[0, ks + 5: 2 * ks - 3] = 0.0
+    out = tda.fused_decode_attention(q, k, v, bias)
+    assert bool(torch.isfinite(out.float()).all())
+    _close(out, tda._decode_attn_plain(q, k, v, bias), TOL[dtype])
+    assert torch.equal(out, tda.fused_decode_attention(q, k, v, bias))
+    row = torch.zeros(S, device=cuda)
+    row[S // 3:] = fmin
+    assert torch.equal(tda.fused_decode_attention(q, k, v, row.expand(2, S).contiguous()),
+                       tda.fused_decode_attention(q, k, v, row))
+
+
 def _tiny_model(dev, dtype):
     cfg = dataclasses.replace(
         llama.tiny_config(vocab_size=320, hidden_size=128, n_layers=3, n_heads=8, n_kv=2,
@@ -1069,3 +1125,38 @@ def test_device_ms_holds_the_bound_after_the_process_idles(cuda):
     again = device_ms(lambda: a @ a)
     assert first >= bound_ms and again >= bound_ms, (first, again, bound_ms)
     assert 0.5 * first <= again <= 2 * first, (first, again)
+
+
+@pytest.mark.parametrize("temperature", [None, 0.9])
+def test_streaming_engine_kernel_path_matches_plain_path_f32(cuda, temperature):
+    """The continuous-batching engine (per-row-bias decode attention every
+    layer and step) on the card: the kernel path's tokens equal the plain
+    path's and the batch engine's, greedy and sampled; L launches a step,
+    every one with a [B, S] bias."""
+    from dmi_tpu_torch.models import mmmodel
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.streaming import StreamingCaptioner
+
+    cfg, params = _tiny_model(cuda, torch.float32)
+    spec = proj.ProjectorSpec(mm_dim=16, lm_dim=128)
+    pp = proj.init(spec, torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    prefix = [3, 7, 9]
+    embs = np.random.default_rng(4).normal(size=(13, 16)).astype(np.float32)
+    sample = dict(temperature=temperature, top_k=20, top_p=0.9) if temperature else {}
+
+    def engine(plain):
+        return StreamingCaptioner(cfg, params, spec, pp, prefix, 9, 1, pool=5, admit=2,
+                                  plain=plain, seed=5, **sample)
+
+    eng = engine(False)
+    n0, r0 = tda.launches, tda.row_launches
+    got = eng.run_bulk(embs)
+    assert tda.launches - n0 == tda.row_launches - r0 == 3 * eng.steps > 0
+    assert torch.equal(got, engine(True).run_bulk(embs))
+    soft = proj.apply(spec, pp, torch.as_tensor(embs, device=cuda))
+    ids = torch.tensor(prefix, device=cuda)[None].expand(13, -1)
+    if temperature:
+        want = mmmodel.caption_sample(cfg, params, soft, ids, 9, 1, 5, temperature, 20, 0.9)
+    else:
+        want = mmmodel.caption_generate(cfg, params, soft, ids, 9, 1)
+    assert torch.equal(got, want.cpu())

@@ -4,7 +4,10 @@ At f32 on the CPU the port must emit the same greedy tokens as both of the
 JAX package's loops (greedy_generate, batch-first; greedy_generate_bl,
 batch-last) and the same caption strings as dmi_tpu.serve.Captioner.  Also
 covered: checkpoint loading from a pickle dmi_tpu wrote, the CLI, the
-surface the port refuses for now, and that the port never imports JAX.
+surface the port refuses for now, the engines and sampling at the
+Captioner's surface (tests/test_torch_streaming.py and
+tests/test_torch_sampling.py hold them against dmi_tpu in depth), and that
+the port never imports JAX.
 The Captioner serves on the batch-last loop by default; that loop and the
 int8 modes are held against dmi_tpu in tests/test_torch_decode_bl.py.
 """
@@ -151,13 +154,47 @@ def test_captioner_refuses_unported_options(tokenizer, kwargs, item):
                   tokenizer, PREFIX, 10, **kwargs)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"engine": "auto"}, "A.7"), ({"engine": "bulk"}, "A.7"), ({"temperature": 0.7}, "A.6"),
-])
-def test_caption_refuses_unported_modes(tokenizer, kwargs, item):
-    _, tcap = _captioners(tokenizer)
-    with pytest.raises(NotImplementedError, match=item):
-        tcap.caption(np.ones((2, 32), np.float32), **kwargs)
+@pytest.mark.parametrize("kwargs", [{"engine": "auto"}, {"engine": "bulk"},
+                                    {"temperature": 0.7}], ids=["auto", "bulk", "temperature"])
+def test_caption_serves_the_ported_modes(tokenizer, kwargs):
+    """The modes the port once refused (A.6, A.7): engine="auto" and "bulk"
+    give dmi_tpu's greedy captions (batch 4, N 10: auto probes the first
+    batch); a temperature gives the same captions on every engine."""
+    jcap, tcap = _captioners(tokenizer)
+    embs = np.random.default_rng(5).normal(size=(10, 32)).astype(np.float32)
+    out = tcap.caption(embs, **kwargs)
+    assert len(out) == 10 and all(isinstance(c, str) for c in out)
+    if "temperature" not in kwargs:
+        assert out == jcap.caption(embs, **kwargs)
+        assert tcap.engine_decision == jcap.engine_decision
+        assert out == jcap.caption(embs, engine="batch")
+        return
+    sampled = {e: tcap.caption(embs, engine=e, seed=2, **kwargs) for e in ("batch", "bulk",
+                                                                           "auto")}
+    assert sampled["batch"] == sampled["bulk"] == sampled["auto"]
+    assert sampled["batch"] != tcap.caption(embs, engine="batch", seed=3, **kwargs)
+
+
+@pytest.mark.parametrize("arm", ["single", "large-pool", "probe-batch", "probe-bulk",
+                                 "explicit"])
+def test_engine_decision_matches_dmi_tpu(tokenizer, monkeypatch, arm):
+    """engine="auto"'s decision and reason string equal dmi_tpu's on the same
+    workload (the thresholds forced to each arm, as tests/test_serve.py
+    does), and so do the greedy captions."""
+    import dmi_tpu.serve as jserve
+    import dmi_tpu_torch.serve as tserve
+
+    n, engine = {"single": (3, "auto"), "large-pool": (9, "auto"), "probe-batch": (10, "auto"),
+                 "probe-bulk": (10, "auto"), "explicit": (6, "bulk")}[arm]
+    patch = {"large-pool": ("_BULK_MAX_POOL", 2), "probe-batch": ("_BULK_LEN_RATIO", -1.0),
+             "probe-bulk": ("_BULK_LEN_RATIO", 2.0)}.get(arm)
+    if patch:
+        monkeypatch.setattr(jserve, *patch)
+        monkeypatch.setattr(tserve, *patch)
+    jcap, tcap = _captioners(tokenizer)
+    embs = np.random.default_rng(6).normal(size=(n, 32)).astype(np.float32)
+    assert tcap.caption(embs, engine=engine) == jcap.caption(embs, engine=engine)
+    assert tcap.engine_decision == jcap.engine_decision
 
 
 @pytest.fixture()
@@ -234,6 +271,30 @@ def test_serve_cli_writes_captions(projector_ckpt, tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     caps = json.loads((tmp_path / "captions.json").read_text())
     assert sorted(caps) == ["0", "1", "2", "3", "4"]
+
+
+def test_serve_cli_samples_on_every_engine(projector_ckpt, tmp_path):
+    """--temperature --top-k --top-p --seed with --engine batch and bulk:
+    the same captions; the engine decision is printed."""
+    path, _ = projector_ckpt
+    np.save(tmp_path / "embs.npy", np.random.default_rng(2).normal(size=(6, 32)).astype(
+        np.float32))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    caps = {}
+    for engine in ("batch", "bulk"):
+        r = subprocess.run(
+            [sys.executable, "-m", "dmi_tpu_torch.serve", "--lm", "test:tiny",
+             "--projector-ckpt", path, "--dataset", "sydney", "--embs", "embs.npy",
+             "--out", f"{engine}.json", "--batch-size", "4", "--device", "cpu",
+             "--temperature", "0.9", "--top-k", "20", "--top-p", "0.95", "--seed", "4",
+             "--engine", engine],
+            cwd=tmp_path, capture_output=True, text=True, env=env, timeout=300,
+        )
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert f"engine: {engine} (explicit)" in r.stdout
+        caps[engine] = json.loads((tmp_path / f"{engine}.json").read_text())
+    assert sorted(caps["batch"]) == [str(i) for i in range(6)]
+    assert caps["batch"] == caps["bulk"]
 
 
 def test_port_imports_no_jax():
