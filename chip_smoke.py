@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of dmi_tpu_torch's serving paths (batch-first, batch-last,
-quantized, sampled, continuous batching) and its three training stages
-(with the LoRA baseline) on one CUDA card.
+quantized, sampled, continuous batching), its three training stages (with
+the LoRA baseline) and its loading of HF-layout weights and reference torch
+checkpoints on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -117,6 +118,20 @@ quantized, sampled, continuous batching) and its three training stages
 13. The LoRA baseline: LoraTrainer at the v3 config's shapes (batch 64, rank
    32, alpha 32): step 0 kernel vs plain path, then 5 micro-steps (each
    flash kernel 16 x 5).
+
+14. From disk, as the paper's configs name their inputs: the 1B tree
+   written in the HF layout (config.json, two safetensors shards and their
+   index; the writer is here, the card has no safetensors package) and read
+   back through build_lm; the serving projector written as a reference
+   torch `.pt` and read through load_projector; the stage-2 hypernet, its
+   frozen projector and its AdamW state written as a reference hypernet
+   `.pt` and read through HypernetTrainer.load_checkpoint.  Each is held
+   bit for bit to the tree it was written from (config, weights, moments,
+   steps, sched_step); one batch of 128 greedy captions on the batch-last
+   loop must give the in-memory run's ids and launch counts, and one
+   stage-3 micro-step over the loaded hypernet its loss, launches and
+   updated hypernet.  Bytes written and read, load times and device memory
+   are printed.
 
 Step 0 of every training path compares the loss within TOL["loss"] of the
 plain path's and each trainable leaf's gradient within TOL["logits"] of
@@ -1545,7 +1560,8 @@ def frozen_projector(torch, dev):
 
 def hypernet_phase(torch, dev, cfg, params):
     """Stage 2 through HypernetTrainer at full width; returns the stage-2
-    run's launch counts and the trained hypernet's parameters."""
+    run's launch counts, the trained hypernet's parameters and (its AdamW
+    state, its sched_step)."""
     import types
 
     from dmi_tpu_torch.models import hypernet as hn
@@ -1650,8 +1666,9 @@ def hypernet_phase(torch, dev, cfg, params):
     profile_run(torch, f"stage-2 micro-step, batch {HN_BATCH}, T {HN_TEXT + 1}",
                 lambda: trainer.train_step(next(extra), 10**9, batches[1]))
     trained = trainer.param_tree()
+    state = (trainer.optimizer_state(), trainer.sched_step)
     del trainer
-    return launches, trained
+    return launches, trained, state
 
 
 def fewshot_phase(torch, dev, cfg, params, hn_params):
@@ -1894,6 +1911,295 @@ def probe_phase(torch):
     return counts, kernels
 
 
+# ---------------------------------------------------------------------------
+# Weights and checkpoints on disk, in the layouts users hold
+# ---------------------------------------------------------------------------
+
+# safetensors dtype names (the card's machine has no safetensors package);
+# F64 is there for the reader's refusal test
+SAFETENSORS_NAMES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32", "float64": "F64"}
+
+
+def write_safetensors(torch, path, tensors) -> int:
+    """Write `tensors` (name -> tensor, on any device) as one safetensors
+    file: an 8-byte little-endian header length, a JSON header of dtype,
+    shape and [start, end) offsets per tensor, padded with spaces to 8
+    bytes, then each tensor's bytes in order.  Returns the bytes written."""
+    import struct
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[str(t.dtype).removeprefix("torch.")],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(head) + offset
+
+
+def hf_llama_state_dict(cfg, params) -> dict:
+    """The port's Llama parameters (fused or not) under HF LlamaForCausalLM's
+    key names, Linear weights in HF's (out, in) layout (transposed views)."""
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    sd = {"model.embed_tokens.weight": params["embed"]}
+    for i, lw in enumerate(params["layers"]):
+        wq, wk, wv = (lw["w_qkv"].split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+                      if "w_qkv" in lw else (lw["wq"], lw["wk"], lw["wv"]))
+        w_gate, w_up = lw["w_gu"].chunk(2, dim=-1) if "w_gu" in lw else (lw["w_gate"], lw["w_up"])
+        p = f"model.layers.{i}."
+        for name, w in (("self_attn.q_proj", wq), ("self_attn.k_proj", wk),
+                        ("self_attn.v_proj", wv), ("self_attn.o_proj", lw["wo"]),
+                        ("mlp.gate_proj", w_gate), ("mlp.up_proj", w_up),
+                        ("mlp.down_proj", lw["w_down"])):
+            sd[f"{p}{name}.weight"] = w.t()
+        sd[f"{p}input_layernorm.weight"] = lw["ln_attn"]
+        sd[f"{p}post_attention_layernorm.weight"] = lw["ln_mlp"]
+    sd["model.norm.weight"] = params["final_norm"]
+    return sd
+
+
+def write_hf_llama(torch, directory, cfg, params, n_shards=2) -> int:
+    """A model directory in the HF layout: config.json (model_type llama,
+    tied head, llama3 rope scaling when cfg has it) and the weights as
+    `n_shards` safetensors shards of about equal size with their
+    model.safetensors.index.json.  Returns the bytes written."""
+    rope = None if cfg.rope_scaling_factor is None else {
+        "rope_type": "llama3", "factor": cfg.rope_scaling_factor,
+        "low_freq_factor": cfg.rope_low_freq_factor,
+        "high_freq_factor": cfg.rope_high_freq_factor,
+        "original_max_position_embeddings": cfg.rope_original_max_position}
+    config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": cfg.num_hidden_layers,
+              "num_attention_heads": cfg.num_attention_heads,
+              "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.head_dim,
+              "hidden_act": "silu", "rms_norm_eps": cfg.rms_norm_eps,
+              "rope_theta": cfg.rope_theta, "rope_scaling": rope,
+              "max_position_embeddings": 131072, "tie_word_embeddings": True,
+              "attention_bias": False, "mlp_bias": False, "bos_token_id": cfg.bos_token_id,
+              "eos_token_id": list(cfg.eos_token_ids),
+              "torch_dtype": str(cfg.dtype).removeprefix("torch.")}
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    sd = hf_llama_state_dict(cfg, params)
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    shards, size = [{}], 0
+    for name, t in sd.items():
+        if size >= total * len(shards) / n_shards and len(shards) < n_shards:
+            shards.append({})
+        shards[-1][name] = t
+        size += t.numel() * t.element_size()
+    weight_map, written = {}, 0
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        written += write_safetensors(torch, os.path.join(directory, fname), shard)
+        weight_map.update({name: fname for name in shard})
+    with open(os.path.join(directory, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+    return written
+
+
+def reference_projector_pt(torch, path, pparams, step=0) -> None:
+    """A reference Projector envelope (net.{i}.weight|bias, (out, in)) of the
+    port's projector parameters, without optimizer state."""
+    from dmi_tpu_torch.models import torch_import as ti
+    from dmi_tpu_torch.training.checkpoint import to_numpy
+
+    sd = ti.export_projector_state_dict(to_numpy(pparams))
+    torch.save({"step_idx": step,
+                "projector_state_dict": {k: torch.from_numpy(v) for k, v in sd.items()},
+                "optimizer_state_dict": None, "coco_cider": 0.0}, path)
+
+
+def reference_hypernet_pt(torch, path, hspec, hn_params, frozen, adamw, step) -> None:
+    """A reference HyperNetWrapper envelope (hypernet.* with the pos_encs.pe
+    buffer, projector.net.*) with torch AdamW state over the hypernet's
+    parameters in the state dict's order: the port's AdamW moments
+    (`adamw`, training.optim.adamw_state's trees) exported to the
+    reference layout."""
+    from dmi_tpu_torch.models import torch_import as ti
+    from dmi_tpu_torch.training.checkpoint import to_numpy
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    hn_sd = ti.export_hypernet_state_dict(to_numpy(hn_params), hspec)
+    names = [k for k in hn_sd if k not in ti._BUFFER_KEYS]
+    mu = ti.export_hypernet_state_dict(to_numpy(adamw["exp_avg"]), hspec)
+    nu = ti.export_hypernet_state_dict(to_numpy(adamw["exp_avg_sq"]), hspec)
+    steps = {float(t) for _, t in named_leaves(adamw["step"])}
+    if len(steps) != 1:
+        raise AssertionError(f"the stage-2 AdamW steps differ: {steps}")
+    opt = ti.export_adamw_state(names, mu, nu, int(steps.pop()), lr=1e-4)
+    sd = {**ti._prefixed(hn_sd, "hypernet."),
+          **ti._prefixed(ti.export_projector_state_dict(to_numpy(frozen)), "projector.")}
+    torch.save({"step_idx": step,
+                "hypernet_state_dict": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                "optimizer_state_dict": opt, "loss": 0.0}, path)
+
+
+def _bit_equal(torch, a, b) -> bool:
+    """Two trees of tensors (or numpy arrays) with the same leaves, bit for bit."""
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    la, lb = list(named_leaves(a)), list(named_leaves(b))
+    return [n for n, _ in la] == [n for n, _ in lb] and all(
+        torch.equal(torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu())
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def disk_phase(torch, dev, cfg, params, projector, embs, hn_params, hn_state):
+    """The paper's configs as written: the 1B model from an HF-layout
+    directory (config.json, two safetensors shards and their index) through
+    build_lm, the projector from a reference torch `.pt` through
+    load_projector, and a reference hypernet `.pt` with torch AdamW state
+    through HypernetTrainer.load_checkpoint (the functions the entry points
+    and Captioner.from_checkpoint call).  Each is held bit for bit to the
+    in-memory tree it was written from; one batch of 128 greedy captions on
+    the batch-last loop and one stage-3 few-shot micro-step over the loaded
+    hypernet must equal the in-memory runs, ids, loss and launch counts.
+    Returns the launch counts of the runs from disk."""
+    import types
+
+    from dmi_tpu_torch.config import LMArgs
+    from dmi_tpu_torch.models import hypernet as hn
+    from dmi_tpu_torch.models import llama
+    from dmi_tpu_torch.serve import Captioner
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.hypernet_trainer import HypernetTrainer
+    from dmi_tpu_torch.training.model_utils import build_lm
+    from dmi_tpu_torch.training.projector_trainer import load_projector
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    card = nvidia_smi()
+    spec, pparams = projector
+    hspec = hn.HypnetSpec(**HN_SPEC)
+    fs_spec, frozen = frozen_projector(torch, dev)
+    adamw, sched_step = hn_state
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_dir = os.path.join(tmp, "Llama-3.2-1B-smoke")
+        os.makedirs(lm_dir)
+        t0 = time.perf_counter()
+        lm_bytes = write_hf_llama(torch, lm_dir, cfg, params)
+        proj_path, hn_path = os.path.join(tmp, "projector.pt"), os.path.join(tmp, "hypernet.pt")
+        reference_projector_pt(torch, proj_path, pparams)
+        reference_hypernet_pt(torch, hn_path, hspec, hn_params, frozen, adamw, sched_step)
+        write_s = time.perf_counter() - t0
+        sizes = {n: os.path.getsize(p) for n, p in (("projector.pt", proj_path),
+                                                     ("hypernet.pt", hn_path))}
+        print(f"from disk: wrote the 1B tree in the HF layout ({lm_bytes} bytes in "
+              f"{sorted(os.listdir(lm_dir))}), {sizes} in {write_s!r} s")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        dcfg, dparams = build_lm(LMArgs(lm_name_or_path=lm_dir, lm_dtype="bfloat16"), None,
+                                 device=dev)
+        proj_tree = load_projector(proj_path, spec)
+        dpp = {"layers": [{n: torch.as_tensor(a, device=dev) for n, a in layer.items()}
+                          for layer in proj_tree["layers"]]}
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        read = lm_bytes + sizes["projector.pt"]
+        print(f"  loaded the LM and the projector: {read} bytes read in {load_s!r} s, "
+              f"{read / load_s / 1e9!r} GB/s; device memory after the load "
+              f"{torch.cuda.memory_allocated() / 2**30!r} GiB allocated "
+              f"({(torch.cuda.memory_allocated() - base) / 2**30!r} GiB for the loaded tree) "
+              f"({card})")
+        mem_params = llama.fuse_projections(dparams)
+        same = {"config": dcfg == cfg, "LM": _bit_equal(torch, mem_params, params),
+                "projector": _bit_equal(torch, dpp, pparams)}
+        print(f"  bit-equal to the in-memory trees: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"the trees read from disk differ: {same}")
+
+        def serve(label, c, p, pp):
+            cap = Captioner(c, p, spec, pp, max_new_tokens=MAX_NEW, batch_size=128,
+                            prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID)
+            torch.cuda.synchronize()
+            _reset_counts()
+            ids = cap.caption_ids(embs[:128])
+            counts = _counts()
+            _expect(label, counts, {"mlp2": 1, "decode_attention": L * (MAX_NEW - 1),
+                                    "decode_mlp": L * (MAX_NEW - 1),
+                                    "head_argmax": MAX_NEW - 1})
+            return ids, counts
+
+        L = cfg.num_hidden_layers
+        ids_mem, counts_mem = serve("in-memory batch", cfg, params, pparams)
+        ids_disk, counts_disk = serve("from-disk batch", dcfg, dparams, dpp)
+        identical = torch.equal(ids_mem, ids_disk)
+        print(f"  128 greedy captions on the batch-last loop: ids bit-identical {identical}, "
+              f"launch counts equal {counts_mem == counts_disk}")
+        if not identical or counts_mem != counts_disk:
+            raise AssertionError("serving from disk differs from serving from memory")
+        out["serving from disk"] = counts_disk
+        del dparams, mem_params
+
+        # stage 3 over the hypernet read from its .pt, against the in-memory hypernet
+        data = SyntheticCaptions(1, batch=FS_BATCH, text=FS_TEXT, mm=fs_spec.mm_dim,
+                                 subset=HN_SUBSET, stream=17)
+        mgr = EmbeddingManager("smoke-fewshot-encoder", device=dev)
+
+        def trainer(hparams):
+            args = types.SimpleNamespace(**FS_ARGS, checkpoint_dir=tmp)
+            return HypernetTrainer(
+                "smoke-disk", cfg, params, fs_spec, frozen, hspec, hparams, [], [],
+                [data], [mgr], None, args,
+                types.SimpleNamespace(**dict(FEWSHOT, finetune_generated_projector=False)))
+
+        t_mem = trainer(hn_params)
+        t_disk = trainer(hn.init(hspec, torch.Generator(device=dev).manual_seed(SEED + 99),
+                                 device=dev))
+        t0 = time.perf_counter()
+        step = t_disk.load_checkpoint(hn_path)["step_idx"]
+        frozen_disk = load_projector(hn_path, fs_spec)
+        torch.cuda.synchronize()
+        print(f"  hypernet .pt ({sizes['hypernet.pt']} bytes) read in "
+              f"{time.perf_counter() - t0!r} s: step_idx {step}, sched_step "
+              f"{t_disk.sched_step} (written {sched_step})")
+        moments = {key: [t_disk.opt.state[leaf][key] for _, leaf in named_leaves(t_disk.params)]
+                   for key in ("exp_avg", "exp_avg_sq", "step")}
+        same = {"hypernet": _bit_equal(torch, t_disk.params, hn_params),
+                "frozen projector": _bit_equal(torch, frozen_disk, frozen),
+                "AdamW moments": all(
+                    torch.equal(m, w) for key in ("exp_avg", "exp_avg_sq")
+                    for m, (_, w) in zip(moments[key], named_leaves(adamw[key]))),
+                "AdamW steps": all(torch.equal(m, w.float().cpu()) for m, (_, w) in
+                                   zip(moments["step"], named_leaves(adamw["step"]))),
+                "sched_step": t_disk.sched_step == sched_step == step}
+        print(f"  bit-equal to the stage-2 trainer's state: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"the hypernet .pt read back differs: {same}")
+
+        losses, counts = {}, {}
+        for label, t in (("in-memory", t_mem), ("from-disk", t_disk)):
+            t.fewshot_generate_adapters(0)
+            opt = t.fewshot_optimizer()
+            _reset_counts()
+            loss, _ = t.fewshot_train_step(0, 1, data.train_batch(0), data.subset_batch(0),
+                                           mgr, opt)
+            torch.cuda.synchronize()
+            losses[label], counts[label] = loss.item(), _counts()
+            _expect(f"stage-3 step 0 over the {label} hypernet", counts[label],
+                    {"lora0": 1, "flash_fwd": L, "flash_bwd_dkv": L, "flash_bwd_dq": L})
+        after = _bit_equal(torch, t_disk.params, t_mem.params)
+        print(f"  stage-3 step 0 over the hypernet: losses {losses}, equal "
+              f"{losses['in-memory'] == losses['from-disk']}; hypernets after the update "
+              f"bit-equal {after}")
+        if losses["in-memory"] != losses["from-disk"] or not after:
+            raise AssertionError("stage 3 from the hypernet .pt differs from the in-memory run")
+        out["stage 3 from disk"] = counts["from-disk"]
+        del t_mem, t_disk
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1943,11 +2249,12 @@ def main() -> int:
     paths.update(sampling_phase(torch, dev, cfg, params, projector, embs))
     paths.update(bulk_phase(torch, dev, cfg, params, projector, embs))
     paths["stage 1"] = train_phase(torch, dev, cfg, params)
-    paths["stage 2"], hn_params = hypernet_phase(torch, dev, cfg, params)
+    paths["stage 2"], hn_params, hn_state = hypernet_phase(torch, dev, cfg, params)
     paths["stage 3"] = fewshot_phase(torch, dev, cfg, params, hn_params)
     paths["stage 3 over the hypernet"] = fewshot_hypernet_phase(torch, dev, cfg, params,
                                                                 hn_params)
     paths["LoRA"] = lora_phase(torch, dev, cfg, params)
+    paths.update(disk_phase(torch, dev, cfg, params, projector, embs, hn_params, hn_state))
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("dmi_tpu", "jax"))
     if jax_side:
         raise AssertionError(f"the smoke loaded modules of the JAX side: {jax_side}")

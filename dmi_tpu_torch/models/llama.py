@@ -6,8 +6,9 @@ Llama-3 rope scaling, f32 RMSNorm, f32 rope tables and f32 attention
 softmax, tied head.  Parameters are a plain dict in the JAX package's
 layout: weights (in, out), names `embed`, `layers`, `final_norm`, with
 `layers` a list of per-layer dicts (the JAX package stacks them [L, ...]
-for lax.scan; here a Python loop runs the layers).  The other decoder
-families the JAX package covers are not ported yet (ROADMAP.md A.9).
+for lax.scan; here a Python loop runs the layers).  `from_hf_state_dict`
+reads HF llama-3.x weights into that layout.  The other decoder families
+the JAX package covers are not ported yet (ROADMAP.md A.9).
 
 Attention: prefill (T > 1) runs `_attention`, plain torch with the additive
 bias; the single-token cache step runs the CUDA decode-attention kernel
@@ -161,6 +162,54 @@ def fuse_projections(params: dict) -> dict:
             lw["w_gu"] = torch.cat([lw.pop("w_gate"), lw.pop("w_up")], dim=-1)
         layers.append(lw)
     return {**params, "layers": layers}
+
+
+# the port's per-layer names and the HF llama keys under model.layers.{i}.;
+# Linear weights transpose from HF's (out, in) to (in, out), norms do not
+_HF_LAYER_KEYS = {
+    "wq": ("self_attn.q_proj.weight", True), "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True), "wo": ("self_attn.o_proj.weight", True),
+    "w_gate": ("mlp.gate_proj.weight", True), "w_up": ("mlp.up_proj.weight", True),
+    "w_down": ("mlp.down_proj.weight", True),
+    "ln_attn": ("input_layernorm.weight", False),
+    "ln_mlp": ("post_attention_layernorm.weight", False),
+}
+
+
+def from_hf_state_dict(state_dict, cfg: LlamaConfig, device="cpu") -> dict:
+    """An HF LlamaForCausalLM state dict (llama-3.x layout, tied head) ->
+    the parameters `init` makes, in cfg.dtype on `device` (dmi_tpu's
+    from_hf_state_dict for this layout, per-layer lists in place of [L, ...]
+    stacks).  A tensor already in cfg.dtype keeps its bits.  A key of
+    another family (q/k/v biases, q/k norms, gemma's extra norms, MoE, MLA,
+    an untied lm_head) is refused; an lm_head.weight equal to the embedding
+    is the tied head saved twice (.bin files) and is accepted."""
+    keys = set(state_dict)
+    per_layer = {f"model.layers.{i}.{hf}": (i, name, transpose)
+                 for i in range(cfg.num_hidden_layers)
+                 for name, (hf, transpose) in _HF_LAYER_KEYS.items()}
+    top = {"model.embed_tokens.weight", "model.norm.weight"}
+    missing = sorted((top | set(per_layer)) - keys)
+    if missing:
+        raise KeyError(f"the HF state dict lacks {missing[:8]} ({len(missing)} keys)")
+    head = state_dict.get("lm_head.weight")
+    extra = sorted(keys - top - set(per_layer) - {"lm_head.weight"})
+    if head is not None and not torch.equal(head, state_dict["model.embed_tokens.weight"]):
+        extra.append("lm_head.weight (differs from the tied embedding)")
+    if extra:
+        raise NotImplementedError(
+            f"HF keys of another decoder family: {extra[:8]} ({len(extra)} keys); only the "
+            "llama-3.x layout is ported (ROADMAP.md A.9, decoder families)")
+
+    def get(key, transpose=False):
+        t = state_dict[key].to(device=device, dtype=cfg.dtype)
+        return (t.t() if transpose else t).contiguous()
+
+    layers = [{} for _ in range(cfg.num_hidden_layers)]
+    for key, (i, name, transpose) in per_layer.items():
+        layers[i][name] = get(key, transpose)
+    return {"embed": get("model.embed_tokens.weight"), "layers": layers,
+            "final_norm": get("model.norm.weight")}
 
 
 # ---------------------------------------------------------------------------

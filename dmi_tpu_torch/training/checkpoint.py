@@ -9,8 +9,14 @@ tuples, whose classes live in a JAX package, and the port's holds its AdamW
 moments and step counts as numpy arrays (ADAMW_FORMAT).  The port never
 imports JAX, so its unpickler builds numpy and builtin objects only and
 turns every other class into a `ForeignObject` that keeps its arguments;
-optim.load_adamw_state reads the AdamW moments out of them.  The
-reference's torch `.pt` (zip) envelope is not ported yet (ROADMAP.md A.12).
+optim.load_adamw_state reads the AdamW moments out of them.
+
+`load_pytree` also reads the reference's torch `.pt` files (torch.save's zip,
+or a legacy torch pickle that the restricted unpickler refuses) into the
+same envelope, through models.torch_import, as dmi_tpu's load_pytree does:
+their optimizer_state_dict is None there, and the resume paths read the
+torch AdamW moments on their own (torch_import.optax_moments_from_checkpoint,
+optim.set_adamw_moments).
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ import torch
 
 # optimizer_state_dict["format"] of the port's AdamW state
 ADAMW_FORMAT = "dmi_tpu_torch.adamw"
+
+# the first pickle of a file that torch.save wrote in its legacy format
+_TORCH_LEGACY_MAGIC = 0x1950A86A20F9469CFC6C
 
 _ALLOWED_MODULES = ("builtins", "collections", "copyreg", "numpy", "_codecs")
 
@@ -61,14 +70,44 @@ class _EnvelopeUnpickler(pickle.Unpickler):
 
 
 def load_pytree(path: str) -> Dict[str, Any]:
-    """Load a checkpoint that dmi_tpu.training.checkpoint.save_pytree wrote."""
+    """Load a checkpoint that dmi_tpu.training.checkpoint.save_pytree (or
+    this module's save_pytree) wrote, or a reference torch `.pt` file."""
     if zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path} is a torch .pt (zip) checkpoint: the reference envelope "
-            "is not ported yet (ROADMAP.md A.12)"
-        )
+        return _load_torch_envelope(path)
     with open(path, "rb") as f:
-        return _EnvelopeUnpickler(f).load()
+        try:
+            obj = _EnvelopeUnpickler(f).load()
+        except pickle.UnpicklingError:
+            return _load_torch_envelope(path)
+    if isinstance(obj, dict):
+        return obj
+    if isinstance(obj, int) and obj == _TORCH_LEGACY_MAGIC:
+        # torch.save's legacy (pre-zip) format: a pickled magic number, then
+        # the checkpoint in pickles of its own
+        return _load_torch_envelope(path)
+    raise ValueError(f"{path}: a pickle of {type(obj).__name__}, not a checkpoint envelope")
+
+
+def _load_torch_envelope(path: str) -> Dict[str, Any]:
+    """A reference torch checkpoint as the envelope save_pytree writes, its
+    state dicts converted to parameter trees (dmi_tpu's
+    checkpoint._load_torch_envelope)."""
+    from dmi_tpu_torch.models import torch_import as ti
+
+    out = ti.load_torch_checkpoint(path)
+    env: Dict[str, Any] = {
+        "step_idx": out.get("step_idx", 0),
+        "optimizer_state_dict": None,
+    }
+    if "metric" in out:
+        env["metric"] = out["metric"]
+    if "projector" in out:
+        env["projector_state_dict"] = out["projector"]
+    if "hypernet" in out:
+        env["hypernet_state_dict"] = out["hypernet"]
+    if "lora_adapters" in out:
+        env["lora_model_state_dict"] = out["lora_adapters"]
+    return env
 
 
 def to_numpy(tree):

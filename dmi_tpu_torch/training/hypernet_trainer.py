@@ -49,6 +49,7 @@ from dmi_tpu_torch.models import hypernet as hn
 from dmi_tpu_torch.models import mmmodel
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import LlamaConfig, fuse_projections
+from dmi_tpu_torch.models.torch_import import optax_moments_from_checkpoint
 from dmi_tpu_torch.ops.linalg import interleave_rows, pad_features, random_orthogonal
 from dmi_tpu_torch.training.checkpoint import (
     BestCheckpointer,
@@ -69,6 +70,7 @@ from dmi_tpu_torch.training.optim import (
     load_adamw_state,
     make_lr_fn,
     make_optimizer,
+    set_adamw_moments,
     set_lr,
 )
 from dmi_tpu_torch.training.projector_trainer import (
@@ -215,13 +217,21 @@ class HypernetTrainer:
     def load_checkpoint(self, path: str) -> dict:
         """Resume the hypernet (dmi/train_hypernet.py:417-427), with the
         optimizer state and the LR-schedule step when the checkpoint has
-        them (the port's AdamW state or dmi_tpu's optax state): an exact
-        mid-run resume."""
+        them (the port's AdamW state, dmi_tpu's optax state, or a reference
+        torch checkpoint's AdamW moments over the hypernet's parameters:
+        the wrapper's frozen projector is not in that optimizer,
+        dmi/train_hypernet.py:220-221): an exact mid-run resume."""
         ckpt = load_pytree(path)
         set_leaves(self.params, ckpt[f"{self.SAVE_TYPE}_state_dict"])
         if ckpt.get("optimizer_state_dict") is not None:
             load_adamw_state(self.opt, self.params, ckpt["optimizer_state_dict"], self.device)
             self.sched_step = int(ckpt["step_idx"])
+        else:
+            moments = optax_moments_from_checkpoint(path, self.SAVE_TYPE,
+                                                    arch=self.hn_spec.arch)
+            if moments is not None:
+                set_adamw_moments(self.opt, self.params, moments, self.device)
+                self.sched_step = int(ckpt["step_idx"])
         return {"step_idx": ckpt["step_idx"]}
 
     # ------------------------------------------------------------------

@@ -16,7 +16,9 @@ weight decay scaled by lr), which dmi_tpu reproduces with optax.
 checkpoint's optimizer_state_dict.  The port writes its own format
 (checkpoint.ADAMW_FORMAT); it also reads dmi_tpu's optax state, taking
 (count, mu, nu) from its ScaleByAdamState: the other direction of
-dmi_tpu.training.optim.set_adamw_moments.
+dmi_tpu.training.optim.set_adamw_moments.  `set_adamw_moments` installs the
+AdamW moments of a reference torch checkpoint, as converted by
+models.torch_import.optax_moments_from_checkpoint.
 """
 
 from __future__ import annotations
@@ -161,3 +163,24 @@ def load_adamw_state(opt: torch.optim.AdamW, params, state, device) -> None:
             "exp_avg": torch.as_tensor(flat["exp_avg"][i], device=device).clone(),
             "exp_avg_sq": torch.as_tensor(flat["exp_avg_sq"][i], device=device).clone(),
         }
+
+
+def set_adamw_moments(opt: torch.optim.AdamW, params, moments: dict, device) -> None:
+    """Install a reference torch checkpoint's AdamW moments, converted to the
+    parameters' layout ({"mu", "nu", "count"}, torch_import
+    .optax_moments_from_checkpoint), for `params` (a tree of the optimizer's
+    leaves), as dmi_tpu's set_adamw_moments splices them into its optax
+    state: every leaf's torch `step` is the count; a leaf the reference
+    never updated has zero moments.  The trees must name the same leaves."""
+    want = [n for n, _ in named_leaves(params)]
+    for key in ("mu", "nu"):
+        got = [n for n, _ in named_leaves(moments[key])]
+        if got != want:
+            raise ValueError(f"checkpoint moments {key} cover {got}, the parameters are {want}")
+    count = np.asarray(moments["count"], np.float32)
+    load_adamw_state(opt, params, {
+        "format": ADAMW_FORMAT,
+        "step": tree_map(lambda _: count, moments["mu"]),
+        "exp_avg": moments["mu"],
+        "exp_avg_sq": moments["nu"],
+    }, device)

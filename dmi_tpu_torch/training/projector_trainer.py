@@ -39,6 +39,7 @@ import torch
 from dmi_tpu_torch.models import mmmodel
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import LlamaConfig, fuse_projections
+from dmi_tpu_torch.models.torch_import import optax_moments_from_checkpoint
 from dmi_tpu_torch.training.checkpoint import BestCheckpointer, load_pytree, to_tensor
 from dmi_tpu_torch.training.generation import (
     comp_metric,
@@ -53,6 +54,7 @@ from dmi_tpu_torch.training.optim import (
     load_adamw_state,
     make_lr_fn,
     make_optimizer,
+    set_adamw_moments,
     set_lr,
 )
 from dmi_tpu_torch.training.trainer import StepConditions, pick_loader, strip_to_assistant
@@ -80,8 +82,10 @@ def device_batch(batch, device):
 
 
 def load_projector(path: str, spec: proj.ProjectorSpec) -> dict:
-    """A pretrained projector from a checkpoint, numpy leaves, its layer-0
-    input features pruned when the checkpoint is wider than spec.mm_dim
+    """A pretrained projector from a checkpoint (dmi_tpu's envelope or a
+    reference torch `.pt`: a projector's, or the frozen projector inside a
+    hypernet or lora_model one), numpy leaves, its layer-0 input features
+    pruned when the checkpoint is wider than spec.mm_dim
     (dmi/train_projector.py:166-176, dmi/model/projector.py:46-54): the
     fine-tune source of stage 1 and the frozen projector of stages 2-3 and
     the LoRA baseline."""
@@ -273,7 +277,10 @@ class ProjectorTrainer:
     def resume(self, path: Optional[str] = None) -> int:
         """Restore params, optimizer state and step from an explicit
         checkpoint path or this run's best checkpoint; returns the step to
-        start from.  Exact: batches and dropout are functions of the step."""
+        start from.  Exact: batches and dropout are functions of the step.
+        A reference torch checkpoint carries torch AdamW moments in place of
+        an optimizer_state_dict; they are restored too when it has them
+        (dmi_tpu/training/projector_trainer.py:300-328)."""
         best = load_pytree(path) if path else self.ckpt.load_best()
         if best is None:
             return 0
@@ -282,6 +289,11 @@ class ProjectorTrainer:
             load_adamw_state(self.opt, self.params, best["optimizer_state_dict"],
                              self.device)
             self.sched_step = int(best["step_idx"])
+        elif path:
+            moments = optax_moments_from_checkpoint(path, self.SAVE_TYPE)
+            if moments is not None:
+                set_adamw_moments(self.opt, self.params, moments, self.device)
+                self.sched_step = int(best["step_idx"])
         return int(best["step_idx"]) + 1
 
     def train(self, start_step: int = 0):

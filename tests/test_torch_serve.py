@@ -224,9 +224,12 @@ def test_load_pytree_reads_dmi_tpu_pickle(projector_ckpt):
 
 
 def test_load_pytree_refuses_torch_zip(tmp_path):
+    """A torch zip is read as the reference's envelope
+    (tests/test_torch_reference_ckpt.py); one that holds none of its state
+    dicts is refused, as dmi_tpu refuses it."""
     path = str(tmp_path / "ref.pt")
-    torch.save({"projector_state_dict": {}}, path)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    torch.save({"model_state_dict": {}}, path)
+    with pytest.raises(KeyError, match="no recognized"):
         load_pytree(path)
 
 

@@ -447,15 +447,22 @@ def test_checkpoints_read_across_packages(fixture_data, tmp_path):
                                   np.asarray(jt.state.params["layers"][0]["w"])[:20])
 
 
-def test_trainer_refuses_unported_options():
+def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
+    """Multi-card training names A.10; an LM outside the llama-3.x layout
+    names A.9 (tests/test_torch_hf_weights.py has the rest); a hub id the HF
+    cache does not hold is an error that names where it looked."""
     with pytest.raises(NotImplementedError, match="A.10"):
         ProjectorTrainer("x", None, None, None, None, [], [], None,
                          _train_args(mesh_shape=[1, 1]))
     from dmi_tpu.config import LMArgs
     from dmi_tpu_torch.training.model_utils import build_lm
 
-    with pytest.raises(NotImplementedError, match="A.2"):
+    monkeypatch.delenv("DMI_LM_OVERRIDE", raising=False)
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="models--meta-llama--Llama-3.2-1B-Instruct"):
         build_lm(LMArgs(lm_name_or_path="meta-llama/Llama-3.2-1B-Instruct"), None)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        build_lm(LMArgs(lm_name_or_path="test:tiny-qwen2"), None)
     cfg = dataclasses.replace(tllama.tiny_config(), attn_logit_softcap=30.0)
     with pytest.raises(NotImplementedError, match="A.9"):
         tllama.forward(cfg, tllama.init(cfg, torch.Generator().manual_seed(0)),
