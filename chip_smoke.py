@@ -1380,11 +1380,14 @@ class SyntheticCaptions:
                 rng.normal(size=(1, d)).astype(np.float32))
 
 
-def train_phase(torch, dev, cfg, params):
+def train_phase(torch, dev, cfg, params, label="stage 1"):
     """Stage-1 training through ProjectorTrainer at full width; returns the
-    flash kernels' launch counts of the 10 micro-steps."""
+    flash kernels' launch counts of the 10 micro-steps: each kernel once a
+    layer and micro-step where the config takes the flash route
+    (llama.flash_route), none where it takes `_attention` (gemma)."""
     import types
 
+    from dmi_tpu_torch.models import llama
     from dmi_tpu_torch.models import projector as proj
     from dmi_tpu_torch.ops.cuda import flash_attn as fa
     from dmi_tpu_torch.ops.cuda import projector as pk
@@ -1401,8 +1404,7 @@ def train_phase(torch, dev, cfg, params):
                                    [EmbeddingManager("smoke-encoder", device=dev)], None, args)
         batches = [(0, data.train_batch(step)) for step in range(TRAIN_STEPS)]
 
-        step0_check(torch, "stage 1", lambda plain: trainer.micro_loss(0, batches[0],
-                                                                       plain=plain),
+        step0_check(torch, label, lambda plain: trainer.micro_loss(0, batches[0], plain=plain),
                     trainer.params)
 
         llm_before = [t.clone() for lw in trainer.llm_params["layers"] for t in lw.values()]
@@ -1423,11 +1425,12 @@ def train_phase(torch, dev, cfg, params):
         peak = torch.cuda.max_memory_allocated()
         losses = torch.stack(losses).float().cpu()
         positions = TRAIN_STEPS * TRAIN_BATCH * (TRAIN_TEXT + 1)
-        print(f"training run: {TRAIN_STEPS} micro-steps at batch {TRAIN_BATCH}, T "
+        print(f"{label} training run: {TRAIN_STEPS} micro-steps at batch {TRAIN_BATCH}, T "
               f"{TRAIN_TEXT + 1}: {secs!r} s, {TRAIN_STEPS / secs!r} micro-steps/s, "
               f"{positions / secs!r} tokens/s (sequence positions); peak device memory "
               f"{peak / 2**30!r} GiB; losses {losses.tolist()}; launches {launches}")
-        want = cfg.num_hidden_layers * TRAIN_STEPS
+        flash = cfg.num_hidden_layers if llama.flash_route(cfg, TRAIN_TEXT + 1) else 0
+        want = flash * TRAIN_STEPS
         if launches != dict.fromkeys(launches, want) or mlp2_in_training:
             raise AssertionError(f"training launches {launches}, mlp2 {mlp2_in_training}: "
                                  f"expected {want} of each flash kernel and no mlp2")
@@ -1450,12 +1453,12 @@ def train_phase(torch, dev, cfg, params):
         print(f"eval loss {ev.item()!r} with parameters that require grad "
               f"({all(t.requires_grad for t in trainer.leaves)}); launches mlp2, flash "
               f"forward, dK/dV, dQ: {ev_launches}")
-        if not (bool(torch.isfinite(ev)) and ev_launches == (1, cfg.num_hidden_layers, 0, 0)):
+        if not (bool(torch.isfinite(ev)) and ev_launches == (1, flash, 0, 0)):
             raise AssertionError(f"eval loss {ev.item()} with launches {ev_launches}")
 
-        print("where one training micro-step's time goes:")
+        print(f"where one {label} micro-step's time goes:")
         extra = iter(range(TRAIN_STEPS, TRAIN_STEPS + 10))
-        profile_run(torch, f"micro-step, batch {TRAIN_BATCH}",
+        profile_run(torch, f"{label} micro-step, batch {TRAIN_BATCH}",
                     lambda: trainer.train_step(next(extra), TRAIN_STEPS, batches[1]))
     return launches
 
@@ -1966,9 +1969,8 @@ def hf_llama_state_dict(cfg, params) -> dict:
 
 def write_hf_llama(torch, directory, cfg, params, n_shards=2) -> int:
     """A model directory in the HF layout: config.json (model_type llama,
-    tied head, llama3 rope scaling when cfg has it) and the weights as
-    `n_shards` safetensors shards of about equal size with their
-    model.safetensors.index.json.  Returns the bytes written."""
+    tied head, llama3 rope scaling when cfg has it) and the weights
+    (write_hf_dir).  Returns the bytes written."""
     rope = None if cfg.rope_scaling_factor is None else {
         "rope_type": "llama3", "factor": cfg.rope_scaling_factor,
         "low_freq_factor": cfg.rope_low_freq_factor,
@@ -1986,9 +1988,15 @@ def write_hf_llama(torch, directory, cfg, params, n_shards=2) -> int:
               "attention_bias": False, "mlp_bias": False, "bos_token_id": cfg.bos_token_id,
               "eos_token_id": list(cfg.eos_token_ids),
               "torch_dtype": str(cfg.dtype).removeprefix("torch.")}
+    return write_hf_dir(torch, directory, config, hf_llama_state_dict(cfg, params), n_shards)
+
+
+def write_hf_dir(torch, directory, config, sd, n_shards=2) -> int:
+    """config.json and the state dict `sd` (HF names -> tensors) as `n_shards`
+    safetensors shards of about equal size with their
+    model.safetensors.index.json.  Returns the bytes written."""
     with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
-    sd = hf_llama_state_dict(cfg, params)
     total = sum(t.numel() * t.element_size() for t in sd.values())
     shards, size = [{}], 0
     for name, t in sd.items():
@@ -2200,6 +2208,369 @@ def disk_phase(torch, dev, cfg, params, projector, embs, hn_params, hn_state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Gemma-2-2B: the dense decoder families (ROADMAP A.9)
+# ---------------------------------------------------------------------------
+
+# google/gemma-2-2b's published config.json; its weights are not in the
+# repository, so the phase writes random bf16 ones in the gemma2 HF layout
+GEMMA2_2B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2", "vocab_size": 256000,
+    "hidden_size": 2304, "intermediate_size": 9216, "num_hidden_layers": 26,
+    "num_attention_heads": 8, "num_key_value_heads": 4, "head_dim": 256,
+    "sliding_window": 4096, "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "hidden_act": "gelu_pytorch_tanh", "hidden_activation": "gelu_pytorch_tanh",
+    "tie_word_embeddings": True, "max_position_embeddings": 8192, "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+    "initializer_range": 0.02, "cache_implementation": "hybrid", "torch_dtype": "bfloat16",
+}
+GEMMA_WINDOW = 16  # the window phase's: binds from position 16 of T 16 + the budget
+GEMMA_PATH = "Gemma-2-2B serving batch-last"
+
+
+def hf_gemma2_state_dict(torch, dev, c, seed) -> dict:
+    """Random bf16 weights of a gemma2 config under HF Gemma2ForCausalLM's
+    names and (out, in) layout, on `dev`: Linear weights and the embedding
+    normal(0, 0.02) (the config's initializer_range); gemma stores w of its
+    (1 + w) norm scale, normal(0, 0.1) for the pre-norms and the final norm
+    and normal(3, 0.1) for the two post-block norms.  With post-block
+    scales near 1, a random model's residual stream is dominated by the
+    input embedding times sqrt(H), and the tied head echoes it: every step
+    repeats its input token, in every row.  Scales near 4 let the
+    sublayers set the greedy tokens, so that rows, windows and engines can
+    be told apart by their ids."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H, I, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    nh, nkv, hd = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
+
+    def w(*shape, scale=0.02, mean=0.0):
+        return (mean + torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
+
+    sd = {"model.embed_tokens.weight": w(V, H)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (nh * hd, H)),
+                            ("self_attn.k_proj", (nkv * hd, H)),
+                            ("self_attn.v_proj", (nkv * hd, H)),
+                            ("self_attn.o_proj", (H, nh * hd)), ("mlp.gate_proj", (I, H)),
+                            ("mlp.up_proj", (I, H)), ("mlp.down_proj", (H, I))):
+            sd[f"{p}{name}.weight"] = w(*shape)
+        for norm in ("input_layernorm", "pre_feedforward_layernorm"):
+            sd[f"{p}{norm}.weight"] = w(H, scale=0.1)
+        for norm in ("post_attention_layernorm", "post_feedforward_layernorm"):
+            sd[f"{p}{norm}.weight"] = w(H, scale=0.1, mean=3.0)
+    sd["model.norm.weight"] = w(H, scale=0.1)
+    return sd
+
+
+def gemma_load_phase(torch, dev):
+    """Gemma-2-2B at full width and depth from disk: GEMMA2_2B and random
+    bf16 weights written as an HF gemma2 directory (three safetensors
+    shards), read back through build_lm, held to the published config and
+    bit for bit to what was written (Linear weights transposed, every norm
+    folded to f32(w) + 1), and removed.  Returns the config and the
+    parameters."""
+    from dmi_tpu_torch.config import LMArgs
+    from dmi_tpu_torch.models import llama
+    from dmi_tpu_torch.training.model_utils import build_lm
+
+    c = GEMMA2_2B
+    sd = hf_gemma2_state_dict(torch, dev, c, SEED + 20)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_dir = os.path.join(tmp, "gemma-2-2b-smoke")
+        os.makedirs(lm_dir)
+        t0 = time.perf_counter()
+        written = write_hf_dir(torch, lm_dir, c, sd, n_shards=3)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cfg, params = build_lm(LMArgs(lm_name_or_path=lm_dir, lm_dtype="bfloat16"), None,
+                               device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"Gemma-2-2B from disk: wrote {written} bytes ({sorted(os.listdir(lm_dir))}) in "
+              f"{write_s!r} s; build_lm read them in {load_s!r} s ({written / load_s / 1e9!r} "
+              f"GB/s), {(torch.cuda.memory_allocated() - base) / 2**30!r} GiB on the card")
+    want = {k: c[k] for k in ("vocab_size", "hidden_size", "intermediate_size",
+                              "num_hidden_layers", "num_attention_heads",
+                              "num_key_value_heads", "head_dim", "rms_norm_eps", "rope_theta",
+                              "sliding_window", "tie_word_embeddings")}
+    want.update(mlp_act="gelu_tanh", attn_scale=c["query_pre_attn_scalar"] ** -0.5,
+                attn_logit_softcap=c["attn_logit_softcapping"],
+                final_logit_softcap=c["final_logit_softcapping"],
+                embedding_normalizer=c["hidden_size"] ** 0.5, post_block_norms=True,
+                norm_plus_one=True, eos_token_ids=(c["eos_token_id"],), dtype=torch.bfloat16,
+                layer_sliding=tuple(i % 2 == 0 for i in range(c["num_hidden_layers"])))
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"Gemma-2-2B config {got} != the published {want}")
+    same = torch.equal(params["embed"], sd["model.embed_tokens.weight"])
+    same &= torch.equal(params["final_norm"], sd["model.norm.weight"].float() + 1)
+    for i, lw in enumerate(params["layers"]):
+        for name, (key, kind) in llama.hf_layer_keys(cfg, False).items():
+            t = sd[f"model.layers.{i}.{key}"]
+            ref = t.float() + 1 if kind == "n" else (t.t() if kind == "w" else t)
+            same &= lw[name].dtype == ref.dtype and torch.equal(lw[name], ref)
+    print(f"  config = the published one ({cfg.num_hidden_layers} layers, hd {cfg.head_dim}, V "
+          f"{cfg.vocab_size}); every tensor equal to the written one (norms folded in f32): "
+          f"{same}")
+    if not same:
+        raise AssertionError("Gemma-2-2B: a loaded tensor differs from the written one")
+    del sd
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def gemma_kernel_phase(torch, dev, cfg, params):
+    """The serving kernels at Gemma-2-2B's shapes, B 128, each against its
+    twin and timed beside its bound and library call: decode attention (8/4
+    heads, hd 256 on the CUDA-core instance, its score scale and softcap 50,
+    S 38 = T 16 + budget 22; a zero row, a window row, and a binding cap of
+    2.0), the tanh-GELU decode MLP on layer 0's weights (H 2304, I 9216),
+    the head argmax over the model's embed (V 256000) and mlp2 (f32, 1024
+    -> 2304 -> 2304)."""
+    import torch.nn.functional as F
+
+    from dmi_tpu_torch.models import llama
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.ops import l2_normalize
+    from dmi_tpu_torch.ops.cuda import decode_attn as da
+    from dmi_tpu_torch.ops.cuda import decode_mlp as dm
+    from dmi_tpu_torch.ops.cuda import head_argmax as tha
+    from dmi_tpu_torch.ops.cuda import projector as pk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    B, S = 128, len(PREFIX_IDS) + 1 + MAX_NEW
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    scale, cap = llama.attn_score_scale(cfg), cfg.attn_logit_softcap
+    bf = torch.bfloat16
+    results = {}
+    print(f"Gemma-2-2B's serving kernels vs their twins (B {B}):")
+
+    q = torch.randn(B, nh, 1, hd, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(B, nkv, S, hd, generator=gen, device=dev).to(bf) for _ in range(2))
+    zero = torch.zeros(S, device=dev)
+    window = torch.where(llama.window_mask(dataclasses.replace(cfg, sliding_window=GEMMA_WINDOW),
+                                           S - 1, torch.arange(S, device=dev)),
+                         0.0, torch.finfo(torch.float32).min)
+    errs = []
+    for label, bias, c in (("zero row", zero, cap), (f"window row of {GEMMA_WINDOW}", window, cap),
+                           ("zero row, a binding cap of 2.0", zero, 2.0)):
+        args = (q, k, v, bias, scale, c)
+        ref = da._decode_attn_plain(*args)
+        errs.append(compare(torch, f"decode attention S={S} hd={hd} softcap={c} ({label})",
+                            da.fused_decode_attention(*args), ref, TOL["bfloat16"]))
+        if c == 2.0:
+            move = (ref.float() - da._decode_attn_plain(*args[:5]).float()).abs().max().item()
+            if move <= TOL["bfloat16"] * max(1.0, ref.float().abs().max().item()):
+                raise AssertionError("the cap of 2.0 does not bind at hd 256")
+    args = (q, k, v, zero, scale, cap)
+    t = {**device_times(torch, lambda: da.fused_decode_attention(*args),
+                        lambda: da._decode_attn_plain(*args),
+                        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale,
+                                                               enable_gqa=True)),
+         **least_time(nbytes(q, k, v, zero, q), 4 * B * nh * S * hd, bf)}
+    print(f"    {report_times(t)}; library: scaled_dot_product_attention, GQA, without the "
+          f"softcap (SDPA has none); plan {da.plan(B, nkv, nh // nkv, S, hd, 2)}")
+    results["decode_attention_gemma"] = {"max_abs_err": max(errs), **t}
+
+    lw = params["layers"][0]
+    h = torch.randn(H, B, generator=gen, device=dev).to(bf)
+    args = (lw["w_gu"], lw["w_down"], h, cfg.mlp_act)
+    err = compare(torch, f"decode MLP H={H} I={I} {cfg.mlp_act} (layer 0's weights)",
+                  dm.fused_decode_mlp_bl(*args), dm._decode_mlp_plain(*args), TOL["bfloat16"])
+
+    def chain():
+        g, u = (lw["w_gu"].t() @ h).chunk(2, dim=0)
+        return lw["w_down"].t() @ (F.gelu(g, approximate="tanh") * u)
+
+    t = {**device_times(torch, lambda: dm.fused_decode_mlp_bl(*args),
+                        lambda: dm._decode_mlp_plain(*args), chain),
+         **least_time(nbytes(lw["w_gu"], lw["w_down"], h, h), 2 * B * 3 * H * I, bf)}
+    print(f"    {report_times(t)}; library: matmul, gelu * mul, matmul; plan "
+          f"{dm.plan(H, I, dm.padded_batch(B))}")
+    results["decode_mlp_gemma"] = {"max_abs_err": err, **t}
+
+    head = {"embed": params["embed"]}
+    h = torch.randn(H, B, generator=gen, device=dev).to(bf)
+    gap = head_check(torch, tha, f"head argmax bf16 V={V} H={H}", head, h, "bf16")
+    t = {**device_times(torch, lambda: tha.head_argmax(head, h),
+                        lambda: tha._head_argmax_plain(head["embed"], h),
+                        lambda: (head["embed"] @ h).argmax(dim=0)),
+         **least_time(nbytes(head["embed"], h) + 4 * B, 2 * V * H * B, bf)}
+    plan = {k: v for k, v in tha.plan(V, H, B, "bf16").items() if k != "runs"}
+    print(f"    {report_times(t)}; library: matmul, argmax; plan {plan}")
+    results["head_argmax_gemma"] = {"max_abs_err": gap, **t}
+
+    spec = proj.ProjectorSpec(mm_dim=MM_DIM, lm_dim=H)
+    p = proj.init(spec, gen, dtype=torch.float32, device=dev)["layers"]
+    x = l2_normalize(torch.randn(B, MM_DIM, generator=gen, device=dev))
+    args = (x, p[0]["w"], p[0]["b"], p[1]["w"], p[1]["b"])
+    err = compare(torch, f"mlp2 B={B} {MM_DIM} -> {H} -> {H} float32", pk.fused_mlp2(*args),
+                  pk._mlp2_plain(*args), TOL["float32"])
+    x, w0, b0, w1, b1 = args
+    t = {**device_times(torch, lambda: pk.fused_mlp2(*args), lambda: pk._mlp2_plain(*args),
+                        lambda: torch.addmm(b1, F.gelu(torch.addmm(b0, x, w0),
+                                                       approximate="tanh"), w1)),
+         **least_time(nbytes(*args) + B * H * 4, 2 * B * (w0.numel() + w1.numel()),
+                      torch.float32)}
+    print(f"    {report_times(t)}; library: addmm, gelu, addmm")
+    results["mlp2_gemma"] = {"max_abs_err": err, **t}
+    return results
+
+
+def gemma_serving_phase(torch, dev, cfg, params):
+    """Gemma-2-2B served through the Captioner: the 300 requests at batch 128
+    on the batch-last loop (bf16, greedy, EOS off) against its plain path,
+    then one batch on the batch-first loop, one sampled batch (SAMPLE)
+    against its plain path, and the bulk engine beside the batch engine on
+    EOS ids chosen mid-budget; launch counts set to 0 before each run and
+    checked after.  Returns the launch counts, the projector and the
+    requests."""
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.serve import Captioner
+
+    card = nvidia_smi()
+    spec = proj.ProjectorSpec(mm_dim=MM_DIM, lm_dim=cfg.hidden_size)
+    pp = proj.init(spec, torch.Generator(device=dev).manual_seed(SEED + 22),
+                   dtype=torch.float32, device=dev)
+    embs = np.random.default_rng(SEED).normal(size=(N_REQUESTS, MM_DIM)).astype(np.float32)
+    L, steps = cfg.num_hidden_layers, MAX_NEW - 1
+
+    def captioner(c=cfg, **kw):
+        return Captioner(c, params, spec, pp, max_new_tokens=MAX_NEW, batch_size=128,
+                         prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID, **kw)
+
+    def run(label, cap, requests, per_batch, **kw):
+        cap.caption_ids(requests[:128], **kw)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        ids = cap.caption_ids(requests, **kw)
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        print(f"Gemma-2-2B {label}: {len(requests)} requests at batch 128, {secs!r} s, "
+              f"{len(requests) / secs!r} captions/s ({card})")
+        _expect(label, counts, {k: n * -(-len(requests) // 128) for k, n in per_batch.items()})
+        _check_ids(cfg, label, ids, len(requests))
+        return ids, counts
+
+    loop = {"mlp2": 1, "decode_attention": L * steps}
+    out = {}
+    cap = captioner()
+    ids, out[GEMMA_PATH] = run("(a) batch-last bf16 greedy", cap, embs,
+                               {**loop, "decode_mlp": L * steps, "head_argmax": steps})
+    rows = len({tuple(r) for r in ids.tolist()})
+    print(f"  {rows} distinct rows of {len(ids)}, {len(torch.unique(ids))} distinct tokens")
+    if rows < len(ids) // 2:
+        raise AssertionError("Gemma-2-2B: the rows' ids are alike (the random model echoes)")
+    token_agreement("its plain path", ids, cap.caption_ids(embs, plain=True))
+    print("where one Gemma-2-2B batch-last batch's time goes:")
+    profile_run(torch, "Gemma-2-2B batch 128, batch-last bf16",
+                lambda: cap.caption_ids(embs[:128]))
+    first, out["Gemma-2-2B serving batch-first"] = run(
+        "(b) batch-first", captioner(batch_first=True), embs[:128], loop)
+    token_agreement("the batch-last loop", first, ids[:128])
+    sampled, out["Gemma-2-2B serving sampled"] = run(
+        f"(c) sampled {SAMPLE}", cap, embs[:128], {**loop, "decode_mlp": L * steps}, **SAMPLE)
+    token_agreement("its plain path", sampled, cap.caption_ids(embs[:128], plain=True, **SAMPLE))
+
+    eos, mean_len = _mid_budget_eos(ids)
+    print(f"Gemma-2-2B (d) bulk beside batch: EOS ids {eos} (mean length {mean_len!r} of "
+          f"{MAX_NEW} in the greedy ids)")
+    ecap = captioner(dataclasses.replace(cfg, eos_token_ids=eos))
+    for engine in ("batch", "bulk"):  # warm-up
+        ecap.caption_ids(embs[:128], engine=engine)
+    runs = {}
+    for engine in ("batch", "bulk"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        runs[engine] = ecap.caption_ids(embs, engine=engine)
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        _check_ids(cfg, f"engine={engine}", runs[engine], len(embs))
+        print(f"  engine={engine}: {len(embs) / secs!r} captions/s ({card})")
+    eng = ecap.bulk_engine
+    _expect("Gemma-2-2B engine=bulk", counts,
+            {"mlp2": eng.admissions, "decode_attention": L * eng.steps,
+             "decode_attention_rows": L * eng.steps, "decode_mlp": L * eng.steps,
+             "head_argmax": eng.steps})
+    out["Gemma-2-2B serving bulk"] = counts
+    token_agreement("the batch engine", runs["bulk"], runs["batch"])
+    return out, (spec, pp), embs
+
+
+def gemma_window_phase(torch, dev, cfg, params, projector, embs):
+    """A window that binds on the card: Gemma-2-2B's widths at its first two
+    layers (sliding, then full) with sliding_window 16, so that the window
+    binds from position 16 of T 16 + 22.  One batch of 128 greedy captions
+    on the batch-last loop against its plain path and the bulk engine
+    against the batch engine, with launch counts; the same requests with
+    the window dropped give other ids."""
+    from dmi_tpu_torch.serve import Captioner
+
+    spec, pp = projector
+    c = dataclasses.replace(cfg, num_hidden_layers=2, sliding_window=GEMMA_WINDOW,
+                            layer_sliding=(True, False))
+    p2 = {**params, "layers": params["layers"][:2]}
+    steps = MAX_NEW - 1
+
+    def captioner(c):
+        return Captioner(c, p2, spec, pp, max_new_tokens=MAX_NEW, batch_size=128,
+                         prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID)
+
+    cap = captioner(c)
+    requests = embs[:128]
+    cap.caption_ids(requests)  # warm-up
+    _reset_counts()
+    ids = cap.caption_ids(requests)
+    counts = _counts()
+    print(f"Gemma-2-2B widths, 2 layers, sliding_window {GEMMA_WINDOW} (binds from position "
+          f"{GEMMA_WINDOW} of {len(PREFIX_IDS) + 1} + {MAX_NEW}):")
+    _expect("window, batch-last", counts, {"mlp2": 1, "decode_attention": 2 * steps,
+                                           "decode_mlp": 2 * steps, "head_argmax": steps})
+    _check_ids(c, "window, batch-last", ids, 128)
+    token_agreement("its plain path", ids, cap.caption_ids(requests, plain=True))
+    _reset_counts()
+    bulk = cap.caption_ids(requests, engine="bulk")
+    eng = cap.bulk_engine
+    _expect("window, bulk", _counts(), {"mlp2": eng.admissions,
+                                        "decode_attention": 2 * eng.steps,
+                                        "decode_attention_rows": 2 * eng.steps,
+                                        "decode_mlp": 2 * eng.steps, "head_argmax": eng.steps})
+    token_agreement("the batch engine", bulk, ids)
+    wide = captioner(dataclasses.replace(c, sliding_window=None)).caption_ids(requests)
+    share = (wide == ids).float().mean().item()
+    print(f"  token agreement with the window dropped: {share!r} (the window binds: < 1)")
+    if share == 1.0:
+        raise AssertionError("the window of 16 moved no token")
+    return {"Gemma-2-2B window": counts}
+
+
+def gemma_phase(torch, dev):
+    """Every Gemma-2-2B phase; returns its kernels' entries and its paths'
+    launch counts."""
+    from dmi_tpu_torch.models import llama
+
+    cfg, params = gemma_load_phase(torch, dev)
+    # EOS off, as the Llama phases have it; the fused layout the Captioner
+    # would make, once
+    cfg = dataclasses.replace(cfg, eos_token_ids=())
+    params = llama.fuse_projections(params)
+    torch.cuda.empty_cache()
+    kernels = gemma_kernel_phase(torch, dev, cfg, params)
+    paths, projector, embs = gemma_serving_phase(torch, dev, cfg, params)
+    paths["Gemma-2-2B stage 1"] = train_phase(torch, dev, cfg, params, label="Gemma-2-2B stage 1")
+    paths.update(gemma_window_phase(torch, dev, cfg, params, projector, embs))
+    del params
+    torch.cuda.empty_cache()
+    return kernels, paths
+
+
 def main() -> int:
     import torch
 
@@ -2255,6 +2626,11 @@ def main() -> int:
                                                                 hn_params)
     paths["LoRA"] = lora_phase(torch, dev, cfg, params)
     paths.update(disk_phase(torch, dev, cfg, params, projector, embs, hn_params, hn_state))
+    del params, hn_params, hn_state, projector
+    torch.cuda.empty_cache()
+    gemma_kernels, gemma_paths = gemma_phase(torch, dev)
+    kernels.update(gemma_kernels)
+    paths.update(gemma_paths)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("dmi_tpu", "jax"))
     if jax_side:
         raise AssertionError(f"the smoke loaded modules of the JAX side: {jax_side}")
@@ -2306,7 +2682,21 @@ def main() -> int:
                                 "w4_split_out"),
                "w4_split_k": ("w4_dot_split_k", "dmi_tpu_torch/csrc/w4_probe.cu",
                               "scripts/profile_w4_matmul.py:184 (dot_w4_pallas_k)", "probes",
-                              "w4_split_k")}
+                              "w4_split_k"),
+               "mlp2_gemma": ("fused_mlp2 at Gemma-2-2B (f32, 1024 -> 2304 -> 2304)",
+                              "dmi_tpu_torch/csrc/mlp2.cu", "dmi_tpu/ops/pallas/projector.py:167",
+                              GEMMA_PATH, "mlp2"),
+               "decode_attention_gemma": ("fused_decode_attention at Gemma-2-2B (8/4 heads, "
+                                          "hd 256, softcap 50)",
+                                          "dmi_tpu_torch/csrc/decode_attn.cu",
+                                          "dmi_tpu/ops/pallas/decode_attn.py:121", GEMMA_PATH,
+                                          "decode_attention"),
+               "decode_mlp_gemma": ("fused_decode_mlp_bl at Gemma-2-2B (gelu_tanh, H 2304, "
+                                    "I 9216)", "dmi_tpu_torch/csrc/decode_mlp.cu",
+                                    "dmi_tpu/ops/pallas/decode_mlp.py:97", GEMMA_PATH,
+                                    "decode_mlp"),
+               "head_argmax_gemma": ("head_argmax bf16 at Gemma-2-2B (V 256000, H 2304)", *head,
+                                     GEMMA_PATH, "head_argmax")}
     print(f"launches by path: {paths}")
     report = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": paths[path][count], **kernels[key]}

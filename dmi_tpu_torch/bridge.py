@@ -37,8 +37,9 @@ def to_torch(a, device="cpu") -> torch.Tensor:
 
 
 def config_from_jax(jcfg) -> llama.LlamaConfig:
-    """The port's config for a dmi_tpu LlamaConfig.  Raises
-    NotImplementedError when it sets a field of another decoder family."""
+    """The port's config for a dmi_tpu LlamaConfig of a dense family.  Raises
+    NotImplementedError when it sets a field of the MoE or MLA families (or
+    yarn rope scaling)."""
     ported = {f.name for f in dataclasses.fields(llama.LlamaConfig)}
     kw = {}
     for f in dataclasses.fields(jcfg):
@@ -53,6 +54,8 @@ def config_from_jax(jcfg) -> llama.LlamaConfig:
             )
     kw["dtype"] = getattr(torch, np.dtype(jcfg.dtype).name)
     kw["eos_token_ids"] = tuple(kw["eos_token_ids"])
+    if kw["layer_sliding"] is not None:
+        kw["layer_sliding"] = tuple(bool(f) for f in kw["layer_sliding"])
     return llama.LlamaConfig(**kw)
 
 
@@ -73,11 +76,14 @@ def llm_params_from_jax(jparams: dict, device="cpu") -> dict:
     while isinstance(first, dict):  # any stacked array: its length is the depth
         first = next(iter(first.values()))
     n_layers = len(np.asarray(first))
-    return {
+    out = {
         "embed": leaf(jparams["embed"]),
         "layers": [{k: leaf(v, i) for k, v in stacked.items()} for i in range(n_layers)],
         "final_norm": leaf(jparams["final_norm"]),
     }
+    if "lm_head" in jparams:  # an untied head
+        out["lm_head"] = leaf(jparams["lm_head"])
+    return out
 
 
 def projector_params_from_jax(jparams: dict, device="cpu") -> dict:
@@ -123,9 +129,12 @@ def llm_params_to_numpy(params: dict) -> dict:
         return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
             else t.detach().cpu().numpy()
 
-    return {
+    out = {
         "embed": host(params["embed"]),
         "layers": {k: np.stack([host(lw[k]) for lw in params["layers"]])
                    for k in params["layers"][0]},
         "final_norm": host(params["final_norm"]),
     }
+    if "lm_head" in params:
+        out["lm_head"] = host(params["lm_head"])
+    return out

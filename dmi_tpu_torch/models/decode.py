@@ -27,8 +27,11 @@ The batch-last loop (greedy_generate_bl) keeps a decode step's activations
 as [features, B], the form its kernels take: the whole gated MLP in one
 weight stream (ops/cuda/decode_mlp), the packed W4A8 and the W8A8 matmuls
 (ops/cuda/w4_matmul) and the tied head fused with the argmax
-(ops/cuda/head_argmax).  It serves unquantized trees and the three
-quantized ones of models/quant.py.  Prefill stays batch-first and the K/V
+(ops/cuda/head_argmax); an untied head takes _mm_bl(lm_head, h) and an
+argmax, as dmi_tpu's loop does.  It serves unquantized trees and the three
+quantized ones of models/quant.py, and every dense family's step (q/k/v
+biases, q/k norms, post-block norms, post-norm blocks, granite's residual
+multiplier, a sliding layer's window row, gemma-3's local rope).  Prefill stays batch-first and the K/V
 caches stay as prefill wrote them: the step transposes only its own
 [nh*hd, B] tensors and attends through the decode-attention kernel
 (ops/cuda/decode_attn).  dmi_tpu's merged [L, 2, nkv, S, hd, B] cache, its
@@ -52,7 +55,7 @@ from dmi_tpu_torch.ops.cuda.decode_mlp import _decode_mlp_plain, fused_decode_ml
 from dmi_tpu_torch.ops.cuda.head_argmax import _head_argmax_plain, head_argmax, head_logits_bl
 from dmi_tpu_torch.ops.cuda.w4_matmul import _w4_mm_plain, _w8_mm_plain, w4_mm_bl, w8_mm_bl
 
-NEG_INF = torch.finfo(torch.float32).min
+NEG_INF = llama.NEG_INF
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -62,44 +65,67 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
-def _run_layers(cfg, params, x, cos, sin, bias, caches, cache_index: int,
-                last_only: bool = False, plain: bool = False):
+def _run_layers(cfg, params, x, rope, bias, caches, cache_index: int,
+                last_only: bool = False, plain: bool = False, bias_sw=None, rope_local=None):
     """Every layer in turn over x, writing the caches in place; returns the
-    head's logits (of the last position only when last_only: prefill needs
-    just the next-token logits, and [B, T, V] is its largest tensor)."""
+    head's logits through final_softcap (of the last position only when
+    last_only: prefill needs just the next-token logits, and [B, T, V] is
+    its largest tensor).  A sliding layer takes bias_sw (None while no
+    window binds) and, with dual rope, rope_local (llama.layer_inputs)."""
     k_cache, v_cache = caches
     for i, lw in enumerate(params["layers"]):
-        x = llama._block(cfg, x, lw, cos, sin, bias, (k_cache[i], v_cache[i]),
-                         cache_index, plain=plain)
+        b, (cos, sin) = llama.layer_inputs(cfg, i, bias, bias_sw, rope, rope_local)
+        x = llama._block(cfg, x, lw, cos, sin, b, (k_cache[i], v_cache[i]), cache_index,
+                         plain=plain)
     if last_only:
         x = x[:, -1:, :]
     x = llama.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return llama._head_matmul(x, params, cfg)
+    return llama.final_softcap(cfg, llama._head_matmul(x, params, cfg))
+
+
+def _window_row(cfg, pos: int, device):
+    """A token step's [1, pos + 1] window bias over the written positions,
+    or None while the window cannot bind there (sliding_effective)."""
+    if not llama.sliding_effective(cfg, pos + 1):
+        return None
+    keys = torch.arange(pos + 1, device=device)
+    return torch.where(llama.window_mask(cfg, pos, keys), 0.0, NEG_INF)[None]
+
+
+def _local_rope(cfg, positions):
+    return llama.rope_tables(cfg, positions, local=True) if llama.rope_dual(cfg) else None
 
 
 def prefill(cfg, params, inputs_embeds, caches, plain: bool = False):
     """Run the uniform-length prompt, filling caches at positions [0, T);
-    returns the next-token logits [B, V]."""
+    returns the next-token logits [B, V] (through final_softcap)."""
     T = inputs_embeds.shape[1]
     device = inputs_embeds.device
     positions = torch.arange(T, device=device)
-    cos, sin = llama.rope_tables(cfg, positions)
     causal = positions[None, :] <= positions[:, None]  # [T, T]
     bias = torch.where(causal, 0.0, NEG_INF)
+    bias_sw = None
+    if llama.sliding_effective(cfg, T):
+        in_win = llama.window_mask(cfg, positions[:, None], positions)
+        bias_sw = torch.where(causal & in_win, 0.0, NEG_INF)
     x = llama.scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
-    logits = _run_layers(cfg, params, x, cos, sin, bias, caches, 0,
-                         last_only=True, plain=plain)
+    logits = _run_layers(cfg, params, x, llama.rope_tables(cfg, positions), bias, caches, 0,
+                         last_only=True, plain=plain, bias_sw=bias_sw,
+                         rope_local=_local_rope(cfg, positions))
     return logits[:, -1, :]
 
 
 def decode_step(cfg, params, token_embeds, caches, pos: int, plain: bool = False):
-    """One token step writing absolute position `pos`; returns logits [B, V]."""
+    """One token step writing absolute position `pos`; returns logits [B, V]
+    (through final_softcap)."""
     device = token_embeds.device
-    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=device))
+    positions = torch.tensor([pos], device=device)
     # all valid: each layer attends to a view of the pos + 1 written positions
     bias = torch.zeros((1, pos + 1), dtype=torch.float32, device=device)
     x = llama.scale_embeds(cfg, token_embeds.to(cfg.dtype))
-    logits = _run_layers(cfg, params, x, cos, sin, bias, caches, pos, plain=plain)
+    logits = _run_layers(cfg, params, x, llama.rope_tables(cfg, positions), bias, caches, pos,
+                         plain=plain, bias_sw=_window_row(cfg, pos, device),
+                         rope_local=_local_rope(cfg, positions))
     return logits[:, 0, :]
 
 
@@ -362,46 +388,67 @@ def _decode_attention_bl(q, kc, vc, bias, scale=None, softcap=None):
     return out.to(vc.dtype)
 
 
+def _rms_norm_head_bl(x, scale, eps):
+    """rms_norm over the head axis (-2) of batch-last per-head tensors
+    [..., hd, B]; scale [hd] (the per-head q/k norms)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-2, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()[:, None]).to(x.dtype)
+
+
 def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = True,
                     plain: bool = False, *, rope=None, write_row: Optional[int] = None,
-                    bias: Optional[torch.Tensor] = None):
-    """One batch-last token step (the llama-3.x branch of dmi_tpu's
-    _decode_step_bl).  h [H, B]; caches ([L, B, nkv, S, hd] x 2) as prefill
-    wrote them, written IN PLACE at absolute position `pos`.  Returns the
-    logits [V, B], or with head=False the final norm's output [H, B] for the
-    fused head + argmax.
+                    bias: Optional[torch.Tensor] = None, bias_sw: Optional[torch.Tensor] = None,
+                    rope_local=None):
+    """One batch-last token step with every dense branch of dmi_tpu's
+    _decode_step_bl (q/k/v biases, both q/k norms, post-block norms,
+    norm_after, the residual multiplier, a sliding layer's window bias and
+    gemma-3's local rope).  h [H, B]; caches ([L, B, nkv, S, hd] x 2) as
+    prefill wrote them, written IN PLACE at absolute position `pos`.
+    Returns the logits [V, B] without final_softcap (greedy consumers need
+    only their argmax; the sampler caps them), or with head=False the final
+    norm's output [H, B] for the fused head + argmax.  The head is the tied
+    embed (head_logits_bl) or the untied lm_head through _mm_bl.
 
-    rope / write_row / bias: the continuous-batching engine (streaming.py)
-    shares this step with per-slot positions (dmi_tpu's rope=, write_row=
-    and [S, B] bias): per-slot rope tables (cos, sin) [hd, B], the shared
-    ring row every slot writes, and a [B, S] f32 bias over the whole
-    fixed-length cache (0 on a slot's own entries, finfo.min elsewhere),
-    which each layer attends over through the decode-attention kernel's
-    per-row bias; pos is then unused.  Without them the step attends to a
-    view of the pos + 1 written positions with a zero [pos + 1] row, as the
-    batch loops always have.
+    rope / write_row / bias / bias_sw / rope_local: the continuous-batching
+    engine (streaming.py) shares this step with per-slot positions
+    (dmi_tpu's rope=, write_row=, [S, B] bias and bias_sw, rope_local):
+    per-slot rope tables (cos, sin) [hd, B] (and the local ones with dual
+    rope), the shared ring row every slot writes, and [B, S] f32 biases
+    over the whole fixed-length cache (0 on a slot's own entries, within
+    the window for bias_sw, finfo.min elsewhere), which each layer attends
+    over through the decode-attention kernel's per-row bias; pos is then
+    unused.  Without them the step attends to a view of the pos + 1
+    written positions with a zero [pos + 1] row, and on sliding layers the
+    window's row once the window binds, as the batch loops always have.
 
-    On CUDA tensors an unquantized fused w_gu runs the decode-MLP kernel,
-    quantized weights the int8 kernels (_mm_bl) and attention the
-    decode-attention kernel on the step's transposed q/k/v; plain=True runs
-    every kernel's plain twin instead."""
+    On CUDA tensors an unquantized fused w_gu runs the decode-MLP kernel
+    with cfg.mlp_act, quantized weights the int8 kernels (_mm_bl) and
+    attention the decode-attention kernel on the step's transposed q/k/v;
+    plain=True runs every kernel's plain twin instead."""
     k_cache, v_cache = caches
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
     g = nh // nkv
     B = h.shape[1]
     per_slot = (rope is not None, write_row is not None, bias is not None)
     if any(per_slot) and not all(per_slot):
         raise ValueError("per-slot decode step: pass rope, write_row and bias together")
     if rope is None:
-        cos, sin = llama.rope_tables(cfg, torch.tensor(pos, device=h.device))  # [hd] each
+        positions = torch.tensor(pos, device=h.device)
+        rope = llama.rope_tables(cfg, positions)  # [hd] each
+        rope_local = _local_rope(cfg, positions)
         # all valid: each layer attends to a view of the pos + 1 written positions
         bias = torch.zeros(pos + 1, dtype=torch.float32, device=h.device)
+        window = _window_row(cfg, pos, h.device)
+        bias_sw = None if window is None else window[0]
         row, span = pos, pos + 1
     else:
-        cos, sin = rope
         if bias.shape != (B, k_cache.shape[3]):
             raise ValueError(f"per-slot bias {tuple(bias.shape)}: [B, S] = "
                              f"{(B, k_cache.shape[3])}")
+        if llama.rope_dual(cfg) and rope_local is None:
+            raise ValueError("a dual-rope config (gemma-3) needs rope_local beside rope")
         row, span = write_row, k_cache.shape[3]
     scale = llama.attn_score_scale(cfg)
     attend = _decode_attn_plain if plain else fused_decode_attention
@@ -412,37 +459,51 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
 
     x = h
     for li, lw in enumerate(params["layers"]):
-        hn = _rms_norm_bl(x, lw["ln_attn"], cfg.rms_norm_eps)
+        b, (cos, sin) = llama.layer_inputs(cfg, li, bias, bias_sw, rope, rope_local)
+        hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_attn"], eps)
         if "w_qkv" in lw:
-            q, k, v = torch.split(mm(lw["w_qkv"], hn), [nh * hd, nkv * hd, nkv * hd], dim=0)
+            qkv = mm(lw["w_qkv"], hn)
+            if "b_qkv" in lw:
+                qkv = qkv + lw["b_qkv"][:, None]
+            q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=0)
         else:
             q, k, v = mm(lw["wq"], hn), mm(lw["wk"], hn), mm(lw["wv"], hn)
-        q = _rope_bl(q.reshape(nkv, g, hd, B), cos, sin)
-        k = _rope_bl(k.reshape(nkv, hd, B), cos, sin)
+            if "bq" in lw:
+                q, k, v = q + lw["bq"][:, None], k + lw["bk"][:, None], v + lw["bv"][:, None]
+        if cfg.qk_norm_wide:
+            q, k = _rms_norm_bl(q, lw["q_norm"], eps), _rms_norm_bl(k, lw["k_norm"], eps)
+        q, k = q.reshape(nkv, g, hd, B), k.reshape(nkv, hd, B)
+        if cfg.qk_norm:
+            q = _rms_norm_head_bl(q, lw["q_norm"], eps)
+            k = _rms_norm_head_bl(k, lw["k_norm"], eps)
+        q, k = _rope_bl(q, cos, sin), _rope_bl(k, cos, sin)
         v = v.reshape(nkv, hd, B)
         # only the step's own tensors change layout: [.., hd, B] -> [B, .., hd]
         k_cache[li][:, :, row] = k.permute(2, 0, 1)
         v_cache[li][:, :, row] = v.permute(2, 0, 1)
         attn = attend(q.reshape(nh, hd, B).permute(2, 0, 1)[:, :, None, :].contiguous(),
-                      k_cache[li][:, :, :span], v_cache[li][:, :, :span], bias,
+                      k_cache[li][:, :, :span], v_cache[li][:, :, :span], b,
                       scale, cfg.attn_logit_softcap)
         attn = attn.reshape(B, nh * hd).t().contiguous()
-        x = x + mm(lw["wo"], attn)
-        hn = _rms_norm_bl(x, lw["ln_mlp"], cfg.rms_norm_eps)
+        x = x + llama._block_out(cfg, mm(lw["wo"], attn), lw, "ln_post_attn", "ln_attn",
+                                 _rms_norm_bl)
+        hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_mlp"], eps)
         if "w_gu" in lw and not isinstance(lw["w_gu"], dict):
             # the whole MLP in one weight stream
-            mlp_out = mlp(lw["w_gu"], lw["w_down"], hn, "silu")
+            mlp_out = mlp(lw["w_gu"], lw["w_down"], hn, cfg.mlp_act)
         elif "w_gu" in lw:  # quantized layouts go through _mm_bl
             gate, up = mm(lw["w_gu"], hn).chunk(2, dim=0)
             mlp_out = mm(lw["w_down"], llama.mlp_activation(cfg, gate) * up)
         else:
             gate = llama.mlp_activation(cfg, mm(lw["w_gate"], hn))
             mlp_out = mm(lw["w_down"], gate * mm(lw["w_up"], hn))
-        x = x + mlp_out
-    x = _rms_norm_bl(x, params["final_norm"], cfg.rms_norm_eps)
+        x = x + llama._block_out(cfg, mlp_out, lw, "ln_post_mlp", "ln_mlp", _rms_norm_bl)
+    x = _rms_norm_bl(x, params["final_norm"], eps)
     if not head:
         return x
-    return head_logits_bl(params["embed"], x)
+    if cfg.tie_word_embeddings:
+        return head_logits_bl(params["embed"], x)
+    return mm(params["lm_head"], x)
 
 
 @torch.no_grad()
@@ -468,17 +529,22 @@ def greedy_generate_bl(
     stream (one more weight copy in device memory).
 
     fused_head: run the fused head + argmax (ops/cuda/head_argmax) so the
-    loop never forms [V, B] logits; None resolves to cfg.dtype == bfloat16
-    (the kernel bakes in bf16 score rounding to match the logits path, so
-    an f32 model takes logits + argmax).  plain=True runs every kernel's
-    plain twin (a reference path for comparisons on the card)."""
+    loop never forms [V, B] logits; None resolves to a tied bf16 model (the
+    kernel bakes in bf16 score rounding to match the logits path, so an f32
+    model takes logits + argmax, and it reads the tied embed, so an untied
+    head takes _mm_bl(lm_head, h) + argmax, as dmi_tpu's loop does).
+    plain=True runs every kernel's plain twin (a reference path for
+    comparisons on the card)."""
     B, T, _ = inputs_embeds.shape
     device = inputs_embeds.device
     tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
     if max_new_tokens == 0:
         return tokens
     if fused_head is None:
-        fused_head = cfg.dtype == torch.bfloat16
+        fused_head = cfg.dtype == torch.bfloat16 and cfg.tie_word_embeddings
+    if fused_head and not cfg.tie_word_embeddings:
+        raise ValueError("the fused head + argmax reads the tied embed; an untied lm_head "
+                         "takes the logits path (fused_head=False)")
     caches = init_cache(cfg, B, T + max_new_tokens, device)
     eos = torch.tensor(cfg.eos_token_ids, dtype=torch.long, device=device)
     logits0 = prefill(cfg, params if prefill_params is None else prefill_params,
@@ -562,10 +628,11 @@ def sample_generate_bl(
         tokens[:, step] = next_tok
         done |= torch.isin(next_tok, eos)
         h = llama.scale_embeds(cfg, llama.embed_tokens(cfg, params, next_tok).t().to(cfg.dtype))
-        logits = _decode_step_bl(cfg, params, h.contiguous(), caches, T + step, plain=plain)
-        # dmi_tpu applies llama.final_softcap to these logits here (sampling
-        # draws from the distribution, and the step skips the cap); no
-        # ported config has a final-logit softcap (UNPORTED_FIELDS)
+        # the step skips final_softcap (argmax-invariant for its greedy
+        # consumers); sampling draws from the distribution, so it caps here
+        # as dmi_tpu does (prefill's logits arrive capped)
+        logits = llama.final_softcap(cfg, _decode_step_bl(cfg, params, h.contiguous(), caches,
+                                                          T + step, plain=plain))
         step += 1
     tokens[:, step] = torch.where(done, pad_token_id, pick(logits, step))
     return tokens

@@ -1,27 +1,36 @@
-"""Llama-3.x causal decoder in PyTorch: the serving forward.
+"""Causal decoder in PyTorch: the dense families of dmi_tpu/models/llama.py.
 
-Counterpart of dmi_tpu/models/llama.py for the llama-3.x body only (the
-reference's production LM, Llama-3.2-1B-Instruct): grouped-query attention,
-Llama-3 rope scaling, f32 RMSNorm, f32 rope tables and f32 attention
-softmax, tied head.  Parameters are a plain dict in the JAX package's
-layout: weights (in, out), names `embed`, `layers`, `final_norm`, with
-`layers` a list of per-layer dicts (the JAX package stacks them [L, ...]
-for lax.scan; here a Python loop runs the layers).  `from_hf_state_dict`
-reads HF llama-3.x weights into that layout.  The other decoder families
-the JAX package covers are not ported yet (ROADMAP.md A.9).
+One config and one parameter layout cover llama-3.x (the reference's
+production LM, Llama-3.2-1B-Instruct), mistral, qwen2 (q/k/v biases),
+qwen3 (per-head q/k RMSNorm), phi-3 (fused checkpoints, every layer
+sliding), olmo2 (full-width q/k RMSNorm, post-norm blocks), granite (four
+scalar multipliers), gemma-2 (GeGLU, (1 + w) norms folded at import,
+post-block norms, attention and final softcaps, the sqrt(H) embedding
+normalizer, interleaved sliding layers) and gemma-3 text (gemma-2's without
+the softcaps, per-head q/k norms, lookup-scaled embeddings, dual rope), with
+a tied or an untied head: grouped-query attention, f32 RMSNorm, f32 rope
+tables and f32 attention softmax.  Parameters are a plain dict in the JAX
+package's layout: weights (in, out), names `embed`, `layers`,
+`final_norm` (and `lm_head` [H, V] when untied), with `layers` a list of
+per-layer dicts (the JAX package stacks them [L, ...] for lax.scan; here a
+Python loop runs the layers).  `from_hf_state_dict` reads HF weights of
+these families into that layout.  The MoE and MLA families (mixtral,
+qwen3-moe, olmoe, deepseek-v2) are not ported yet (ROADMAP.md A.9).
 
 Attention: prefill (T > 1) runs `_attention`, plain torch with the additive
 bias; the single-token cache step runs the CUDA decode-attention kernel
 (ops/cuda/decode_attn.py), or its plain twin when `plain` is set.  The
 full-sequence `forward` of training and the eval loss runs the CUDA flash
 attention kernels, forward and backward (ops/cuda/flash_attn.py), or their
-plain twin when `plain` is set.
+plain twin when `plain` is set, exactly where dmi_tpu's `use_flash` holds
+(no attention softcap, no sliding window that binds, no dual rope:
+`flash_route`); elsewhere `_attention` with the additive bias, as dmi_tpu.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -31,10 +40,12 @@ from dmi_tpu_torch.models.quant import int_matmul, quantize_act, unpack_w4
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
 from dmi_tpu_torch.ops.cuda.flash_attn import _flash_attn_plain, flash_attention
 
+NEG_INF = torch.finfo(torch.float32).min
 
-@dataclass(frozen=True)
+
+@dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The llama-3.x fields of dmi_tpu.models.llama.LlamaConfig, with a
+    """The dense-family fields of dmi_tpu.models.llama.LlamaConfig, with a
     torch dtype."""
 
     vocab_size: int = 128256
@@ -51,34 +62,38 @@ class LlamaConfig:
     rope_low_freq_factor: float = 1.0
     rope_high_freq_factor: float = 4.0
     rope_original_max_position: int = 8192
+    tie_word_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
     # Llama-3.x instruct EOS ids: <|end_of_text|>, <|eom_id|>, <|eot_id|>
     eos_token_ids: Tuple[int, ...] = (128001, 128008, 128009)
     bos_token_id: int = 128000
-    attn_scale: Optional[float] = None         # score multiplier; None -> head_dim**-0.5
-    attn_logit_softcap: Optional[float] = None  # cap * tanh(score / cap)
+    attention_bias: bool = False                # q/k/v biases (qwen2); o stays bias-free
+    mlp_act: str = "silu"                       # "gelu_tanh" for gemma
+    attn_scale: Optional[float] = None          # score multiplier; None -> head_dim**-0.5
+    attn_logit_softcap: Optional[float] = None  # cap * tanh(score / cap) (gemma-2: 50)
+    final_logit_softcap: Optional[float] = None  # gemma-2: 30
+    embedding_normalizer: Optional[float] = None  # gemma: sqrt(H); granite: its multiplier
+    # gemma-2 scales the stream at model entry (caller embeddings included);
+    # gemma-3 scales the embedding lookup instead
+    embedding_scale_at_lookup: bool = False
+    post_block_norms: bool = False              # gemma: post-attention / post-MLP norms
+    norm_plus_one: bool = False                 # gemma (1 + w) norms, folded at import
+    sliding_window: Optional[int] = None
+    layer_sliding: Optional[Tuple[bool, ...]] = None  # per-layer sliding flags
+    qk_norm: bool = False                       # qwen3, gemma-3: per-head q/k RMSNorm
+    qk_norm_wide: bool = False                  # olmo2: RMSNorm over the whole q/k width
+    # gemma-3 dual rope: sliding layers at this base, never scaled; full
+    # layers at rope_theta, optionally linear-scaled
+    rope_local_theta: Optional[float] = None
+    rope_linear_factor: Optional[float] = None  # HF rope_scaling {"rope_type": "linear"}
+    norm_after: bool = False                    # olmo2: no pre-norms; norm the block outputs
+    residual_multiplier: Optional[float] = None  # granite: x + out * m
+    logit_scale: Optional[float] = None         # granite: logits / logits_scaling
 
 
-# dmi_tpu LlamaConfig fields of the other decoder families.  A config that
+# dmi_tpu LlamaConfig fields of the MoE and MLA families.  A config that
 # sets any of them away from its default is refused (bridge.config_from_jax).
 UNPORTED_FIELDS = {
-    "tie_word_embeddings": "untied heads",
-    "attention_bias": "qkv biases",
-    "mlp_act": "non-silu MLPs",
-    "final_logit_softcap": "final-logit softcaps",
-    "embedding_normalizer": "embedding scales",
-    "embedding_scale_at_lookup": "embedding scales",
-    "post_block_norms": "post-block norms",
-    "norm_plus_one": "(1 + w) norms",
-    "norm_after": "post-norm blocks",
-    "sliding_window": "sliding windows",
-    "layer_sliding": "sliding windows",
-    "rope_local_theta": "dual rope",
-    "rope_linear_factor": "linear rope scaling",
-    "qk_norm": "qk-norm",
-    "qk_norm_wide": "qk-norm",
-    "residual_multiplier": "granite multipliers",
-    "logit_scale": "granite multipliers",
     "num_experts": "MoE",
     "num_experts_per_tok": "MoE",
     "moe_norm_topk": "MoE",
@@ -121,13 +136,70 @@ def tiny_config(
     )
 
 
+def tiny_qwen2_config(**kw) -> LlamaConfig:
+    """Qwen2 family: q/k/v biases."""
+    return dataclasses.replace(tiny_config(**kw), attention_bias=True)
+
+
+def tiny_qwen3_config(**kw) -> LlamaConfig:
+    """Qwen3 family: per-head q/k RMSNorm before rope, no biases."""
+    return dataclasses.replace(tiny_config(**kw), qk_norm=True)
+
+
+def tiny_olmo2_config(**kw) -> LlamaConfig:
+    """Olmo2 family: RMSNorm over the whole q/k projections before rope, and
+    post-norm blocks (no input norms; the two norms apply to the block
+    outputs before the residual add)."""
+    return dataclasses.replace(tiny_config(**kw), qk_norm_wide=True, norm_after=True)
+
+
+def tiny_granite_config(**kw) -> LlamaConfig:
+    """Granite family: llama math with the embedding, attention, residual
+    and logits multipliers."""
+    return dataclasses.replace(tiny_config(**kw), embedding_normalizer=12.0, attn_scale=0.03125,
+                               residual_multiplier=0.22, logit_scale=16.0)
+
+
+def tiny_gemma2_config(sliding_window=None, **kw) -> LlamaConfig:
+    """Gemma-2 family: GeGLU, (1 + w) norms, post-block norms, attention and
+    final softcaps, the sqrt(H) embedding normalizer, the query_pre_attn
+    scale and, with a window, interleaved sliding layers from layer 0."""
+    cfg = tiny_config(**kw)
+    return dataclasses.replace(
+        cfg, mlp_act="gelu_tanh", attn_scale=float(cfg.head_dim) ** -0.5,
+        attn_logit_softcap=50.0, final_logit_softcap=30.0,
+        embedding_normalizer=float(cfg.hidden_size) ** 0.5, post_block_norms=True,
+        norm_plus_one=True, sliding_window=sliding_window,
+        layer_sliding=(tuple(i % 2 == 0 for i in range(cfg.num_hidden_layers))
+                       if sliding_window else None),
+    )
+
+
+def tiny_gemma3_config(sliding_window=8, **kw) -> LlamaConfig:
+    """Gemma-3 text family: gemma-2's without the softcaps, plus per-head
+    q/k norms, the embedding scale at lookup and dual rope (sliding layers
+    at the local theta, unscaled; full layers linear-scaled); layers
+    alternate so that two layers take both rope tables."""
+    cfg = tiny_config(**kw)
+    return dataclasses.replace(
+        cfg, mlp_act="gelu_tanh", attn_scale=float(cfg.head_dim) ** -0.5,
+        embedding_normalizer=float(cfg.hidden_size) ** 0.5, embedding_scale_at_lookup=True,
+        post_block_norms=True, norm_plus_one=True, qk_norm=True, rope_theta=1_000_000.0,
+        rope_local_theta=10_000.0, rope_linear_factor=8.0, sliding_window=sliding_window,
+        layer_sliding=tuple(i % 2 == 0 for i in range(cfg.num_hidden_layers)),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
 
 def init(cfg: LlamaConfig, generator: torch.Generator, device="cpu") -> dict:
     """Random init: weights normal(0, 0.02) drawn in f32 from `generator`
-    (which must live on `device`) and cast to cfg.dtype; norms are ones."""
+    (which must live on `device`) and cast to cfg.dtype; norms are ones.
+    The family leaves as dmi_tpu's init names and shapes them: biases
+    bq/bk/bv, q_norm/k_norm ([hd], or the whole width with qk_norm_wide),
+    ln_post_attn/ln_post_mlp and an untied lm_head [H, V]."""
     H, I = cfg.hidden_size, cfg.intermediate_size
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -138,21 +210,32 @@ def init(cfg: LlamaConfig, generator: torch.Generator, device="cpu") -> dict:
     def ones(n):
         return torch.ones(n, dtype=cfg.dtype, device=device)
 
-    layers = [
-        {
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        lw = {
             "wq": w(H, nh * hd), "wk": w(H, nkv * hd), "wv": w(H, nkv * hd),
             "wo": w(nh * hd, H),
             "w_gate": w(H, I), "w_up": w(H, I), "w_down": w(I, H),
             "ln_attn": ones(H), "ln_mlp": ones(H),
         }
-        for _ in range(cfg.num_hidden_layers)
-    ]
-    return {"embed": w(cfg.vocab_size, H), "layers": layers, "final_norm": ones(H)}
+        if cfg.attention_bias:
+            lw.update(bq=w(nh * hd), bk=w(nkv * hd), bv=w(nkv * hd))
+        if cfg.post_block_norms:
+            lw.update(ln_post_attn=ones(H), ln_post_mlp=ones(H))
+        if cfg.qk_norm:
+            lw.update(q_norm=ones(hd), k_norm=ones(hd))
+        if cfg.qk_norm_wide:
+            lw.update(q_norm=ones(nh * hd), k_norm=ones(nkv * hd))
+        layers.append(lw)
+    params = {"embed": w(cfg.vocab_size, H), "layers": layers, "final_norm": ones(H)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w(H, cfg.vocab_size)
+    return params
 
 
 def fuse_projections(params: dict) -> dict:
-    """Concatenate wq|wk|wv -> w_qkv and w_gate|w_up -> w_gu in every layer
-    (fewer, wider matmuls per decode step).  Idempotent."""
+    """Concatenate wq|wk|wv -> w_qkv, bq|bk|bv -> b_qkv and w_gate|w_up ->
+    w_gu in every layer (fewer, wider matmuls per decode step).  Idempotent."""
     layers = []
     for lw in params["layers"]:
         lw = dict(lw)
@@ -160,69 +243,119 @@ def fuse_projections(params: dict) -> dict:
             lw["w_qkv"] = torch.cat([lw.pop("wq"), lw.pop("wk"), lw.pop("wv")], dim=-1)
         if "w_gate" in lw:
             lw["w_gu"] = torch.cat([lw.pop("w_gate"), lw.pop("w_up")], dim=-1)
+        if "bq" in lw:
+            lw["b_qkv"] = torch.cat([lw.pop("bq"), lw.pop("bk"), lw.pop("bv")], dim=-1)
         layers.append(lw)
     return {**params, "layers": layers}
 
 
-# the port's per-layer names and the HF llama keys under model.layers.{i}.;
-# Linear weights transpose from HF's (out, in) to (in, out), norms do not
-_HF_LAYER_KEYS = {
-    "wq": ("self_attn.q_proj.weight", True), "wk": ("self_attn.k_proj.weight", True),
-    "wv": ("self_attn.v_proj.weight", True), "wo": ("self_attn.o_proj.weight", True),
-    "w_gate": ("mlp.gate_proj.weight", True), "w_up": ("mlp.up_proj.weight", True),
-    "w_down": ("mlp.down_proj.weight", True),
-    "ln_attn": ("input_layernorm.weight", False),
-    "ln_mlp": ("post_attention_layernorm.weight", False),
-}
+def hf_layer_keys(cfg: LlamaConfig, fused: bool) -> dict:
+    """The port's per-layer names -> (HF key under model.layers.{i}., kind):
+    "w" a Linear weight, transposed from HF's (out, in) to (in, out); "b" a
+    bias; "n" a norm ((1 + w) folded when cfg.norm_plus_one).  `fused`:
+    phi-3's checkpoint layout, one qkv_proj and one gate_up_proj, split at
+    import.  The norms' roles follow dmi_tpu's from_hf_state_dict: gemma's
+    pre-MLP norm is pre_feedforward_layernorm, and olmo2 (norm_after) has
+    no pre-norms, its ln_attn/ln_mlp being the post-attention and
+    post-feedforward norms of the block outputs."""
+    keys = ({"w_qkv": ("self_attn.qkv_proj.weight", "w"),
+             "w_gu": ("mlp.gate_up_proj.weight", "w")} if fused else
+            {"wq": ("self_attn.q_proj.weight", "w"), "wk": ("self_attn.k_proj.weight", "w"),
+             "wv": ("self_attn.v_proj.weight", "w"), "w_gate": ("mlp.gate_proj.weight", "w"),
+             "w_up": ("mlp.up_proj.weight", "w")})
+    keys.update(wo=("self_attn.o_proj.weight", "w"), w_down=("mlp.down_proj.weight", "w"))
+    if cfg.norm_after:
+        keys.update(ln_attn=("post_attention_layernorm.weight", "n"),
+                    ln_mlp=("post_feedforward_layernorm.weight", "n"))
+    elif cfg.post_block_norms:
+        keys.update(ln_attn=("input_layernorm.weight", "n"),
+                    ln_mlp=("pre_feedforward_layernorm.weight", "n"),
+                    ln_post_attn=("post_attention_layernorm.weight", "n"),
+                    ln_post_mlp=("post_feedforward_layernorm.weight", "n"))
+    else:
+        keys.update(ln_attn=("input_layernorm.weight", "n"),
+                    ln_mlp=("post_attention_layernorm.weight", "n"))
+    if cfg.attention_bias:
+        keys.update(bq=("self_attn.q_proj.bias", "b"), bk=("self_attn.k_proj.bias", "b"),
+                    bv=("self_attn.v_proj.bias", "b"))
+    if cfg.qk_norm or cfg.qk_norm_wide:
+        keys.update(q_norm=("self_attn.q_norm.weight", "n"),
+                    k_norm=("self_attn.k_norm.weight", "n"))
+    return keys
 
 
 def from_hf_state_dict(state_dict, cfg: LlamaConfig, device="cpu") -> dict:
-    """An HF LlamaForCausalLM state dict (llama-3.x layout, tied head) ->
-    the parameters `init` makes, in cfg.dtype on `device` (dmi_tpu's
-    from_hf_state_dict for this layout, per-layer lists in place of [L, ...]
-    stacks).  A tensor already in cfg.dtype keeps its bits.  A key of
-    another family (q/k/v biases, q/k norms, gemma's extra norms, MoE, MLA,
-    an untied lm_head) is refused; an lm_head.weight equal to the embedding
-    is the tied head saved twice (.bin files) and is accepted."""
+    """An HF *ForCausalLM state dict of a dense family -> the parameters
+    `init` makes, on `device` (dmi_tpu's from_hf_state_dict for the dense
+    layouts, per-layer lists in place of [L, ...] stacks).  Weights and
+    biases go to cfg.dtype, and a tensor already in cfg.dtype keeps its
+    bits; with cfg.norm_plus_one (gemma) every norm is stored as f32(w) + 1
+    in f32, so the fold is exact; phi-3's fused qkv_proj / gate_up_proj are
+    split.  A key the config's layout does not use (MoE or MLA keys, biases
+    or norms the config has not) is refused; so is an lm_head.weight under a
+    tied config unless it is the embedding itself (the tied head saved
+    twice, as .bin files do)."""
     keys = set(state_dict)
-    per_layer = {f"model.layers.{i}.{hf}": (i, name, transpose)
+    fused = "model.layers.0.self_attn.qkv_proj.weight" in keys
+    per_layer = {f"model.layers.{i}.{hf}": (i, name, kind)
                  for i in range(cfg.num_hidden_layers)
-                 for name, (hf, transpose) in _HF_LAYER_KEYS.items()}
+                 for name, (hf, kind) in hf_layer_keys(cfg, fused).items()}
     top = {"model.embed_tokens.weight", "model.norm.weight"}
+    if not cfg.tie_word_embeddings:
+        top.add("lm_head.weight")
     missing = sorted((top | set(per_layer)) - keys)
     if missing:
         raise KeyError(f"the HF state dict lacks {missing[:8]} ({len(missing)} keys)")
-    head = state_dict.get("lm_head.weight")
     extra = sorted(keys - top - set(per_layer) - {"lm_head.weight"})
-    if head is not None and not torch.equal(head, state_dict["model.embed_tokens.weight"]):
+    head = state_dict.get("lm_head.weight")
+    if (cfg.tie_word_embeddings and head is not None
+            and not torch.equal(head, state_dict["model.embed_tokens.weight"])):
         extra.append("lm_head.weight (differs from the tied embedding)")
     if extra:
         raise NotImplementedError(
-            f"HF keys of another decoder family: {extra[:8]} ({len(extra)} keys); only the "
-            "llama-3.x layout is ported (ROADMAP.md A.9, decoder families)")
+            f"HF keys this config's layout does not use: {extra[:8]} ({len(extra)} keys); "
+            "the MoE and MLA families are not ported yet (ROADMAP.md A.9, decoder families)")
 
-    def get(key, transpose=False):
-        t = state_dict[key].to(device=device, dtype=cfg.dtype)
-        return (t.t() if transpose else t).contiguous()
+    def get(key, kind="w"):
+        t = state_dict[key]
+        if kind == "n" and cfg.norm_plus_one:
+            return (t.float() + 1.0).to(device)
+        t = t.to(device=device, dtype=cfg.dtype)
+        return (t.t() if kind == "w" else t).contiguous()
 
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     layers = [{} for _ in range(cfg.num_hidden_layers)]
-    for key, (i, name, transpose) in per_layer.items():
-        layers[i][name] = get(key, transpose)
-    return {"embed": get("model.embed_tokens.weight"), "layers": layers,
-            "final_norm": get("model.norm.weight")}
+    for key, (i, name, kind) in per_layer.items():
+        layers[i][name] = get(key, kind)
+    if fused:
+        for lw in layers:
+            q, k, v = lw.pop("w_qkv").split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+            gate, up = lw.pop("w_gu").chunk(2, dim=-1)
+            lw.update(wq=q.contiguous(), wk=k.contiguous(), wv=v.contiguous(),
+                      w_gate=gate.contiguous(), w_up=up.contiguous())
+    params = {"embed": get("model.embed_tokens.weight", "e"), "layers": layers,
+              "final_norm": get("model.norm.weight", "n")}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = get("lm_head.weight")
+    return params
 
 
 # ---------------------------------------------------------------------------
 # Rope
 # ---------------------------------------------------------------------------
 
-def rope_inv_freq(cfg: LlamaConfig, device="cpu") -> torch.Tensor:
-    """Base inverse frequencies with Llama-3 wavelength-dependent scaling
-    (HF modeling_rope_utils._compute_llama3_parameters semantics), f32."""
+def rope_inv_freq(cfg: LlamaConfig, device="cpu", local: bool = False) -> torch.Tensor:
+    """Base inverse frequencies, f32: with Llama-3 wavelength-dependent
+    scaling (HF modeling_rope_utils._compute_llama3_parameters semantics) or
+    HF "linear" scaling (inv_freq / factor).  local=True is gemma-3's
+    sliding-layer table: plain rope at rope_local_theta, never scaled."""
     hd = cfg.head_dim
-    inv_freq = 1.0 / (
-        cfg.rope_theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd)
-    )
+    exponent = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    if local:
+        return 1.0 / (cfg.rope_local_theta ** exponent)
+    inv_freq = 1.0 / (cfg.rope_theta ** exponent)
+    if cfg.rope_linear_factor is not None:
+        return inv_freq / cfg.rope_linear_factor
     if cfg.rope_scaling_factor is None:
         return inv_freq
     factor = cfg.rope_scaling_factor
@@ -243,12 +376,59 @@ def rope_inv_freq(cfg: LlamaConfig, device="cpu") -> torch.Tensor:
     )
 
 
-def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables [*, head_dim] in f32 (HF duplicates freqs: cat(f, f))."""
-    inv = rope_inv_freq(cfg, positions.device)
+def rope_tables(cfg: LlamaConfig, positions: torch.Tensor,
+                local: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [*, head_dim] in f32 (HF duplicates freqs: cat(f, f));
+    local=True the gemma-3 sliding layers' tables."""
+    inv = rope_inv_freq(cfg, positions.device, local)
     freqs = positions[..., None].to(torch.float32) * inv
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
+
+
+def rope_dual(cfg: LlamaConfig) -> bool:
+    """True when the layers choose between two rope tables (gemma-3): the
+    sliding layers take the local one, at every sequence length."""
+    if cfg.rope_local_theta is None:
+        return False
+    if cfg.layer_sliding is None:
+        raise ValueError("rope_local_theta requires layer_sliding flags (the sliding layers "
+                         "are the local-rope layers)")
+    return True
+
+
+def sliding_effective(cfg: LlamaConfig, max_positions: int) -> bool:
+    """True when a sliding layer's window can mask a key the causal mask
+    keeps: a sliding layer exists and some query looks back at least
+    sliding_window positions among max_positions."""
+    return (cfg.sliding_window is not None and cfg.layer_sliding is not None
+            and any(cfg.layer_sliding) and max_positions > cfg.sliding_window)
+
+
+def window_mask(cfg: LlamaConfig, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    """HF's sliding-window overlay: a key is inside a query's window iff
+    q_pos - k_pos < sliding_window (the last `window` positions, the
+    query's own included); broadcasting, so [T, 1] x [S] gives [T, S]."""
+    return (q_pos - k_pos) < cfg.sliding_window
+
+
+def layer_inputs(cfg: LlamaConfig, layer: int, bias, bias_sw, rope, rope_local):
+    """The bias and the (cos, sin) tables of one layer: a layer flagged
+    sliding in cfg.layer_sliding takes the window bias (when one is given:
+    None while no window binds) and, with dual rope, the local tables."""
+    sliding = cfg.layer_sliding is not None and cfg.layer_sliding[layer]
+    return (bias_sw if sliding and bias_sw is not None else bias,
+            rope_local if sliding and rope_local is not None else rope)
+
+
+def flash_route(cfg: LlamaConfig, T: int) -> bool:
+    """Whether the full-sequence forward runs the flash attention kernels
+    (dmi_tpu's use_flash, llama.py:1311-1322): no attention softcap, no
+    sliding window that binds within T positions and no dual rope; the rest
+    runs `_attention` with the additive bias.  Chosen by the config, never
+    by a failure."""
+    return (cfg.attn_logit_softcap is None and not sliding_effective(cfg, T)
+            and cfg.rope_local_theta is None)
 
 
 def _rotate_half(x):
@@ -266,20 +446,50 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # Forward pieces
 # ---------------------------------------------------------------------------
 
+def in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The Python scalar c rounded to `dtype`.  JAX rounds a weak-typed
+    scalar to the array's dtype before an elementwise op; torch keeps the
+    scalar in its f32 op math, so the port rounds it first and both form
+    the same product."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def scale_embeds(cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    """Identity for llama-3.x (gemma's embedding normalizer is a family
-    feature not ported yet); kept so the decode code reads as dmi_tpu's."""
-    return x
+    """gemma-2's sqrt(H) embedding normalizer (granite's embedding
+    multiplier), rounded to the model dtype, on the stream at model entry,
+    caller embeddings included (HF Gemma2Model); identity for the other
+    families and for gemma-3, whose embed_tokens carries the scale."""
+    if cfg.embedding_normalizer is None or cfg.embedding_scale_at_lookup:
+        return x
+    return x * in_dtype(cfg.embedding_normalizer, x.dtype)
+
+
+def final_softcap(cfg: LlamaConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The head's output transforms in the logits dtype: granite's divide by
+    logits_scaling, then gemma-2's tanh cap (HF semantics).  Both are
+    monotone, so greedy argmax paths may skip them; the loss and the sampler
+    take the logits through here."""
+    if cfg.logit_scale is not None:
+        logits = logits / in_dtype(cfg.logit_scale, logits.dtype)
+    if cfg.final_logit_softcap is None:
+        return logits
+    cap = in_dtype(cfg.final_logit_softcap, logits.dtype)
+    return torch.tanh(logits / cap) * cap
 
 
 def embed_tokens(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding rows; a quantized embed ({"q"|"q8", "s" [V, 1]}) gathers
-    int8 rows and rescales them by their row scales in cfg.dtype."""
+    int8 rows and rescales them by their row scales in cfg.dtype.  gemma-3
+    scales the rows here (Gemma3TextScaledWordEmbedding)."""
     embed = params["embed"]
     if isinstance(embed, dict):
         qk = "q8" if "q8" in embed else "q"
-        return embed[qk][input_ids].to(cfg.dtype) * embed["s"][input_ids].to(cfg.dtype)
-    return embed[input_ids]
+        rows = embed[qk][input_ids].to(cfg.dtype) * embed["s"][input_ids].to(cfg.dtype)
+    else:
+        rows = embed[input_ids]
+    if cfg.embedding_normalizer is not None and cfg.embedding_scale_at_lookup:
+        rows = rows * in_dtype(cfg.embedding_normalizer, rows.dtype)
+    return rows
 
 
 def _mm(h: torch.Tensor, w) -> torch.Tensor:
@@ -314,7 +524,10 @@ def _mm(h: torch.Tensor, w) -> torch.Tensor:
 
 def _head_matmul(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor:
     """Tied head: logits = x @ embed.T (a transposed view, no copy); a
-    quantized embed's per-row scales are the head's output-channel scales."""
+    quantized embed's per-row scales are the head's output-channel scales.
+    Untied: x @ lm_head through _mm."""
+    if not cfg.tie_word_embeddings:
+        return _mm(x, params["lm_head"])
     embed = params["embed"]
     if isinstance(embed, dict) and "q8" in embed:
         hq, a = quantize_act(x, axis=-1)
@@ -331,7 +544,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def mlp_activation(cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    return F.silu(x)
+    """silu (llama, mistral, qwen, phi-3, olmo2, granite) or tanh-approximated
+    GELU (gemma)."""
+    if cfg.mlp_act == "silu":
+        return F.silu(x)
+    if cfg.mlp_act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown mlp_act {cfg.mlp_act!r}")
 
 
 def attn_score_scale(cfg: LlamaConfig) -> float:
@@ -339,8 +558,9 @@ def attn_score_scale(cfg: LlamaConfig) -> float:
 
 
 def _attention(q, k, v, bias, scale=None, softcap=None):
-    """q: [B,nh,T,hd], k/v: [B,nkv,S,hd], bias [T, S] f32 -> [B,nh,T,hd];
-    products in the input dtype, f32 softmax (dmi_tpu's _attention)."""
+    """q: [B,nh,T,hd], k/v: [B,nkv,S,hd], bias [T, S] or [B, T, S] f32 ->
+    [B,nh,T,hd]; products in the input dtype, f32 softmax (dmi_tpu's
+    _attention)."""
     B, nh, T, hd = q.shape
     nkv = k.shape[1]
     q = q.reshape(B, nkv, nh // nkv, T, hd)
@@ -348,7 +568,8 @@ def _attention(q, k, v, bias, scale=None, softcap=None):
     scores = scores * (scale if scale is not None else 1.0 / math.sqrt(hd))
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+    b = bias[:, None, None] if bias.ndim == 3 else bias
+    probs = torch.softmax(scores + b, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bksd->bkgtd", probs, v)
     return out.reshape(B, nh, T, hd)
 
@@ -365,7 +586,11 @@ def _write_cache(cache_kv, cache_index: int, k, v):
 
 def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: int = 0,
            plain: bool = False, key_mask=None):
-    """One transformer block over x [B, T, H] with this layer's weights lw.
+    """One transformer block over x [B, T, H] with this layer's weights lw,
+    every dense branch of dmi_tpu's _block: q/k/v biases (fused or not),
+    olmo2's whole-width q/k norms before the head reshape and the per-head
+    q/k norms before rope, gemma's post-block norms, olmo2's post-norm
+    block (norm_after) and granite's residual multiplier.
 
     With cache_kv = (k_cache, v_cache) [B, nkv, S_max, hd] (serving), the
     new k/v are written IN PLACE into the caches at cache_index, and
@@ -374,26 +599,41 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
     plain twin when `plain`).
 
     With cache_kv None (training and the eval loss), attention is causal
-    over x's T positions with the keys masked by key_mask [B, T] (None: no
-    key masked), through the flash attention kernels (the twin when
-    `plain`); bias is unused.  Nothing on this path is written in place."""
+    over x's T positions: with bias None through the flash attention
+    kernels (the twin when `plain`), the keys masked by key_mask [B, T]
+    (None: no key masked); else `_attention` with bias [B, T, T], which
+    carries the key mask and, on a sliding layer, the window.  Nothing on
+    this path is written in place."""
     B, T, H = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
 
-    h = rms_norm(x, lw["ln_attn"], cfg.rms_norm_eps)
+    h = x if cfg.norm_after else rms_norm(x, lw["ln_attn"], eps)
     if "w_qkv" in lw:  # fused layout (fuse_projections)
-        q, k, v = torch.split(_mm(h, lw["w_qkv"]), [nh * hd, nkv * hd, nkv * hd], dim=-1)
+        qkv = _mm(h, lw["w_qkv"])
+        if "b_qkv" in lw:
+            qkv = qkv + lw["b_qkv"]
+        q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
         q, k, v = _mm(h, lw["wq"]), _mm(h, lw["wk"]), _mm(h, lw["wv"])
-    q = apply_rope(q.reshape(B, T, nh, hd).transpose(1, 2), cos, sin)
-    k = apply_rope(k.reshape(B, T, nkv, hd).transpose(1, 2), cos, sin)
+        if "bq" in lw:
+            q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
+    if cfg.qk_norm_wide:  # olmo2: over the whole projection
+        q, k = rms_norm(q, lw["q_norm"], eps), rms_norm(k, lw["k_norm"], eps)
+    q = q.reshape(B, T, nh, hd).transpose(1, 2)
+    k = k.reshape(B, T, nkv, hd).transpose(1, 2)
     v = v.reshape(B, T, nkv, hd).transpose(1, 2)
+    if cfg.qk_norm:  # qwen3, gemma-3: per head, before rope
+        q, k = rms_norm(q, lw["q_norm"], eps), rms_norm(k, lw["k_norm"], eps)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     scale = attn_score_scale(cfg)
     cap = cfg.attn_logit_softcap
-    if cache_kv is None:
+    if cache_kv is None and bias is None:
         attend = _flash_attn_plain if plain else flash_attention
         attn = attend(q, k, v, key_mask, scale)
+    elif cache_kv is None:
+        attn = _attention(q, k, v, bias, scale, cap)
     elif T == 1:
         k, v = _write_cache(cache_kv, cache_index, k, v)
         attend = _decode_attn_plain if plain else fused_decode_attention
@@ -402,38 +642,63 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
         k, v = _write_cache(cache_kv, cache_index, k, v)
         attn = _attention(q, k, v, bias, scale, cap)
     attn = attn.transpose(1, 2).reshape(B, T, nh * hd)
-    x = x + _mm(attn, lw["wo"])
+    x = x + _block_out(cfg, _mm(attn, lw["wo"]), lw, "ln_post_attn", "ln_attn")
 
-    h = rms_norm(x, lw["ln_mlp"], cfg.rms_norm_eps)
+    h = x if cfg.norm_after else rms_norm(x, lw["ln_mlp"], eps)
     if "w_gu" in lw:  # fused layout
         gate, up = _mm(h, lw["w_gu"]).chunk(2, dim=-1)
     else:
         gate, up = _mm(h, lw["w_gate"]), _mm(h, lw["w_up"])
-    return x + _mm(mlp_activation(cfg, gate) * up, lw["w_down"])
+    out = _mm(mlp_activation(cfg, gate) * up, lw["w_down"])
+    return x + _block_out(cfg, out, lw, "ln_post_mlp", "ln_mlp")
+
+
+def _block_out(cfg: LlamaConfig, out, lw, post: str, after: str, norm=None):
+    """A sub-block's output before its residual add: gemma's post norm lw[post],
+    olmo2's norm lw[after] of the output, granite's residual multiplier.
+    `norm` is the RMSNorm over the feature axis (the batch-last step passes
+    its own)."""
+    norm = norm or rms_norm
+    if cfg.post_block_norms:
+        out = norm(out, lw[post], cfg.rms_norm_eps)
+    if cfg.norm_after:
+        out = norm(out, lw[after], cfg.rms_norm_eps)
+    if cfg.residual_multiplier is not None:
+        out = out * in_dtype(cfg.residual_multiplier, out.dtype)
+    return out
 
 
 def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
             attention_mask: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
-    """Full-sequence forward with no cache -> logits [B, T, V] (dmi_tpu's
-    llama.forward on the flash path, llama.py:1255-1379).
+    """Full-sequence forward with no cache -> logits [B, T, V], through
+    final_softcap (dmi_tpu's llama.forward, llama.py:1255-1379).
 
     attention_mask: [B, T] with 1 = real token (HF convention), or None for
-    pure causal attention.  As on the TPU flash path it masks keys only:
-    pad queries still attend the real prefix (llama.py:1089-1095).
-    Positions are arange(T).  Attention runs the CUDA flash kernels for
-    CUDA tensors, and their plain twin for CPU tensors or when `plain`."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(
-            "attention softcaps in the full-sequence forward (the flash kernels "
-            "have none) are not ported yet (ROADMAP.md A.9, decoder families)"
-        )
-    T = inputs_embeds.shape[1]
+    pure causal attention.  It masks keys only: pad queries still attend
+    the real prefix (llama.py:1089-1095).  Positions are arange(T).  Where
+    flash_route holds, attention runs the CUDA flash kernels for CUDA
+    tensors, and their plain twin for CPU tensors or when `plain`;
+    elsewhere (gemma's softcaps, a window that binds, dual rope) every
+    layer runs `_attention` with the additive [B, T, T] bias, a sliding
+    layer's with the window, and the rope tables of its kind."""
+    B, T = inputs_embeds.shape[:2]
     x = scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
-    cos, sin = rope_tables(cfg, torch.arange(T, device=x.device))
-    for lw in params["layers"]:
-        x = _block(cfg, x, lw, cos, sin, None, plain=plain, key_mask=attention_mask)
+    pos = torch.arange(T, device=x.device)
+    rope = rope_tables(cfg, pos)
+    rope_local = rope_tables(cfg, pos, local=True) if rope_dual(cfg) else None
+    bias = bias_sw = None
+    if not flash_route(cfg, T):
+        valid = (pos[None, :] <= pos[:, None]).expand(B, T, T)
+        if attention_mask is not None:
+            valid = valid & attention_mask[:, None, :].bool()
+        bias = torch.where(valid, 0.0, NEG_INF)
+        if sliding_effective(cfg, T):
+            bias_sw = torch.where(valid & window_mask(cfg, pos[:, None], pos), 0.0, NEG_INF)
+    for i, lw in enumerate(params["layers"]):
+        b, (cos, sin) = layer_inputs(cfg, i, bias, bias_sw, rope, rope_local)
+        x = _block(cfg, x, lw, cos, sin, b, plain=plain, key_mask=attention_mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _head_matmul(x, params, cfg)
+    return final_softcap(cfg, _head_matmul(x, params, cfg))
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ from typing import Any, Optional
 
 import torch
 
-# weights quantized per layer dict key; norms stay in the model dtype
+# weights quantized per layer dict key; norms and biases stay as they are
 # (w_qkv/w_gu are the fused layouts of llama.fuse_projections)
 _QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_qkv", "w_gu"}
 
@@ -152,10 +152,12 @@ def quantize_llama(
     bits: int = 8,
     group_size: Optional[int] = None,
 ) -> dict:
-    """Quantize the port's Llama tree for decode.  native=True selects W8A8.
-    bits=4 selects W4A8 for the LAYER weights (group_size optionally groups
-    the scales along the contraction axis); the tied embed then stays
-    native int8 ("q8"), as in dmi_tpu."""
+    """Quantize the port's decoder tree for decode.  native=True selects
+    W8A8.  bits=4 selects W4A8 for the LAYER weights (group_size optionally
+    groups the scales along the contraction axis); the tied embed then
+    stays native int8 ("q8"), as in dmi_tpu.  An untied lm_head [H, V] is
+    quantized as a layer weight (per output column); norms and biases stay
+    in their dtypes."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
 
@@ -167,6 +169,8 @@ def quantize_llama(
                      for lw in params["layers"]]
     out["embed"] = (quantize_embed_tensor(params["embed"], native=native or bits == 4)
                     if quantize_embed else params["embed"])
+    if "lm_head" in params:
+        out["lm_head"] = leaf(params["lm_head"])
     return out
 
 

@@ -10,12 +10,14 @@ dmi_tpu/serve.py).
 Per batch: l2-normalize, project (the fused MLP2 CUDA kernel), prepend the
 soft token to the chat prefix, greedy-decode on the batch-last loop (per
 step: the decode-attention and decode-MLP CUDA kernels on every layer, the
-fused head + argmax kernel once; with int8="w8a8"|"w4a8" the int8 matmul
-kernels in place of the layers' matmuls).  The tail batch is padded to the
-batch size, as in the JAX package.  With a temperature the loop samples
-(top-k, top-p) with request-indexed draws; engine="bulk" serves the
-workload on the continuous-batching engine (streaming.py), and the default
-engine="auto" picks between the two from the first batch.
+fused head + argmax kernel once for a tied head; with int8="w8a8"|"w4a8"
+the int8 matmul kernels in place of the layers' matmuls and an untied
+head's).  Every dense decoder family serves alike (models/llama.py).  The
+tail batch is padded to the batch size, as in the JAX package.  With a
+temperature the loop samples (top-k, top-p) with request-indexed draws;
+engine="bulk" serves the workload on the continuous-batching engine
+(streaming.py), and the default engine="auto" picks between the two from
+the first batch.
 
 CLI:  python -m dmi_tpu_torch.serve --lm test:tiny --projector-ckpt P
       --dataset sydney --embs embs.npy --out captions.json

@@ -1,18 +1,20 @@
 """LM/tokenizer builders (counterpart of dmi_tpu/training/model_utils.py).
 
-  * "test:tiny[:<vocab>]" — a tiny random-config Llama + the offline
-    byte-BPE tokenizer fixture
+  * "test:tiny[:<vocab>]", "test:tiny-qwen2[:<vocab>]",
+    "test:tiny-gemma2[:<vocab>]" — a tiny random-config decoder of that
+    family + the offline byte-BPE tokenizer fixture
   * "test:1b[:<vocab>]" — the Llama-3.2-1B body with random weights and the
     fixture vocab (production-scale compute without HF weights)
-  * anything else — a llama-3.x model in the HF layout from a local
-    directory or the HF hub cache (training/hf_weights.py: config.json and
-    safetensors or .bin weights, read without transformers), and its
-    tokenizer through transformers.AutoTokenizer
+  * anything else — a model of a dense family (llama, mistral, qwen2,
+    qwen3, phi3, olmo2, granite, gemma2, gemma3_text) in the HF layout from
+    a local directory or the HF hub cache (training/hf_weights.py:
+    config.json and safetensors or .bin weights, read without
+    transformers), and its tokenizer through transformers.AutoTokenizer
 The DMI_LM_OVERRIDE environment variable substitutes any configured name
-with one of the above, as in dmi_tpu.  The other decoder families are not
-ported yet (ROADMAP.md A.9): their configs and weights are refused.  The
-tokenizers need transformers and tokenizers, so they are imported only
-here, lazily.
+with one of the above, as in dmi_tpu.  The MoE and MLA families (mixtral,
+qwen3_moe, olmoe, deepseek_v2) are not ported yet (ROADMAP.md A.9): their
+configs and weights are refused.  The tokenizers need transformers and
+tokenizers, so they are imported only here, lazily.
 
 `require_device` is the entry points' device check: they run on the card
 unless asked for the CPU, and fail before loading anything when no card is
@@ -71,9 +73,9 @@ def _resolve_name(name: str) -> str:
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what}: only the llama-3.x layout (tied head, silu MLP, no biases, llama3 or "
-        "no rope scaling) is ported; the other decoder families are not ported yet "
-        "(ROADMAP.md A.9, decoder families)"
+        f"{what}: the dense decoder families ({', '.join(_FAMILIES)}) are ported; the MoE "
+        "and MLA families and the options outside dmi_tpu's dense layouts are not ported "
+        "yet (ROADMAP.md A.9, decoder families)"
     )
 
 
@@ -95,56 +97,163 @@ def build_tokenizer(lm_args):
     return tokenizer
 
 
+# the dense model types and what their transformers config classes supply
+# for keys a config.json leaves out (transformers 4.57: LlamaConfig,
+# MistralConfig, Qwen2Config, Qwen3Config, Phi3Config, Olmo2Config,
+# GraniteConfig, Gemma2Config, Gemma3TextConfig).  dmi_tpu reads the config
+# object, whose class fills them; the port reads the raw JSON.
+_COMMON_DEFAULTS = {"rms_norm_eps": 1e-6, "rope_theta": 10000.0, "tie_word_embeddings": False,
+                    "bos_token_id": 1, "eos_token_id": 2, "sliding_window": None}
+_FAMILIES = {
+    "llama": {},
+    "mistral": {"sliding_window": 4096, "num_key_value_heads": 8},
+    "qwen2": {"bos_token_id": None, "eos_token_id": None, "num_key_value_heads": 32,
+              "max_window_layers": 28},
+    "qwen3": {"bos_token_id": None, "eos_token_id": None, "num_key_value_heads": 32,
+              "head_dim": 128, "max_window_layers": 28},
+    "phi3": {"rms_norm_eps": 1e-5, "eos_token_id": 32000},
+    "olmo2": {"rms_norm_eps": 1e-5, "bos_token_id": None, "eos_token_id": 50279},
+    "granite": {"embedding_multiplier": 1.0, "attention_multiplier": 1.0,
+                "residual_multiplier": 1.0, "logits_scaling": 1.0},
+    "gemma2": {"tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1,
+               "num_key_value_heads": 4, "head_dim": 256, "sliding_window": 4096,
+               "query_pre_attn_scalar": 256, "attn_logit_softcapping": 50.0,
+               "final_logit_softcapping": 30.0},
+    "gemma3_text": {"tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1,
+                    "num_key_value_heads": 4, "head_dim": 256, "sliding_window": 4096,
+                    "query_pre_attn_scalar": 256, "rope_theta": 1_000_000.0,
+                    "rope_local_base_freq": 10000.0, "attn_logit_softcapping": None,
+                    "final_logit_softcapping": None, "sliding_window_pattern": 6},
+}
+_GEMMA = ("gemma2", "gemma3_text")
+
+
+def _layer_types(family: str, c: dict):
+    """HF's per-layer attention kinds, as the config classes derive them
+    when config.json has no layer_types: qwen2/qwen3 slide from layer
+    max_window_layers on when use_sliding_window; gemma-2 alternates from a
+    sliding layer 0; gemma-3 makes every sliding_window_pattern-th layer
+    full; mistral and phi-3 slide every layer under a configured window (HF
+    MistralModel / Phi3Model, as dmi_tpu reads them); the rest have none."""
+    n = c["num_hidden_layers"]
+    if c.get("layer_types") is not None:
+        return c["layer_types"]
+    if family in ("qwen2", "qwen3"):
+        if not c.get("use_sliding_window", False):
+            return None
+        return ["sliding_attention" if i >= c["max_window_layers"] else "full_attention"
+                for i in range(n)]
+    if family == "gemma2":
+        return ["sliding_attention" if (i + 1) % 2 else "full_attention" for i in range(n)]
+    if family == "gemma3_text":
+        pattern = c["sliding_window_pattern"]
+        return ["sliding_attention" if (i + 1) % pattern else "full_attention"
+                for i in range(n)]
+    if family in ("mistral", "phi3") and c.get("sliding_window"):
+        return ["sliding_attention"] * n
+    return None
+
+
 def _hf_to_config(hf_cfg: dict, dtype: torch.dtype, tokenizer) -> llama.LlamaConfig:
-    """The port's config for a parsed HF config.json of the llama family
-    (dmi_tpu's _hf_to_config for model_type llama): a llama3 rope_scaling
-    block maps onto the four rope_* fields; eos comes from the config, else
-    from the tokenizer.  Absent keys take transformers.LlamaConfig's
-    defaults.  What the llama-3.x body does not compute is refused."""
+    """The port's config for a parsed HF config.json of a dense family
+    (dmi_tpu's _hf_to_config for model_type llama, mistral, qwen2, qwen3,
+    phi3, olmo2, granite, gemma2 and gemma3_text): per-layer sliding flags
+    from layer_types (or the family's own rule) and the window where a
+    layer slides; llama3 or linear rope_scaling; qwen's q/k biases and
+    norms, olmo2's post-norm blocks, granite's four multipliers, gemma's
+    GeGLU, (1 + w) norms, post-block norms, softcaps, query_pre_attn_scalar
+    and embedding normalizer (at lookup for gemma-3, with its local rope
+    base); tie_word_embeddings.  Keys left out take the family's defaults
+    (_FAMILIES).  eos comes from the config, else from the tokenizer.  What
+    the dense layouts do not compute is refused: the MoE and MLA model
+    types, yarn, dynamic or longrope rope scaling, MLP biases, another
+    activation, and the o_proj bias that attention_bias adds outside
+    qwen."""
     family = hf_cfg.get("model_type", "llama")
-    if family != "llama":
+    if family not in _FAMILIES:
         raise _not_ported(f"model_type {family!r}")
-    if not hf_cfg.get("tie_word_embeddings", False):
-        raise _not_ported("tie_word_embeddings false (an untied head)")
-    for bias in ("attention_bias", "mlp_bias"):
-        if hf_cfg.get(bias, False):
-            raise _not_ported(f"{bias} true")
-    act = hf_cfg.get("hidden_act", "silu")
-    if act != "silu":
-        raise _not_ported(f"hidden_act {act!r}")
-    rs = hf_cfg.get("rope_scaling") or {}
+    c = {**_COMMON_DEFAULTS, **_FAMILIES[family], **hf_cfg}
+    act = c.get("hidden_activation" if family in _GEMMA else "hidden_act")
+    want = "gelu_pytorch_tanh" if family in _GEMMA else "silu"
+    if act is not None and act != want:
+        raise _not_ported(f"{family} with activation {act!r}")
+    if c.get("mlp_bias", False):
+        raise _not_ported("mlp_bias true")
+    if c.get("attention_bias", False) and family not in ("qwen2", "qwen3"):
+        raise _not_ported(f"{family} with attention_bias true (an o_proj bias)")
+    if family == "phi3" and c.get("partial_rotary_factor", 1.0) != 1.0:
+        raise _not_ported("phi3 with partial_rotary_factor != 1")
+    if family == "gemma3_text" and c.get("use_bidirectional_attention", False):
+        raise _not_ported("gemma3 with bidirectional attention")
+    rs = c.get("rope_scaling") or {}
     rope_type = rs.get("rope_type", rs.get("type"))
-    if rs and rope_type != "llama3":
-        raise _not_ported(f"rope_scaling of type {rope_type!r}")
-    eos = hf_cfg.get("eos_token_id", 2)
+    if rs and (rope_type not in ("llama3", "linear") or family == "phi3"):
+        raise _not_ported(f"{family} with rope_scaling of type {rope_type!r}")
+
+    layer_types = _layer_types(family, c)
+    layer_sliding = (tuple(t == "sliding_attention" for t in layer_types)
+                     if layer_types else None)
+    window = c["sliding_window"] if layer_sliding and any(layer_sliding) else None
+    if not window:
+        layer_sliding = None
+    eos = c["eos_token_id"]
     if eos is None:
         eos = tokenizer.eos_token_id
     eos = tuple(eos) if isinstance(eos, (list, tuple)) else (eos,)
-    hidden, heads = hf_cfg["hidden_size"], hf_cfg["num_attention_heads"]
+    hidden, heads = c["hidden_size"], c["num_attention_heads"]
+
+    kw = {}
+    if family in ("qwen2", "qwen3"):
+        kw["attention_bias"] = family == "qwen2" or bool(c.get("attention_bias", False))
+        kw["qk_norm"] = family == "qwen3"
+    elif family == "olmo2":
+        kw.update(qk_norm_wide=True, norm_after=True)
+    elif family == "granite":
+        kw.update(embedding_normalizer=float(c["embedding_multiplier"]),
+                  attn_scale=float(c["attention_multiplier"]),
+                  residual_multiplier=float(c["residual_multiplier"]),
+                  logit_scale=float(c["logits_scaling"]))
+    elif family in _GEMMA:
+        kw.update(mlp_act="gelu_tanh", attn_scale=float(c["query_pre_attn_scalar"]) ** -0.5,
+                  attn_logit_softcap=c["attn_logit_softcapping"],
+                  final_logit_softcap=c["final_logit_softcapping"],
+                  embedding_normalizer=float(hidden) ** 0.5, post_block_norms=True,
+                  norm_plus_one=True)
+        if family == "gemma3_text":
+            if not (layer_sliding and window):
+                raise _not_ported("gemma3 without sliding layers (they select the "
+                                  "local-rope layers)")
+            kw.update(embedding_scale_at_lookup=True, qk_norm=True,
+                      rope_local_theta=float(c["rope_local_base_freq"]))
     return llama.LlamaConfig(
-        vocab_size=hf_cfg["vocab_size"],
+        vocab_size=c["vocab_size"],
         hidden_size=hidden,
-        intermediate_size=hf_cfg["intermediate_size"],
-        num_hidden_layers=hf_cfg["num_hidden_layers"],
+        intermediate_size=c["intermediate_size"],
+        num_hidden_layers=c["num_hidden_layers"],
         num_attention_heads=heads,
-        num_key_value_heads=hf_cfg.get("num_key_value_heads") or heads,
-        head_dim=hf_cfg.get("head_dim") or hidden // heads,
-        rms_norm_eps=hf_cfg.get("rms_norm_eps", 1e-6),
-        rope_theta=hf_cfg.get("rope_theta", 10000.0),
+        num_key_value_heads=c.get("num_key_value_heads") or heads,
+        head_dim=c.get("head_dim") or hidden // heads,
+        rms_norm_eps=c["rms_norm_eps"],
+        rope_theta=c["rope_theta"],
         rope_scaling_factor=rs.get("factor") if rope_type == "llama3" else None,
+        rope_linear_factor=rs.get("factor") if rope_type == "linear" else None,
         rope_low_freq_factor=rs.get("low_freq_factor", 1.0),
         rope_high_freq_factor=rs.get("high_freq_factor", 4.0),
         rope_original_max_position=rs.get("original_max_position_embeddings", 8192),
+        tie_word_embeddings=c["tie_word_embeddings"],
         dtype=dtype,
         eos_token_ids=eos,
-        bos_token_id=hf_cfg.get("bos_token_id", 1),
+        bos_token_id=c["bos_token_id"],
+        sliding_window=window,
+        layer_sliding=layer_sliding,
+        **kw,
     )
 
 
 def build_lm(lm_args, tokenizer, seed: int = 0,
              device="cpu") -> Tuple[llama.LlamaConfig, dict]:
     """(config, parameters on `device`) of the configured LM: a test model
-    with weights from `seed`, or a llama-3.x model's HF weights read off
+    with weights from `seed`, or a dense-family model's HF weights read off
     disk (`seed` unused)."""
     name = _resolve_name(lm_args.lm_name_or_path)
     dtype = _DTYPES[lm_args.lm_dtype or "bfloat16"]
@@ -154,7 +263,9 @@ def build_lm(lm_args, tokenizer, seed: int = 0,
         cfg = _hf_to_config(hf_weights.read_config(path), dtype, tokenizer)
         return cfg, llama.from_hf_state_dict(hf_weights.load_state_dict(path), cfg, device)
     parts = name.split(":")
-    if parts[1] not in ("1b", "tiny"):
+    makers = {"tiny": llama.tiny_config, "tiny-qwen2": llama.tiny_qwen2_config,
+              "tiny-gemma2": llama.tiny_gemma2_config}
+    if parts[1] != "1b" and parts[1] not in makers:
         raise _not_ported(f"test model {name!r}")
     vocab = int(parts[2]) if len(parts) > 2 else max(512, tokenizer.vocab_size + 8)
     if parts[1] == "1b":
@@ -166,7 +277,7 @@ def build_lm(lm_args, tokenizer, seed: int = 0,
             rope_scaling_factor=None,  # tiny contexts need no llama3 scaling
         )
     else:
-        cfg = llama.tiny_config(
+        cfg = makers[parts[1]](
             vocab_size=vocab, hidden_size=64, n_layers=2, n_heads=4, n_kv=2,
             intermediate=128, dtype=dtype, eos=(tokenizer.eos_token_id,),
         )

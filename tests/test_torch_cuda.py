@@ -1160,3 +1160,89 @@ def test_streaming_engine_kernel_path_matches_plain_path_f32(cuda, temperature):
     else:
         want = mmmodel.caption_generate(cfg, params, soft, ids, 9, 1)
     assert torch.equal(got, want.cpu())
+
+
+# --- the dense decoder families (ROADMAP A.9) ---------------------------------
+
+FAMILY_CONFIGS = {
+    "qwen2": llama.tiny_qwen2_config, "qwen3": llama.tiny_qwen3_config,
+    "olmo2": llama.tiny_olmo2_config, "granite": llama.tiny_granite_config,
+    "gemma2": lambda **kw: llama.tiny_gemma2_config(sliding_window=8, **kw),
+    "gemma3": lambda **kw: llama.tiny_gemma3_config(sliding_window=8, **kw),
+    "phi3-untied": lambda **kw: dataclasses.replace(
+        llama.tiny_config(**kw), tie_word_embeddings=False, sliding_window=8,
+        layer_sliding=(True, True, True)),
+}
+
+
+def _family_model(dev, family, dtype):
+    cfg = FAMILY_CONFIGS[family](vocab_size=320, hidden_size=128, n_layers=3, n_heads=8,
+                                 n_kv=2, intermediate=256, dtype=dtype, eos=(7,))
+    if cfg.layer_sliding is not None:
+        cfg = dataclasses.replace(cfg, layer_sliding=(True, False, True))
+    params = llama.fuse_projections(llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                                               dev))
+    for lw in params["layers"]:  # std 0.2: varied greedy tokens
+        for name in ("w_qkv", "wo", "w_gu", "w_down"):
+            lw[name].mul_(10)
+    return cfg, params
+
+
+@pytest.mark.parametrize("family", list(FAMILY_CONFIGS))
+def test_family_loops_kernel_path_matches_plain_path_f32(cuda, family):
+    """Each dense family's batch-last and batch-first greedy loops and the
+    slot engine on the card (decode attention with the family's scale,
+    softcap and window rows, the decode MLP with its activation, the
+    untied head through _mm_bl): at f32 the kernel path's ids equal the
+    plain path's, past the window of 8."""
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.streaming import StreamingCaptioner
+
+    cfg, params = _family_model(cuda, family, torch.float32)
+    embeds = torch.randn(6, 9, 128, generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    n0, m0 = tda.launches, tdm.launches
+    ids = dec.greedy_generate_bl(cfg, params, embeds, 8, 1)
+    assert tda.launches - n0 == tdm.launches - m0 == 3 * 7
+    assert torch.equal(ids, dec.greedy_generate_bl(cfg, params, embeds, 8, 1, plain=True))
+    assert torch.equal(dec.greedy_generate(cfg, params, embeds, 8, 1),
+                       dec.greedy_generate(cfg, params, embeds, 8, 1, plain=True))
+    spec = proj.ProjectorSpec(mm_dim=16, lm_dim=128)
+    pp = proj.init(spec, torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    embs = np.random.default_rng(4).normal(size=(9, 16)).astype(np.float32)
+
+    def engine(plain):
+        return StreamingCaptioner(cfg, params, spec, pp, [3, 7, 9], 9, 1, pool=4, admit=2,
+                                  plain=plain)
+
+    assert torch.equal(engine(False).run_bulk(embs), engine(True).run_bulk(embs))
+
+
+def test_gemma2_2b_decode_kernels_match_twins(cuda):
+    """Gemma-2-2B's serving shapes at B 128: decode attention with 8/4 heads
+    at hd 256 (the CUDA-core instance), its score scale, softcap 50 and a
+    window row over S 38; the tanh-GELU decode MLP at H 2304, I 9216; the
+    head argmax at V 256000 (ids equal but for one-bf16-step near-ties)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bf = torch.bfloat16
+    q = torch.randn(128, 8, 1, 256, generator=gen, device=cuda).to(bf)
+    k, v = (torch.randn(128, 4, 38, 256, generator=gen, device=cuda).to(bf) for _ in range(2))
+    window = torch.zeros(38, device=cuda)
+    window[:22] = torch.finfo(torch.float32).min
+    for bias in (torch.zeros(38, device=cuda), window):
+        args = (q, k, v, bias, 256 ** -0.5, 50.0)
+        _close(tda.fused_decode_attention(*args), tda._decode_attn_plain(*args), TOL[bf])
+    assert not tda.plan(128, 4, 2, 38, 256, 2)["tensor_cores"]
+    w_gu = (torch.randn(2304, 2 * 9216, generator=gen, device=cuda) * 0.02).to(bf)
+    w_down = (torch.randn(9216, 2304, generator=gen, device=cuda) * 0.02).to(bf)
+    h = torch.randn(2304, 128, generator=gen, device=cuda).to(bf)
+    _close(tdm.fused_decode_mlp_bl(w_gu, w_down, h, "gelu_tanh"),
+           tdm._decode_mlp_plain(w_gu, w_down, h, "gelu_tanh"), TOL[bf])
+    embed = (torch.randn(256000, 2304, generator=gen, device=cuda) * 0.02).to(bf)
+    ids = tha.head_argmax({"embed": embed}, h)
+    want = tha._head_argmax_plain(embed, h)
+    assert (ids == want).float().mean().item() >= 0.9
+    logits = tha.head_logits_bl(embed, h).float()
+    cols = torch.nonzero(ids != want).flatten()
+    top, got = logits[want[cols], cols], logits[ids[cols], cols]
+    assert cols.numel() == 0 or ((top - got).abs() / top.abs()).max().item() <= 2.0 ** -7

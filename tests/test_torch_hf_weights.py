@@ -219,13 +219,17 @@ def test_tokenizer_from_local_dir_matches_dmi_tpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    {"model_type": "qwen2"}, {"model_type": "gemma2"}, {"tie_word_embeddings": False},
+    {"model_type": "mixtral"}, {"model_type": "deepseek_v2"}, {"model_type": "qwen3_moe"},
     {"attention_bias": True}, {"mlp_bias": True}, {"hidden_act": "gelu"},
-    {"rope_scaling": {"rope_type": "linear", "factor": 2.0}},
+    {"model_type": "olmoe"},
     {"rope_scaling": {"type": "dynamic", "factor": 2.0}},
     {"rope_scaling": {"rope_type": "yarn", "factor": 4.0}},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items())[:40])
 def test_config_refusals_name_a9(saved, change):
+    """What the dense layouts do not compute names A.9: the MoE and MLA
+    model types, an o_proj bias (llama's attention_bias), MLP biases, another
+    activation, dynamic and yarn rope scaling.  The dense families, untied
+    heads and linear rope scaling load (tests/test_torch_hf_families.py)."""
     _, cases = saved
     cfg = {**hf_weights.read_config(cases["single"][0]), **change}
     with pytest.raises(NotImplementedError, match="A.9"):
@@ -272,7 +276,7 @@ def test_state_dict_keys_of_other_families_are_refused(saved, extra):
 
 def test_unported_test_models_name_a9(tok):
     with pytest.raises(NotImplementedError, match="A.9"):
-        tmu.build_lm(LMArgs(lm_name_or_path="test:tiny-gemma2"), tok)
+        tmu.build_lm(LMArgs(lm_name_or_path="test:tiny-mixtral"), tok)
 
 
 def test_published_llama32_1b_config_maps_to_the_preset():

@@ -56,11 +56,17 @@ def test_config_bridge_keeps_llama3_fields():
 
 
 @pytest.mark.parametrize("maker", [
-    jllama.tiny_gemma2_config, jllama.tiny_qwen2_config, jllama.tiny_qwen3_config,
-    jllama.tiny_olmo2_config, jllama.tiny_mixtral_config, jllama.tiny_deepseek_config,
-    jllama.tiny_gemma3_config, jllama.tiny_granite_config,
-])
+    jllama.tiny_mixtral_config, jllama.tiny_qwen3moe_config, jllama.tiny_olmoe_config,
+    jllama.tiny_deepseek_config,
+    lambda: jllama.tiny_deepseek_config(q_lora_rank=8),
+    lambda: jllama.tiny_deepseek_config(n_experts=4, n_shared=1, routed_scale=2.0),
+    lambda: dataclasses.replace(jllama.tiny_config(), rope_yarn_factor=4.0),
+    lambda: dataclasses.replace(jllama.tiny_qwen2_config(), num_experts=4),
+], ids=["mixtral", "qwen3moe", "olmoe", "deepseek", "deepseek-q-lora", "deepseek-moe",
+        "yarn", "qwen2-moe"])
 def test_config_bridge_refuses_other_families(maker):
+    """The MoE and MLA families and yarn rope scaling stay refused, naming
+    A.9; the dense families bridge (tests/test_torch_families.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
         bridge.config_from_jax(maker())
 

@@ -448,7 +448,7 @@ def test_checkpoints_read_across_packages(fixture_data, tmp_path):
 
 
 def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
-    """Multi-card training names A.10; an LM outside the llama-3.x layout
+    """Multi-card training names A.10; an LM of the MoE or MLA families
     names A.9 (tests/test_torch_hf_weights.py has the rest); a hub id the HF
     cache does not hold is an error that names where it looked."""
     with pytest.raises(NotImplementedError, match="A.10"):
@@ -462,11 +462,9 @@ def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="models--meta-llama--Llama-3.2-1B-Instruct"):
         build_lm(LMArgs(lm_name_or_path="meta-llama/Llama-3.2-1B-Instruct"), None)
     with pytest.raises(NotImplementedError, match="A.9"):
-        build_lm(LMArgs(lm_name_or_path="test:tiny-qwen2"), None)
-    cfg = dataclasses.replace(tllama.tiny_config(), attn_logit_softcap=30.0)
+        build_lm(LMArgs(lm_name_or_path="test:tiny-mixtral"), None)
     with pytest.raises(NotImplementedError, match="A.9"):
-        tllama.forward(cfg, tllama.init(cfg, torch.Generator().manual_seed(0)),
-                       torch.zeros(1, 3, 64))
+        bridge.config_from_jax(jllama.tiny_mixtral_config())
 
 
 # ---------------------------------------------------------------------------
