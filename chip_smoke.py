@@ -133,6 +133,31 @@ checkpoints on one CUDA card.
    updated hypernet.  Bytes written and read, load times and device memory
    are printed.
 
+15. Gemma-2-2B (google/gemma-2-2b's config.json, random bf16 weights) from
+   an HF gemma2 directory: its serving kernels at its shapes, the 300
+   requests on every loop and engine (family_serving_phase), stage 1 on the
+   `_attention` route and its first two layers with a window that binds.
+16. OLMoE-1B-7B (allenai/OLMoE-1B-7B-0924's config.json: 16 layers, 64
+   experts, top 8, an untied head; 6.92G parameters) built in memory
+   through from_hf_state_dict, held to its config and every HF tensor; its
+   kernels at its shapes (decode attention at group 1 with an [S] and a
+   [B, S] bias, the untied head's argmax over lm_head's rows, the flash
+   kernels at 16/16 heads of hd 128, W4A8 at w_qkv and wo), the routed
+   MLP's device time per layer-step beside its bound, the routing of a
+   prefill of random tokens (every expert of every layer chosen, many top-k
+   sets), the 300 requests batch-last (decode attention on every
+   layer-step, the decode MLP never, the head + argmax every step) against
+   the plain path, one batch-first, one sampled and one int8="w4a8" batch,
+   bulk beside batch on mid-budget EOS ids, and 10 stage-1 micro-steps on
+   the flash route (step 0 against the plain path, peak memory).
+17. DeepSeek-V2-Lite's widths (its config.json cut to 4 of 27 layers, all
+   sparse: first_k_dense_replace 0) written as an HF deepseek_v2 directory
+   and read back through build_lm: the untied head's argmax at V 102400,
+   the routed MLP's and the absorbed MLA attention's time per layer-step,
+   the routing check, and the serving paths of 16 with MLA's (no
+   decode-attention launch; absorbed batch-last loop against the expanded
+   batch-first one).
+
 Step 0 of every training path compares the loss within TOL["loss"] of the
 plain path's and each trainable leaf's gradient within TOL["logits"] of
 that leaf's own largest plain gradient.
@@ -907,7 +932,7 @@ def sampling_phase(torch, dev, cfg, params, projector, embs):
     return {"serving sampled": counts["bf16 tree"], "serving sampled w4a8": counts['int8="w4a8"']}
 
 
-def _mid_budget_eos(ids, most=3):
+def _mid_budget_eos(ids, most=3, pad=PAD_ID):
     """EOS ids, at most `most` (Llama-3's count), that end captions nearest
     the middle of the budget: chosen greedily from the ids of EOS-free
     greedy ids [N, MAX_NEW], each added while it brings the mean caption
@@ -915,7 +940,7 @@ def _mid_budget_eos(ids, most=3):
     MAX_NEW / 2 (the smallest id on ties; never the pad id).  Returns the
     ids and the mean length."""
     ids = ids.numpy()
-    toks = np.array([t for t in np.unique(ids) if t != PAD_ID])
+    toks = np.array([t for t in np.unique(ids) if t != pad])
     hit = ids[:, :, None] == toks[None, None, :]  # [N, MAX_NEW, U]
     first = np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, MAX_NEW)  # [N, U]
     chosen, length = [], np.full(ids.shape[0], MAX_NEW)
@@ -1272,7 +1297,8 @@ def flash_timings(torch, fa, q, k, v, do) -> dict:
     plan = fa.bwd_plan(B, nh, k.shape[1], T, hd, q.dtype)["dkv"]
     alt = {(hpb, rows): device_ms(lambda hpb=hpb, rows=rows: fa._bwd_dkv_kernel(
         q, k, v, None, do, lse, delta, 0.125, heads_per_block=hpb, query_rows=rows))
-        for hpb, rows in ((1, 32), (1, 64), (2, 32), (2, 64), (4, 16), (4, 32))}
+        for hpb, rows in ((1, 32), (1, 64), (2, 32), (2, 64), (4, 16), (4, 32))
+        if (nh // k.shape[1]) % hpb == 0}  # a block's heads share one kv head
     print(f"    flash dK/dV B={B} T={T} bf16 by plan (query heads a block, query rows a step; "
           f"bwd_plan takes {plan['heads_per_block']}, {plan['query_rows']}): "
           + ", ".join(f"{h}, {r}: {ms * 1e3!r} us" for (h, r), ms in alt.items()))
@@ -1345,12 +1371,13 @@ class SyntheticCaptions:
     prompt and the pad id on right pads) with embs [batch, mm]; with
     `subset`, also a conditioning subset (mm rows, text rows, the prefix
     embedding) as the hypernet's loader gives it with feed_txt_embs.  Made
-    with numpy from (SEED, stream, step)."""
+    with numpy from (SEED, stream, step).  Token ids are taken modulo
+    `vocab` (an identity for Llama-3's vocabulary and larger ones)."""
 
     def __init__(self, steps, batch=TRAIN_BATCH, text=TRAIN_TEXT, mm=TRAIN_MM_DIM,
-                 subset=None, stream=5):
+                 subset=None, stream=5, vocab=128256):
         self.steps, self.batch, self.text, self.mm = steps, batch, text, mm
-        self.subset, self.stream = subset, stream
+        self.subset, self.stream, self.vocab = subset, stream, vocab
 
     def total_train_steps(self):
         return self.steps
@@ -1360,11 +1387,13 @@ class SyntheticCaptions:
         B, T, P = self.batch, self.text, len(PREFIX_IDS)
         lens = rng.integers(P + min(8, T - P - 1), T + 1, size=B)
         lens[0] = T
-        ids = np.full((B, T), PAD_ID, np.int32)
+        pad = PAD_ID % self.vocab
+        ids = np.full((B, T), pad, np.int32)
         mask = np.zeros((B, T), np.int32)
-        labels = np.full((B, T), PAD_ID, np.int64)
+        labels = np.full((B, T), pad, np.int64)
         for b, n in enumerate(lens):
-            row = PREFIX_IDS + list(rng.integers(0, 128000, size=n - P - 1)) + [PAD_ID]
+            row = np.array(PREFIX_IDS + list(rng.integers(0, 128000, size=n - P - 1))
+                           + [PAD_ID]) % self.vocab
             ids[b, :n] = row
             mask[b, :n] = 1
             labels[b, :n] = row
@@ -1397,7 +1426,7 @@ def train_phase(torch, dev, cfg, params, label="stage 1"):
     spec = proj.ProjectorSpec(mm_dim=TRAIN_MM_DIM, lm_dim=cfg.hidden_size,
                               dropout=TRAIN_DROPOUT)
     pp = proj.init(spec, torch.Generator(device=dev).manual_seed(SEED + 4), device=dev)
-    data = SyntheticCaptions(TRAIN_STEPS)
+    data = SyntheticCaptions(TRAIN_STEPS, vocab=cfg.vocab_size)
     with tempfile.TemporaryDirectory() as tmp:
         args = types.SimpleNamespace(**TRAIN_ARGS, checkpoint_dir=tmp)
         trainer = ProjectorTrainer("smoke", cfg, params, spec, pp, [data],
@@ -2209,7 +2238,7 @@ def disk_phase(torch, dev, cfg, params, projector, embs, hn_params, hn_state):
 
 
 # ---------------------------------------------------------------------------
-# Gemma-2-2B: the dense decoder families (ROADMAP A.9)
+# Gemma-2-2B: the dense decoder families
 # ---------------------------------------------------------------------------
 
 # google/gemma-2-2b's published config.json; its weights are not in the
@@ -2272,7 +2301,6 @@ def gemma_load_phase(torch, dev):
     folded to f32(w) + 1), and removed.  Returns the config and the
     parameters."""
     from dmi_tpu_torch.config import LMArgs
-    from dmi_tpu_torch.models import llama
     from dmi_tpu_torch.training.model_utils import build_lm
 
     c = GEMMA2_2B
@@ -2303,21 +2331,8 @@ def gemma_load_phase(torch, dev):
                 embedding_normalizer=c["hidden_size"] ** 0.5, post_block_norms=True,
                 norm_plus_one=True, eos_token_ids=(c["eos_token_id"],), dtype=torch.bfloat16,
                 layer_sliding=tuple(i % 2 == 0 for i in range(c["num_hidden_layers"])))
-    got = {k: getattr(cfg, k) for k in want}
-    if got != want:
-        raise AssertionError(f"Gemma-2-2B config {got} != the published {want}")
-    same = torch.equal(params["embed"], sd["model.embed_tokens.weight"])
-    same &= torch.equal(params["final_norm"], sd["model.norm.weight"].float() + 1)
-    for i, lw in enumerate(params["layers"]):
-        for name, (key, kind) in llama.hf_layer_keys(cfg, False).items():
-            t = sd[f"model.layers.{i}.{key}"]
-            ref = t.float() + 1 if kind == "n" else (t.t() if kind == "w" else t)
-            same &= lw[name].dtype == ref.dtype and torch.equal(lw[name], ref)
-    print(f"  config = the published one ({cfg.num_hidden_layers} layers, hd {cfg.head_dim}, V "
-          f"{cfg.vocab_size}); every tensor equal to the written one (norms folded in f32): "
-          f"{same}")
-    if not same:
-        raise AssertionError("Gemma-2-2B: a loaded tensor differs from the written one")
+    _config_of("Gemma-2-2B", cfg, want)
+    _held_to_hf(torch, "Gemma-2-2B (norms folded in f32)", cfg, params, sd)
     del sd
     torch.cuda.empty_cache()
     return cfg, params
@@ -2422,88 +2437,6 @@ def gemma_kernel_phase(torch, dev, cfg, params):
     return results
 
 
-def gemma_serving_phase(torch, dev, cfg, params):
-    """Gemma-2-2B served through the Captioner: the 300 requests at batch 128
-    on the batch-last loop (bf16, greedy, EOS off) against its plain path,
-    then one batch on the batch-first loop, one sampled batch (SAMPLE)
-    against its plain path, and the bulk engine beside the batch engine on
-    EOS ids chosen mid-budget; launch counts set to 0 before each run and
-    checked after.  Returns the launch counts, the projector and the
-    requests."""
-    from dmi_tpu_torch.models import projector as proj
-    from dmi_tpu_torch.serve import Captioner
-
-    card = nvidia_smi()
-    spec = proj.ProjectorSpec(mm_dim=MM_DIM, lm_dim=cfg.hidden_size)
-    pp = proj.init(spec, torch.Generator(device=dev).manual_seed(SEED + 22),
-                   dtype=torch.float32, device=dev)
-    embs = np.random.default_rng(SEED).normal(size=(N_REQUESTS, MM_DIM)).astype(np.float32)
-    L, steps = cfg.num_hidden_layers, MAX_NEW - 1
-
-    def captioner(c=cfg, **kw):
-        return Captioner(c, params, spec, pp, max_new_tokens=MAX_NEW, batch_size=128,
-                         prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID, **kw)
-
-    def run(label, cap, requests, per_batch, **kw):
-        cap.caption_ids(requests[:128], **kw)  # warm-up
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        ids = cap.caption_ids(requests, **kw)
-        secs = time.perf_counter() - t0
-        counts = _counts()
-        print(f"Gemma-2-2B {label}: {len(requests)} requests at batch 128, {secs!r} s, "
-              f"{len(requests) / secs!r} captions/s ({card})")
-        _expect(label, counts, {k: n * -(-len(requests) // 128) for k, n in per_batch.items()})
-        _check_ids(cfg, label, ids, len(requests))
-        return ids, counts
-
-    loop = {"mlp2": 1, "decode_attention": L * steps}
-    out = {}
-    cap = captioner()
-    ids, out[GEMMA_PATH] = run("(a) batch-last bf16 greedy", cap, embs,
-                               {**loop, "decode_mlp": L * steps, "head_argmax": steps})
-    rows = len({tuple(r) for r in ids.tolist()})
-    print(f"  {rows} distinct rows of {len(ids)}, {len(torch.unique(ids))} distinct tokens")
-    if rows < len(ids) // 2:
-        raise AssertionError("Gemma-2-2B: the rows' ids are alike (the random model echoes)")
-    token_agreement("its plain path", ids, cap.caption_ids(embs, plain=True))
-    print("where one Gemma-2-2B batch-last batch's time goes:")
-    profile_run(torch, "Gemma-2-2B batch 128, batch-last bf16",
-                lambda: cap.caption_ids(embs[:128]))
-    first, out["Gemma-2-2B serving batch-first"] = run(
-        "(b) batch-first", captioner(batch_first=True), embs[:128], loop)
-    token_agreement("the batch-last loop", first, ids[:128])
-    sampled, out["Gemma-2-2B serving sampled"] = run(
-        f"(c) sampled {SAMPLE}", cap, embs[:128], {**loop, "decode_mlp": L * steps}, **SAMPLE)
-    token_agreement("its plain path", sampled, cap.caption_ids(embs[:128], plain=True, **SAMPLE))
-
-    eos, mean_len = _mid_budget_eos(ids)
-    print(f"Gemma-2-2B (d) bulk beside batch: EOS ids {eos} (mean length {mean_len!r} of "
-          f"{MAX_NEW} in the greedy ids)")
-    ecap = captioner(dataclasses.replace(cfg, eos_token_ids=eos))
-    for engine in ("batch", "bulk"):  # warm-up
-        ecap.caption_ids(embs[:128], engine=engine)
-    runs = {}
-    for engine in ("batch", "bulk"):
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        runs[engine] = ecap.caption_ids(embs, engine=engine)
-        secs = time.perf_counter() - t0
-        counts = _counts()
-        _check_ids(cfg, f"engine={engine}", runs[engine], len(embs))
-        print(f"  engine={engine}: {len(embs) / secs!r} captions/s ({card})")
-    eng = ecap.bulk_engine
-    _expect("Gemma-2-2B engine=bulk", counts,
-            {"mlp2": eng.admissions, "decode_attention": L * eng.steps,
-             "decode_attention_rows": L * eng.steps, "decode_mlp": L * eng.steps,
-             "head_argmax": eng.steps})
-    out["Gemma-2-2B serving bulk"] = counts
-    token_agreement("the batch engine", runs["bulk"], runs["batch"])
-    return out, (spec, pp), embs
-
-
 def gemma_window_phase(torch, dev, cfg, params, projector, embs):
     """A window that binds on the card: Gemma-2-2B's widths at its first two
     layers (sliding, then full) with sliding_window 16, so that the window
@@ -2563,9 +2496,523 @@ def gemma_phase(torch, dev):
     params = llama.fuse_projections(params)
     torch.cuda.empty_cache()
     kernels = gemma_kernel_phase(torch, dev, cfg, params)
-    paths, projector, embs = gemma_serving_phase(torch, dev, cfg, params)
+    paths, projector, embs = family_serving_phase(torch, dev, "Gemma-2-2B", cfg, params,
+                                                  SEED + 22)
     paths["Gemma-2-2B stage 1"] = train_phase(torch, dev, cfg, params, label="Gemma-2-2B stage 1")
     paths.update(gemma_window_phase(torch, dev, cfg, params, projector, embs))
+    del params
+    torch.cuda.empty_cache()
+    return kernels, paths
+
+
+# ---------------------------------------------------------------------------
+# The MoE and MLA families: OLMoE-1B-7B and DeepSeek-V2-Lite's widths
+# ---------------------------------------------------------------------------
+
+# allenai/OLMoE-1B-7B-0924's published config.json: every layer sparse,
+# clip_qkv null, an untied head
+OLMOE_1B_7B = {
+    "architectures": ["OlmoeForCausalLM"], "model_type": "olmoe", "vocab_size": 50304,
+    "hidden_size": 2048, "intermediate_size": 1024, "num_hidden_layers": 16,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "num_experts": 64,
+    "num_experts_per_tok": 8, "norm_topk_prob": False, "clip_qkv": None,
+    "attention_bias": False, "attention_dropout": 0.0, "hidden_act": "silu",
+    "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "rope_scaling": None,
+    "max_position_embeddings": 4096, "tie_word_embeddings": False, "eos_token_id": 50279,
+    "pad_token_id": 1, "bos_token_id": None, "initializer_range": 0.02,
+    "output_router_logits": False, "router_aux_loss_coef": 0.01, "torch_dtype": "bfloat16",
+}
+OLMOE = "OLMoE-1B-7B"
+# deepseek-ai/DeepSeek-V2-Lite's published config.json, cut to 4 of its 27
+# layers, all sparse (first_k_dense_replace 0: its 1 makes a mixed stack,
+# which dmi_tpu refuses)
+V2_LITE = {
+    "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
+    "vocab_size": 102400, "hidden_size": 2048, "intermediate_size": 10944,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 4, "first_k_dense_replace": 0,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "kv_lora_rank": 512,
+    "q_lora_rank": None, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "n_routed_experts": 64, "n_shared_experts": 2, "num_experts_per_tok": 6,
+    "routed_scaling_factor": 1.0, "topk_method": "greedy", "n_group": 1, "topk_group": 1,
+    "norm_topk_prob": False, "scoring_func": "softmax", "moe_layer_freq": 1,
+    "aux_loss_alpha": 0.001, "seq_aux": True, "attention_bias": False,
+    "attention_dropout": 0.0, "hidden_act": "silu", "rms_norm_eps": 1e-6,
+    "rope_theta": 10000, "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                                          "mscale": 0.707, "mscale_all_dim": 0.707,
+                                          "original_max_position_embeddings": 4096,
+                                          "type": "yarn"},
+    "max_position_embeddings": 163840, "tie_word_embeddings": False, "bos_token_id": 100000,
+    "eos_token_id": 100001, "initializer_range": 0.02, "pretraining_tp": 1,
+    "torch_dtype": "bfloat16",
+}
+V2 = "V2-Lite widths"
+
+
+def hf_state_dict_of(torch, dev, cfg, seed) -> dict:
+    """Random bf16 weights of the port's config `cfg` under the HF names and
+    (out, in) layout the loader reads (llama.hf_layer_keys: MLA, experts one
+    by one), on `dev`: every Linear weight and the embedding normal(0,
+    0.02), the config's initializer_range, drawn by llama.init from a
+    generator seeded with `seed`; RMSNorm scales 1 + normal(0, 0.1).  At
+    these widths the sublayers' outputs outweigh the embedding in the
+    residual stream, so that rows and experts can be told apart."""
+    from dmi_tpu_torch.models import llama
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = llama.init(cfg, gen, dev)
+    sd = {"model.embed_tokens.weight": params.pop("embed"),
+          "lm_head.weight": params.pop("lm_head").t().contiguous(),
+          "model.norm.weight": params.pop("final_norm")}
+    keys = llama.hf_layer_keys(cfg, False)
+    for i, lw in enumerate(params.pop("layers")):
+        for name, (key, kind) in keys.items():
+            t = lw.pop(name)
+            if kind == "x":
+                for e in range(t.shape[0]):
+                    sd[f"model.layers.{i}.{key.format(e=e)}"] = t[e].t().contiguous()
+            elif kind == "n":
+                sd[f"model.layers.{i}.{key}"] = t
+            else:
+                sd[f"model.layers.{i}.{key}"] = t.t().contiguous()
+            del t
+    for key, t in sd.items():
+        if key.endswith("norm.weight"):
+            t.add_(torch.randn(t.shape, generator=gen, device=dev).mul_(0.1).to(t.dtype))
+    return sd
+
+
+def _held_to_hf(torch, label, cfg, params, sd) -> None:
+    """Every parameter the loader made equal to the HF tensor it read
+    (Linear weights transposed, expert stacks [E, in, out], gemma's norms
+    folded to f32(w) + 1)."""
+    from dmi_tpu_torch.models import llama
+
+    def norm(t):
+        return t.float() + 1 if cfg.norm_plus_one else t
+
+    same = torch.equal(params["embed"], sd["model.embed_tokens.weight"])
+    same &= torch.equal(params["final_norm"], norm(sd["model.norm.weight"]))
+    if not cfg.tie_word_embeddings:
+        same &= torch.equal(params["lm_head"], sd["lm_head.weight"].t())
+    for i, lw in enumerate(params["layers"]):
+        for name, (key, kind) in llama.hf_layer_keys(cfg, False).items():
+            if kind == "x":
+                ref = torch.stack([sd[f"model.layers.{i}.{key.format(e=e)}"].t()
+                                   for e in range(cfg.num_experts)])
+            else:
+                t = sd[f"model.layers.{i}.{key}"]
+                ref = t.t() if kind == "w" else norm(t) if kind == "n" else t
+            same &= lw[name].dtype == ref.dtype and torch.equal(lw[name], ref)
+    print(f"  {label}: every tensor equal to the HF one it was read from: {same}")
+    if not same:
+        raise AssertionError(f"{label}: a loaded tensor differs from the HF one")
+
+
+def _config_of(label, cfg, want) -> None:
+    got = {k: getattr(cfg, k) for k in want}
+    print(f"  {label} config: {got}")
+    if got != want:
+        raise AssertionError(f"{label}: config {got} != the published {want}")
+
+
+def olmoe_load_phase(torch, dev):
+    """OLMoE-1B-7B at full width and depth, in memory: OLMOE_1B_7B through
+    the loader's _hf_to_config, random bf16 weights under the olmoe HF names
+    through from_hf_state_dict (13.8 GB: a directory this size would cost the
+    smoke more disk and time than it has), held to the published config and
+    to every HF tensor.  Returns the config and the parameters."""
+    from dmi_tpu_torch.models import llama
+    from dmi_tpu_torch.training.model_utils import _hf_to_config
+
+    c = OLMOE_1B_7B
+    cfg = _hf_to_config(c, torch.bfloat16, None)
+    _config_of(OLMOE, cfg, {
+        "vocab_size": 50304, "hidden_size": 2048, "intermediate_size": 1024,
+        "num_hidden_layers": 16, "num_attention_heads": 16, "num_key_value_heads": 16,
+        "head_dim": 128, "num_experts": 64, "num_experts_per_tok": 8, "moe_norm_topk": False,
+        "qk_norm_wide": True, "tie_word_embeddings": False, "rope_theta": 10000.0,
+        "rms_norm_eps": 1e-5, "eos_token_ids": (50279,)})
+    t0 = time.perf_counter()
+    sd = hf_state_dict_of(torch, dev, cfg, SEED + 30)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in sd.values())
+    t0 = time.perf_counter()
+    params = llama.from_hf_state_dict(sd, cfg, dev)
+    torch.cuda.synchronize()
+    print(f"{OLMOE} in memory: {n} parameters, {2 * n} bytes of bf16 in {len(sd)} HF tensors "
+          f"made in {made_s!r} s, read by from_hf_state_dict in {time.perf_counter() - t0!r} s")
+    _held_to_hf(torch, OLMOE, cfg, params, sd)
+    del sd
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def v2lite_load_phase(torch, dev):
+    """DeepSeek-V2-Lite's widths, 4 layers, from disk: V2_LITE and random
+    bf16 weights written as an HF deepseek_v2 directory (three safetensors
+    shards), read back through build_lm, held to the published config
+    (yarn, MLA widths, the deepseek MoE) and bit for bit to what was
+    written, and removed.  Returns the config and the parameters."""
+    from dmi_tpu_torch.config import LMArgs
+    from dmi_tpu_torch.models import llama
+    from dmi_tpu_torch.training.model_utils import _hf_to_config, build_lm
+
+    c = V2_LITE
+    want = {"vocab_size": 102400, "hidden_size": 2048, "intermediate_size": 1408,
+            "num_hidden_layers": 4, "num_attention_heads": 16, "num_key_value_heads": 16,
+            "head_dim": 192, "q_lora_rank": None, "kv_lora_rank": 512, "qk_nope_head_dim": 128,
+            "qk_rope_head_dim": 64, "v_head_dim": 128, "rope_interleaved": True,
+            "num_experts": 64, "num_experts_per_tok": 6, "n_shared_experts": 2,
+            "routed_scaling_factor": 1.0, "moe_norm_topk": False, "moe_gate_fp32": True,
+            "rope_yarn_factor": 40.0, "rope_original_max_position": 4096,
+            "rope_yarn_mscale": 0.707, "rope_yarn_mscale_all_dim": 0.707,
+            "rms_norm_eps": 1e-6, "tie_word_embeddings": False, "eos_token_ids": (100001,)}
+    sd = hf_state_dict_of(torch, dev, _hf_to_config(c, torch.bfloat16, None), SEED + 40)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_dir = os.path.join(tmp, "deepseek-v2-lite-4-layers-smoke")
+        os.makedirs(lm_dir)
+        t0 = time.perf_counter()
+        written = write_hf_dir(torch, lm_dir, c, sd, n_shards=3)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cfg, params = build_lm(LMArgs(lm_name_or_path=lm_dir, lm_dtype="bfloat16"), None,
+                               device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"{V2} (4 layers) from disk: wrote {written} bytes ({sorted(os.listdir(lm_dir))}) "
+              f"in {write_s!r} s; build_lm read them in {load_s!r} s "
+              f"({written / load_s / 1e9!r} GB/s), "
+              f"{(torch.cuda.memory_allocated() - base) / 2**30!r} GiB on the card")
+    _config_of(V2, cfg, want)
+    print(f"  yarn attention factor {llama.rope_attention_factor(cfg)!r}, rope over "
+          f"{llama.rope_dim(cfg)} dims")
+    _held_to_hf(torch, V2, cfg, params, sd)
+    del sd
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def routing_check(torch, dev, label, cfg, params) -> None:
+    """Which experts one batch's prefill routes to (llama.moe_gate_weights
+    watched), over 128 prompts of 16 random tokens (the serving prompts
+    share their chat prefix and differ in the soft token alone): every
+    expert of every layer is chosen at least once, and the tokens' top-k
+    sets are many."""
+    from dmi_tpu_torch.models import decode as dec
+    from dmi_tpu_torch.models import llama
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    ids = torch.randint(0, cfg.vocab_size, (128, len(PREFIX_IDS) + 1), generator=gen,
+                        device=dev)
+    picks, real = [], llama.moe_gate_weights
+
+    def watched(c, logits):
+        w = real(c, logits)
+        picks.append((w > 0).reshape(-1, w.shape[-1]))
+        return w
+
+    llama.moe_gate_weights = watched
+    try:
+        with torch.no_grad():
+            dec._prefill_caches(cfg, params, llama.embed_tokens(cfg, params, ids), ids.shape[1])
+    finally:
+        llama.moe_gate_weights = real
+    used = [int(p.any(0).sum()) for p in picks]
+    sets = [int(torch.unique(p, dim=0).shape[0]) for p in picks]
+    k = {int(n) for p in picks for n in p.sum(-1).unique().tolist()}
+    print(f"  {label} routing in one prefill of {ids.shape[0]} x {ids.shape[1]} random tokens: "
+          f"experts chosen per layer {used} of {cfg.num_experts}; distinct top-"
+          f"{cfg.num_experts_per_tok} sets per layer {sets} of {ids.numel()} tokens; experts "
+          f"a token {k}")
+    if len(picks) != cfg.num_hidden_layers or k != {cfg.num_experts_per_tok}:
+        raise AssertionError(f"{label}: {len(picks)} gates, {k} experts a token")
+    if min(used) < cfg.num_experts or min(sets) < ids.numel() // 4:
+        raise AssertionError(f"{label}: routing is degenerate ({used}, {sets})")
+
+
+def moe_mla_kernel_phase(torch, dev, label, cfg, params):
+    """The kernels at the shapes a model gives them, B 128, each against its
+    twin and timed beside its bound and library call (OLMoE: decode
+    attention at group 1, with an [S] and a [B, S] bias, the untied head's
+    argmax, the flash kernels at 16/16 heads, hd 128, B 32, T 65, W4A8 at
+    w_qkv and wo; V2-Lite: the untied head's argmax at V 102400), and the
+    torch-op blocks of a layer-step: the routed MLP beside its bytes bound
+    (MLA: also the absorbed attention over a latent cache of S 38)."""
+    import torch.nn.functional as F
+
+    from dmi_tpu_torch.models import decode as dec
+    from dmi_tpu_torch.models import llama, quant
+    from dmi_tpu_torch.ops.cuda import decode_attn as da
+    from dmi_tpu_torch.ops.cuda import flash_attn as fa
+    from dmi_tpu_torch.ops.cuda import head_argmax as tha
+    from dmi_tpu_torch.ops.cuda import w4_matmul as w4
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    B, S = 128, len(PREFIX_IDS) + 1 + MAX_NEW
+    H, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_hidden_layers
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    bf = torch.bfloat16
+    tag = "olmoe" if label == OLMOE else "v2lite"
+    results = {}
+    print(f"{label}'s kernels vs their twins (B {B}):")
+    h = torch.randn(H, B, generator=gen, device=dev).to(bf)
+
+    head = dec.fused_head_weights(cfg, params)
+    gap = head_check(torch, tha, f"head argmax bf16 V={V} H={H} (the untied lm_head's rows)",
+                     head, h, "bf16")
+    t = {**device_times(torch, lambda: tha.head_argmax(head, h),
+                        lambda: tha._head_argmax_plain(head["embed"], h),
+                        lambda: (params["lm_head"].t() @ h).argmax(dim=0)),
+         **least_time(nbytes(head["embed"], h) + 4 * B, 2 * V * H * B, bf)}
+    plan = {k: v for k, v in tha.plan(V, H, B, "bf16").items() if k != "runs"}
+    print(f"    {report_times(t)}; library: lm_head.t() @ h, argmax (the logits path); "
+          f"the rows' copy {device_ms(lambda: params['lm_head'].t().contiguous()) * 1e3!r} us "
+          f"once a call; plan {plan}")
+    results[f"head_argmax_{tag}"] = {"max_abs_err": gap, **t}
+
+    if cfg.kv_lora_rank is None:
+        scale = llama.attn_score_scale(cfg)
+        q = torch.randn(B, nh, 1, hd, generator=gen, device=dev).to(bf)
+        k, v = (torch.randn(B, nkv, S, hd, generator=gen, device=dev).to(bf) for _ in range(2))
+        fmin = torch.finfo(torch.float32).min
+        rows = torch.full((B, S), fmin, device=dev)
+        rng = np.random.default_rng(SEED + 31)
+        T, budget = len(PREFIX_IDS) + 1, MAX_NEW
+        for b in range(1, B):  # ring masks; row 0 a slot never used
+            rows[b, :T] = 0.0
+            start, n = int(rng.integers(budget)), int(rng.integers(1, budget + 1))
+            rows[b, T + (start + torch.arange(n, device=dev)) % budget] = 0.0
+        for key, bias, lib_mask in (("decode_attention", torch.zeros(S, device=dev), None),
+                                    ("decode_attention_rows", rows,
+                                     rows.view(B, 1, 1, S).to(bf))):
+            args = (q, k, v, bias, scale, None)
+            name = (f"decode attention {nh}/{nkv} heads (group {nh // nkv}) hd {hd} S {S} "
+                    f"{'[S]' if bias.ndim == 1 else '[B, S] ring'} bias")
+            err = compare(torch, name, da.fused_decode_attention(*args),
+                          da._decode_attn_plain(*args), TOL["bfloat16"])
+            t = {**device_times(torch, lambda: da.fused_decode_attention(*args),
+                                lambda: da._decode_attn_plain(*args),
+                                lambda m=lib_mask: F.scaled_dot_product_attention(
+                                    q, k, v, attn_mask=m, scale=scale)),
+                 **least_time(nbytes(q, k, v, bias, q), 4 * B * nh * S * hd, bf)}
+            print(f"    {report_times(t)}; library: scaled_dot_product_attention (MHA); plan "
+                  f"{da.plan(B, nkv, nh // nkv, S, hd, 2)}")
+            results[f"{key}_{tag}"] = {"max_abs_err": err, **t}
+
+        Tt = TRAIN_TEXT + 1
+        q, k, v = (torch.randn(TRAIN_BATCH, Tt, n, hd, generator=gen, device=dev).to(bf)
+                   .transpose(1, 2).requires_grad_() for n in (nh, nkv, nkv))
+        do = torch.randn(TRAIN_BATCH, nh, Tt, hd, generator=gen, device=dev).to(bf)
+        out, ref = fa.flash_attention(q, k, v, None, 0.125), fa._flash_attn_plain(q, k, v, None,
+                                                                                   0.125)
+        got, want = (torch.autograd.grad(o, (q, k, v), do) for o in (out, ref))
+        name = f"flash B={TRAIN_BATCH} T={Tt} {nh}/{nkv} heads hd {hd} bf16"
+        errs = {"flash_fwd": compare(torch, f"{name} out", out.detach(), ref.detach(),
+                                     TOL["bfloat16"]),
+                "flash_bwd_dq": compare(torch, f"{name} dq", got[0], want[0],
+                                        GRAD_TOL["bfloat16"]),
+                "flash_bwd_dkv": max(compare(torch, f"{name} dk", got[1], want[1],
+                                             GRAD_TOL["bfloat16"]),
+                                     compare(torch, f"{name} dv", got[2], want[2],
+                                             GRAD_TOL["bfloat16"]))}
+        t = flash_timings(torch, fa, *(x.detach() for x in (q, k, v)), do)
+        for key, kt in t.items():
+            print(f"    {key} {name}: {report_times(kt)}; library: scaled_dot_product_attention, "
+                  "causal (backward: its forward+backward less its forward)")
+            results[f"{key}_{tag}"] = {"max_abs_err": errs[key], **kt}
+
+        lw = params["layers"][0]
+        times = {}
+        for wname in ("w_qkv", "wo"):
+            wq = quant.quantize_tensor_int4(lw[wname])
+            K, n_out = lw[wname].shape
+            hq, a = quant.quantize_act(torch.randn(K, B, generator=gen, device=dev), axis=0)
+            got = w4.w4_mm_bl(wq, hq, a, bf)
+            torch.cuda.synchronize()
+            if not torch.equal(got, w4._w4_mm_plain(wq, hq, a, bf)):
+                raise AssertionError(f"w4 {wname} K={K} out={n_out}: differs from its twin")
+            hq_t = hq.t().contiguous()
+            t = {**device_times(torch, lambda: w4.w4_mm_bl(wq, hq, a, bf),
+                                lambda: w4._w4_mm_plain(wq, hq, a, bf),
+                                lambda: (torch._int_mm(hq_t, quant.unpack_w4(wq["qp"])).t()
+                                         .float() * wq["s"].reshape(-1, 1) * a).to(bf)),
+                 **least_time(nbytes(wq["qp"], wq["s"], hq, a) + n_out * B * 2,
+                              2 * K * n_out * B, torch.int8)}
+            print(f"    w4a8 {wname} K={K} out={n_out} B={B}: bit-equal to its twin; "
+                  f"{report_times(t)}; library: unpack, torch._int_mm, rescale")
+            times[wname] = t
+        results[f"w4_mm_{tag}"] = {"max_abs_err": 0.0, **times["w_qkv"],
+                                   "by_shape": {n: {k: v for k, v in t.items()}
+                                                for n, t in times.items()}}
+
+    lw = params["layers"][0]
+    hn = torch.randn(H, B, generator=gen, device=dev).to(bf)
+    E, I = cfg.num_experts, cfg.intermediate_size
+    with torch.no_grad():
+        moe_ms = device_ms(lambda: dec._moe_mlp_bl(cfg, lw, hn))
+    stacks = nbytes(lw["moe_w1"], lw["moe_w3"], lw["moe_w2"], lw["w_router"], hn, hn)
+    shared = sum(nbytes(lw[k]) for k in ("w_shared_gate", "w_shared_up", "w_shared_down")
+                 if k in lw)
+    bound = least_time(stacks + shared, 2 * B * 3 * H * I * (E + cfg.n_shared_experts), bf)
+    print(f"  {label} routed MLP (dense-evaluated, torch ops) per layer-step at B {B}: "
+          f"{moe_ms * 1e3!r} us, bound {bound['bound_ms'] * 1e3!r} us ({bound['bound_by']}: "
+          f"{(stacks + shared) / 1e9!r} GB of experts); x {L} layers "
+          f"{moe_ms * L!r} ms a step")
+    if cfg.kv_lora_rank is not None:
+        latent = torch.randn(B, S, cfg.kv_lora_rank + cfg.qk_rope_head_dim, generator=gen,
+                             device=dev).to(bf)
+        cos, sin = llama.rope_tables(cfg, torch.tensor(S - 1, device=dev))
+        zero = torch.zeros(S, device=dev)
+        with torch.no_grad():
+            mla_ms = device_ms(lambda: dec._mla_attn_bl(cfg, lw, hn, latent, S - 1, S, zero,
+                                                        cos, sin))
+        r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim)
+        # the projections, the absorption into q and out, and the two
+        # products over the cache
+        macs = B * (H * nh * (dn + dr) + H * (r + dr) + nh * dn * r + nh * r * dv
+                    + S * nh * (2 * r + dr))
+        mla_bound = least_time(nbytes(latent, lw["wq"], lw["wkv_a"], lw["wkv_b"], hn)
+                               + 2 * nh * dv * B, 2 * macs, bf)
+        print(f"  {label} absorbed MLA attention (torch ops, latent cache [B, S {S}, "
+              f"{latent.shape[-1]}]) per layer-step at B {B}: {mla_ms * 1e3!r} us, bound "
+              f"{mla_bound['bound_ms'] * 1e3!r} us ({mla_bound['bound_by']})")
+    return results
+
+
+def prompt_ids(cfg):
+    """The chat prefix and pad id of a model whose vocabulary is smaller than
+    Llama-3's: PREFIX_IDS and PAD_ID modulo its vocab_size."""
+    return [t % cfg.vocab_size for t in PREFIX_IDS], PAD_ID % cfg.vocab_size
+
+
+def family_serving_phase(torch, dev, label, cfg, params, seed, w4a8=False):
+    """A model served through the Captioner: the 300 requests at batch 128
+    on the batch-last loop (bf16, greedy, EOS off) against its plain path,
+    then one batch on the batch-first loop, one sampled batch (SAMPLE)
+    against its plain path, the bulk engine beside the batch engine on EOS
+    ids chosen mid-budget and, with w4a8, one int8="w4a8" batch against its
+    plain path; launch counts set to 0 before each run and checked after:
+    decode attention on every layer-step but MLA's (torch ops), the decode
+    MLP on every dense layer-step and never a MoE one, the head + argmax
+    on every greedy step of a bf16 head it can read (tied, or untied rows).
+    At least half the rows' ids differ.  The chat prefix and the pad id are
+    PREFIX_IDS and PAD_ID modulo the vocabulary (prompt_ids).  Returns the
+    launch counts, the projector and the requests."""
+    from dmi_tpu_torch.models import decode as dec
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.serve import Captioner
+
+    card = nvidia_smi()
+    spec = proj.ProjectorSpec(mm_dim=MM_DIM, lm_dim=cfg.hidden_size)
+    pp = proj.init(spec, torch.Generator(device=dev).manual_seed(seed),
+                   dtype=torch.float32, device=dev)
+    embs = np.random.default_rng(SEED).normal(size=(N_REQUESTS, MM_DIM)).astype(np.float32)
+    L, steps = cfg.num_hidden_layers, MAX_NEW - 1
+    attn = 0 if cfg.kv_lora_rank is not None else L
+    mlp = 0 if cfg.num_experts else L
+    fused = dec.fused_head_weights(cfg, params) is not None
+    prefix, pad = prompt_ids(cfg)
+
+    def captioner(c=cfg, **kw):
+        return Captioner(c, params, spec, pp, max_new_tokens=MAX_NEW, batch_size=128,
+                         prefix_ids=prefix, pad_token_id=pad, **kw)
+
+    def run(name, cap, requests, per_batch, **kw):
+        cap.caption_ids(requests[:128], **kw)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        ids = cap.caption_ids(requests, **kw)
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        print(f"{label} {name}: {len(requests)} requests at batch 128, {secs!r} s, "
+              f"{len(requests) / secs!r} captions/s ({card})")
+        _expect(name, counts, {k: n * -(-len(requests) // 128) for k, n in per_batch.items()})
+        _check_ids(cfg, name, ids, len(requests))
+        return ids, counts
+
+    loop = {"mlp2": 1, "decode_attention": attn * steps}
+    out = {}
+    cap = captioner()
+    ids, out[f"{label} serving batch-last"] = run(
+        "(a) batch-last bf16 greedy", cap, embs,
+        {**loop, "decode_mlp": mlp * steps, "head_argmax": steps if fused else 0})
+    rows = len({tuple(r) for r in ids.tolist()})
+    print(f"  {rows} distinct rows of {len(ids)}, {len(torch.unique(ids))} distinct tokens")
+    if rows < len(ids) // 2:
+        raise AssertionError(f"{label}: the rows' ids are alike (the random model echoes)")
+    token_agreement("its plain path", ids, cap.caption_ids(embs, plain=True))
+    print(f"where one {label} batch-last batch's time goes:")
+    profile_run(torch, f"{label} batch 128, batch-last bf16", lambda: cap.caption_ids(embs[:128]))
+    first, out[f"{label} serving batch-first"] = run(
+        "(b) batch-first", captioner(batch_first=True), embs[:128], loop)
+    token_agreement("the batch-last loop", first, ids[:128])
+    token_agreement("the batch-first plain path", first,
+                    captioner(batch_first=True).caption_ids(embs[:128], plain=True))
+    sampled, out[f"{label} serving sampled"] = run(
+        f"(c) sampled {SAMPLE}", cap, embs[:128], {**loop, "decode_mlp": mlp * steps}, **SAMPLE)
+    token_agreement("its plain path", sampled, cap.caption_ids(embs[:128], plain=True, **SAMPLE))
+
+    eos, mean_len = _mid_budget_eos(ids, pad=pad)
+    print(f"{label} (d) bulk beside batch: EOS ids {eos} (mean length {mean_len!r} of "
+          f"{MAX_NEW} in the greedy ids)")
+    ecap = captioner(dataclasses.replace(cfg, eos_token_ids=eos))
+    for engine in ("batch", "bulk"):  # warm-up
+        ecap.caption_ids(embs[:128], engine=engine)
+    runs = {}
+    for engine in ("batch", "bulk"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        runs[engine] = ecap.caption_ids(embs, engine=engine)
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        _check_ids(cfg, f"engine={engine}", runs[engine], len(embs))
+        print(f"  engine={engine}: {len(embs) / secs!r} captions/s ({card})")
+    eng = ecap.bulk_engine
+    _expect(f"{label} engine=bulk", counts,
+            {"mlp2": eng.admissions, "decode_attention": attn * eng.steps,
+             "decode_attention_rows": attn * eng.steps, "decode_mlp": mlp * eng.steps,
+             "head_argmax": eng.steps if fused else 0})
+    out[f"{label} serving bulk"] = counts
+    token_agreement("the batch engine", runs["bulk"], runs["batch"])
+    del ecap
+    if w4a8:
+        qcap = captioner(int8="w4a8")
+        # w_qkv and wo of each layer-step and the untied head's step: the
+        # expert stacks are dequantized into their products
+        matmuls = 2 * L + (0 if cfg.tie_word_embeddings else 1)
+        qids, out[f"{label} serving w4a8"] = run(
+            '(e) int8="w4a8"', qcap, embs[:128], {**loop, "w4_mm": matmuls * steps})
+        token_agreement("its plain path", qids, qcap.caption_ids(embs[:128], plain=True))
+        print(f"  token agreement with the bf16 tree (information: int4 weights move "
+              f"tokens): {(qids == ids[:128]).float().mean().item()!r}")
+        del qcap
+    torch.cuda.empty_cache()
+    return out, (spec, pp), embs
+
+
+def moe_mla_phase(torch, dev, label, cfg, params, seed, w4a8=False):
+    """One MoE or MLA model on the card: its kernels at its shapes, the
+    routing of one batch's prefill, its serving paths (family_serving_phase) and,
+    for OLMoE, 10 stage-1 micro-steps on the flash route.  Returns its
+    kernels' entries and its paths' launch counts."""
+    from dmi_tpu_torch.models import llama
+
+    # EOS off, as the other phases have it; the fused layout the Captioner
+    # would make, once
+    cfg = dataclasses.replace(cfg, eos_token_ids=())
+    params = llama.fuse_projections(params)
+    kernels = moe_mla_kernel_phase(torch, dev, label, cfg, params)
+    routing_check(torch, dev, label, cfg, params)
+    paths = family_serving_phase(torch, dev, label, cfg, params, seed, w4a8)[0]
+    if label == OLMOE:
+        paths[f"{label} stage 1"] = train_phase(torch, dev, cfg, params,
+                                                label=f"{label} stage 1")
     del params
     torch.cuda.empty_cache()
     return kernels, paths
@@ -2631,6 +3078,15 @@ def main() -> int:
     gemma_kernels, gemma_paths = gemma_phase(torch, dev)
     kernels.update(gemma_kernels)
     paths.update(gemma_paths)
+    for label, load, seed, w4a8 in ((OLMOE, olmoe_load_phase, SEED + 32, True),
+                                    (V2, v2lite_load_phase, SEED + 42, False)):
+        model_cfg, model_params = load(torch, dev)
+        model_kernels, model_paths = moe_mla_phase(torch, dev, label, model_cfg, model_params,
+                                                   seed, w4a8)
+        del model_params
+        torch.cuda.empty_cache()
+        kernels.update(model_kernels)
+        paths.update(model_paths)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("dmi_tpu", "jax"))
     if jax_side:
         raise AssertionError(f"the smoke loaded modules of the JAX side: {jax_side}")
@@ -2696,7 +3152,39 @@ def main() -> int:
                                     "dmi_tpu/ops/pallas/decode_mlp.py:97", GEMMA_PATH,
                                     "decode_mlp"),
                "head_argmax_gemma": ("head_argmax bf16 at Gemma-2-2B (V 256000, H 2304)", *head,
-                                     GEMMA_PATH, "head_argmax")}
+                                     GEMMA_PATH, "head_argmax"),
+               "decode_attention_olmoe": ("fused_decode_attention at OLMoE-1B-7B (16/16 heads, "
+                                          "group 1, hd 128)",
+                                          "dmi_tpu_torch/csrc/decode_attn.cu",
+                                          "dmi_tpu/ops/pallas/decode_attn.py:121",
+                                          f"{OLMOE} serving batch-last", "decode_attention"),
+               "decode_attention_rows_olmoe": ("fused_decode_attention at OLMoE-1B-7B, a [B, S] "
+                                               "bias row per slot",
+                                               "dmi_tpu_torch/csrc/decode_attn.cu",
+                                               "dmi_tpu/ops/pallas/decode_attn.py:121",
+                                               f"{OLMOE} serving bulk", "decode_attention_rows"),
+               "head_argmax_olmoe": ("head_argmax bf16 at OLMoE-1B-7B's untied head (V 50304, "
+                                     "H 2048)", *head, f"{OLMOE} serving batch-last",
+                                     "head_argmax"),
+               "w4_mm_olmoe": ("w4_mm_bl at OLMoE-1B-7B (w_qkv 2048 -> 6144; wo in by_shape)",
+                               *int8_mm, f"{OLMOE} serving w4a8", "w4_mm"),
+               "flash_fwd_olmoe": ("flash_attention forward at OLMoE-1B-7B (16/16 heads, hd "
+                                   "128)", "dmi_tpu_torch/csrc/flash_attn_fwd.cu",
+                                   f"dmi_tpu/models/llama.py:1086 ({flash}:758 "
+                                   "_flash_attention_impl)", f"{OLMOE} stage 1", "flash_fwd"),
+               "flash_bwd_dkv_olmoe": ("flash_attention backward dK/dV at OLMoE-1B-7B",
+                                       "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
+                                       f"dmi_tpu/models/llama.py:1086 ({flash}:1121 "
+                                       "_flash_attention_bwd_dkv)", f"{OLMOE} stage 1",
+                                       "flash_bwd_dkv"),
+               "flash_bwd_dq_olmoe": ("flash_attention backward dQ at OLMoE-1B-7B",
+                                      "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
+                                      f"dmi_tpu/models/llama.py:1086 ({flash}:1456 "
+                                      "_flash_attention_bwd_dq)", f"{OLMOE} stage 1",
+                                      "flash_bwd_dq"),
+               "head_argmax_v2lite": ("head_argmax bf16 at DeepSeek-V2-Lite's untied head "
+                                      "(V 102400, H 2048)", *head, f"{V2} serving batch-last",
+                                      "head_argmax")}
     print(f"launches by path: {paths}")
     report = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": paths[path][count], **kernels[key]}

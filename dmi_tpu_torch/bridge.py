@@ -37,21 +37,10 @@ def to_torch(a, device="cpu") -> torch.Tensor:
 
 
 def config_from_jax(jcfg) -> llama.LlamaConfig:
-    """The port's config for a dmi_tpu LlamaConfig of a dense family.  Raises
-    NotImplementedError when it sets a field of the MoE or MLA families (or
-    yarn rope scaling)."""
-    ported = {f.name for f in dataclasses.fields(llama.LlamaConfig)}
-    kw = {}
-    for f in dataclasses.fields(jcfg):
-        value = getattr(jcfg, f.name)
-        if f.name in ported:
-            kw[f.name] = value
-        elif f.name not in _IGNORED and value != f.default:
-            feature = llama.UNPORTED_FIELDS.get(f.name, "family")
-            raise NotImplementedError(
-                f"{f.name}={value!r}: {feature} are not ported yet "
-                "(ROADMAP.md A.9, decoder families)"
-            )
+    """The port's config for a dmi_tpu LlamaConfig of any family: the same
+    fields, with a torch dtype and tuples where JAX code may hold lists."""
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
+          if f.name not in _IGNORED}
     kw["dtype"] = getattr(torch, np.dtype(jcfg.dtype).name)
     kw["eos_token_ids"] = tuple(kw["eos_token_ids"])
     if kw["layer_sliding"] is not None:
@@ -60,7 +49,8 @@ def config_from_jax(jcfg) -> llama.LlamaConfig:
 
 
 def llm_params_from_jax(jparams: dict, device="cpu") -> dict:
-    """dmi_tpu LLM pytree (stacked [L, ...] layers) -> the port's params.
+    """dmi_tpu LLM pytree (stacked [L, ...] layers) -> the port's params
+    (an expert stack [L, E, in, out] becomes [E, in, out] per layer).
 
     A tree quantized by dmi_tpu.models.quant.quantize_llama converts too: a
     leaf that is a dict of stacked arrays ({"q"|"q8"|"qp", "s"|"s4g"})

@@ -9,9 +9,10 @@ the default generation config, i.e. pure greedy, with HF's semantics:
   * per-sequence finish on any EOS id; finished sequences emit pad_token_id
   * the terminating EOS itself is written before the sequence is padded
 
-The caches are [L, B, nkv, S, hd] per K and V, preallocated at prompt
-length + max_new_tokens and written in place; each step attends to the
-positions written so far.  The loops stop when every row is done.
+The caches are [L, B, nkv, S, hd] per K and V (MLA's expanded per head, V
+at v_head_dim), preallocated at prompt length + max_new_tokens and written
+in place; each step attends to the positions written so far.  The loops
+stop when every row is done.
 
 The sampled loops (sample_generate_bl, and sample_generate batch-first)
 draw with request-indexed randomness: row r's token at age n is a pure
@@ -26,18 +27,22 @@ their law, not bit for bit.
 The batch-last loop (greedy_generate_bl) keeps a decode step's activations
 as [features, B], the form its kernels take: the whole gated MLP in one
 weight stream (ops/cuda/decode_mlp), the packed W4A8 and the W8A8 matmuls
-(ops/cuda/w4_matmul) and the tied head fused with the argmax
-(ops/cuda/head_argmax); an untied head takes _mm_bl(lm_head, h) and an
-argmax, as dmi_tpu's loop does.  It serves unquantized trees and the three
-quantized ones of models/quant.py, and every dense family's step (q/k/v
-biases, q/k norms, post-block norms, post-norm blocks, granite's residual
-multiplier, a sliding layer's window row, gemma-3's local rope).  Prefill stays batch-first and the K/V
-caches stay as prefill wrote them: the step transposes only its own
-[nh*hd, B] tensors and attends through the decode-attention kernel
-(ops/cuda/decode_attn).  dmi_tpu's merged [L, 2, nkv, S, hd, B] cache, its
-windowed phase schedule and its two-token unroll are TPU lane-layout and
-while_loop compile choices with no counterpart here: the Python loop
-attends to the pos + 1 written positions, which is token-exact.
+(ops/cuda/w4_matmul) and the head fused with the argmax
+(ops/cuda/head_argmax: the tied embed, or an untied bf16 lm_head's rows);
+a quantized untied head takes _mm_bl(lm_head, h) and an argmax, as
+dmi_tpu's loop does.  It serves unquantized trees and the three quantized
+ones of models/quant.py, and every family's step (q/k/v biases, q/k norms,
+post-block norms, post-norm blocks, granite's residual multiplier, a
+sliding layer's window row, gemma-3's local rope, the MoE families' routed
+MLP, deepseek-v2's absorbed MLA over a latent cache).  Prefill stays
+batch-first and the K/V caches stay as prefill wrote them: the step
+transposes only its own [nh*hd, B] tensors and attends through the
+decode-attention kernel (ops/cuda/decode_attn).  MLA's latent cache is
+[L, B, S, r + dr], one row per token for all heads.  dmi_tpu's merged
+[L, 2, nkv, S, hd, B] cache, its windowed phase schedule and its two-token
+unroll are TPU lane-layout and while_loop compile choices with no
+counterpart here: the Python loop attends to the pos + 1 written positions,
+which is token-exact.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ import torch
 
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.models.llama import LlamaConfig
-from dmi_tpu_torch.models.quant import int_matmul, quantize_act, unpack_w4
+from dmi_tpu_torch.models.quant import dequantize, int_matmul, quantize_act, unpack_w4
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
 from dmi_tpu_torch.ops.cuda.decode_mlp import _decode_mlp_plain, fused_decode_mlp_bl
 from dmi_tpu_torch.ops.cuda.head_argmax import _head_argmax_plain, head_argmax, head_logits_bl
@@ -60,9 +65,21 @@ NEG_INF = llama.NEG_INF
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
+    """The batch-first K and V caches [L, B, nkv, S, hd].  MLA's are
+    expanded per head, as dmi_tpu's: K at the q/k width (nkv == nh), V at
+    v_head_dim."""
+    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len)
+    v_dim = cfg.v_head_dim if cfg.kv_lora_rank is not None else cfg.head_dim
+    return (torch.zeros(shape + (cfg.head_dim,), dtype=cfg.dtype, device=device),
+            torch.zeros(shape + (v_dim,), dtype=cfg.dtype, device=device))
+
+
+def init_latent_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cpu") -> torch.Tensor:
+    """MLA's compressed cache for the batch-last loop, [L, B, S, r + dr]:
+    one row per token for all heads, [normed kv latent | roped shared key]
+    (dmi_tpu's [L, 1, 1, S, r + dr, B] in the port's batch-first order)."""
+    return torch.zeros((cfg.num_hidden_layers, batch, max_len,
+                        cfg.kv_lora_rank + cfg.qk_rope_head_dim), dtype=cfg.dtype, device=device)
 
 
 def _run_layers(cfg, params, x, rope, bias, caches, cache_index: int,
@@ -330,6 +347,21 @@ def _rope_bl(x, cos, sin):
     return (xf * c + _rotate_half_rows(xf) * s).to(x.dtype)
 
 
+def _rope_interleaved_bl(x, cos, sin):
+    """Deepseek's interleaved rope for batch-last tensors: adjacent rows
+    (x[2j], x[2j+1]) rotate as complex pairs (llama.apply_rope_interleaved).
+    x [..., d, B]; cos/sin the duplicated [d] tables of one shared position
+    or [d, B] per slot, pair j reading entry j; computed in f32."""
+    d2 = x.shape[-2] // 2
+    c = (cos[:, None] if cos.ndim == 1 else cos)[:d2].float()
+    s = (sin[:, None] if sin.ndim == 1 else sin)[:d2].float()
+    xf = x.float()
+    even, odd = xf[..., 0::2, :], xf[..., 1::2, :]
+    # pairs stacked after d2: the (d2, 2) flattening restores the row order
+    out = torch.stack([even * c - odd * s, odd * c + even * s], dim=-2)
+    return out.reshape(x.shape).to(x.dtype)
+
+
 def _rms_norm_bl(x, scale, eps):
     """rms_norm over the leading (feature) axis of a batch-last [H, B]."""
     xf = x.float()
@@ -368,6 +400,98 @@ def _mm_bl(w, h, plain: bool = False):
     raise ValueError(f"unknown quantized dict keys {sorted(w)}")
 
 
+def _moe_mlp_bl(cfg, lw, hn, plain: bool = False):
+    """The dense-evaluated sparse-MoE MLP, batch-last (dmi_tpu's
+    _moe_mlp_bl): hn [H, B] -> [H, B], llama._moe_mlp's math with the
+    expert axis leading.  The router product runs in the model dtype (f32
+    with moe_gate_fp32); the expert stacks are dequantized into their
+    products (torch ops, as dmi_tpu's XLA einsums; no kernel); deepseek's
+    shared experts go through _mm_bl, so a quantized tree runs them on the
+    int8 kernels."""
+    if cfg.moe_gate_fp32:
+        router = dequantize(lw["w_router"], torch.float32).float().t() @ hn.float()
+    else:
+        router = _mm_bl(lw["w_router"], hn, plain)  # [E, B]
+    w_e = llama.moe_gate_weights(cfg, router.t()).t().to(hn.dtype)  # [E, B]
+    g = dequantize(lw["moe_w1"], hn.dtype).transpose(1, 2) @ hn  # [E, I, B]
+    u = dequantize(lw["moe_w3"], hn.dtype).transpose(1, 2) @ hn
+    y = dequantize(lw["moe_w2"], hn.dtype).transpose(1, 2) @ (llama.mlp_activation(cfg, g) * u)
+    out = (y * w_e[:, None, :]).sum(dim=0)  # [H, B]
+    if cfg.n_shared_experts:
+        gate = llama.mlp_activation(cfg, _mm_bl(lw["w_shared_gate"], hn, plain))
+        out = out + _mm_bl(lw["w_shared_down"], gate * _mm_bl(lw["w_shared_up"], hn, plain),
+                           plain)
+    return out
+
+
+def _mla_attn_bl(cfg, lw, hn, latent, row: int, span: int, bias, cos, sin,
+                 plain: bool = False):
+    """Absorbed MLA attention of one token step over the compressed cache
+    (dmi_tpu's _mla_attn_bl, the DeepSeek-V2 deployment form).  The cache
+    holds one row per token for all heads, [normed latent (r) | roped
+    shared key (dr)], and attention runs in the latent space by absorbing
+    wkv_b:
+
+        scores[h, s] = [Wb_k[h]^T q_nope[h] | q_pe[h]] . row[s]
+        out[h]       = Wb_v[h]^T (sum_s probs[h, s] latent[s])
+
+    hn [H, B] normed input; latent this layer's [B, S, r + dr] cache, whose
+    row `row` this step writes in place and whose first `span` rows it
+    reads; bias [span] or [B, span] f32; cos/sin [dr] or [dr, B].  The
+    products are torch ops (dmi_tpu computes them in XLA), the scores and
+    the context summed in f32 from model-dtype operands, the softmax in f32.
+    Returns the attention output [nh * dv, B]."""
+    nh = cfg.num_attention_heads
+    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv = cfg.v_head_dim
+    B = hn.shape[1]
+    if "wq" in lw:  # the Lite layout: a plain q projection
+        q = _mm_bl(lw["wq"], hn, plain)
+    else:
+        qa = _rms_norm_bl(_mm_bl(lw["wq_a"], hn, plain), lw["q_a_norm"], cfg.rms_norm_eps)
+        q = _mm_bl(lw["wq_b"], qa, plain)
+    q = q.reshape(nh, dn + dr, B)
+    q_pe = _rope_interleaved_bl(q[:, dn:], cos, sin)
+    kv_a = _mm_bl(lw["wkv_a"], hn, plain)  # [r + dr, B]
+    lat = _rms_norm_bl(kv_a[:r], lw["kv_a_norm"], cfg.rms_norm_eps)
+    k_pe = _rope_interleaved_bl(kv_a[r:], cos, sin)
+    latent[:, row] = torch.cat([lat, k_pe], dim=0).t()
+    cache = latent[:, :span].float()  # [B, S, r + dr]
+
+    # wkv_b is read once a step either way: absorbed into q and the output
+    wkv_b = dequantize(lw["wkv_b"], hn.dtype).reshape(r, nh, dn + dv)
+    q_eff = torch.einsum("rhd,hdb->hrb", wkv_b[:, :, :dn], q[:, :dn])  # [nh, r, B]
+    q_abs = torch.cat([q_eff, q_pe], dim=1)  # [nh, r + dr, B]
+    scores = cache @ q_abs.permute(2, 1, 0).float()  # [B, S, nh]
+    scores = scores * llama.attn_score_scale(cfg)
+    b = bias[None, :, None] if bias.ndim == 1 else bias[:, :, None]
+    probs = torch.softmax(scores + b, dim=1).to(hn.dtype)
+    ctx = (probs.float().transpose(1, 2) @ cache[:, :, :r]).to(hn.dtype)  # [B, nh, r]
+    v_out = torch.einsum("rhv,bhr->hvb", wkv_b[:, :, dn:], ctx)
+    return v_out.reshape(nh * dv, B)
+
+
+def _mla_prefill_compressed(cfg, params, inputs_embeds, total: int, plain: bool = False):
+    """MLA's prompt pass for the batch-last loop and the slot engine
+    (dmi_tpu's _mla_prefill_compressed): the batch-first prefill through
+    llama._block's expanded attention, each layer writing its compressed
+    rows into the latent cache [L, B, total, r + dr] that _mla_attn_bl
+    reads.  Returns (next-token logits [B, V] through final_softcap, the
+    cache)."""
+    B, T, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    positions = torch.arange(T, device=device)
+    bias = torch.where(positions[None, :] <= positions[:, None], 0.0, NEG_INF)
+    cos, sin = llama.rope_tables(cfg, positions)
+    latent = init_latent_cache(cfg, B, total, device)
+    x = llama.scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
+    for i, lw in enumerate(params["layers"]):
+        x = llama._block(cfg, x, lw, cos, sin, bias, plain=plain, latent_out=latent[i, :, :T])
+    x = llama.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_norm_eps)
+    logits = llama.final_softcap(cfg, llama._head_matmul(x, params, cfg))
+    return logits[:, 0], latent
+
+
 def _decode_attention_bl(q, kc, vc, bias, scale=None, softcap=None):
     """Single-position GQA attention, batch-last (dmi_tpu's
     _decode_attention_bl): products in the input dtype with f32
@@ -400,43 +524,49 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
                     plain: bool = False, *, rope=None, write_row: Optional[int] = None,
                     bias: Optional[torch.Tensor] = None, bias_sw: Optional[torch.Tensor] = None,
                     rope_local=None):
-    """One batch-last token step with every dense branch of dmi_tpu's
+    """One batch-last token step with every branch of dmi_tpu's
     _decode_step_bl (q/k/v biases, both q/k norms, post-block norms,
-    norm_after, the residual multiplier, a sliding layer's window bias and
-    gemma-3's local rope).  h [H, B]; caches ([L, B, nkv, S, hd] x 2) as
-    prefill wrote them, written IN PLACE at absolute position `pos`.
-    Returns the logits [V, B] without final_softcap (greedy consumers need
-    only their argmax; the sampler caps them), or with head=False the final
-    norm's output [H, B] for the fused head + argmax.  The head is the tied
-    embed (head_logits_bl) or the untied lm_head through _mm_bl.
+    norm_after, the residual multiplier, a sliding layer's window bias,
+    gemma-3's local rope, absorbed MLA and the routed MLP).  h [H, B];
+    caches ([L, B, nkv, S, hd] x 2) as prefill wrote them, or for MLA the
+    latent cache [L, B, S, r + dr] (init_latent_cache), written IN PLACE at
+    absolute position `pos`.  Returns the logits [V, B] without
+    final_softcap (greedy consumers need only their argmax; the sampler
+    caps them), or with head=False the final norm's output [H, B] for the
+    fused head + argmax.  The head is the tied embed (head_logits_bl) or
+    the untied lm_head through _mm_bl.
 
     rope / write_row / bias / bias_sw / rope_local: the continuous-batching
     engine (streaming.py) shares this step with per-slot positions
     (dmi_tpu's rope=, write_row=, [S, B] bias and bias_sw, rope_local):
-    per-slot rope tables (cos, sin) [hd, B] (and the local ones with dual
-    rope), the shared ring row every slot writes, and [B, S] f32 biases
-    over the whole fixed-length cache (0 on a slot's own entries, within
-    the window for bias_sw, finfo.min elsewhere), which each layer attends
-    over through the decode-attention kernel's per-row bias; pos is then
-    unused.  Without them the step attends to a view of the pos + 1
-    written positions with a zero [pos + 1] row, and on sliding layers the
-    window's row once the window binds, as the batch loops always have.
+    per-slot rope tables (cos, sin) [rope_dim, B] (and the local ones with
+    dual rope), the shared ring row every slot writes, and [B, S] f32
+    biases over the whole fixed-length cache (0 on a slot's own entries,
+    within the window for bias_sw, finfo.min elsewhere), which each layer
+    attends over through the decode-attention kernel's per-row bias (MLA:
+    _mla_attn_bl's); pos is then unused.  Without them the step attends to
+    a view of the pos + 1 written positions with a zero [pos + 1] row, and
+    on sliding layers the window's row once the window binds, as the batch
+    loops always have.
 
     On CUDA tensors an unquantized fused w_gu runs the decode-MLP kernel
     with cfg.mlp_act, quantized weights the int8 kernels (_mm_bl) and
     attention the decode-attention kernel on the step's transposed q/k/v;
-    plain=True runs every kernel's plain twin instead."""
-    k_cache, v_cache = caches
+    MoE layers take _moe_mlp_bl and MLA layers _mla_attn_bl (torch ops, as
+    dmi_tpu's XLA); plain=True runs every kernel's plain twin instead."""
+    mla = cfg.kv_lora_rank is not None
+    k_cache, v_cache = (caches, None) if mla else caches
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     g = nh // nkv
     B = h.shape[1]
+    s_total = k_cache.shape[2] if mla else k_cache.shape[3]
     per_slot = (rope is not None, write_row is not None, bias is not None)
     if any(per_slot) and not all(per_slot):
         raise ValueError("per-slot decode step: pass rope, write_row and bias together")
     if rope is None:
         positions = torch.tensor(pos, device=h.device)
-        rope = llama.rope_tables(cfg, positions)  # [hd] each
+        rope = llama.rope_tables(cfg, positions)  # [rope_dim] each
         rope_local = _local_rope(cfg, positions)
         # all valid: each layer attends to a view of the pos + 1 written positions
         bias = torch.zeros(pos + 1, dtype=torch.float32, device=h.device)
@@ -444,12 +574,11 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
         bias_sw = None if window is None else window[0]
         row, span = pos, pos + 1
     else:
-        if bias.shape != (B, k_cache.shape[3]):
-            raise ValueError(f"per-slot bias {tuple(bias.shape)}: [B, S] = "
-                             f"{(B, k_cache.shape[3])}")
+        if bias.shape != (B, s_total):
+            raise ValueError(f"per-slot bias {tuple(bias.shape)}: [B, S] = {(B, s_total)}")
         if llama.rope_dual(cfg) and rope_local is None:
             raise ValueError("a dual-rope config (gemma-3) needs rope_local beside rope")
-        row, span = write_row, k_cache.shape[3]
+        row, span = write_row, s_total
     scale = llama.attn_score_scale(cfg)
     attend = _decode_attn_plain if plain else fused_decode_attention
     mlp = _decode_mlp_plain if plain else fused_decode_mlp_bl
@@ -461,34 +590,40 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     for li, lw in enumerate(params["layers"]):
         b, (cos, sin) = llama.layer_inputs(cfg, li, bias, bias_sw, rope, rope_local)
         hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_attn"], eps)
-        if "w_qkv" in lw:
-            qkv = mm(lw["w_qkv"], hn)
-            if "b_qkv" in lw:
-                qkv = qkv + lw["b_qkv"][:, None]
-            q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=0)
+        if mla:
+            attn = _mla_attn_bl(cfg, lw, hn, k_cache[li], row, span, b, cos, sin, plain)
         else:
-            q, k, v = mm(lw["wq"], hn), mm(lw["wk"], hn), mm(lw["wv"], hn)
-            if "bq" in lw:
-                q, k, v = q + lw["bq"][:, None], k + lw["bk"][:, None], v + lw["bv"][:, None]
-        if cfg.qk_norm_wide:
-            q, k = _rms_norm_bl(q, lw["q_norm"], eps), _rms_norm_bl(k, lw["k_norm"], eps)
-        q, k = q.reshape(nkv, g, hd, B), k.reshape(nkv, hd, B)
-        if cfg.qk_norm:
-            q = _rms_norm_head_bl(q, lw["q_norm"], eps)
-            k = _rms_norm_head_bl(k, lw["k_norm"], eps)
-        q, k = _rope_bl(q, cos, sin), _rope_bl(k, cos, sin)
-        v = v.reshape(nkv, hd, B)
-        # only the step's own tensors change layout: [.., hd, B] -> [B, .., hd]
-        k_cache[li][:, :, row] = k.permute(2, 0, 1)
-        v_cache[li][:, :, row] = v.permute(2, 0, 1)
-        attn = attend(q.reshape(nh, hd, B).permute(2, 0, 1)[:, :, None, :].contiguous(),
-                      k_cache[li][:, :, :span], v_cache[li][:, :, :span], b,
-                      scale, cfg.attn_logit_softcap)
-        attn = attn.reshape(B, nh * hd).t().contiguous()
+            if "w_qkv" in lw:
+                qkv = mm(lw["w_qkv"], hn)
+                if "b_qkv" in lw:
+                    qkv = qkv + lw["b_qkv"][:, None]
+                q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=0)
+            else:
+                q, k, v = mm(lw["wq"], hn), mm(lw["wk"], hn), mm(lw["wv"], hn)
+                if "bq" in lw:
+                    q, k, v = (q + lw["bq"][:, None], k + lw["bk"][:, None],
+                               v + lw["bv"][:, None])
+            if cfg.qk_norm_wide:
+                q, k = _rms_norm_bl(q, lw["q_norm"], eps), _rms_norm_bl(k, lw["k_norm"], eps)
+            q, k = q.reshape(nkv, g, hd, B), k.reshape(nkv, hd, B)
+            if cfg.qk_norm:
+                q = _rms_norm_head_bl(q, lw["q_norm"], eps)
+                k = _rms_norm_head_bl(k, lw["k_norm"], eps)
+            q, k = _rope_bl(q, cos, sin), _rope_bl(k, cos, sin)
+            v = v.reshape(nkv, hd, B)
+            # only the step's own tensors change layout: [.., hd, B] -> [B, .., hd]
+            k_cache[li][:, :, row] = k.permute(2, 0, 1)
+            v_cache[li][:, :, row] = v.permute(2, 0, 1)
+            attn = attend(q.reshape(nh, hd, B).permute(2, 0, 1)[:, :, None, :].contiguous(),
+                          k_cache[li][:, :, :span], v_cache[li][:, :, :span], b,
+                          scale, cfg.attn_logit_softcap)
+            attn = attn.reshape(B, nh * hd).t().contiguous()
         x = x + llama._block_out(cfg, mm(lw["wo"], attn), lw, "ln_post_attn", "ln_attn",
                                  _rms_norm_bl)
         hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_mlp"], eps)
-        if "w_gu" in lw and not isinstance(lw["w_gu"], dict):
+        if cfg.num_experts:  # never the decode-MLP kernel, as in dmi_tpu
+            mlp_out = _moe_mlp_bl(cfg, lw, hn, plain)
+        elif "w_gu" in lw and not isinstance(lw["w_gu"], dict):
             # the whole MLP in one weight stream
             mlp_out = mlp(lw["w_gu"], lw["w_down"], hn, cfg.mlp_act)
         elif "w_gu" in lw:  # quantized layouts go through _mm_bl
@@ -504,6 +639,33 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     if cfg.tie_word_embeddings:
         return head_logits_bl(params["embed"], x)
     return mm(params["lm_head"], x)
+
+
+def fused_head_weights(cfg: LlamaConfig, params: dict) -> Optional[dict]:
+    """The tree the fused head + argmax reads ({"embed": [V, H] rows, bf16
+    or quantized}) where the model's head can take it, else None: the tied
+    embed, or an untied bf16 lm_head [H, V] transposed into rows (one copy
+    a call; dmi_tpu keeps an untied head on its logits path, and the argmax
+    of the same bf16 logits is the same function).  A quantized untied head
+    ({"q"|"q8"|"qp", "s" [1, V]}) takes _mm_bl and an argmax."""
+    if cfg.dtype != torch.bfloat16:
+        return None
+    if cfg.tie_word_embeddings:
+        return {"embed": params["embed"]}
+    head = params["lm_head"]
+    return None if isinstance(head, dict) else {"embed": head.t().contiguous()}
+
+
+def _prefill_caches(cfg, params, inputs_embeds, total: int, plain: bool = False):
+    """The batch-last loops' prompt pass: (caches sized for `total`
+    positions, next-token logits [B, V]).  MLA fills the latent cache
+    through _mla_prefill_compressed; the others fill the K/V caches through
+    prefill."""
+    if cfg.kv_lora_rank is not None:
+        logits, latent = _mla_prefill_compressed(cfg, params, inputs_embeds, total, plain)
+        return latent, logits
+    caches = init_cache(cfg, inputs_embeds.shape[0], total, inputs_embeds.device)
+    return caches, prefill(cfg, params, inputs_embeds, caches, plain=plain)
 
 
 @torch.no_grad()
@@ -529,33 +691,39 @@ def greedy_generate_bl(
     stream (one more weight copy in device memory).
 
     fused_head: run the fused head + argmax (ops/cuda/head_argmax) so the
-    loop never forms [V, B] logits; None resolves to a tied bf16 model (the
-    kernel bakes in bf16 score rounding to match the logits path, so an f32
-    model takes logits + argmax, and it reads the tied embed, so an untied
-    head takes _mm_bl(lm_head, h) + argmax, as dmi_tpu's loop does).
-    plain=True runs every kernel's plain twin (a reference path for
-    comparisons on the card)."""
+    loop never forms [V, B] logits; None resolves to a bf16 model whose head
+    it can read (fused_head_weights: the tied embed or an unquantized
+    untied lm_head; the kernel bakes in bf16 score rounding to match the
+    logits path, so an f32 model takes logits + argmax, as does a quantized
+    untied head, through _mm_bl).  plain=True runs every kernel's plain
+    twin (a reference path for comparisons on the card).
+
+    MLA (deepseek-v2) prefills through _mla_prefill_compressed and steps
+    over the latent cache (absorbed attention), as dmi_tpu's loop does."""
     B, T, _ = inputs_embeds.shape
     device = inputs_embeds.device
     tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
     if max_new_tokens == 0:
         return tokens
+    head_w = fused_head_weights(cfg, params)
     if fused_head is None:
-        fused_head = cfg.dtype == torch.bfloat16 and cfg.tie_word_embeddings
-    if fused_head and not cfg.tie_word_embeddings:
-        raise ValueError("the fused head + argmax reads the tied embed; an untied lm_head "
-                         "takes the logits path (fused_head=False)")
-    caches = init_cache(cfg, B, T + max_new_tokens, device)
+        fused_head = head_w is not None
+    if fused_head and head_w is None:
+        if not cfg.tie_word_embeddings:
+            raise ValueError("the fused head + argmax reads a bf16 model's tied embed or "
+                             "unquantized untied lm_head; this untied head takes the logits "
+                             "path (fused_head=False)")
+        head_w = {"embed": params["embed"]}  # head_argmax refuses an f32 state
+    caches, logits0 = _prefill_caches(cfg, params if prefill_params is None else prefill_params,
+                                      inputs_embeds, T + max_new_tokens, plain)
     eos = torch.tensor(cfg.eos_token_ids, dtype=torch.long, device=device)
-    logits0 = prefill(cfg, params if prefill_params is None else prefill_params,
-                      inputs_embeds, caches, plain=plain)
 
     def select(out):
         """A step's output as the loop's carry: with the fused head the raw
         argmax ids of the final norm's output, never logits; else the logits."""
         if not fused_head:
             return out
-        return _head_argmax_plain(params["embed"], out) if plain else head_argmax(params, out)
+        return _head_argmax_plain(head_w["embed"], out) if plain else head_argmax(head_w, out)
 
     sel = logits0.argmax(dim=-1) if fused_head else logits0.t()
     done = torch.zeros(B, dtype=torch.bool, device=device)
@@ -610,10 +778,10 @@ def sample_generate_bl(
     if req_ids is None:
         req_ids = torch.arange(B, device=device)
     req_ids = torch.as_tensor(req_ids, dtype=torch.long, device=device)
-    caches = init_cache(cfg, B, T + max_new_tokens, device)
+    caches, logits = _prefill_caches(cfg, params if prefill_params is None else prefill_params,
+                                     inputs_embeds, T + max_new_tokens, plain)
+    logits = logits.t()  # [V, B]
     eos = torch.tensor(cfg.eos_token_ids, dtype=torch.long, device=device)
-    logits = prefill(cfg, params if prefill_params is None else prefill_params,
-                     inputs_embeds, caches, plain=plain).t()  # [V, B]
 
     def pick(logits, step):
         keys = _req_keys(seed, req_ids, max_new_tokens, step)

@@ -30,9 +30,14 @@ from typing import Any, Optional
 
 import torch
 
-# weights quantized per layer dict key; norms and biases stay as they are
-# (w_qkv/w_gu are the fused layouts of llama.fuse_projections)
-_QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_qkv", "w_gu"}
+# weights quantized per layer dict key; norms, biases and the MoE router
+# stay as they are (w_qkv/w_gu are the fused layouts of
+# llama.fuse_projections).  The expert stacks [E, in, out] quantize per
+# expert and output column and are dequantized into the expert products;
+# MLA's projections and deepseek's shared experts go through the matmuls
+_QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_qkv", "w_gu",
+               "moe_w1", "moe_w3", "moe_w2", "wq_a", "wq_b", "wkv_a", "wkv_b",
+               "w_shared_gate", "w_shared_up", "w_shared_down"}
 
 
 def _scale(absmax: torch.Tensor, levels: float) -> torch.Tensor:
@@ -45,7 +50,8 @@ def _round_clip(x: torch.Tensor, levels: int) -> torch.Tensor:
 
 def quantize_tensor(w: torch.Tensor, native: bool = False) -> dict:
     """Symmetric per-output-channel int8 of w [..., in, out]: scales
-    [..., 1, out] over the contraction (in) axis.  native=False gives the
+    [..., 1, out] over the contraction (in) axis (an expert stack
+    [E, in, out] keeps its expert axis in the scales).  native=False gives the
     "q" key (weights widened to the model dtype before the matmul),
     native=True the "q8" key (W8A8).  The key name is the mode marker."""
     wf = w.float()
@@ -117,7 +123,8 @@ def quantize_embed_tensor(w: torch.Tensor, native: bool = False) -> dict:
 
 def dequantize(w, dtype) -> torch.Tensor:
     """A quantized weight dict back as a dense tensor of `dtype` (any other
-    weight is returned as it is)."""
+    weight is returned as it is): the consumers without a quantized matmul,
+    the MoE expert products and MLA's absorbed wkv_b."""
     if not isinstance(w, dict):
         return w
     if "q8" in w or "q" in w:
@@ -156,8 +163,8 @@ def quantize_llama(
     W8A8.  bits=4 selects W4A8 for the LAYER weights (group_size optionally
     groups the scales along the contraction axis); the tied embed then
     stays native int8 ("q8"), as in dmi_tpu.  An untied lm_head [H, V] is
-    quantized as a layer weight (per output column); norms and biases stay
-    in their dtypes."""
+    quantized as a layer weight (per output column); norms, biases and the
+    MoE router stay in their dtypes."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
 

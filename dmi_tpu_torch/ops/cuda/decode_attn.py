@@ -130,7 +130,8 @@ def _decode_attn_plain(q, k, v, bias, scale=None, softcap=None):
     is dmi_tpu's llama._decode_attention and _decode_attn_xla.
 
     q [B, nh, 1, hd], k/v [B, nkv, S, hd], bias [S] or [B, S] f32 ->
-    [B, nh, 1, hd]."""
+    [B, nh, 1, hd].  v may be narrower than q and k (MLA's v_head_dim, a
+    call the kernel does not take); the output then has v's width."""
     B, nh, _, hd = q.shape
     nkv = k.shape[1]
     qr = q.float().reshape(B, nkv, nh // nkv, 1, hd)
@@ -139,8 +140,8 @@ def _decode_attn_plain(q, k, v, bias, scale=None, softcap=None):
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     p = torch.softmax(s + _bias_rows(bias), dim=-1)
-    out = (p[..., None] * v.float()[:, :, None]).sum(3)  # [B, nkv, g, hd]
-    return out.reshape(B, nh, 1, hd).to(v.dtype)
+    out = (p[..., None] * v.float()[:, :, None]).sum(3)  # [B, nkv, g, dv]
+    return out.reshape(B, nh, 1, v.shape[-1]).to(v.dtype)
 
 
 def _decode_attn_split_plain(q, k, v, bias, p, scale=None, softcap=None):

@@ -1,14 +1,16 @@
-"""Tied vocab-head product fused with the greedy argmax.
+"""Vocab-head product fused with the greedy argmax.
 
 Counterpart of dmi_tpu/ops/pallas/head_argmax.py, whose TPU kernel
 (_head_argmax_pallas) is csrc/head_argmax.cu here.  Greedy decode needs only
-the argmax of the logits: the kernel streams the tied embedding through a
-TMA ring into the tensor cores (wgmma), 256 vocab rows a tile against a
-staged chunk of the state, and keeps a (best score, first index) pair per
-batch column in registers, so the [V, B] logits never reach device memory.
-Persistent blocks walk contiguous runs of vocab tiles (launch plan: `plan`);
-a second small kernel merges their pairs by (score descending, index
-ascending), which is deterministic and is argmax's first-occurrence rule.
+the argmax of the logits: the kernel streams the head's rows [V, H] (the
+tied embedding, or an untied bf16 lm_head transposed once a call:
+decode.fused_head_weights) through a TMA ring into the tensor cores (wgmma),
+256 vocab rows a tile against a staged chunk of the state, and keeps a (best
+score, first index) pair per batch column in registers, so the [V, B] logits
+never reach device memory.  Persistent blocks walk contiguous runs of vocab
+tiles (launch plan: `plan`); a second small kernel merges their pairs by
+(score descending, index ascending), which is deterministic and is argmax's
+first-occurrence rule.
 
 Three weight modes (models/quant.py), each with the rounding order of the
 logits path it replaces (decode._head_logits_bl), so the compare sees the
@@ -106,7 +108,8 @@ def _mode(embed) -> str:
 def head_argmax(params: dict, h: torch.Tensor) -> torch.Tensor:
     """Greedy next-token ids straight from the final hidden state.
 
-    params: the decode weight tree (tied embedding: bf16, "q" or "q8").
+    params: {"embed": the head's rows [V, H]}: the decode weight tree's tied
+    embedding (bf16, "q" or "q8"), or decode.fused_head_weights' rows.
     h [H, B] bf16, the batch-last output of the final norm -> [B] int64.
     The kernel bakes in bf16 score rounding; an f32 model takes the logits
     path instead (decode.greedy_generate_bl)."""

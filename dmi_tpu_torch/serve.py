@@ -10,9 +10,11 @@ dmi_tpu/serve.py).
 Per batch: l2-normalize, project (the fused MLP2 CUDA kernel), prepend the
 soft token to the chat prefix, greedy-decode on the batch-last loop (per
 step: the decode-attention and decode-MLP CUDA kernels on every layer, the
-fused head + argmax kernel once for a tied head; with int8="w8a8"|"w4a8"
-the int8 matmul kernels in place of the layers' matmuls and an untied
-head's).  Every dense decoder family serves alike (models/llama.py).  The
+fused head + argmax kernel once for a bf16 head, tied or untied; with
+int8="w8a8"|"w4a8" the int8 matmul kernels in place of the layers' matmuls
+and an untied head's).  Every decoder family serves alike
+(models/llama.py): a MoE layer's routed MLP and an MLA layer's attention
+run as torch ops, as dmi_tpu runs them in XLA.  The
 tail batch is padded to the batch size, as in the JAX package.  With a
 temperature the loop samples (top-k, top-p) with request-indexed draws;
 engine="bulk" serves the workload on the continuous-batching engine

@@ -10,8 +10,9 @@ dmi_tpu/train_hypernet.py; reference dmi/train_hypernet.py).
                  averaging
 
 Accepts the reference's hypernet config JSONs unchanged.  The LM comes from
-the port's build_lm (`test:tiny`, `test:1b`); loading one from the HF cache
-is not ported yet.  It runs on the card unless given --device cpu
+the port's build_lm: a test LM or an HF-layout model of any of dmi_tpu's
+families from a local directory or the HF hub cache
+(training/model_utils.py).  It runs on the card unless given --device cpu
 (device="cpu"), and fails before loading anything when no card is visible.
 """
 

@@ -6,8 +6,9 @@
 Mirrors the reference entry point (dmi/train_projector.py:186-347): a sweep over
 (epochs, dataset_size) pairs x seeds with an idempotent skip of completed
 runs, then per-dataset seed averaging.  Accepts the reference's projector
-config JSONs unchanged.  The LM comes from the port's build_lm (`test:tiny`,
-`test:1b`); loading one from the HF cache is not ported yet.  The port's
+config JSONs unchanged.  The LM comes from the port's build_lm: a test LM
+or an HF-layout model of any of dmi_tpu's families from a local directory
+or the HF hub cache (training/model_utils.py).  The port's
 copies of dmi_tpu's framework-free config, data, registry and results
 modules do the host work.  It runs on the card unless given --device cpu
 (device="cpu"), and fails before loading anything when no card is visible.

@@ -1162,7 +1162,7 @@ def test_streaming_engine_kernel_path_matches_plain_path_f32(cuda, temperature):
     assert torch.equal(got, want.cpu())
 
 
-# --- the dense decoder families (ROADMAP A.9) ---------------------------------
+# --- the dense decoder families ------------------------------------------------
 
 FAMILY_CONFIGS = {
     "qwen2": llama.tiny_qwen2_config, "qwen3": llama.tiny_qwen3_config,
@@ -1246,3 +1246,98 @@ def test_gemma2_2b_decode_kernels_match_twins(cuda):
     cols = torch.nonzero(ids != want).flatten()
     top, got = logits[want[cols], cols], logits[ids[cols], cols]
     assert cols.numel() == 0 or ((top - got).abs() / top.abs()).max().item() <= 2.0 ** -7
+
+
+# --- the MoE and MLA families --------------------------------------------------
+
+MOE_MLA_CONFIGS = {
+    "mixtral": llama.tiny_mixtral_config, "qwen3moe": llama.tiny_qwen3moe_config,
+    "olmoe": llama.tiny_olmoe_config, "deepseek": llama.tiny_deepseek_config,
+    "deepseek-moe": lambda **kw: llama.tiny_deepseek_config(n_experts=4, n_shared=1,
+                                                            routed_scale=2.0, **kw),
+}
+
+
+@pytest.mark.parametrize("family", list(MOE_MLA_CONFIGS))
+def test_moe_mla_loops_kernel_path_matches_plain_path_f32(cuda, family):
+    """The MoE and MLA families' batch-last and batch-first greedy loops and
+    the slot engine on the card: the MoE layers never launch the decode MLP
+    (a dense MLA model's layers do) and attend through the decode-attention
+    kernel on every layer-step; MLA's steps attend through torch ops
+    (absorbed over the latent cache, expanded in the batch-first loop),
+    with no decode-attention launch.  At f32 the kernel path's ids equal the
+    plain path's."""
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.streaming import StreamingCaptioner
+
+    cfg = MOE_MLA_CONFIGS[family](vocab_size=320, hidden_size=128, n_layers=3, n_heads=8,
+                                  n_kv=2, intermediate=64, dtype=torch.float32, eos=(7,))
+    params = llama.fuse_projections(llama.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                                               cuda))
+    for lw in params["layers"]:  # std 0.2: varied greedy tokens
+        for name, t in lw.items():
+            if name.startswith(("w", "moe")):
+                t.mul_(10)
+    embeds = torch.randn(6, 9, 128, generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    mla = cfg.kv_lora_rank is not None
+    n0, m0 = tda.launches, tdm.launches
+    ids = dec.greedy_generate_bl(cfg, params, embeds, 8, 1)
+    assert tdm.launches - m0 == (0 if cfg.num_experts else 3 * 7)
+    assert tda.launches - n0 == (0 if mla else 3 * 7)
+    assert torch.equal(ids, dec.greedy_generate_bl(cfg, params, embeds, 8, 1, plain=True))
+    assert torch.equal(dec.greedy_generate(cfg, params, embeds, 8, 1),
+                       dec.greedy_generate(cfg, params, embeds, 8, 1, plain=True))
+    assert len(torch.unique(ids)) > 4
+    spec = proj.ProjectorSpec(mm_dim=16, lm_dim=128)
+    pp = proj.init(spec, torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    embs = np.random.default_rng(4).normal(size=(9, 16)).astype(np.float32)
+
+    def engine(plain):
+        return StreamingCaptioner(cfg, params, spec, pp, [3, 7, 9], 9, 1, pool=4, admit=2,
+                                  plain=plain)
+
+    assert torch.equal(engine(False).run_bulk(embs), engine(True).run_bulk(embs))
+
+
+def _near_tie_ids(ids, embed, h):
+    """Ids of the head argmax equal to the twin's but where the two logits
+    are within one bf16 step (the kernel's order of sums)."""
+    want = tha._head_argmax_plain(embed, h)
+    assert (ids == want).float().mean().item() >= 0.9
+    logits = tha.head_logits_bl(embed, h).float()
+    cols = torch.nonzero(ids != want).flatten()
+    top, got = logits[want[cols], cols], logits[ids[cols], cols]
+    assert cols.numel() == 0 or ((top - got).abs() / top.abs()).max().item() <= 2.0 ** -7
+
+
+def test_olmoe_and_v2_lite_kernel_shapes_match_twins(cuda):
+    """The kernels at the shapes the two full-width models give them, B 128:
+    decode attention at group 1 (OLMoE's 16/16 heads, hd 128, the
+    tensor-core instance with 15 of a tile's 16 rows idle) over S 38 with an
+    [S] and a [B, S] bias; the untied heads' argmax over lm_head's rows at
+    V 50304 and V 102400; the flash kernels at 16/16 heads, hd 128, stage
+    1's B 32, T 65, forward and backward; W4A8 at OLMoE's w_qkv (2048 ->
+    6144) and wo (2048 -> 2048), bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bf = torch.bfloat16
+    q = torch.randn(128, 16, 1, 128, generator=gen, device=cuda).to(bf)
+    k, v = (torch.randn(128, 16, 38, 128, generator=gen, device=cuda).to(bf) for _ in range(2))
+    rows = torch.zeros(128, 38, device=cuda)
+    rows[::3, 20:] = torch.finfo(torch.float32).min
+    assert tda.plan(128, 16, 1, 38, 128, 2)["tensor_cores"]
+    for bias in (torch.zeros(38, device=cuda), rows):
+        args = (q, k, v, bias, 128 ** -0.5, None)
+        _close(tda.fused_decode_attention(*args), tda._decode_attn_plain(*args), TOL[bf])
+    h = torch.randn(2048, 128, generator=gen, device=cuda).to(bf)
+    for V in (50304, 102400):
+        lm_head = (torch.randn(2048, V, generator=gen, device=cuda) * 0.02).to(bf)
+        head = dec.fused_head_weights(dataclasses.replace(llama.llama32_1b(),
+                                                          tie_word_embeddings=False),
+                                      {"lm_head": lm_head})
+        _near_tie_ids(tha.head_argmax(head, h), head["embed"], h)
+    _flash_vs_twin(*_flash_args(32, 16, 16, 65, 128, bf, cuda, True), bf)
+    for out in (6144, 2048):
+        w = quant.quantize_tensor_int4(_normal((2048, out), cuda, 0, 0.05))
+        hq, a = quant.quantize_act(_normal((2048, 128), cuda, 1), axis=0)
+        assert torch.equal(tw4.w4_mm_bl(w, hq, a, bf), tw4._w4_mm_plain(w, hq, a, bf))

@@ -1,27 +1,32 @@
-"""The dense decoder families in dmi_tpu_torch against dmi_tpu, on shared
-weights.
+"""The decoder families in dmi_tpu_torch against dmi_tpu, on shared weights.
 
-Eight families and an untied llama, each on dmi_tpu's tiny config function
-at f32: llama with tie_word_embeddings=False, mistral and phi-3 (every layer
-sliding; phi-3 untied), qwen2 (q/k/v biases), qwen3 (per-head q/k norms),
-olmo2 (whole-width q/k norms, post-norm blocks), granite (four
+Twelve families and an untied llama, each on dmi_tpu's tiny config function
+at f32: llama with tie_word_embeddings=False, mistral and phi-3 (every
+layer sliding; phi-3 untied), qwen2 (q/k/v biases), qwen3 (per-head q/k
+norms), olmo2 (whole-width q/k norms, post-norm blocks), granite (four
 multipliers), gemma-2 and gemma-3 (interleaved sliding layers; gemma-3's
-dual rope).  Windows are 8 positions and every sequence here is longer, so
-they bind.  Weights come from dmi_tpu.models.llama.init through
-bridge.llm_params_from_jax, the layer weights scaled to std 0.2 and every
-norm perturbed so that the norms' places bind; inputs come from a numpy
-seed.
+dual rope), the sparse-MoE families mixtral, qwen3-moe and olmoe (4
+experts, top 2, dense-evaluated) and deepseek-v2's MLA in four layouts: the
+Lite layout (a plain q projection), a q_lora_rank bottleneck, the deepseek
+MoE (one shared expert, routed_scaling_factor 2.0) and the MoE with two
+shared experts under yarn rope whose attention factor binds. Windows are 8
+positions and every sequence here is longer, so they bind. Weights come
+from dmi_tpu.models.llama.init through bridge.llm_params_from_jax, the
+layer weights scaled to std 0.2 and every norm perturbed so that the norms'
+places bind; inputs come from a numpy seed.
 
 Held: the config bridge and the attention route (gemma takes `_attention`,
 the rest the flash twin, exactly where dmi_tpu's use_flash holds);
 full-sequence logits to 1e-5 relative; greedy ids of both port loops equal
 to dmi_tpu's greedy_generate and greedy_generate_bl; the prefill + step
-caches against the full forward; the slot engine against the batch engine
-on sliding and dual-rope families; sampled ids with the same injected
-Gumbel draws (a fixed table in both packages), where a binding final
-softcap and granite's logits scaling must reach the warp; the stage-1 loss
-and projector gradients on each attention route; quantized untied heads;
-the decode MLP's activation following the config.
+caches against the full forward (MLA's batch-last step over its latent
+cache); the slot engine against the batch engine on sliding, dual-rope,
+MoE and MLA families; sampled ids with the same injected Gumbel draws (a
+fixed table in both packages), where a binding final softcap and
+granite's logits scaling must reach the warp; the stage-1 loss and
+projector gradients on each attention route; quantized untied heads and
+w8a8/w4a8 MoE and MLA trees; the decode MLP's activation following the
+config.
 """
 
 import dataclasses
@@ -53,9 +58,15 @@ WINDOW = 8
 PAD = 0
 TINY = dict(vocab_size=96, hidden_size=64, n_layers=2, n_heads=4, n_kv=2, intermediate=128,
             eos=(5,))
+MOE_MLA = ["mixtral", "qwen3moe", "olmoe", "deepseek", "deepseek-q-lora", "deepseek-moe",
+           "deepseek-yarn"]
 FAMILIES = ["llama-untied", "mistral", "phi3", "qwen2", "qwen3", "olmo2", "granite", "gemma2",
-            "gemma3"]
+            "gemma3"] + MOE_MLA
 SLIDING = ["mistral", "phi3", "gemma2", "gemma3"]
+# yarn with deepseek's mscale pair at a factor that binds (1.16 on cos and
+# sin) and an original length of 16, so that the ramp spans the rope dims
+YARN = dict(rope_yarn_factor=40.0, rope_original_max_position=16, rope_yarn_mscale=1.0,
+            rope_yarn_mscale_all_dim=0.5)
 
 
 def _jcfg(family: str, **changes):
@@ -71,6 +82,15 @@ def _jcfg(family: str, **changes):
         "granite": lambda: jllama.tiny_granite_config(**TINY),
         "gemma2": lambda: jllama.tiny_gemma2_config(sliding_window=WINDOW, **TINY),
         "gemma3": lambda: jllama.tiny_gemma3_config(sliding_window=WINDOW, **TINY),
+        "mixtral": lambda: jllama.tiny_mixtral_config(**TINY),
+        "qwen3moe": lambda: jllama.tiny_qwen3moe_config(**TINY),
+        "olmoe": lambda: jllama.tiny_olmoe_config(**TINY),
+        "deepseek": lambda: jllama.tiny_deepseek_config(**TINY),
+        "deepseek-q-lora": lambda: jllama.tiny_deepseek_config(q_lora_rank=8, **TINY),
+        "deepseek-moe": lambda: jllama.tiny_deepseek_config(n_experts=4, n_shared=1,
+                                                            routed_scale=2.0, **TINY),
+        "deepseek-yarn": lambda: dataclasses.replace(
+            jllama.tiny_deepseek_config(n_experts=4, n_shared=2, **TINY), **YARN),
     }[family]()
     return dataclasses.replace(cfg, **changes)
 
@@ -85,7 +105,7 @@ def _models(family: str, seed=0, embed_scale=1.0, **changes):
     rng = np.random.default_rng(seed + 100)
 
     def perturb(name, a):
-        if name.startswith(("w", "b")) or name == "lm_head":
+        if name.startswith(("w", "b", "moe")) or name == "lm_head":
             return (a * 10.0).astype(a.dtype)
         if "norm" in name or name.startswith("ln"):
             return (a * (1 + 0.3 * rng.normal(size=a.shape))).astype(a.dtype)
@@ -128,9 +148,10 @@ def test_config_bridges_and_routes_as_dmi_tpu(family):
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     for T in (4, 13):
         use_flash = (jcfg.attn_logit_softcap is None and not jllama.sliding_effective(jcfg, T)
-                     and jcfg.rope_local_theta is None)
+                     and jcfg.rope_local_theta is None and jcfg.kv_lora_rank is None)
         assert tllama.flash_route(tcfg, T) == use_flash
-    assert tllama.flash_route(tcfg, 4) == (family not in ("gemma2", "gemma3"))
+    assert tllama.flash_route(tcfg, 4) == (family not in ("gemma2", "gemma3")
+                                           and not family.startswith("deepseek"))
     assert not tllama.flash_route(tcfg, 13) or family not in SLIDING
 
 
@@ -162,16 +183,17 @@ def test_forward_logits_match_on_both_routes(family, monkeypatch):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_prefill_and_step_caches_match_the_forward(family):
     """Prefill of 5 positions, then a token step at each of 6 more, through
-    the batch-first step and the batch-last one (fused layout): each step's
-    logits (through final_softcap) equal the full forward's at its
-    position, past the window included."""
+    the batch-first step and the batch-last one (fused layout; MLA over its
+    latent cache): each step's logits (through final_softcap) equal the
+    full forward's at its position, past the window included."""
     _, _, tcfg, tparams = _models(family, seed=1)
     x = torch.from_numpy(_x((2, 11, 64), 2))
     full = tllama.forward(tcfg, tparams, x)
     fused = tllama.fuse_projections(tparams)
-    caches, caches_bl = tdec.init_cache(tcfg, 2, 11), tdec.init_cache(tcfg, 2, 11)
+    caches = tdec.init_cache(tcfg, 2, 11)
     _close(tdec.prefill(tcfg, tparams, x[:, :5], caches).numpy(), full[:, 4].numpy())
-    tdec.prefill(tcfg, fused, x[:, :5], caches_bl)
+    caches_bl, logits = tdec._prefill_caches(tcfg, fused, x[:, :5], 11)
+    _close(logits.numpy(), full[:, 4].numpy())
     for pos in range(5, 11):
         step = tdec.decode_step(tcfg, tparams, x[:, pos:pos + 1], caches, pos)
         _close(step.numpy(), full[:, pos].numpy())
@@ -206,21 +228,29 @@ def test_greedy_ids_match_dmi_tpu_on_both_loops(family):
 
 
 def test_fused_head_is_for_tied_heads_only(monkeypatch):
-    """An untied head takes _mm_bl(lm_head, h) + argmax: fused_head=None
-    resolves to False for it even at bf16, and asking for the fused head
-    is refused."""
+    """The fused head + argmax reads rows of the head: the tied embed, or an
+    untied bf16 lm_head transposed into rows (decode.fused_head_weights), to
+    which fused_head=None resolves; its ids equal the logits path's.  A
+    quantized untied head (int8 per output column) takes _mm_bl(lm_head, h)
+    + argmax, and asking for the fused head there is refused."""
     _, _, tcfg, tparams = _models("llama-untied")
     x = torch.from_numpy(_x((2, 4, 64), 4))
-    with pytest.raises(ValueError, match="untied"):
-        tdec.greedy_generate_bl(tcfg, tparams, x, 3, PAD, fused_head=True)
     bf = dataclasses.replace(tcfg, dtype=torch.bfloat16)
     bparams = {k: ([{n: t.bfloat16() for n, t in lw.items()} for lw in v] if k == "layers"
                    else v.bfloat16()) for k, v in tparams.items()}
-    called = []
+    read = []
     real = tdec.head_argmax
-    monkeypatch.setattr(tdec, "head_argmax", lambda *a: called.append(1) or real(*a))
+    monkeypatch.setattr(tdec, "head_argmax", lambda p, h: read.append(p["embed"]) or real(p, h))
     ids = tdec.greedy_generate_bl(bf, bparams, x.bfloat16(), 3, PAD)
-    assert not called and tuple(ids.shape) == (2, 3)
+    assert len(read) == 2 and all(torch.equal(e, bparams["lm_head"].t()) for e in read)
+    off = tdec.greedy_generate_bl(bf, bparams, x.bfloat16(), 3, PAD, fused_head=False)
+    assert torch.equal(ids, off) and tuple(ids.shape) == (2, 3)
+    qparams = tq.quantize_llama(bparams, quantize_embed=False)
+    read.clear()
+    tdec.greedy_generate_bl(bf, qparams, x.bfloat16(), 3, PAD)
+    assert not read
+    with pytest.raises(ValueError, match="untied"):
+        tdec.greedy_generate_bl(bf, qparams, x.bfloat16(), 3, PAD, fused_head=True)
 
 
 def test_decode_mlp_follows_mlp_act(monkeypatch):
@@ -259,13 +289,15 @@ def _serving(family, seed, eos=(5,)):
     return tcfg, tparams, spec, bridge.projector_params_from_jax(jax.tree.map(np.asarray, jpp))
 
 
-@pytest.mark.parametrize("family", SLIDING)
+@pytest.mark.parametrize("family", SLIDING + MOE_MLA)
 def test_slot_engine_matches_the_batch_engine(family):
     """13 requests, a 4-position prompt and a budget of 9 (the window binds
     from position 8): the slot engine's ring rows carry their positions
     (row_pos), so run and run_bulk at a pool smaller than the workload give
     the batch engine's greedy ids, and its sampled ids under the same
-    request-indexed draws (softcapped before the warp)."""
+    request-indexed draws (softcapped before the warp).  The MoE families
+    route per slot as the batch engine routes per row, and MLA's slots
+    hold latent rows roped at each slot's own position."""
     tcfg, tparams, spec, pp = _serving(family, seed=4)
     prefix, budget = np.asarray([3, 7, 9]), 9
     embs = l2_normalize(torch.from_numpy(_x((13, 16), 6))).numpy()
@@ -280,6 +312,8 @@ def test_slot_engine_matches_the_batch_engine(family):
         assert torch.equal(eng.run(embs), want)
         assert torch.equal(eng.run_bulk(embs), want)
         assert torch.equal(cap.caption_ids(embs, engine="bulk", **kw), want)
+    if family not in SLIDING:
+        return
     wide = dataclasses.replace(tcfg, sliding_window=64)  # a window that never binds
     wide_ids = Captioner(wide, tparams, spec, pp, max_new_tokens=budget, batch_size=4,
                          prefix_ids=prefix, pad_token_id=PAD).caption_ids(embs)
@@ -337,13 +371,14 @@ def test_sampled_ids_match_with_injected_draws(family, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("family", ["qwen2", "gemma2", "gemma3"])
+@pytest.mark.parametrize("family", ["qwen2", "gemma2", "gemma3"] + MOE_MLA)
 def test_stage1_loss_and_projector_gradients_match(family):
     """caption_loss over a ragged batch of 12 text tokens (the window binds)
     with the attention mask passed: the loss, its gradient with respect to
     the soft tokens and every projector gradient against dmi_tpu's
-    value_and_grad, to 1e-5 relative; qwen2 through the flash twin, gemma
-    through `_attention`."""
+    value_and_grad, to 1e-5 relative; qwen2 and the MoE families through
+    the flash twin, gemma and MLA through `_attention`; the routed MLP's
+    gradient reaches the soft tokens through every expert."""
     jcfg, jparams, tcfg, tparams = _models(family, seed=5)
     jcfg = dataclasses.replace(jcfg, attention_impl="xla")
     jspec = jproj.ProjectorSpec(mm_dim=24, lm_dim=64)
@@ -399,3 +434,42 @@ def test_quantized_untied_head_matches_dmi_tpu(mode):
     got = tdec.greedy_generate_bl(tcfg, ttree, torch.from_numpy(x), 6, PAD,
                                   prefill_params=tfused)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w4a8"])
+@pytest.mark.parametrize("family", MOE_MLA)
+def test_quantized_moe_and_mla_match_dmi_tpu(family, mode):
+    """quantize_llama over the MoE and MLA leaves (expert stacks [E, in,
+    out] with per-expert scales, MLA's projections, the shared experts; the
+    router and the a-norms untouched) is dmi_tpu's tree (integer payloads
+    bit for bit, scales within 1 ulp, as tests/test_torch_quant.py), and the
+    batch-last loop over it (expert stacks dequantized into the expert
+    products, the 2-D projections through the int8 kernels' twins), with the
+    unquantized tree for the prompt pass, gives dmi_tpu's ids."""
+    jcfg, jparams, tcfg, tparams = _models(family, seed=6)
+    jfused, tfused = jllama.fuse_projections(jparams), tllama.fuse_projections(tparams)
+    kw = dict(native=True) if mode == "w8a8" else dict(bits=4)
+    jtree = jq.quantize_llama(jfused, **kw)
+    ttree = tq.quantize_llama(tfused, **kw)
+    ref = bridge.llm_params_from_jax(jax.tree.map(np.asarray, jtree))
+    for got, want in zip(ttree["layers"], ref["layers"]):
+        assert set(got) == set(want)
+        for name, leaf in want.items():
+            assert isinstance(got[name], dict) == isinstance(leaf, dict), name
+            for key, t in (leaf.items() if isinstance(leaf, dict) else [("", leaf)]):
+                g = got[name][key] if key else got[name]
+                if key in ("s", "s4g"):
+                    # dmi_tpu's lax.map over the stacked layers (and experts)
+                    # may divide by 127 as a product with its reciprocal
+                    ulp = torch.from_numpy(np.spacing(t.abs().numpy()))
+                    assert (g - t).abs().le(ulp).all(), (name, key)
+                else:
+                    assert g.dtype == t.dtype and torch.equal(g, t), (name, key)
+    assert not isinstance(ttree["layers"][0].get("w_router", 0), dict)
+    x = _x((4, 10, 64), 10)
+    want = np.asarray(jdec.greedy_generate_bl(jcfg, jtree, jnp.asarray(x), 6, PAD,
+                                              prefill_params=jfused))
+    got = tdec.greedy_generate_bl(tcfg, ttree, torch.from_numpy(x), 6, PAD,
+                                  prefill_params=tfused)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want)) > 3

@@ -75,3 +75,28 @@ def test_every_stage_runs_a_gemma2_lm(gemma_workdir, monkeypatch):
     run_lora(_lora_config(gemma_workdir), device="cpu")
     _finite_metrics(osp.join("outputs", "lora:cfg_lora_smoke-dszfull-seed7-results.json"))
     assert not flash
+
+
+@pytest.mark.parametrize("lm", ["test:tiny-olmoe", "test:tiny-deepseek"])
+def test_every_stage_runs_a_moe_or_mla_lm(gemma_workdir, monkeypatch, lm):
+    """Stage 1, stage 2, stage 3 and the LoRA baseline on the MoE and MLA
+    test LMs: olmoe's forward takes the flash attention route (its twin on
+    the CPU) with the routed MLP, deepseek's `_attention` (MLA) with the
+    deepseek MoE; each run writes its results and checkpoint."""
+    monkeypatch.setenv("DMI_LM_OVERRIDE", lm)
+    flash, routed = [], []
+    real_flash, real_moe = tllama.flash_attention, tllama._moe_mlp
+    monkeypatch.setattr(tllama, "flash_attention", lambda *a: flash.append(1) or real_flash(*a))
+    monkeypatch.setattr(tllama, "_moe_mlp", lambda *a: routed.append(1) or real_moe(*a))
+
+    run_projector(make_config(gemma_workdir, mm_dim=MM, epochs_l=[1]), device="cpu")
+    assert osp.exists(PROJ_CKPT)
+    run_hypernet(hypernet_config(gemma_workdir, PROJ_CKPT, "train"), device="cpu")
+    hn_ckpt = osp.join("checkpoints", "cfg_hypernet_train-checkpoint-hypernet-best.pt")
+    run_hypernet(hypernet_config(gemma_workdir, PROJ_CKPT, "fewshot", resume=hn_ckpt),
+                 device="cpu")
+    _finite_metrics(osp.join("outputs",
+                             "hypernet:cfg_hypernet_fewshot-dsz10-seed7-results.json"))
+    run_lora(_lora_config(gemma_workdir), device="cpu")
+    _finite_metrics(osp.join("outputs", "lora:cfg_lora_smoke-dszfull-seed7-results.json"))
+    assert routed and bool(flash) == lm.endswith("olmoe")

@@ -1,18 +1,21 @@
-"""HF-layout weights of the dense decoder families in the port, against
-dmi_tpu and HF.
+"""HF-layout weights of the decoder families in the port, against dmi_tpu
+and HF.
 
-For each dense model type (llama untied, mistral, qwen2, qwen3, phi3,
-olmo2, granite, gemma2, gemma3_text) a random tiny transformers model is
-built, its norms perturbed so that their places and gemma's (1 + w) fold
-bind, and saved with save_pretrained (config.json and safetensors).  The
-port's build_lm, which reads both itself without transformers, must give
-dmi_tpu's build_lm config (through bridge.config_from_jax) and parameters
-bit for bit (phi-3's fused projections split, gemma's norms folded in f32,
-an untied lm_head); at f32 the port's forward agrees with HF's own to 1e-4
-relative over 12 positions, past the 8-position windows.  A config.json
-with each family's optional keys left out maps as dmi_tpu maps the config
-object that transformers fills with its class defaults: the port supplies
-those defaults itself.
+For each model type (llama untied, mistral, qwen2, qwen3, phi3, olmo2,
+granite, gemma2, gemma3_text, and the MoE and MLA types mixtral, qwen3_moe,
+olmoe, deepseek_v2: 4 experts, top 2; deepseek's Lite layout with a shared
+expert, routed_scaling_factor 2 and yarn rope whose attention factor binds)
+a random tiny transformers model is built, its norms perturbed so that
+their places and gemma's (1 + w) fold bind, and saved with save_pretrained
+(config.json and safetensors). The port's build_lm, which reads both itself
+without transformers, must give dmi_tpu's build_lm config (through
+bridge.config_from_jax) and parameters bit for bit (phi-3's fused
+projections split, gemma's norms folded in f32, an untied lm_head); at f32
+the port's forward agrees with HF's own to 1e-4 relative over 12 positions,
+past the 8-position windows. A config.json with each family's optional keys
+left out maps as dmi_tpu maps the config object that transformers fills
+with its class defaults: the port supplies those defaults itself. Every
+refusal dmi_tpu keeps for the MoE and MLA types the port keeps too.
 """
 
 import jax
@@ -56,7 +59,25 @@ FAMILIES = {
                     dict(sliding_window=8, query_pre_attn_scalar=16,
                          layer_types=["sliding_attention", "full_attention"],
                          rope_scaling={"rope_type": "linear", "factor": 8.0})),
+    "mixtral": ("MixtralConfig", "MixtralForCausalLM",
+                dict(num_local_experts=4, num_experts_per_tok=2, sliding_window=8)),
+    "qwen3_moe": ("Qwen3MoeConfig", "Qwen3MoeForCausalLM",
+                  dict(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=48,
+                       norm_topk_prob=True)),
+    "olmoe": ("OlmoeConfig", "OlmoeForCausalLM", dict(num_experts=4, num_experts_per_tok=2)),
+    "deepseek_v2": ("DeepseekV2Config", "DeepseekV2ForCausalLM",
+                    dict(num_key_value_heads=4, q_lora_rank=None, kv_lora_rank=16,
+                         qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
+                         n_routed_experts=4, num_experts_per_tok=2, n_shared_experts=1,
+                         moe_intermediate_size=48, routed_scaling_factor=2.0,
+                         first_k_dense_replace=0,
+                         rope_scaling={"type": "yarn", "factor": 40.0, "beta_fast": 32.0,
+                                       "beta_slow": 1.0, "mscale": 1.0,
+                                       "mscale_all_dim": 0.5,
+                                       "original_max_position_embeddings": 16})),
 }
+# what a config.json of each type needs beyond BASE (the class default is None)
+REQUIRED = {"deepseek_v2": {"num_experts_per_tok": 2}}
 GEMMA = ("gemma2", "gemma3_text")
 
 
@@ -66,7 +87,7 @@ def saved(tmp_path_factory):
     root = tmp_path_factory.mktemp("hf_families")
     out = {}
     for i, (family, (cfg_cls, model_cls, opts)) in enumerate(FAMILIES.items()):
-        cfg = getattr(transformers, cfg_cls)(**BASE, **SIZES, **opts)
+        cfg = getattr(transformers, cfg_cls)(**{**BASE, **SIZES, **opts})
         torch.manual_seed(i)
         hf = getattr(transformers, model_cls)(cfg).eval()
         gen = torch.Generator().manual_seed(100 + i)
@@ -134,7 +155,7 @@ def test_config_defaults_match_the_config_classes(family, tmp_path):
     import json
     import types
 
-    minimal = {"model_type": family, **BASE}
+    minimal = {"model_type": family, **BASE, **REQUIRED.get(family, {})}
     (tmp_path / "config.json").write_text(json.dumps(minimal))
     tok = types.SimpleNamespace(eos_token_id=7)
     ours = tmu._hf_to_config(hf_weights.read_config(tmp_path), torch.float32, tok)
@@ -143,8 +164,9 @@ def test_config_defaults_match_the_config_classes(family, tmp_path):
 
 
 def test_refusals_name_a9_and_phi3_fused_layout(saved):
-    """MoE and MLA keys beside a dense layout are refused naming A.9; phi-3's
-    checkpoint holds only the fused projections, which the port splits."""
+    """MoE and MLA keys beside a dense layout are refused, not ignored;
+    phi-3's checkpoint holds only the fused projections, which the port
+    splits."""
     _, path = saved["phi3"]
     sd = hf_weights.load_state_dict(path)
     assert "model.layers.0.self_attn.qkv_proj.weight" in sd
@@ -154,5 +176,32 @@ def test_refusals_name_a9_and_phi3_fused_layout(saved):
     assert {"wq", "wk", "wv", "w_gate", "w_up"} <= set(params["layers"][0])
     for extra in ("model.layers.0.mlp.experts.0.gate_proj.weight",
                   "model.layers.0.self_attn.kv_b_proj.weight"):
-        with pytest.raises(NotImplementedError, match="A.9"):
+        with pytest.raises(ValueError, match="layout does not use"):
             tllama.from_hf_state_dict({**sd, extra: torch.ones(4)}, cfg)
+
+
+@pytest.mark.parametrize("family,change", [
+    ("qwen3_moe", {"decoder_sparse_step": 2}),
+    ("qwen3_moe", {"mlp_only_layers": [0]}),
+    ("deepseek_v2", {"first_k_dense_replace": 1, "num_hidden_layers": 27}),
+    ("deepseek_v2", {"first_k_dense_replace": 1}),
+    ("deepseek_v2", {"topk_method": "group_limited_greedy", "n_group": 2, "topk_group": 1}),
+    ("deepseek_v2", {"attention_bias": True}),
+    ("olmoe", {"clip_qkv": 8.0}),
+    ("olmoe", {"attention_bias": True}),
+], ids=lambda v: v if isinstance(v, str) else "-".join(f"{k}={x}" for k, x in v.items()))
+def test_refusals_dmi_tpu_keeps(family, change):
+    """What dmi_tpu refuses for the MoE and MLA types the port refuses too:
+    mixed dense and sparse stacks (qwen3-moe's decoder_sparse_step and
+    mlp_only_layers, deepseek's first_k_dense_replace between 0 and the
+    layer count, as in V2-Lite's 1 of 27), group-limited routing, olmoe's
+    clip_qkv and attention bias, deepseek's attention bias."""
+    import types
+
+    cfg = {"model_type": family, **BASE, **REQUIRED.get(family, {}), **change}
+    tok = types.SimpleNamespace(eos_token_id=7)
+    obj = getattr(transformers, FAMILIES[family][0])(**cfg)
+    with pytest.raises(ValueError):
+        jmu._hf_to_config(obj, jnp.float32, tok)
+    with pytest.raises(NotImplementedError, match="outside the layouts"):
+        tmu._hf_to_config(cfg, torch.float32, tok)

@@ -10,8 +10,9 @@ parameters bit for bit at f32 and bf16; at f32 its logits agree with
 dmi_tpu's to 1e-5 relative and with HF's own forward to 1e-3, and greedy
 tokens are identical.  dmi_tpu always reads a local directory (the cache
 case: the snapshot), so that nothing looks for the hub.  Also: the
-weights load with transformers and safetensors unimportable, each refusal
-names ROADMAP.md A.9, the tokenizer matches dmi_tpu's, the published
+weights load with transformers and safetensors unimportable, the MoE and
+MLA model types map as dmi_tpu maps them and the options outside the
+layouts stay refused, the tokenizer matches dmi_tpu's, the published
 Llama-3.2-1B-Instruct config maps to llama.llama32_1b(), and the smoke's
 safetensors writer agrees with the safetensors package and the port's
 reader.
@@ -217,6 +218,9 @@ def test_tokenizer_from_local_dir_matches_dmi_tpu(tmp_path, monkeypatch):
 # Refusals
 # ---------------------------------------------------------------------------
 
+MOE_CLASSES = {"mixtral": "MixtralConfig", "qwen3_moe": "Qwen3MoeConfig",
+               "olmoe": "OlmoeConfig", "deepseek_v2": "DeepseekV2Config"}
+
 
 @pytest.mark.parametrize("change", [
     {"model_type": "mixtral"}, {"model_type": "deepseek_v2"}, {"model_type": "qwen3_moe"},
@@ -226,13 +230,28 @@ def test_tokenizer_from_local_dir_matches_dmi_tpu(tmp_path, monkeypatch):
     {"rope_scaling": {"rope_type": "yarn", "factor": 4.0}},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items())[:40])
 def test_config_refusals_name_a9(saved, change):
-    """What the dense layouts do not compute names A.9: the MoE and MLA
-    model types, an o_proj bias (llama's attention_bias), MLP biases, another
-    activation, dynamic and yarn rope scaling.  The dense families, untied
-    heads and linear rope scaling load (tests/test_torch_hf_families.py)."""
+    """The llama config.json with one change, which the port once refused
+    naming A.9, held to what dmi_tpu does with it.  The mixtral, qwen3_moe
+    and olmoe model types map as dmi_tpu maps the transformers config
+    object built from the same keys; deepseek_v2 here has routed experts
+    and no num_experts_per_tok, which both refuse (dmi_tpu with a
+    TypeError).  An o_proj bias (llama's attention_bias), MLP biases,
+    another activation, dynamic rope and yarn outside deepseek stay refused
+    as outside the layouts."""
     _, cases = saved
     cfg = {**hf_weights.read_config(cases["single"][0]), **change}
-    with pytest.raises(NotImplementedError, match="A.9"):
+    family = change.get("model_type")
+    if family in MOE_CLASSES:
+        obj = getattr(transformers, MOE_CLASSES[family])(**cfg)
+    if family in MOE_CLASSES and family != "deepseek_v2":
+        ours = tmu._hf_to_config(cfg, torch.float32, None)
+        assert ours.num_experts > 0
+        assert ours == bridge.config_from_jax(jmu._hf_to_config(obj, jnp.float32, None))
+        return
+    if family == "deepseek_v2":
+        with pytest.raises(TypeError):
+            jmu._hf_to_config(obj, jnp.float32, None)
+    with pytest.raises(NotImplementedError, match="outside the layouts"):
         tmu._hf_to_config(cfg, torch.float32, None)
 
 
@@ -259,14 +278,15 @@ def test_config_defaults_and_eos_fallback():
     "model.layers.0.self_attn.kv_a_proj_with_mqa.weight", "lm_head.weight",
 ])
 def test_state_dict_keys_of_other_families_are_refused(saved, extra):
-    """Keys the llama-3.x layout does not have are refused, not ignored; an
+    """Keys the llama-3.x layout does not have (other families' biases,
+    norms, experts and MLA projections) are refused, not ignored; an
     lm_head.weight is refused unless it is the tied embedding itself (as
     .bin files of tied models carry it)."""
     _, cases = saved
     sd = hf_weights.load_state_dict(cases["single"][0])
     cfg = tmu._hf_to_config(hf_weights.read_config(cases["single"][0]), torch.float32, None)
     tllama.from_hf_state_dict({**sd, "lm_head.weight": sd["model.embed_tokens.weight"]}, cfg)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(ValueError, match="layout does not use"):
         tllama.from_hf_state_dict({**sd, extra: torch.ones(64)}, cfg)
     missing = dict(sd)
     del missing["model.layers.1.mlp.up_proj.weight"]
@@ -275,8 +295,21 @@ def test_state_dict_keys_of_other_families_are_refused(saved, extra):
 
 
 def test_unported_test_models_name_a9(tok):
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tmu.build_lm(LMArgs(lm_name_or_path="test:tiny-mixtral"), tok)
+    """The test LMs of the MoE and MLA families build dmi_tpu's tiny configs
+    (at the builder's sizes); a test name no builder has is refused."""
+    sizes = dict(vocab_size=40, hidden_size=64, n_layers=2, n_heads=4, n_kv=2,
+                 intermediate=128, eos=(tok.eos_token_id,))
+    want = {"mixtral": jllama.tiny_mixtral_config(**sizes),
+            "qwen3moe": jllama.tiny_qwen3moe_config(**sizes),
+            "olmoe": jllama.tiny_olmoe_config(**sizes),
+            "deepseek": jllama.tiny_deepseek_config(n_experts=4, n_shared=1, **sizes)}
+    for family, jcfg in want.items():
+        cfg, params = tmu.build_lm(LMArgs(lm_name_or_path=f"test:tiny-{family}:40",
+                                          lm_dtype="float32"), tok)
+        assert cfg == bridge.config_from_jax(jcfg)
+        assert set(params["layers"][0]) == set(jllama.init(jax.random.key(0), jcfg)["layers"])
+    with pytest.raises(NotImplementedError, match="outside the layouts"):
+        tmu.build_lm(LMArgs(lm_name_or_path="test:tiny-nothing"), tok)
 
 
 def test_published_llama32_1b_config_maps_to_the_preset():

@@ -65,10 +65,22 @@ def test_config_bridge_keeps_llama3_fields():
 ], ids=["mixtral", "qwen3moe", "olmoe", "deepseek", "deepseek-q-lora", "deepseek-moe",
         "yarn", "qwen2-moe"])
 def test_config_bridge_refuses_other_families(maker):
-    """The MoE and MLA families and yarn rope scaling stay refused, naming
-    A.9; the dense families bridge (tests/test_torch_families.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
-        bridge.config_from_jax(maker())
+    """The MoE and MLA families and yarn rope scaling, once refused, now
+    bridge: every field of dmi_tpu's config carries over, and on dmi_tpu's
+    init (layer weights scaled to std 0.2) the port's full-sequence logits
+    equal dmi_tpu's at f32."""
+    jcfg = maker()
+    tcfg = bridge.config_from_jax(jcfg)
+    for f in dataclasses.fields(jcfg):
+        if f.name not in ("dtype", "attention_impl"):
+            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    tree = jax.tree.map(np.asarray, jllama.init(jax.random.key(1), jcfg))
+    tree["layers"] = {k: a * 10.0 if k.startswith(("w", "moe")) else a
+                      for k, a in tree["layers"].items()}
+    x = np.random.default_rng(2).normal(size=(2, 9, jcfg.hidden_size)).astype(np.float32)
+    ref = np.asarray(jllama.forward(jcfg, jax.tree.map(jnp.asarray, tree), jnp.asarray(x)))
+    out = tllama.forward(tcfg, bridge.llm_params_from_jax(tree), torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=RTOL * np.abs(ref).max())
 
 
 def test_rope_tables_match():

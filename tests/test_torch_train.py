@@ -448,9 +448,9 @@ def test_checkpoints_read_across_packages(fixture_data, tmp_path):
 
 
 def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
-    """Multi-card training names A.10; an LM of the MoE or MLA families
-    names A.9 (tests/test_torch_hf_weights.py has the rest); a hub id the HF
-    cache does not hold is an error that names where it looked."""
+    """Multi-card training names A.10; a hub id the HF cache does not hold is
+    an error that names where it looked.  The MoE and MLA families, once
+    refused here, build (tests/test_torch_families_e2e.py trains them)."""
     with pytest.raises(NotImplementedError, match="A.10"):
         ProjectorTrainer("x", None, None, None, None, [], [], None,
                          _train_args(mesh_shape=[1, 1]))
@@ -461,10 +461,11 @@ def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
     with pytest.raises(FileNotFoundError, match="models--meta-llama--Llama-3.2-1B-Instruct"):
         build_lm(LMArgs(lm_name_or_path="meta-llama/Llama-3.2-1B-Instruct"), None)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        build_lm(LMArgs(lm_name_or_path="test:tiny-mixtral"), None)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        bridge.config_from_jax(jllama.tiny_mixtral_config())
+    from dmi_tpu.data.tok_fixture import build_test_tokenizer
+
+    cfg, _ = build_lm(LMArgs(lm_name_or_path="test:tiny-mixtral"), build_test_tokenizer())
+    assert cfg.num_experts == 4
+    assert bridge.config_from_jax(jllama.tiny_mixtral_config()).num_experts == 4
 
 
 # ---------------------------------------------------------------------------
