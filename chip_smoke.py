@@ -932,6 +932,305 @@ def sampling_phase(torch, dev, cfg, params, projector, embs):
     return {"serving sampled": counts["bf16 tree"], "serving sampled w4a8": counts['int8="w4a8"']}
 
 
+SPEC_K = 4  # proposals a speculative round: the verify attends from k + 1 = 5 positions
+
+
+def spec_kernel_phase(torch, dev):
+    """The kernels at the speculative verify's shapes (Llama-3.2-1B, k 4,
+    budget 22, B 128: P * B = 640 lanes): K3, decode attention with P = 5
+    query positions per cache row over S = T 16 + 5 x 21 = 121 rows with the
+    bias the row bookkeeping builds (earlier rounds' accepted rows, this
+    round's rows up to each position, one finished slot), bf16 and f32,
+    against its twin, timed beside its bound and SDPA with the same float
+    mask [B, 1, P, S]; two calls bit-equal; the decode MLP (H 2048, I 8192,
+    silu) and the bf16 head + argmax (V 128256) at 640 columns against
+    their twins, timed."""
+    import torch.nn.functional as F
+
+    from dmi_tpu_torch.ops.cuda import decode_attn as da
+    from dmi_tpu_torch.ops.cuda import decode_mlp as dm
+    from dmi_tpu_torch.ops.cuda import head_argmax as tha
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    rng = np.random.default_rng(SEED + 15)
+    T, P, B, H, I, V = len(PREFIX_IDS) + 1, SPEC_K + 1, 128, 2048, 8192, 128256
+    S = T + P * (MAX_NEW - 1)
+    results = {}
+    # round 10 of a batch: each earlier round kept its first 1 + n_acc rows
+    rnd = 10
+    rt = T + P * rnd
+    valid = torch.zeros(B, S, dtype=torch.bool)
+    valid[:, :T] = True
+    for r in range(rnd):
+        keep = 1 + torch.from_numpy(rng.integers(0, P, size=B))
+        valid[:, T + P * r:T + P * (r + 1)] = torch.arange(P)[None, :] < keep[:, None]
+    valid[:, rt:rt + P] = True
+    valid[0, rt:] = False  # a finished slot: its round rows stamped invalid
+    sees = torch.arange(S)[None, :] <= (rt + torch.arange(P))[:, None]  # [P, S]
+    bias = torch.where(valid[:, None, :] & sees[None], 0.0,
+                       torch.finfo(torch.float32).min).to(dev)
+    print(f"kernel fused_decode_attention with P = {P} query positions per cache row (K3) vs "
+          f"_decode_attn_plain (B {B}, 32/8 heads, hd 64, S {S}, round {rnd}'s rows):")
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, 32, P, 64, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, 8, S, 64, generator=gen, device=dev).to(dtype) for _ in range(2))
+        args = (q, k, v, bias)
+        label = f"B={B} P={P} S={S} {str(dtype)[6:]}"
+        out = da.fused_decode_attention(*args)
+        errs.append(compare(torch, label, out, da._decode_attn_plain(*args), TOL[str(dtype)[6:]]))
+        if not torch.equal(out, da.fused_decode_attention(*args)):
+            raise AssertionError(f"K3 {label}: two calls on the same inputs differ")
+        if dtype != torch.bfloat16:
+            continue
+        mask = bias.view(B, 1, P, S).to(dtype)
+        t = {**device_times(
+            torch, lambda: da.fused_decode_attention(*args), lambda: da._decode_attn_plain(*args),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)),
+             **least_time(nbytes(q, k, v, bias, q), 4 * B * 32 * P * S * 64, dtype)}
+        us = host_us(torch, lambda: da.fused_decode_attention(*args))
+        print(f"    {label}: {report_times(t)}; library: scaled_dot_product_attention, GQA, "
+              f"float mask [B, 1, P, S]; K and V alone {nbytes(k, v) / 1e6!r} MB; plan "
+              f"{da.plan(B * P, 8, 4, S, 64, 2)}; host time per call {us!r} us; two calls "
+              f"bit-equal")
+        results["decode_attention_spec"] = t
+    results["decode_attention_spec"]["max_abs_err"] = max(errs)
+
+    N = P * B
+    print(f"kernel fused_decode_mlp_bl at the verify's {N} columns (H {H}, I {I}, silu):")
+    w_gu = _normal(torch, dev, gen, (H, 2 * I), H ** -0.5).bfloat16()
+    w_down = _normal(torch, dev, gen, (I, H), I ** -0.5).bfloat16()
+    h = _normal(torch, dev, gen, (H, N)).bfloat16()
+    args = (w_gu, w_down, h, "silu")
+    err = compare(torch, f"H={H} I={I} B={N} bfloat16 silu", dm.fused_decode_mlp_bl(*args),
+                  dm._decode_mlp_plain(*args), TOL["bfloat16"])
+    if not torch.equal(dm.fused_decode_mlp_bl(*args), dm.fused_decode_mlp_bl(*args)):
+        raise AssertionError(f"decode MLP at B {N}: two calls on the same inputs differ")
+
+    def chain():
+        g, u = (w_gu.t() @ h).chunk(2, dim=0)
+        return w_down.t() @ (F.silu(g) * u)
+
+    t = {**device_times(torch, lambda: dm.fused_decode_mlp_bl(*args),
+                        lambda: dm._decode_mlp_plain(*args), chain),
+         **least_time(nbytes(w_gu, w_down, h, h), 2 * N * 3 * H * I, torch.bfloat16)}
+    print(f"    B={N}: {report_times(t)}; library: matmul, silu * mul, matmul (the twin is "
+          f"this chain); plan {dm.plan(H, I, dm.padded_batch(N))}; two calls bit-equal")
+    results["decode_mlp_spec"] = {"max_abs_err": err, **t}
+
+    print(f"kernel head_argmax bf16 at the verify's {N} columns (V {V}, H {H}):")
+    params = {"embed": _normal(torch, dev, gen, (V, H)).bfloat16()}
+    h = _normal(torch, dev, gen, (H, N)).bfloat16()
+    gap = head_check(torch, tha, f"bf16 V={V} B={N}", params, h, "bf16")
+    t = {**device_times(torch, lambda: tha.head_argmax(params, h),
+                        lambda: tha._head_argmax_plain(params["embed"], h),
+                        lambda: (params["embed"] @ h).argmax(dim=0)),
+         **least_time(nbytes(params["embed"], h) + 4 * N, 2 * V * H * N, torch.bfloat16)}
+    plan = {k: v for k, v in tha.plan(V, H, N, "bf16").items() if k != "runs"}
+    print(f"    bf16: {report_times(t)}; library: matmul, argmax; plan {plan}")
+    results["head_argmax_spec"] = {"max_abs_err": gap, **t}
+    return results
+
+
+def _sim_forced_rounds(budget, k, wp):
+    """The forced harness's rounds in closed form: a proposal at output index
+    i is corrupted iff wp > 0 and i % wp == 0; a round emits its clean
+    leading proposals and one more token."""
+    out_pos, rounds = 1, 0
+    while out_pos < budget:
+        n_acc = 0
+        while n_acc < k and not (wp > 0 and (out_pos + n_acc) % wp == 0):
+            n_acc += 1
+        out_pos, rounds = min(out_pos + n_acc + 1, budget), rounds + 1
+    return rounds
+
+
+def spec_phase(torch, dev, cfg, params, projector, embs):
+    """Speculative decoding (A.8) at full width and depth, bf16 target and
+    its W4A8 self-draft, k 4: the requests through
+    Captioner(speculative=4).caption_ids beside the plain batch-last run
+    (captions/s, token agreement, rounds and tokens a round, launch
+    counts: a round is k + 1 draft steps and one verify, so L x rounds K3
+    launches, L x (k + 1) x rounds decode-attention launches with a [B, S]
+    bias and 4 L x (k + 1) x rounds W4A8 matmuls); one batch profiled; the
+    oracle draft at wrong_period 0 over its own fixed point (the closed-form
+    5 rounds) and 1, the forced harness at 0 and 1 (its closed-form rounds
+    and chain), captions/s of each; one sampled batch (SAMPLE); the bulk
+    engine beside the batch engine, both speculative, on mid-budget EOS ids.
+    Returns each run's launch counts."""
+    from dmi_tpu_torch.models import decode as dec
+    from dmi_tpu_torch.models import llama, mmmodel
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.models import speculative as sp
+    from dmi_tpu_torch.ops import l2_normalize
+    from dmi_tpu_torch.serve import Captioner
+
+    spec, pparams = projector
+    k, L, n = SPEC_K, cfg.num_hidden_layers, embs.shape[0]
+    card = nvidia_smi()
+
+    def captioner(c=cfg, **kw):
+        return Captioner(c, params, spec, pparams, max_new_tokens=MAX_NEW, batch_size=128,
+                         prefix_ids=PREFIX_IDS, pad_token_id=PAD_ID, **kw)
+
+    def per_round(rounds, heads=True):
+        """A round's launches: the verify (K3 on every layer, the decode MLP
+        at 640 columns, the bf16 head + argmax) and k + 1 draft steps
+        (decode attention with a [B, S] bias, kernel 7 at four matmuls, the
+        q8 head + argmax on all but the last)."""
+        return {"decode_attention": L * (k + 2) * rounds,
+                "decode_attention_rows": L * (k + 1) * rounds,
+                "decode_attention_pos": L * rounds, "decode_mlp": L * rounds,
+                "w4_mm": 4 * L * (k + 1) * rounds, "head_argmax": (1 + k) * rounds if heads else 0}
+
+    def timed(label, run, rows):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"  {label}: {rows} requests, {secs!r} s, {rows / secs!r} captions/s ({card})")
+        return out, secs, _counts()
+
+    print(f"speculative decoding (Captioner(speculative={k}): bf16 target, W4A8 self-draft):")
+    plain_cap, cap = captioner(), captioner(speculative=k)
+    for c in (plain_cap, cap):  # warm-up
+        c.caption_ids(embs[:128])
+    plain, plain_secs, _ = timed("plain batch-last bf16", lambda: plain_cap.caption_ids(embs), n)
+    ids, secs, counts = timed(f"speculative k={k}", lambda: cap.caption_ids(embs), n)
+    rounds = cap.spec_rounds
+    batches = -(-n // 128)
+    _check_ids(cfg, "speculative", ids, n)
+    print(f"    {rounds} rounds over {batches} batches, {rounds / batches!r} a batch; "
+          f"{(MAX_NEW - 1) * batches / rounds!r} tokens a round a row (EOS off: 21 a row "
+          f"after token 0); captions/s against plain {plain_secs / secs!r}x")
+    _expect("speculative", counts, {"mlp2": batches, **per_round(rounds)})
+    token_agreement("the plain batch-last run", ids, plain)
+    print("where one speculative batch's time goes:")
+    profile_run(torch, f"batch 128, speculative k={k}", lambda: cap.caption_ids(embs[:128]))
+    paths = {"serving speculative": counts}
+
+    # the measurement entries over the first batch's prompt, as the Captioner
+    # assembles it
+    e = l2_normalize(torch.as_tensor(embs[:128], device=dev))
+    prefix = torch.as_tensor(PREFIX_IDS, device=dev)[None].expand(128, -1)
+    prompt = mmmodel.assemble_prompt(cfg, params, proj.apply(spec, pparams, e), prefix)
+    draft = cap.draft_params
+    oracle = dec.greedy_generate_bl(cfg, params, prompt, MAX_NEW, PAD_ID)
+    first_rounds, runs = None, 0
+    while True:  # the oracle stream that the verify forward accepts in full
+        runs += 1
+        got, r = sp.speculative_generate_oracle_bl(cfg, params, prompt, oracle, MAX_NEW, PAD_ID,
+                                                   k=k, wrong_period=0)
+        first_rounds = r if first_rounds is None else first_rounds
+        if torch.equal(got, oracle) or runs == MAX_NEW:
+            break
+        oracle = got
+    print(f"  oracle at wrong_period 0: the plain greedy ids as the stream took {first_rounds} "
+          f"rounds; the stream the verify accepts in full found after {runs} runs (each run's "
+          f"output the next one's stream)")
+    sliding = llama.sliding_effective(cfg, len(PREFIX_IDS) + 1 + MAX_NEW)
+
+    def acceptance(label, draft_params):
+        """The batch loop's rounds (speculative_generate_bl's, share_prefill)
+        with the accepted proposals of the live rows counted; its tokens and
+        rounds held to the loop's own."""
+        core, eos, T, max_rounds = sp._spec_setup(cfg, params, None, prompt, MAX_NEW, PAD_ID, k)
+        kv_d, valid_d, rp_d, Td = sp._draft_setup(cfg, draft_params, params, prompt, k,
+                                                  max_rounds, from_target=core.caches)
+        heads = dec.fused_head_weights(cfg, params), dec.fused_head_weights(cfg, draft_params)
+        accepted, live_rows, rnd = 0, 0, 0
+        while rnd < max_rounds and not bool(core.done.all()):
+            live, rd = ~core.done, Td + rnd * (k + 1)
+            props = sp._draft_steps_greedy(cfg, draft_params, core.last, core.done, core.out_pos,
+                                           kv_d, valid_d, rp_d, rd, Td, k, sliding, heads[1])
+            n_acc = sp._verify_round(cfg, params, core, props, rnd, k, T, MAX_NEW, eos, sliding,
+                                     head_w=heads[0])
+            sp._retract_rows(valid_d, rd, k, n_acc)
+            accepted += int(n_acc[live].sum())
+            live_rows += int(live.sum())
+            rnd += 1
+        want, r = sp.speculative_generate_bl(cfg, params, cfg, draft_params, prompt, prompt,
+                                             MAX_NEW, PAD_ID, k=k, draft_prefill_params=params,
+                                             share_prefill=True)
+        print(f"  {label}: {rnd} rounds, {accepted / live_rows!r} of {k} proposals accepted a "
+              f"live row a round ({live_rows} row-rounds); tokens and rounds those of "
+              f"speculative_generate_bl {torch.equal(core.tokens, want) and rnd == r}")
+        if not (torch.equal(core.tokens, want) and rnd == r):
+            raise AssertionError(f"{label}: the counted rounds differ from the loop's")
+
+    acceptance("acceptance of the W4A8 self-draft (one batch)", draft)
+    acceptance("acceptance of the bf16 tree as its own draft (one batch)", params)
+    for wp, want in ((0, -(-(MAX_NEW - 1) // (k + 1))), (1, MAX_NEW - 1)):
+        (got, r), osecs, _ = timed(f"oracle wrong_period {wp}", lambda wp=wp: (
+            sp.speculative_generate_oracle_bl(cfg, params, prompt, oracle, MAX_NEW, PAD_ID, k=k,
+                                              wrong_period=wp)), 128)
+        print(f"    {r} rounds (closed form {want}); captions/s against plain "
+              f"{plain_secs / n * 128 / osecs!r}x")
+        if r != want or (wp == 0 and not torch.equal(got, oracle)):
+            raise AssertionError(f"oracle wrong_period {wp}: {r} rounds, not {want}")
+    for wp in (0, 1):
+        (got, r), fsecs, _ = timed(f"forced harness wrong_period {wp}", lambda wp=wp: (
+            sp.speculative_generate_forced_bl(cfg, params, cfg, draft, prompt, prompt, MAX_NEW,
+                                              PAD_ID, wp, k=k, draft_prefill_params=params)), 128)
+        want = _sim_forced_rounds(MAX_NEW, k, wp)
+        chain = sp._chain_next(got[:, :-1], cfg.vocab_size, cfg.eos_token_ids)
+        print(f"    {r} rounds (closed form {want}); the chain held {torch.equal(got[:, 1:], chain)}"
+              f"; captions/s against plain {plain_secs / n * 128 / fsecs!r}x")
+        if r != want or not torch.equal(got[:, 1:], chain):
+            raise AssertionError(f"forced harness wrong_period {wp}: {r} rounds, not {want}")
+
+    (sids, ssecs, scounts) = timed(f"sampled speculative ({SAMPLE})",
+                                   lambda: cap.caption_ids(embs[:128], **SAMPLE), 128)
+    _check_ids(cfg, "sampled speculative", sids, 128)
+    _expect("sampled speculative", scounts,
+            {"mlp2": 1, **per_round(cap.spec_rounds, heads=False)})
+    if not torch.equal(sids, cap.caption_ids(embs[:128], **SAMPLE)):
+        raise AssertionError("sampled speculative: two runs of one (seed, workload) differ")
+    plain_s = plain_cap.caption_ids(embs[:128], **SAMPLE)
+    print(f"    {cap.spec_rounds} rounds; two runs identical; token agreement with the plain "
+          f"sampler {(sids == plain_s).float().mean().item()!r} (the same law, other draws "
+          f"where the draft is rejected)")
+    V = cfg.vocab_size
+    logits = torch.randn(V, (k + 1) * 128, device=dev).to(torch.bfloat16)
+    res = torch.rand(V, k * 128, device=dev)
+    keys = dec._req_keys(SAMPLE["seed"], torch.arange(k * 128, device=dev), MAX_NEW, 3)
+    warp_ms = device_ms(lambda: dec._warp_bl(logits, SAMPLE["temperature"], SAMPLE["top_k"],
+                                             SAMPLE["top_p"]))
+    draw_ms = device_ms(lambda: dec._gumbel_pick(torch.log(res), keys))
+    warped = dec._warp_bl(logits, SAMPLE["temperature"], SAMPLE["top_k"], SAMPLE["top_p"])
+    rows_ms = device_ms(lambda: sp._softmax_v(warped))
+    lead_ms = device_ms(lambda: torch.softmax(warped, dim=0))
+    print(f"    the verify's sampler pieces (plain torch ops, device time per call): the warp of "
+          f"{(k + 1) * 128} columns {warp_ms * 1e3!r} us, the residual draw over {k * 128} "
+          f"columns {draw_ms * 1e3!r} us, p's softmax over rows of the transpose "
+          f"(_softmax_v) {rows_ms * 1e3!r} us against {lead_ms * 1e3!r} us over the leading "
+          f"axis, at V {V} ({card})")
+    paths["serving speculative sampled"] = scounts
+
+    eos, mean_len = _mid_budget_eos(plain)
+    ecap = captioner(dataclasses.replace(cfg, eos_token_ids=eos), speculative=k)
+    for engine in ("batch", "bulk"):  # warm-up
+        ecap.caption_ids(embs[:128], engine=engine)
+    print(f"  speculative bulk beside batch, EOS ids {eos} (mean length {mean_len!r}):")
+    bids, bsecs, _ = timed("engine=batch speculative", lambda: ecap.caption_ids(
+        embs, engine="batch"), n)
+    brounds = ecap.spec_rounds
+    uids, usecs, ucounts = timed("engine=bulk speculative", lambda: ecap.caption_ids(
+        embs, engine="bulk"), n)
+    print(f"    rounds: batch {brounds}, bulk {ecap.spec_rounds}; batch / bulk wall "
+          f"{bsecs / usecs!r}")
+    _expect("engine=bulk speculative", ucounts,
+            {"mlp2": -(-n // 32), **per_round(ecap.spec_rounds)})
+    _check_ids(cfg, "engine=bulk speculative", uids, n)
+    token_agreement("the batch speculative engine", uids, bids)
+    paths["serving speculative bulk"] = ucounts
+    del cap, ecap, plain_cap
+    torch.cuda.empty_cache()
+    return paths
+
+
 def _mid_budget_eos(ids, most=3, pad=PAD_ID):
     """EOS ids, at most `most` (Llama-3's count), that end captions nearest
     the middle of the budget: chosen greedily from the ids of EOS-free
@@ -1545,7 +1844,7 @@ def _reset_counts():
     from dmi_tpu_torch.ops.cuda import stream_mm as sm
     from dmi_tpu_torch.ops.cuda import w4_probe as wp
 
-    pk.launches = da.launches = da.row_launches = l0.launches = 0
+    pk.launches = da.launches = da.row_launches = da.pos_launches = l0.launches = 0
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
     dm.launches = ha.launches = w4.launches = w4.w8_launches = 0
     bm.launches = sm.launches = wp.split_out_launches = wp.split_k_launches = 0
@@ -1565,7 +1864,8 @@ def _counts() -> dict:
     from dmi_tpu_torch.ops.cuda import w4_probe as wp
 
     return {"mlp2": pk.launches, "decode_attention": da.launches,
-            "decode_attention_rows": da.row_launches, "lora0": l0.launches,
+            "decode_attention_rows": da.row_launches,
+            "decode_attention_pos": da.pos_launches, "lora0": l0.launches,
             "flash_fwd": fa.fwd_launches, "flash_bwd_dkv": fa.dkv_launches,
             "flash_bwd_dq": fa.dq_launches, "decode_mlp": dm.launches,
             "head_argmax": ha.launches, "w4_mm": w4.launches, "w8_mm": w4.w8_launches,
@@ -3051,6 +3351,7 @@ def main() -> int:
     kernels.update(lora0_phase(torch, dev))
     kernels.update(bl_kernel_phase(torch, dev))
     kernels.update(row_bias_kernel_phase(torch, dev))
+    kernels.update(spec_kernel_phase(torch, dev))
     # each path's launch counts, set to 0 just before its run and read just after
     paths = {}
     paths["probes"], probe_kernels = probe_phase(torch)
@@ -3066,6 +3367,7 @@ def main() -> int:
     w4a8_divergence_phase(torch, dev, cfg, params, projector, embs)
     paths.update(sampling_phase(torch, dev, cfg, params, projector, embs))
     paths.update(bulk_phase(torch, dev, cfg, params, projector, embs))
+    paths.update(spec_phase(torch, dev, cfg, params, projector, embs))
     paths["stage 1"] = train_phase(torch, dev, cfg, params)
     paths["stage 2"], hn_params, hn_state = hypernet_phase(torch, dev, cfg, params)
     paths["stage 3"] = fewshot_phase(torch, dev, cfg, params, hn_params)
@@ -3106,6 +3408,20 @@ def main() -> int:
                                          "dmi_tpu_torch/csrc/decode_attn.cu",
                                          "dmi_tpu/ops/pallas/decode_attn.py:121",
                                          "serving bulk", "decode_attention_rows"),
+               "decode_attention_spec": ("fused_decode_attention with k + 1 = 5 query "
+                                         "positions per cache row (K3; dmi_tpu's verify "
+                                         "attends through XLA, "
+                                         "dmi_tpu/models/speculative.py:142)",
+                                         "dmi_tpu_torch/csrc/decode_attn.cu",
+                                         "dmi_tpu/ops/pallas/decode_attn.py:121",
+                                         "serving speculative", "decode_attention_pos"),
+               "decode_mlp_spec": ("fused_decode_mlp_bl at the verify's 640 columns",
+                                   "dmi_tpu_torch/csrc/decode_mlp.cu",
+                                   "dmi_tpu/ops/pallas/decode_mlp.py:97", "serving speculative",
+                                   "decode_mlp"),
+               "head_argmax_spec": ("head_argmax bf16 at the verify's 640 columns (the count "
+                                    "also holds the draft's q8 calls, 4 a round)", *head,
+                                    "serving speculative", "head_argmax"),
                "flash_fwd": ("flash_attention forward", "dmi_tpu_torch/csrc/flash_attn_fwd.cu",
                              f"dmi_tpu/models/llama.py:1086 ({flash}:758 "
                              "_flash_attention_impl)", "stage 1", "flash_fwd"),

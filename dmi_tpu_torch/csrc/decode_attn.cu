@@ -4,12 +4,16 @@
 // (body _kernel), behind fused_decode_attention, and adds the score scale and
 // the attention softcap that its oracle llama._decode_attention takes.
 //
-//   q [B, nh, 1, hd], k/v [B, nkv, S, hd] (rows contiguous, batch and head
+//   q [B, P, nh, hd], k/v [B, nkv, S, hd] (rows contiguous, batch and head
 //   strides free, so a view of the first S positions of a longer cache is
-//   read in place), bias [S] f32 shared by the batch or [B, S] f32 (a row
-//   per batch row: the slots of a continuous-batching engine decode at
+//   read in place), bias [S] f32 shared by the batch or [B * P, S] f32 (a
+//   row per query row: the slots of a continuous-batching engine decode at
 //   different ages; row stride 0 reads the one shared row)  ->  out
-//   [B, nh, 1, hd] in v's dtype.
+//   [B, P, nh, hd] in v's dtype.  P query positions per cache row (K3: a
+//   speculative verify forward attends from the k + 1 positions of a round
+//   at once, dmi_tpu/models/speculative.py:142-145): the kernel's query
+//   rows are the B * P (row, position) pairs, and query row n reads cache
+//   row n / P.  P = 1 is the single-token step.
 //
 // Math, as the Pallas body (decode_attn.py:55-64): s = (q . k) * scale with
 // exact products and f32 sums, s = cap * tanh(s / cap) when a softcap is
@@ -67,6 +71,13 @@
 // and S 16384 36.98-37.35 against 30.43-30.77 (32 splits). A [B, S] bias
 // (the slot engine's ring masks) at B 128, S 38: 9.60-9.62 us against
 // 15.66-15.67 us for SDPA with the same float mask (two runs).
+// K3 (P > 1) reads each cache row's K and V once per query position, the
+// later reads mostly from L2: the simplest design that is right.  Folding
+// the P positions into the tensor-core tile's rows (g * P <= 16) would read
+// them once; PERF.md row 3s has its time.  Both kernels are templated on
+// kPos (P > 1): with the query row's cache row computed at run time in every
+// instance, the P = 1 tensor-core instances took 2-3 more registers and rows
+// 3 and 3r 3% longer, so the P = 1 instances keep the code they had.
 #include <cuda_pipeline.h>
 #include <math.h>
 #include <stdint.h>
@@ -130,6 +141,9 @@ struct Params {
   // call at B 128, S 23 took 7.87-8.06 us against 7.22-7.51 us.
   int bias_sb;
   bool vec;  // hd a multiple of the 16-byte vector, every q, K and V row 16-byte aligned
+  // query positions per cache row (K3), in the padding after vec so that
+  // Params keeps its 128 bytes and every other member its offset
+  unsigned short pos;
   long long k_sb, k_sh, v_sb, v_sh;
   float scale, softcap;
 };
@@ -186,7 +200,7 @@ __device__ __forceinline__ void stage_chunk(T* ks, T* vs, float* bs, const T* kh
 // accumulators per thread, kPP * kThreads >= group * ceil(hd / 2).  At most
 // 64 registers a thread for kPP <= 4, so that 8 blocks fit an SM: the
 // serving shape's 1024 blocks then run in one wave.
-template <typename T, int kPP>
+template <typename T, int kPP, bool kPos>
 __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel(const Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kV = Vec<T>::kN;
@@ -202,9 +216,10 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
   float* l_s = m_s + g;
   float* alpha_s = l_s + g;
   const int nh = a.nkv * g;
-  const T* kh = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vh = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const float* brow = a.bias + (size_t)b * a.bias_sb;  // this batch row's bias
+  const int bc = kPos ? b / a.pos : b;  // the query row's cache row
+  const T* kh = static_cast<const T*>(a.k) + bc * a.k_sb + kvh * a.k_sh;
+  const T* vh = static_cast<const T*>(a.v) + bc * a.v_sb + kvh * a.v_sh;
+  const float* brow = a.bias + (size_t)b * a.bias_sb;  // this query row's bias
   const int s0 = split * a.keys_per_split;
   const int s1 = min(a.S, s0 + a.keys_per_split);
   const int n_chunks = (s1 - s0 + chunk - 1) / chunk;  // >= 1: no split is empty
@@ -402,9 +417,10 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
 // bf16(p - hi), so that the product sees 16 significant bits of each
 // weight (error below 2^-16 of it, far inside the output's bf16 rounding)
 // where one bf16 rounding would keep 8: the TPU kernel multiplies V by f32
-// p. kRows: a bias row per batch row (row stride bias_sb); the instances of
-// the one shared row keep the code they had before the per-row bias.
-template <int kD, bool kRows>
+// p. kRows: a bias row per query row (row stride bias_sb); the instances of
+// the one shared row keep the code they had before the per-row bias.  kPos:
+// P > 1 query positions per cache row (K3, always with kRows).
+template <int kD, bool kRows, bool kPos>
 __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params a) {
   using dmi::flash::bf16;
   constexpr int kLd = kD * 16 + 8;
@@ -416,9 +432,10 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
   bf16* sQ = reinterpret_cast<bf16*>(smem);  // [16][kLd]
   bf16* sKV = sQ + 16 * kLd;                 // [stages][K, V][chunk][kLd]
   float* sB = reinterpret_cast<float*>(sKV + a.stages * 2 * chunk * kLd);  // [stages][chunk]
-  const bf16* kh = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vh = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const float* brow = kRows ? a.bias + (size_t)b * a.bias_sb : a.bias;  // this batch row's bias
+  const int bc = kPos ? b / a.pos : b;  // the query row's cache row
+  const bf16* kh = static_cast<const bf16*>(a.k) + bc * a.k_sb + kvh * a.k_sh;
+  const bf16* vh = static_cast<const bf16*>(a.v) + bc * a.v_sb + kvh * a.v_sh;
+  const float* brow = kRows ? a.bias + (size_t)b * a.bias_sb : a.bias;  // this query row's bias
   const int s0 = split * a.keys_per_split;
   const int s1 = min(a.S, s0 + a.keys_per_split);
   const int n_chunks = (s1 - s0 + chunk - 1) / chunk;  // >= 1: no split is empty
@@ -695,17 +712,23 @@ int launch_kernel(K kernel, const Params& a, int B, int threads, int smem, cudaS
 }
 
 // The CUDA-core kernel: kPP (query head, hd pair) accumulators a thread
-template <typename T>
-int launch_fma(const Params& a, int B, cudaStream_t stream) {
+template <typename T, bool kPos>
+int launch_fma_instance(const Params& a, int B, cudaStream_t stream) {
   const int smem = Layout(sizeof(T), a.group, a.hd, a.chunk, a.stages).total;
   const int pairs = a.group * ((a.hd + 1) / 2);
   auto run = [&](auto kernel) { return launch_kernel(kernel, a, B, kThreads, smem, stream); };
-  if (pairs <= kThreads) return run(decode_attn_kernel<T, 1>);
-  if (pairs <= 2 * kThreads) return run(decode_attn_kernel<T, 2>);
-  if (pairs <= 4 * kThreads) return run(decode_attn_kernel<T, 4>);
-  if (pairs <= 8 * kThreads) return run(decode_attn_kernel<T, 8>);
-  if (pairs <= 16 * kThreads) return run(decode_attn_kernel<T, 16>);
-  return run(decode_attn_kernel<T, 32>);
+  if (pairs <= kThreads) return run(decode_attn_kernel<T, 1, kPos>);
+  if (pairs <= 2 * kThreads) return run(decode_attn_kernel<T, 2, kPos>);
+  if (pairs <= 4 * kThreads) return run(decode_attn_kernel<T, 4, kPos>);
+  if (pairs <= 8 * kThreads) return run(decode_attn_kernel<T, 8, kPos>);
+  if (pairs <= 16 * kThreads) return run(decode_attn_kernel<T, 16, kPos>);
+  return run(decode_attn_kernel<T, 32, kPos>);
+}
+
+template <typename T>
+int launch_fma(const Params& a, int B, cudaStream_t stream) {
+  return a.pos > 1 ? launch_fma_instance<T, true>(a, B, stream)
+                   : launch_fma_instance<T, false>(a, B, stream);
 }
 
 // The tensor-core kernel at hd <= 16 kD: Q, the K and V stages, the bias
@@ -713,9 +736,13 @@ int launch_fma(const Params& a, int B, cudaStream_t stream) {
 template <int kD>
 int launch_mma(const Params& a, int B, int warps, cudaStream_t stream) {
   const int smem = (16 + a.stages * 2 * a.chunk) * (kD * 16 + 8) * 2 + a.stages * a.chunk * 4;
-  return a.bias_sb ? launch_kernel(decode_attn_mma_kernel<kD, true>, a, B, 32 * warps, smem, stream)
-                   : launch_kernel(decode_attn_mma_kernel<kD, false>, a, B, 32 * warps, smem,
-                                   stream);
+  if (a.pos > 1)
+    return launch_kernel(decode_attn_mma_kernel<kD, true, true>, a, B, 32 * warps, smem, stream);
+  return a.bias_sb
+             ? launch_kernel(decode_attn_mma_kernel<kD, true, false>, a, B, 32 * warps, smem,
+                             stream)
+             : launch_kernel(decode_attn_mma_kernel<kD, false, false>, a, B, 32 * warps, smem,
+                             stream);
 }
 
 int launch_bf16_mma(const Params& a, int B, int warps, cudaStream_t stream) {
@@ -729,25 +756,29 @@ int launch_bf16_mma(const Params& a, int B, int warps, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). The plan (chunk, keys_per_split,
+// Plain C entry point (bound with ctypes). B counts query rows: B / pos cache
+// rows of pos query positions each (pos = 1: one a cache row), query row n
+// reading cache row n / pos. The plan (chunk, keys_per_split,
 // splits, stages, warps) comes from ops/cuda/decode_attn.py:plan: splits of
 // keys_per_split keys tile [0, S), none empty; chunk is a multiple of 16; one
 // stage only where a split is one chunk. bf16 at hd <= 128 and group <= 16
 // runs on the tensor cores with `warps` warps (at most one per 16-key tile of
 // a chunk of at most 64 keys); every other call (f32 always) on the CUDA
 // cores, with warps = 4. Strides are in elements (bias_sb 0 for one bias row
-// shared by the batch, S for a row per batch row); a softcap <= 0 means none.
+// shared by the batch, S for a row per query row); a softcap <= 0 means none.
 // Rows move by 16-byte copies when hd is a multiple of the 16-byte vector and
 // every q, K and V row is 16-byte aligned, else element by element. part
 // (f32, splits > 1 only) is scratch of B * nh * splits * (hd + 2) floats the
 // caller allocates. Returns the CUDA error code of the first failed launch.
 extern "C" int dmi_decode_attn(const void* q, const void* k, const void* v, const void* bias,
-                               void* out, void* part, int B, int nkv, int group, int S, int hd,
+                               void* out, void* part, int B, int pos, int nkv, int group,
+                               int S, int hd,
                                int chunk, int keys_per_split, int splits, int stages, int warps,
                                long long k_sb, long long k_sh, long long v_sb, long long v_sh,
                                long long bias_sb, float scale, float softcap, int dtype,
                                void* stream) {
   if (hd < 1 || hd > kMaxHd || group < 1 || group > kMaxGroup || S < 1 || chunk < 16 ||
+      pos < 1 || pos > 0xffff || B % pos || (pos > 1 && bias_sb == 0) ||
       chunk % 16 || keys_per_split < 1 || splits < 1 || splits > kMaxSplits ||
       (long long)splits * keys_per_split < S || (long long)(splits - 1) * keys_per_split >= S ||
       stages < 1 || stages > 2 || (stages == 1 && std::min(keys_per_split, S) > chunk) ||
@@ -763,8 +794,8 @@ extern "C" int dmi_decode_attn(const void* q, const void* k, const void* v, cons
   const bool vec = hd % vn == 0 && aligned(q) && aligned(k) && aligned(v) && k_sb % vn == 0 &&
                    k_sh % vn == 0 && v_sb % vn == 0 && v_sh % vn == 0;
   Params a{q, k, v, static_cast<const float*>(bias), out, static_cast<float*>(part), nkv, group,
-           S, hd, chunk, keys_per_split, splits, stages, (int)bias_sb, vec, k_sb, k_sh, v_sb,
-           v_sh, scale, softcap};
+           S, hd, chunk, keys_per_split, splits, stages, (int)bias_sb, vec,
+           (unsigned short)pos, k_sb, k_sh, v_sb, v_sh, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;
   if (mma) e = launch_bf16_mma(a, B, warps, s);

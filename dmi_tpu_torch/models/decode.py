@@ -549,6 +549,15 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     on sliding layers the window's row once the window binds, as the batch
     loops always have.
 
+    P query positions per cache row (the speculative verify forward,
+    speculative._verify_step_bl): h [H, P * B] with lane p * B + b the
+    position p of cache row b, rope tables [rope_dim, P * B], [B, P, S]
+    biases (a causal row per position); the step writes the P positions'
+    K/V at rows write_row .. write_row + P - 1 and attends through the
+    decode-attention kernel with P positions (K3).  Every matmul, the MLP
+    and the head run over the P * B lanes, so each weight is read once for
+    all P positions.  Not for MLA (dmi_tpu refuses MLA speculation).
+
     On CUDA tensors an unquantized fused w_gu runs the decode-MLP kernel
     with cfg.mlp_act, quantized weights the int8 kernels (_mm_bl) and
     attention the decode-attention kernel on the step's transposed q/k/v;
@@ -559,11 +568,16 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     g = nh // nkv
-    B = h.shape[1]
+    B = k_cache.shape[1]  # cache rows; h holds P lanes a row
+    N = h.shape[1]
+    P = N // B
     s_total = k_cache.shape[2] if mla else k_cache.shape[3]
     per_slot = (rope is not None, write_row is not None, bias is not None)
     if any(per_slot) and not all(per_slot):
         raise ValueError("per-slot decode step: pass rope, write_row and bias together")
+    if N != P * B or (P > 1 and (mla or rope is None)):
+        raise ValueError(f"decode step: {N} lanes over {B} cache rows (P positions a row take "
+                         "the per-slot arguments and no MLA)")
     if rope is None:
         positions = torch.tensor(pos, device=h.device)
         rope = llama.rope_tables(cfg, positions)  # [rope_dim] each
@@ -574,8 +588,9 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
         bias_sw = None if window is None else window[0]
         row, span = pos, pos + 1
     else:
-        if bias.shape != (B, s_total):
-            raise ValueError(f"per-slot bias {tuple(bias.shape)}: [B, S] = {(B, s_total)}")
+        want = (B, s_total) if P == 1 else (B, P, s_total)
+        if bias.shape != want:
+            raise ValueError(f"per-slot bias {tuple(bias.shape)}: [B, (P,) S] = {want}")
         if llama.rope_dual(cfg) and rope_local is None:
             raise ValueError("a dual-rope config (gemma-3) needs rope_local beside rope")
         row, span = write_row, s_total
@@ -605,19 +620,18 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
                                v + lw["bv"][:, None])
             if cfg.qk_norm_wide:
                 q, k = _rms_norm_bl(q, lw["q_norm"], eps), _rms_norm_bl(k, lw["k_norm"], eps)
-            q, k = q.reshape(nkv, g, hd, B), k.reshape(nkv, hd, B)
+            q, k = q.reshape(nkv, g, hd, N), k.reshape(nkv, hd, N)
             if cfg.qk_norm:
                 q = _rms_norm_head_bl(q, lw["q_norm"], eps)
                 k = _rms_norm_head_bl(k, lw["k_norm"], eps)
             q, k = _rope_bl(q, cos, sin), _rope_bl(k, cos, sin)
-            v = v.reshape(nkv, hd, B)
-            # only the step's own tensors change layout: [.., hd, B] -> [B, .., hd]
-            k_cache[li][:, :, row] = k.permute(2, 0, 1)
-            v_cache[li][:, :, row] = v.permute(2, 0, 1)
-            attn = attend(q.reshape(nh, hd, B).permute(2, 0, 1)[:, :, None, :].contiguous(),
+            # only the step's own tensors change layout: [.., hd, P, B] -> [B, .., P, hd]
+            k_cache[li][:, :, row:row + P] = k.reshape(nkv, hd, P, B).permute(3, 0, 2, 1)
+            v_cache[li][:, :, row:row + P] = v.reshape(nkv, hd, P, B).permute(3, 0, 2, 1)
+            attn = attend(q.reshape(nh, hd, P, B).permute(3, 0, 2, 1),
                           k_cache[li][:, :, :span], v_cache[li][:, :, :span], b,
-                          scale, cfg.attn_logit_softcap)
-            attn = attn.reshape(B, nh * hd).t().contiguous()
+                          scale, cfg.attn_logit_softcap)  # [B, nh, P, hd]
+            attn = attn.permute(1, 3, 2, 0).reshape(nh * hd, N).contiguous()
         x = x + llama._block_out(cfg, mm(lw["wo"], attn), lw, "ln_post_attn", "ln_attn",
                                  _rms_norm_bl)
         hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_mlp"], eps)

@@ -4,7 +4,8 @@ token; for the loss, prepend it to the text embeddings, extend the
 attention mask with 1 and the labels with -100, and run the frozen LM
 (reference: dmi/model/mmmodel.py:112-147); for generation, prepend it to
 the embedded chat prefix and greedy-decode (reference:
-dmi/model/mmmodel.py:149-169) or sample (caption_sample)."""
+dmi/model/mmmodel.py:149-169) or sample (caption_sample), on the plain
+loops or through speculative decoding (caption_*_speculative)."""
 
 from __future__ import annotations
 
@@ -156,3 +157,75 @@ def caption_sample(
     return dec.sample_generate_bl(cfg, llm_params, embeds, max_new_tokens, pad_token_id, seed,
                                   temperature, top_k, top_p, req_ids,
                                   prefill_params=prefill_params, plain=plain)
+
+
+def caption_generate_speculative(
+    cfg: LlamaConfig,
+    llm_params: dict,
+    draft_cfg: LlamaConfig,
+    draft_params: dict,
+    soft_tokens: torch.Tensor,
+    prefix_ids: Optional[torch.Tensor],
+    max_new_tokens: int,
+    pad_token_id: int,
+    k: int = 4,
+    prefill_params: Optional[dict] = None,
+    draft_prefill_params: Optional[dict] = None,
+    draft_prompt_embeds: Optional[torch.Tensor] = None,
+    share_prefill: bool = False,
+    plain: bool = False,
+):
+    """Greedy caption decode through the draft-verify loop
+    (speculative.speculative_generate_bl): token-identical to
+    caption_generate for any draft.  The self-draft (a W4A8 copy of the
+    target, serve.Captioner(speculative=k)) shares the target's embedding
+    space, so the assembled prompt is its prompt too; another draft passes
+    draft_prompt_embeds (and shares the vocab ids).  Returns (tokens,
+    rounds): dmi_tpu's returns the tokens alone; the rounds are what
+    acceptance buys and what the serving layer reports."""
+    from dmi_tpu_torch.models.speculative import speculative_generate_bl
+
+    embeds = assemble_prompt(cfg, llm_params if prefill_params is None else prefill_params,
+                             soft_tokens, prefix_ids)
+    return speculative_generate_bl(
+        cfg, llm_params, draft_cfg, draft_params, embeds,
+        embeds if draft_prompt_embeds is None else draft_prompt_embeds, max_new_tokens,
+        pad_token_id, k=k, prefill_params=prefill_params,
+        draft_prefill_params=draft_prefill_params, share_prefill=share_prefill, plain=plain)
+
+
+def caption_sample_speculative(
+    cfg: LlamaConfig,
+    llm_params: dict,
+    draft_cfg: LlamaConfig,
+    draft_params: dict,
+    soft_tokens: torch.Tensor,
+    prefix_ids: Optional[torch.Tensor],
+    max_new_tokens: int,
+    pad_token_id: int,
+    seed: int = 0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    req_ids: Optional[torch.Tensor] = None,
+    k: int = 4,
+    prefill_params: Optional[dict] = None,
+    draft_prefill_params: Optional[dict] = None,
+    draft_prompt_embeds: Optional[torch.Tensor] = None,
+    share_prefill: bool = False,
+    plain: bool = False,
+):
+    """Sampled caption decode through the speculative loop
+    (speculative.speculative_sample_bl): caption_sample's request-indexed
+    law for any draft, bit-identical to caption_sample when draft ==
+    target.  Returns (tokens, rounds), as caption_generate_speculative."""
+    from dmi_tpu_torch.models.speculative import speculative_sample_bl
+
+    embeds = assemble_prompt(cfg, llm_params if prefill_params is None else prefill_params,
+                             soft_tokens, prefix_ids)
+    return speculative_sample_bl(
+        cfg, llm_params, draft_cfg, draft_params, embeds,
+        embeds if draft_prompt_embeds is None else draft_prompt_embeds, max_new_tokens,
+        pad_token_id, seed, temperature, top_k, top_p, req_ids, k=k,
+        prefill_params=prefill_params, draft_prefill_params=draft_prefill_params,
+        share_prefill=share_prefill, plain=plain)

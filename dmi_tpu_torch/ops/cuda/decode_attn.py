@@ -1,4 +1,5 @@
-"""Single-token grouped-query decode attention.
+"""Grouped-query decode attention: one query position per cache row (a
+decode step), or P of them (K3: a speculative verify forward).
 
 Counterpart of dmi_tpu/ops/pallas/decode_attn.py:fused_decode_attention; its
 TPU kernel (_decode_attn_pallas) is csrc/decode_attn.cu here, with the score
@@ -20,7 +21,11 @@ function of the C entry, chosen by dtype and shape.  The bias is one [S]
 row shared by the batch (the batch loops: every row decodes at one
 position) or a [B, S] row per batch row (dmi_tpu's [B, 1, S]: the slots of
 the continuous-batching engine, streaming.py, decode at different ages);
-the kernel reads either through a row stride, 0 or S.
+the kernel reads either through a row stride, 0 or S.  With P query
+positions per cache row (the k + 1 positions of a speculative round,
+models/speculative.py) the bias is [B, P, S], a row per (row, position):
+the kernel's query rows are the B x P pairs, each reading its cache row's
+K and V, so `plan` counts B x P x nkv blocks.
 
 `fused_decode_attention` runs `_decode_attn_plain` for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; there is no fallback
@@ -38,9 +43,11 @@ from dmi_tpu_torch.ops.cuda import _build
 
 # launches of the CUDA kernels since the count was last set to 0 (a call
 # that splits S launches the kernel and its merge and counts once), and of
-# those, the launches with a [B, S] bias (a row per batch row)
+# those, the launches with a [B, S] bias (a row per batch row) and the
+# launches with P > 1 query positions per cache row (K3)
 launches = 0
 row_launches = 0
+pos_launches = 0
 
 MAX_HEAD_DIM = 256      # kMaxHd of csrc/decode_attn.cu
 MAX_GROUP = 32          # kMaxGroup: query heads of a block
@@ -129,19 +136,23 @@ def _decode_attn_plain(q, k, v, bias, scale=None, softcap=None):
     the product, as the Pallas body does); output in v's dtype.  At f32 it
     is dmi_tpu's llama._decode_attention and _decode_attn_xla.
 
-    q [B, nh, 1, hd], k/v [B, nkv, S, hd], bias [S] or [B, S] f32 ->
-    [B, nh, 1, hd].  v may be narrower than q and k (MLA's v_head_dim, a
-    call the kernel does not take); the output then has v's width."""
-    B, nh, _, hd = q.shape
+    q [B, nh, P, hd], k/v [B, nkv, S, hd], bias [S], [B, S] (P = 1) or
+    [B, P, S] f32 -> [B, nh, P, hd].  The P positions of a cache row are
+    more query rows over the same K and V: the group's g x P rows, each
+    with its position's bias row.  v may be narrower than q and k (MLA's
+    v_head_dim, a call the kernel does not take); the output then has v's
+    width."""
+    B, nh, P, hd = q.shape
     nkv = k.shape[1]
-    qr = q.float().reshape(B, nkv, nh // nkv, 1, hd)
-    s = (qr * k.float()[:, :, None]).sum(-1)  # [B, nkv, g, S]
+    g = nh // nkv
+    qr = q.float().reshape(B, nkv, g * P, 1, hd)
+    s = (qr * k.float()[:, :, None]).sum(-1)  # [B, nkv, g * P, S]
     s = s * (scale if scale is not None else 1.0 / math.sqrt(hd))
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    p = torch.softmax(s + _bias_rows(bias), dim=-1)
-    out = (p[..., None] * v.float()[:, :, None]).sum(3)  # [B, nkv, g, dv]
-    return out.reshape(B, nh, 1, v.shape[-1]).to(v.dtype)
+    p = torch.softmax(s + _bias_rows(bias, g), dim=-1)
+    out = (p[..., None] * v.float()[:, :, None]).sum(3)  # [B, nkv, g * P, dv]
+    return out.reshape(B, nh, P, v.shape[-1]).to(v.dtype)
 
 
 def _decode_attn_split_plain(q, k, v, bias, p, scale=None, softcap=None):
@@ -151,11 +162,13 @@ def _decode_attn_split_plain(q, k, v, bias, p, scale=None, softcap=None):
     rescaled by exp(m_old - m_new), 0 while m_old is -inf; p = 0 while
     m_new is -inf) and leaves (m, l, acc); the merge adds the splits in
     split order, each weighted by exp(m_i - max m), 0 for m_i = -inf.  The
-    same function as `_decode_attn_plain` in another order of operations."""
-    B, nh, _, hd = q.shape
+    same function as `_decode_attn_plain` in another order of operations,
+    P query positions per cache row as there."""
+    B, nh, P, hd = q.shape
     nkv, S = k.shape[1], k.shape[2]
-    qf = q.float().reshape(B, nkv, nh // nkv, hd)
-    kf, vf, bf = k.float(), v.float(), _bias_rows(bias)
+    g = nh // nkv
+    qf = q.float().reshape(B, nkv, g * P, hd)
+    kf, vf, bf = k.float(), v.float(), _bias_rows(bias, g)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     neg = float("-inf")
     parts = []
@@ -182,31 +195,43 @@ def _decode_attn_split_plain(q, k, v, bias, p, scale=None, softcap=None):
     for m, l, acc in parts:
         w = torch.where(m == neg, 0.0, torch.exp(m - mx))
         num, den = num + w[..., None] * acc, den + w * l
-    return (num / den[..., None]).reshape(B, nh, 1, hd).to(v.dtype)
+    return (num / den[..., None]).reshape(B, nh, P, hd).to(v.dtype)
 
 
-def _bias_rows(bias):
-    """The bias in f32, shaped to broadcast against [B, nkv, g, S] scores."""
+def _bias_rows(bias, g: int):
+    """The bias in f32, shaped to broadcast against [B, nkv, g * P, S]
+    scores (query row i * P + p of a group takes position p's row)."""
     b = bias.float()
-    return b[:, None, None, :] if b.ndim == 2 else b
+    if b.ndim == 1:
+        return b
+    if b.ndim == 2:
+        return b[:, None, None, :]
+    B, P, S = b.shape
+    return b[:, None, None].expand(B, 1, g, P, S).reshape(B, 1, g * P, S)
 
 
 def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
-    """q [B, nh, 1, hd], k/v [B, nkv, S, hd] (rows contiguous; a view of a
+    """q [B, nh, P, hd], k/v [B, nkv, S, hd] (rows contiguous; a view of a
     longer cache's first S positions is read in place), bias [S] f32
-    (batch-uniform: every row decodes at one position) or [B, S] f32 (a row
-    per batch row) -> [B, nh, 1, hd].
+    (batch-uniform: every row decodes at one position), [B, S] f32 (a row
+    per batch row) or, with P query positions per cache row, [B, P, S] f32
+    (a row per position) -> [B, nh, P, hd].
 
     The batch loops pass a view of the written positions and a zero [S]
     row.  The continuous-batching engine attends over its whole ring cache
     with a [B, S] row of 0 on each slot's own entries and finfo.min
     elsewhere; a row that is finfo.min everywhere (a slot never used) gives
-    the average of its V rows, finite, as the twin does."""
-    global launches, row_launches
-    B, nh, T, hd = q.shape
+    the average of its V rows, finite, as the twin does.  The speculative
+    verify forward attends from the k + 1 positions of a round, P = k + 1,
+    each with its own causal row (K3)."""
+    global launches, row_launches, pos_launches
+    B, nh, P, hd = q.shape
     _, nkv, S, _ = k.shape
-    if (T != 1 or k.shape != (B, nkv, S, hd) or v.shape != k.shape
-            or nh % nkv or tuple(bias.shape) not in ((S,), (B, S))):
+    # P > 1 positions take a row each: a shared [S] or [B, S] row would let
+    # every position of a cache row see the same keys
+    biases = ((B, P, S),) + (((S,), (B, S)) if P == 1 else ())
+    if (k.shape != (B, nkv, S, hd) or v.shape != k.shape or nh % nkv
+            or tuple(bias.shape) not in biases):
         raise ValueError(
             f"decode attention shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}, bias {tuple(bias.shape)}"
@@ -227,26 +252,31 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
             f"decode attention kernel: hd {hd} (<= {MAX_HEAD_DIM}), group "
             f"{group} (<= {MAX_GROUP})"
         )
-    if not (q.is_contiguous() and bias.is_contiguous()):
-        raise ValueError("decode attention kernel: q and bias must be contiguous")
+    if P > 0xFFFF:
+        raise ValueError(f"decode attention kernel: P {P} query positions (<= 65535)")
+    if not bias.is_contiguous():
+        raise ValueError("decode attention kernel: the bias must be contiguous")
     for t in (k, v):
         if t.stride(3) != 1 or t.stride(2) != hd:
             raise ValueError("decode attention kernel: k/v rows must be contiguous")
     code = _build.dtype_code(q.dtype)
-    out = torch.empty((B, nh, 1, hd), dtype=v.dtype, device=q.device)
-    if B == 0:
-        return out
-    p = plan(B, nkv, group, S, hd, q.element_size())
+    # the kernel's query rows: the B x P (row, position) pairs, each [nh, hd]
+    # (no copy at P = 1 for a contiguous q)
+    qr = q.transpose(1, 2).contiguous()
+    out = torch.empty((B, P, nh, hd), dtype=v.dtype, device=q.device)
+    if B == 0 or P == 0:
+        return out.transpose(1, 2)
+    p = plan(B * P, nkv, group, S, hd, q.element_size())
     part = None
     if p["splits"] > 1:  # f32 partials (m, l, acc) of every split, merged in order
-        part = torch.empty(B * nh * p["splits"] * (hd + 2), dtype=torch.float32,
+        part = torch.empty(B * P * nh * p["splits"] * (hd + 2), dtype=torch.float32,
                            device=q.device)
     err = _build.lib().dmi_decode_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        qr.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
-        B, nkv, group, S, hd, p["chunk"], p["keys_per_split"], p["splits"], p["stages"],
+        B * P, P, nkv, group, S, hd, p["chunk"], p["keys_per_split"], p["splits"], p["stages"],
         p["warps"], k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        S if bias.ndim == 2 else 0,
+        S if bias.ndim > 1 else 0,
         float(scale if scale is not None else 1.0 / math.sqrt(hd)),
         float(softcap) if softcap is not None else 0.0,
         code, torch.cuda.current_stream(q.device).cuda_stream,
@@ -254,4 +284,5 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
     _build.check(err, "decode attention")
     launches += 1
     row_launches += int(bias.ndim == 2)
-    return out
+    pos_launches += int(P > 1)
+    return out.transpose(1, 2)

@@ -19,12 +19,15 @@ tail batch is padded to the batch size, as in the JAX package.  With a
 temperature the loop samples (top-k, top-p) with request-indexed draws;
 engine="bulk" serves the workload on the continuous-batching engine
 (streaming.py), and the default engine="auto" picks between the two from
-the first batch.
+the first batch.  speculative=k decodes by draft-verify rounds with a
+W4A8 copy of the same weights as the draft (models/speculative.py): greedy
+captions identical to the plain loop's, sampled ones with its law, on the
+batch engine and (engine="bulk") the speculative slot engine.
 
 CLI:  python -m dmi_tpu_torch.serve --lm test:tiny --projector-ckpt P
       --dataset sydney --embs embs.npy --out captions.json
       [--int8 [1|w8a8|w4a8]] [--temperature T --top-k K --top-p P --seed S]
-      [--engine auto|batch|bulk] [--device cpu]
+      [--engine auto|batch|bulk] [--speculative K] [--device cpu]
 
 It runs on the card unless asked for the CPU, and fails before loading
 anything when no card is visible.
@@ -42,6 +45,7 @@ from dmi_tpu_torch.models import mmmodel
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import fuse_projections
 from dmi_tpu_torch.models.quant import quantize_llama
+from dmi_tpu_torch.models.speculative import speculative_bulk_caption
 from dmi_tpu_torch.ops import l2_normalize
 from dmi_tpu_torch.streaming import StreamingCaptioner
 from dmi_tpu_torch.training.checkpoint import load_pytree
@@ -73,12 +77,21 @@ class Captioner:
     batch_first=True pins the batch-first decode loop (a parity oracle: the
     batch-last loop is the default and is token-identical).
 
-    Surface difference from dmi_tpu.serve.Captioner: mesh_shape and
-    speculative raise NotImplementedError naming their ROADMAP item;
-    caption_ids takes the whole caption() surface (engine, sampling) and
-    returns ids, for callers with no tokenizer.  Sampling on the batch
-    engine always runs the batch-last loop (batch_first pins the greedy
-    loop only), as in dmi_tpu.
+    speculative=k: draft-verify decoding, k proposals a round, with a W4A8
+    copy of the same weights (quantize_llama(bits=4)) as the draft and the
+    unquantized tree as its prefill, so its prompt cache is the target's
+    (share_prefill).  Greedy captions equal the plain loop's (greedy
+    rejection), sampled ones keep its law; a w4a8 target is refused (it is
+    already the cheapest loop), an MLA model at the first batch, as in
+    dmi_tpu.  self.spec_rounds: the verify rounds of the last caption_ids
+    call.  It takes precedence over batch_first, as dmi_tpu's speculative
+    pipeline does over its batch-first switch.
+
+    Surface difference from dmi_tpu.serve.Captioner: mesh_shape raises
+    NotImplementedError naming its ROADMAP item; caption_ids takes the
+    whole caption() surface (engine, sampling) and returns ids, for callers
+    with no tokenizer.  Sampling on the batch engine always runs the
+    batch-last loop (batch_first pins the greedy loop only), as in dmi_tpu.
 
     The chat prefix comes from `tokenizer` + `prefix` (the chat template
     applied, as in dmi_tpu), or directly as `prefix_ids`, with no tokenizer
@@ -106,8 +119,9 @@ class Captioner:
             raise ValueError(f"int8 must be False, True, 'w8a8' or 'w4a8', got {int8!r}")
         if mesh_shape:
             raise _not_ported("mesh_shape", "A.10 (parallelism)")
-        if speculative:
-            raise _not_ported("speculative decoding", "A.8 (speculative decoding)")
+        if speculative and int8 == "w4a8":
+            raise ValueError("speculative=k needs a draft cheaper than the target loop; the "
+                             "w4a8 target is already the cheapest flavor")
         if prefix_ids is None:
             if tokenizer is None or prefix is None:
                 raise ValueError("pass tokenizer and prefix, or prefix_ids")
@@ -122,6 +136,12 @@ class Captioner:
             pad_token_id = tokenizer.pad_token_id
         self.llm_cfg = llm_cfg
         llm_params = fuse_projections(llm_params)
+        # self-speculation: the draft is a W4A8 copy of the same weights, its
+        # prefill the unquantized tree (the target's prompt cache, shared)
+        self.spec_k = int(speculative)
+        self.draft_params = quantize_llama(llm_params, bits=4) if self.spec_k else None
+        self.draft_prefill_params = llm_params if self.spec_k else None
+        self.spec_rounds = 0
         # w8a8 and w4a8 quantize the token loop only: prefill runs on the
         # unquantized originals (one more weight copy in device memory)
         self.llm_params_prefill = llm_params if int8 in ("w8a8", "w4a8") else None
@@ -204,7 +224,22 @@ class Captioner:
             )
         embs = l2_normalize(torch.as_tensor(chunk, dtype=torch.float32, device=self.device))
         soft = proj.apply(self.proj_spec, self.proj_params, embs, plain=plain)
-        if temperature is None:
+        req_ids = torch.arange(row_start, row_start + self.batch_size, device=self.device)
+        if self.spec_k:
+            common = dict(k=self.spec_k, prefill_params=self.llm_params_prefill,
+                          draft_prefill_params=self.draft_prefill_params, share_prefill=True,
+                          plain=plain)
+            if temperature is None:
+                tokens, rounds = mmmodel.caption_generate_speculative(
+                    self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
+                    self._prefix, self.max_new_tokens, self.pad_token_id, **common)
+            else:
+                tokens, rounds = mmmodel.caption_sample_speculative(
+                    self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
+                    self._prefix, self.max_new_tokens, self.pad_token_id, seed, temperature,
+                    top_k, top_p, req_ids, **common)
+            self.spec_rounds += rounds
+        elif temperature is None:
             tokens = mmmodel.caption_generate(
                 self.llm_cfg, self.llm_params, soft, self._prefix,
                 self.max_new_tokens, self.pad_token_id,
@@ -214,9 +249,7 @@ class Captioner:
         else:
             tokens = mmmodel.caption_sample(
                 self.llm_cfg, self.llm_params, soft, self._prefix, self.max_new_tokens,
-                self.pad_token_id, seed, temperature, top_k, top_p,
-                req_ids=torch.arange(row_start, row_start + self.batch_size,
-                                     device=self.device),
+                self.pad_token_id, seed, temperature, top_k, top_p, req_ids=req_ids,
                 prefill_params=self.llm_params_prefill, plain=plain,
             )
         return tokens, real
@@ -238,6 +271,30 @@ class Captioner:
         )
         return eng.run_bulk(l2_normalize(torch.as_tensor(embeddings, device=self.device)))
 
+    def _caption_bulk_spec(self, embeddings: np.ndarray, temperature=None, top_k: int = 0,
+                           seed: int = 0, top_p: float = 1.0,
+                           plain: bool = False) -> torch.Tensor:
+        """Speculative continuous batching (speculative_bulk_caption): the
+        slot engine running draft-verify rounds with finished slots refilled.
+        Greedy equals the batch speculative path and the plain greedy loop;
+        sampled draws are keyed by (request, age), so it equals the batch
+        speculative sampler on the same rows.  -> LongTensor [N, max_new] on
+        the CPU."""
+        chunk = max(1, min(64, self.batch_size // 4))
+        sample = (None if temperature is None
+                  else (float(temperature), int(top_k), float(top_p)))
+        queue = l2_normalize(torch.as_tensor(embeddings, dtype=torch.float32,
+                                             device=self.device))
+        toks, rounds, _ = speculative_bulk_caption(
+            self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, self.proj_spec,
+            self.proj_params, queue, self._prefix[:1].expand(chunk, -1),
+            1 + self._prefix.shape[1], self.max_new_tokens, self.pad_token_id, chunk,
+            max(chunk, self.batch_size), k=self.spec_k, prefill_params=self.llm_params_prefill,
+            draft_prefill_params=self.draft_prefill_params, sample=sample, seed=seed,
+            share_prefill=True, plain=plain)
+        self.spec_rounds += rounds
+        return toks.cpu()
+
     @torch.no_grad()
     def caption_ids(self, embeddings: np.ndarray, plain: bool = False,
                     temperature: Optional[float] = None, top_k: int = 0, top_p: float = 1.0,
@@ -257,13 +314,23 @@ class Captioner:
         engine; otherwise the first batch is served on the batch engine as a
         probe, and the rest goes to bulk when its mean caption length is
         under _BULK_LEN_RATIO of the budget.  The decision and its reason
-        land in self.engine_decision."""
+        land in self.engine_decision.  With speculative=k, "bulk" runs the
+        speculative slot engine (a budget of 1 has no round to speculate
+        and stays on the batch engine, with the same ids) and "auto" stays
+        on the batch engine, as in dmi_tpu (its probe's length model is the
+        plain engines')."""
         if engine not in ("auto", "batch", "bulk"):
             raise ValueError(f"unknown engine {engine!r}")
         embeddings = np.asarray(embeddings, np.float32)
         n = embeddings.shape[0]
         sampling = dict(temperature=temperature, top_k=top_k, seed=seed, top_p=top_p,
                         plain=plain)
+        self.spec_rounds = 0
+        if self.spec_k:
+            if engine == "bulk" and self.max_new_tokens >= 2 and n > 0:
+                self.engine_decision = ("bulk", "explicit (speculative)")
+                return self._caption_bulk_spec(embeddings, **sampling)
+            engine = "batch"
         decision, reason, probe = engine, "explicit", False
         if engine == "auto":
             if n <= self.batch_size:
@@ -374,6 +441,10 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", choices=["auto", "batch", "bulk"], default="auto",
                     help="batch: fixed batches; bulk: continuous batching; auto probes the "
                          "first batch and picks (the captions are the same on every engine)")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="draft-verify decode with a W4A8 self-draft proposing K tokens a "
+                         "round: greedy output identical to the plain loop's, sampling with "
+                         "its law; on the batch and bulk engines")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -381,6 +452,7 @@ def main(argv=None) -> None:
         args.lm, args.projector_ckpt, args.dataset, device=args.device,
         batch_size=args.batch_size,
         int8={None: False, "1": True}.get(args.int8, args.int8),
+        speculative=args.speculative,
     )
     ids, embs = _load_embs(args.embs)
     captions = cap.caption(embs, temperature=args.temperature, top_k=args.top_k,

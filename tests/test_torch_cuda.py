@@ -391,6 +391,61 @@ def test_decode_attn_kernel_per_row_bias_masks_splits(cuda, S, dtype):
                        tda.fused_decode_attention(q, k, v, row))
 
 
+def _k3_args(B, nh, nkv, P, S, hd, dtype, dev, seed=0):
+    """K3's call as the speculative verify makes it: q [B, nh, P, hd], a view
+    of a longer cache, and a [B, P, S] bias whose position p sees the
+    prompt, a random run of earlier rounds' rows and its round's rows up to
+    itself (finfo.min elsewhere); row 0's position 0 fully masked."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, nh, P, hd)).astype(np.float32)).to(dev, dtype)
+    _, k, v = _attn_args(B, nh, nkv, S, hd, dtype, dev, cache_len=S + 3, seed=seed + 1)
+    fmin = torch.finfo(torch.float32).min
+    bias = torch.full((B, P, S), fmin)
+    keep = torch.from_numpy(rng.random((B, S)) < 0.7)
+    for p in range(P):
+        cut = S - P + 1 + p
+        bias[:, p, :cut] = torch.where(keep[:, :cut], 0.0, fmin)
+        bias[:, p, 0] = 0.0
+    bias[0, 0] = fmin
+    return q, k, v, bias.to(dev)
+
+
+@pytest.mark.parametrize("P", [2, 5])
+@pytest.mark.parametrize("S", [38, 121, 3073])
+@pytest.mark.parametrize("hd,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                      (256, torch.bfloat16), (64, torch.float32)])
+@pytest.mark.parametrize("group,softcap", [(4, None), (1, None), (4, 2.0)])
+def test_decode_attn_k3_matches_twin(cuda, P, S, hd, dtype, group, softcap):
+    """P query positions per cache row (K3), on both instances (bf16 at hd
+    64 and 128 on the tensor cores, hd 256 and f32 on the CUDA cores), at
+    the verify's S (38, 121) and split over blocks (3073 at B 2): the kernel
+    against its twin, one launch counted as a K3 launch, finite with a
+    fully masked position, two calls bit-equal."""
+    B = 2 if S == 3073 else 16
+    q, k, v, bias = _k3_args(B, 2 * group, 2, P, S, hd, dtype, cuda)
+    n0, p0, r0 = tda.launches, tda.pos_launches, tda.row_launches
+    out = tda.fused_decode_attention(q, k, v, bias, None, softcap)
+    assert (tda.launches, tda.pos_launches, tda.row_launches) == (n0 + 1, p0 + 1, r0)
+    assert out.shape == q.shape and bool(torch.isfinite(out.float()).all())
+    _close(out, tda._decode_attn_plain(q, k, v, bias, None, softcap), TOL[dtype])
+    assert torch.equal(out, tda.fused_decode_attention(q, k, v, bias, None, softcap))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attn_k3_positions_equal_single_token_calls(cuda, dtype):
+    """Where the plans agree (S 38: one split at any batch), position p of a
+    K3 call is bit for bit the P = 1 call with q[:, :, p] and bias row p
+    ([B, S], the slot engine's form): the same instance does the same sums
+    for each query row."""
+    q, k, v, bias = _k3_args(128, 32, 8, 5, 38, 64, dtype, cuda)
+    assert tda.plan(128 * 5, 8, 4, 38, 64, q.element_size())["splits"] == 1
+    out = tda.fused_decode_attention(q, k, v, bias)
+    for p in range(5):
+        one = tda.fused_decode_attention(q[:, :, p:p + 1].contiguous(), k, v,
+                                         bias[:, p].contiguous())
+        assert torch.equal(out[:, :, p:p + 1], one)
+
+
 def _tiny_model(dev, dtype):
     cfg = dataclasses.replace(
         llama.tiny_config(vocab_size=320, hidden_size=128, n_layers=3, n_heads=8, n_kv=2,

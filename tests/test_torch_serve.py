@@ -143,11 +143,13 @@ def test_captioner_prefix_ids_without_tokenizer(tokenizer):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"int8": "fp8"}, "int8 must be"), ({"mesh_shape": (1, 1)}, "A.10"),
-    ({"speculative": 2}, "A.8"),
+    ({"speculative": 2, "int8": "w4a8"}, "cheapest flavor"),
 ])
 def test_captioner_refuses_unported_options(tokenizer, kwargs, item):
     """int8 serving is ported (tests/test_torch_decode_bl.py): of int8 only a
-    mode dmi_tpu does not have is refused."""
+    mode dmi_tpu does not have is refused; speculative decoding is ported
+    (tests/test_torch_speculative*.py), and refuses a w4a8 target with
+    dmi_tpu's reason."""
     _, tcap = _captioners(tokenizer)
     with pytest.raises(ValueError if "int8" in kwargs else NotImplementedError, match=item):
         Captioner(tcap.llm_cfg, tcap.llm_params, tcap.proj_spec, tcap.proj_params,
