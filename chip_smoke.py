@@ -157,6 +157,21 @@ checkpoints on one CUDA card.
    the routing check, and the serving paths of 16 with MLA's (no
    decode-attention launch; absorbed batch-last loop against the expanded
    batch-first one).
+18. The four CLIs and the serving CLI as a user runs them: fixture data
+   from the port's generate_dataset (sydney, sharegpt4v, candels; 16
+   training and 8 eval items) and configs/smoke's v2, v4, v6 and v3 (each
+   micro-step logged) through train_projector.cli, train_hypernet.cli
+   (train, then fewshot), train_lora.cli, then serve.main on stage 1's best
+   projector and the sydney test pkl, each run's wall seconds printed.  At
+   test:tiny in f32 on the card and with --device cpu, held equal: every
+   logged loss within TOL["loss"], the same captions, ids and metrics in
+   every results JSON and the same served captions (a caption that differs
+   is printed with its token step and, for the served ones, the logit gap
+   there).  At test:1b (Llama-3.2-1B's body, vocab 512) in bf16 on the
+   card, with a w4a8 serve run too: finite losses, results JSONs with
+   training/results.py's keys whose metrics equal metrics_for recomputed
+   from their captions, one caption a request, and each run's launches of
+   the kernels in CLI_KERNELS non-zero.
 
 Step 0 of every training path compares the loss within TOL["loss"] of the
 plain path's and each trainable leaf's gradient within TOL["logits"] of
@@ -3318,6 +3333,244 @@ def moe_mla_phase(torch, dev, label, cfg, params, seed, w4a8=False):
     return kernels, paths
 
 
+# the paper's entry points end to end: configs/smoke's chain (v2 stage 1, v4
+# stage 2, v6 stage 3, v3 the LoRA baseline), each config derived as below,
+# on fixture data from the port's generate_dataset, through each module's
+# cli(); then the serving CLI on stage 1's best projector checkpoint and the
+# sydney test pkl
+CLI_CHAIN = (("stage 1", "train_projector", "v2:smoke_projector_sydney"),
+             ("stage 2", "train_hypernet", "v4:smoke_hypernet"),
+             ("stage 3", "train_hypernet", "v6:smoke_fewshot_candels"),
+             ("LoRA", "train_lora", "v3:smoke_lora_sydney"))
+CLI_DATA = (("sydney", "RemoteCLIP-RN50-Unchanged"), ("sharegpt4v", "ViT-L-16-SigLIP2-384"),
+            ("candels", "zoobot-encoder-convnext_base"))
+# 16 training items a dataset (2 micro-steps an epoch at the configs' batch
+# of 8) and 8 eval items; the configs' mm_dim of 32; every micro-step logged
+CLI_N_TRAIN, CLI_N_EVAL, CLI_MM = 16, 8, 32
+CLI_OVERRIDES = {"logging_steps": 1}
+CLI_PROJECTOR = ("checkpoints/v2:smoke_projector_sydney-dszfull-seed42-checkpoint-"
+                 "projector-best.pt")
+RESULT_KEYS = {"metrics", "gts", "preds", "ids", "eval_env"}  # training/results.py's
+# the kernels each test:1b run must launch (ROADMAP B's numbering in PERF.md)
+CLI_KERNELS = {"stage 1": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "mlp2"),
+               "stage 2": ("lora0",),
+               "serve": ("mlp2", "decode_attention", "decode_mlp", "head_argmax"),
+               "serve w4a8": ("w4_mm",)}
+
+
+def _timed_cli(torch, fn, argv) -> dict:
+    """Wall seconds and kernel launches of one CLI call."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    fn(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "launches": _counts()}
+
+
+def cli_chain(torch, workdir, lm, dtype, device, w4a8=False) -> dict:
+    """Writes the fixture data and the derived configs into workdir and runs
+    the chain there through the CLIs; returns each run's wall seconds and
+    launches."""
+    from dmi_tpu_torch import serve, train_hypernet, train_lora, train_projector
+    from dmi_tpu_torch.data.fixtures import generate_dataset
+    from dmi_tpu_torch.registry import dataset_spec
+
+    clis = {"train_projector": train_projector.cli, "train_hypernet": train_hypernet.cli,
+            "train_lora": train_lora.cli}
+    smoke_configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "smoke")
+    here = os.getcwd()
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    runs = {}
+    try:
+        for i, (name, encoder) in enumerate(CLI_DATA):
+            generate_dataset("data", name, encoder, mm_dim=CLI_MM, n_train=CLI_N_TRAIN,
+                             n_eval=CLI_N_EVAL, text_dim=CLI_MM, seed=SEED + i)
+        for label, module, config in CLI_CHAIN:
+            with open(os.path.join(smoke_configs, f"{config}.json")) as f:
+                cfg = json.load(f)
+            cfg.update(CLI_OVERRIDES, lm_name_or_path=lm, lm_dtype=dtype)
+            with open(f"{config}.json", "w") as f:
+                json.dump(cfg, f, indent=2)
+            runs[label] = _timed_cli(torch, clis[module], [f"{config}.json", "--device", device])
+        embs = os.path.join("data", dataset_spec("sydney").path,
+                            f"test_embs_{CLI_DATA[0][1]}.pkl")
+        argv = ["--lm", lm, "--lm-dtype", dtype, "--projector-ckpt", CLI_PROJECTOR,
+                "--dataset", "sydney", "--embs", embs, "--engine", "batch", "--device", device]
+        runs["serve"] = _timed_cli(torch, serve.main, argv + ["--out", "captions.json"])
+        if w4a8:
+            runs["serve w4a8"] = _timed_cli(torch, serve.main,
+                                            argv + ["--out", "captions_w4a8.json", "--int8",
+                                                    "w4a8"])
+    finally:
+        os.chdir(here)
+    return runs
+
+
+def cli_record(workdir) -> tuple:
+    """(losses, results, captions) of a chain: every loss the trainers logged
+    (logs/*.metrics.jsonl) keyed (run, step, name), every JSON under
+    outputs/, and each serve run's captions."""
+    import glob
+
+    losses = {}
+    for path in sorted(glob.glob(os.path.join(workdir, "logs", "*.metrics.jsonl"))):
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                losses.update({(os.path.basename(path), rec["step"], k): v
+                               for k, v in rec.items() if "loss" in k})
+    results, captions = {}, {}
+    for path in sorted(glob.glob(os.path.join(workdir, "outputs", "*.json"))):
+        with open(path) as f:
+            results[os.path.basename(path)] = json.load(f)
+    for path in sorted(glob.glob(os.path.join(workdir, "captions*.json"))):
+        with open(path) as f:
+            captions[os.path.basename(path)] = json.load(f)
+    return losses, results, captions
+
+
+def _first_token_step(tokenizer, a: str, b: str) -> int:
+    ta, tb = tokenizer(a)["input_ids"], tokenizer(b)["input_ids"]
+    return next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), min(len(ta), len(tb)))
+
+
+def _caption_diffs(tokenizer, label, card, cpu) -> list:
+    """(where, item, step, card caption, CPU caption) of every caption that differs."""
+    out = []
+    for key in sorted(set(card) | set(cpu)):
+        a, b = card.get(key), cpu.get(key)
+        if isinstance(a, dict) and isinstance(b, dict) and "preds" in a:
+            for enc in a["preds"]:
+                for i, (x, y) in enumerate(zip(a["preds"][enc], b["preds"][enc])):
+                    if x != y:
+                        out.append((f"{label} {key} {enc}", a["ids"][enc][i],
+                                    _first_token_step(tokenizer, x, y), x, y))
+        elif isinstance(a, dict) and isinstance(b, dict):
+            out += [(f"{label} {key}", k, _first_token_step(tokenizer, a[k], b.get(k, "")),
+                     a[k], b.get(k)) for k in a if a[k] != b.get(k)]
+    return out
+
+
+def serve_logit_gap(torch, workdir, lm, dtype, item, step) -> float:
+    """The gap between the two largest logits of the served caption of
+    `item` at decode step `step`, from the plain path on the CPU: how near
+    a tie the greedy pick that parted the two runs was."""
+    import pickle
+
+    from dmi_tpu_torch.models import llama, mmmodel
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.ops import l2_normalize
+    from dmi_tpu_torch.registry import dataset_spec
+    from dmi_tpu_torch.serve import Captioner
+
+    here = os.getcwd()
+    os.chdir(workdir)
+    try:
+        cap = Captioner.from_checkpoint(lm, CLI_PROJECTOR, "sydney", lm_dtype=dtype,
+                                        device="cpu", batch_size=1)
+        with open(os.path.join("data", dataset_spec("sydney").path,
+                               f"test_embs_{CLI_DATA[0][1]}.pkl"), "rb") as f:
+            emb = np.asarray(pickle.load(f)[item]["emb"], np.float32)[None]
+    finally:
+        os.chdir(here)
+    ids = cap.caption_ids(emb, plain=True)[0, :step]
+    soft = proj.apply(cap.proj_spec, cap.proj_params, l2_normalize(torch.as_tensor(emb)),
+                      plain=True)
+    embeds = torch.cat([mmmodel.assemble_prompt(cap.llm_cfg, cap.llm_params, soft,
+                                                cap._prefix[:1]),
+                        llama.embed_tokens(cap.llm_cfg, cap.llm_params, ids[None])], dim=1)
+    logits = llama.forward(cap.llm_cfg, cap.llm_params, embeds, plain=True)[0, -1].float()
+    top = logits.topk(2).values
+    return float(top[0] - top[1])
+
+
+def cli_phase(torch, dev) -> dict:
+    """The chain at test:tiny in f32 on the card and with --device cpu, held
+    equal (losses within TOL["loss"], the same captions, ids and metrics),
+    then at test:1b in bf16 on the card (finite losses, results JSONs with
+    training/results.py's keys and metrics equal to calc_metrics recomputed
+    from their captions, one caption a request, the kernels of CLI_KERNELS
+    launched); returns the test:1b runs' launch counts by path."""
+    import math
+    import shutil
+    import types
+
+    from dmi_tpu_torch.data.tok_fixture import build_test_tokenizer
+    from dmi_tpu_torch.registry import dataset_spec
+    from dmi_tpu_torch.training.generation import metrics_for
+
+    tokenizer = build_test_tokenizer()
+    root = tempfile.mkdtemp(prefix="dmi_cli_")
+    try:
+        tiny = {}
+        for device in ("cuda", "cpu"):
+            work = os.path.join(root, f"tiny-{device}")
+            runs = cli_chain(torch, work, "test:tiny", "float32", device)
+            for label, run in runs.items():
+                print(f"CLI test:tiny f32 {device} {label}: {run['seconds']!r} s")
+            tiny[device] = cli_record(work)
+        (lc, rc, cc), (lp, rp, cp) = tiny["cuda"], tiny["cpu"]
+        if set(lc) != set(lp) or not lc:
+            raise AssertionError(f"CLI test:tiny: logged losses differ in kind: "
+                                 f"{sorted(set(lc) ^ set(lp))}")
+        worst = max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lc)
+        print(f"CLI test:tiny: {len(lc)} logged losses, card against CPU: largest relative "
+              f"difference {worst!r} (bound {TOL['loss']!r})")
+        diffs = _caption_diffs(tokenizer, "results", rc, rp) + _caption_diffs(
+            tokenizer, "serve", cc, cp)
+        for where, item, step, a, b in diffs:
+            gap = (serve_logit_gap(torch, os.path.join(root, "tiny-cpu"), "test:tiny",
+                                   "float32", item, step) if where.startswith("serve")
+                   else "not recomputed (an eval inside a training run)")
+            print(f"  CLI test:tiny caption parts at {where} item {item} token step {step} "
+                  f"(logit gap {gap}): card {a!r}, CPU {b!r}")
+        if worst > TOL["loss"] or diffs or rc != rp or cc != cp:
+            raise AssertionError("CLI test:tiny: the card's chain differs from the CPU's")
+        print(f"CLI test:tiny: {len(rc)} results JSONs and {len(cc)} caption files equal, "
+              f"card against CPU")
+
+        work = os.path.join(root, "1b")
+        runs = cli_chain(torch, work, "test:1b", "bfloat16", "cuda", w4a8=True)
+        losses, results, captions = cli_record(work)
+        for label, run in runs.items():
+            print(f"CLI test:1b bf16 {label}: {run['seconds']!r} s, launches "
+                  f"{ {k: v for k, v in run['launches'].items() if v} }")
+            missing = [k for k in CLI_KERNELS.get(label, ()) if not run["launches"][k]]
+            if missing:
+                raise AssertionError(f"CLI test:1b {label}: no launch of {missing}")
+        if not losses or not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"CLI test:1b: losses {losses}")
+        per_run = {k: v for k, v in results.items() if "-seed" in k}
+        datasets = {encoder: name for name, encoder in CLI_DATA}
+        for name, res in per_run.items():
+            if set(res) != RESULT_KEYS:
+                raise AssertionError(f"CLI test:1b {name}: keys {sorted(res)}")
+            for enc, metrics in res["metrics"].items():
+                again = metrics_for(types.SimpleNamespace(dataset_name=datasets[enc]),
+                                    res["preds"][enc], res["ids"][enc], res["gts"][enc], name,
+                                    "test", os.path.join(work, "data"))
+                if again != metrics:
+                    raise AssertionError(f"CLI test:1b {name} {enc}: metrics {metrics} != "
+                                         f"{again} recomputed")
+        print(f"CLI test:1b: {len(losses)} finite losses; {sorted(per_run)} hold "
+              f"{sorted(RESULT_KEYS)} and their metrics recompute")
+        with open(os.path.join(work, "data", dataset_spec("sydney").path,
+                               f"test_embs_{CLI_DATA[0][1]}.pkl"), "rb") as f:
+            requests = sorted(pickle.load(f))
+        for name, caps in captions.items():
+            if sorted(caps) != requests or not all(isinstance(c, str) for c in caps.values()):
+                raise AssertionError(f"CLI test:1b {name}: {len(caps)} captions for "
+                                     f"{len(requests)} requests")
+        print(f"CLI test:1b: {sorted(captions)} hold one caption for each of "
+              f"{len(requests)} requests")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {f"CLI {label}": run["launches"] for label, run in runs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3389,6 +3642,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         kernels.update(model_kernels)
         paths.update(model_paths)
+    paths.update(cli_phase(torch, dev))
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("dmi_tpu", "jax"))
     if jax_side:
         raise AssertionError(f"the smoke loaded modules of the JAX side: {jax_side}")

@@ -18,7 +18,7 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
-from rouge_score import rouge_scorer
+from dmi_tpu_torch.evals import rouge_scorer
 
 from dmi_tpu_torch.evals.bleu import hf_bleu
 from dmi_tpu_torch.evals.meteor import meteor as native_meteor
@@ -43,7 +43,7 @@ def get_chebi_tokenizer():
             if t not in ("[PAD]", "[CLS]", "[SEP]")
         ]
     except Exception:
-        from transformers.models.bert.tokenization_bert import BasicTokenizer
+        from dmi_tpu_torch.evals.basic_tokenizer import BasicTokenizer
 
         basic = BasicTokenizer(do_lower_case=True)
         return lambda text: basic.tokenize(text)[:802]
@@ -84,7 +84,7 @@ def caption_evaluate_chebi20(
 ) -> Dict[str, float]:
     """SciBERT-tokenized corpus BLEU-4 + METEOR + rouge1/2/L, all x100
     (dmi/utils/eval_utils.py:24-74)."""
-    from nltk.translate.bleu_score import corpus_bleu
+    from dmi_tpu_torch.evals.nltk_bleu import corpus_bleu
 
     tok = tokenizer if tokenizer is not None else get_chebi_tokenizer()
 

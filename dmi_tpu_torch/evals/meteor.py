@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
-from nltk.stem.porter import PorterStemmer
+from dmi_tpu_torch.evals.stem import PorterStemmer
 
 _STEMMER = PorterStemmer()
 

@@ -42,7 +42,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
-from nltk.stem.snowball import SnowballStemmer
+from dmi_tpu_torch.evals.stem import SnowballStemmer
 
 _STEMMER = SnowballStemmer("english")
 

@@ -59,6 +59,7 @@ from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_
 from dmi_tpu_torch.ops.cuda.decode_mlp import _decode_mlp_plain, fused_decode_mlp_bl
 from dmi_tpu_torch.ops.cuda.head_argmax import _head_argmax_plain, head_argmax, head_logits_bl
 from dmi_tpu_torch.ops.cuda.w4_matmul import _w4_mm_plain, _w8_mm_plain, w4_mm_bl, w8_mm_bl
+from dmi_tpu_torch.utils import rng
 
 NEG_INF = llama.NEG_INF
 
@@ -190,24 +191,8 @@ def greedy_generate(
 # Request-indexed sampling
 # ---------------------------------------------------------------------------
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a constant c < 2**32,
-    in 16-bit halves so that no int64 product overflows."""
-    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    """MurmurHash3's 32-bit finaliser on int64 values in [0, 2**32): a
-    bijection in which every input bit flips each output bit with
-    probability about 1/2."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
+# the counter-based hash of the draws (shared with utils.rng's CounterRNG)
+_M32, _mul32, _fmix32 = rng.M32, rng.mul32, rng.fmix32
 
 
 def _req_keys(seed: int, req_ids: torch.Tensor, budget: int, n) -> torch.Tensor:

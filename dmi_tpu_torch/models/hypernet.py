@@ -17,7 +17,7 @@ dmi/model/hypernet.py:84-204).
 
 Parameters are a plain dict in the JAX package's layout (weights (in, out)),
 so bridge.hypernet_params_from_jax converts them without a transpose.
-Dropout draws from an explicit torch.Generator; its bits are not JAX's.
+Dropout draws from an explicit generator (utils.rng); its bits are not JAX's.
 The whole module is plain torch: the hypernet runs on a context of ~259 rows.
 """
 
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from dmi_tpu_torch.ops.linalg import sinusoidal_positions
+from dmi_tpu_torch.utils import rng
 
 Adapters = Tuple[List[torch.Tensor], List[torch.Tensor], Optional[List[torch.Tensor]]]
 
@@ -70,8 +71,7 @@ class HypnetSpec:
 
 
 def _uniform(generator, shape, bound, dtype, device):
-    t = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    return ((t * 2 - 1) * bound).to(dtype)
+    return ((rng.uniform(generator, shape, device) * 2 - 1) * bound).to(dtype)
 
 
 def _xavier_uniform(generator, shape, fan_in, fan_out, dtype, device):
@@ -85,10 +85,10 @@ def _linear_default(generator, in_dim, out_dim, dtype, device):
             "b": _uniform(generator, (out_dim,), bound, dtype, device)}
 
 
-def init(spec: HypnetSpec, generator: torch.Generator, dtype=torch.float32,
+def init(spec: HypnetSpec, generator: rng.Generator, dtype=torch.float32,
          device="cpu") -> dict:
-    """The reference's init, drawn from `generator` (which must live on
-    `device`)."""
+    """The reference's init, drawn from `generator` (a torch.Generator on
+    `device`, or a CounterRNG)."""
     d = spec.hypnet_dim
     # torch xavier on a (n_prefix, d) tensor: fan_out = dim0, fan_in = dim1
     params = {"prefix_tokens": _xavier_uniform(generator, (spec.n_proj_layers, d), d,
@@ -132,7 +132,7 @@ def _dropout(x, rate, generator, train):
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rng.uniform(generator, x.shape, x.device) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -185,7 +185,7 @@ def _transformer_block(spec, blk, x, key_valid, train, generator):
 
 
 def apply(spec: HypnetSpec, params: dict, z: torch.Tensor, z_len: Optional[int] = None,
-          train: bool = False, generator: Optional[torch.Generator] = None) -> Adapters:
+          train: bool = False, generator: Optional[rng.Generator] = None) -> Adapters:
     """Flat (a_weights, b_weights, biases) from the conditioning set z
     [n_z, hypnet_dim].  When n_prefix + n_z is below the fixed context
     length, z is zero-padded and the extra keys masked (the reference's

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from dmi_tpu_torch.models.quant import dequantize, int_matmul, quantize_act, unpack_w4
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
 from dmi_tpu_torch.ops.cuda.flash_attn import _flash_attn_plain, flash_attention
+from dmi_tpu_torch.utils import rng
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -242,9 +243,10 @@ def tiny_deepseek_config(q_lora_rank=None, n_experts=0, top_k=2, n_shared=0,
 # Params
 # ---------------------------------------------------------------------------
 
-def init(cfg: LlamaConfig, generator: torch.Generator, device="cpu") -> dict:
+def init(cfg: LlamaConfig, generator: rng.Generator, device="cpu") -> dict:
     """Random init: weights normal(0, 0.02) drawn in f32 from `generator`
-    (which must live on `device`) and cast to cfg.dtype; norms are ones.
+    (a torch.Generator on `device`, or a CounterRNG) and cast to cfg.dtype;
+    norms are ones.
     The family leaves as dmi_tpu's init names and shapes them: biases
     bq/bk/bv, q_norm/k_norm ([hd], or the whole width with qk_norm_wide),
     ln_post_attn/ln_post_mlp, an untied lm_head [H, V]; with experts
@@ -256,8 +258,7 @@ def init(cfg: LlamaConfig, generator: torch.Generator, device="cpu") -> dict:
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     def w(*shape):
-        t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return (t * 0.02).to(cfg.dtype)
+        return (rng.normal(generator, shape, device) * 0.02).to(cfg.dtype)
 
     def ones(n):
         return torch.ones(n, dtype=cfg.dtype, device=device)

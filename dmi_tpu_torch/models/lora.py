@@ -15,6 +15,7 @@ from typing import List
 import torch
 
 from dmi_tpu_torch.models.projector import ProjectorSpec
+from dmi_tpu_torch.utils import rng
 
 
 @dataclass(frozen=True)
@@ -24,15 +25,15 @@ class LoraSpec:
     n_proj_layers: int = 2
 
 
-def init(lora_spec: LoraSpec, proj_spec: ProjectorSpec, generator: torch.Generator,
+def init(lora_spec: LoraSpec, proj_spec: ProjectorSpec, generator: rng.Generator,
          dtype=torch.float32, device="cpu") -> List[dict]:
-    """Per-layer adapters drawn from `generator` (which must live on
-    `device`); layer 0 has in_dim = mm_dim (reference: dmi/model/lora.py:29-35)."""
+    """Per-layer adapters drawn from `generator` (a torch.Generator on
+    `device`, or a CounterRNG); layer 0 has in_dim = mm_dim (reference:
+    dmi/model/lora.py:29-35)."""
     std = 1.0 / math.sqrt(lora_spec.rank)
     adapters = []
     for in_dim, out_dim in proj_spec.layer_dims():
-        a = torch.randn(in_dim, lora_spec.rank, generator=generator, device=device,
-                        dtype=torch.float32) * std
+        a = rng.normal(generator, (in_dim, lora_spec.rank), device) * std
         adapters.append({"a": a.to(dtype),
                          "b": torch.zeros(lora_spec.rank, out_dim, dtype=dtype, device=device)})
     return adapters

@@ -23,7 +23,7 @@ Weights are stored (in_dim, out_dim), as in the JAX package, so a layer is
 `x @ w + b`.  In eval mode the 2-layer mlp, the serving default, runs the
 fused CUDA kernel (ops/cuda/projector.py); linear and deeper mlps, and
 every projector in train mode, are plain torch, as in the JAX package.
-Dropout draws from an explicit torch.Generator; its bits are not JAX's, so
+Dropout draws from an explicit generator (utils.rng); its bits are not JAX's, so
 the tests compare it statistically and by its determinism.
 """
 
@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from dmi_tpu_torch.ops.cuda.lora0 import _lora0_plain, fused_lora_layer0
 from dmi_tpu_torch.ops.cuda.projector import _mlp2_plain, fused_mlp2
+from dmi_tpu_torch.utils import rng
 
 
 @dataclass(frozen=True)
@@ -68,27 +69,26 @@ def _act(spec: ProjectorSpec, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(spec.act)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[rng.Generator]):
     """Keep each element with probability 1 - rate, scaled by 1 / (1 - rate)
     (dmi_tpu's _dropout); identity at rate 0 or without a generator."""
     if rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rng.uniform(generator, x.shape, x.device) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
-def init(spec: ProjectorSpec, generator: torch.Generator, dtype=torch.float32,
+def init(spec: ProjectorSpec, generator: rng.Generator, dtype=torch.float32,
          device="cpu") -> dict:
     """torch nn.Linear default init: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    drawn from `generator` (which must live on `device`)."""
+    drawn from `generator` (a torch.Generator on `device`, or a CounterRNG)."""
     layers = []
     for in_dim, out_dim in spec.layer_dims():
         bound = 1.0 / math.sqrt(in_dim)
 
         def u(*shape):
-            t = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-            return ((t * 2 - 1) * bound).to(dtype)
+            return ((rng.uniform(generator, shape, device) * 2 - 1) * bound).to(dtype)
 
         layers.append({"w": u(in_dim, out_dim), "b": u(out_dim)})
     return {"layers": layers}
@@ -103,7 +103,7 @@ def prune(params: dict, keep: int) -> dict:
 
 
 def apply(spec: ProjectorSpec, params: dict, x: torch.Tensor, plain: bool = False,
-          train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+          train: bool = False, generator: Optional[rng.Generator] = None) -> torch.Tensor:
     """Projector forward (reference: dmi/model/projector.py:56-59).
 
     train=True applies dropout after the linear ('linear') or after each

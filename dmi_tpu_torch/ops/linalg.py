@@ -1,7 +1,7 @@
 """Small linear-algebra ops (counterpart of dmi_tpu/ops/linalg.py).
 
   * random_orthogonal — the isometric augmentation of stage 2, a QR of a
-    Gaussian on the generator's device (reference: scipy's ortho_group on
+    Gaussian drawn on the generator's device (reference: scipy's ortho_group on
     the host, dmi/train_hypernet.py:56-57).
   * l2_normalize — row normalization of modality embeddings
     (reference: dmi/utils/model_utils.py:47-62).
@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dmi_tpu_torch.utils import rng
+
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     """Row-normalize like torch `x / x.norm(dim=1, keepdim=True)` (no eps
@@ -28,13 +30,12 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
     return x / norm
 
 
-def random_orthogonal(dim: int, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+def random_orthogonal(dim: int, generator: rng.Generator, dtype=torch.float32) -> torch.Tensor:
     """Haar-distributed random orthogonal [dim, dim] matrix on the
     generator's device: QR of an i.i.d. Gaussian (f32), each column of Q
     multiplied by the sign of R's diagonal entry (1 where it is 0), which
     makes the factorization unique and the distribution Haar."""
-    g = torch.randn(dim, dim, generator=generator, device=generator.device,
-                    dtype=torch.float32)
+    g = rng.normal(generator, (dim, dim))
     q, r = torch.linalg.qr(g)
     d = torch.sign(torch.diagonal(r))
     d = torch.where(d == 0, torch.ones_like(d), d)

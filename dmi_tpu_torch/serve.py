@@ -445,11 +445,13 @@ def main(argv=None) -> None:
                     help="draft-verify decode with a W4A8 self-draft proposing K tokens a "
                          "round: greedy output identical to the plain loop's, sampling with "
                          "its law; on the batch and bulk engines")
+    ap.add_argument("--lm-dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                    help="the LM's weights and activations (a config's lm_dtype)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cap = Captioner.from_checkpoint(
-        args.lm, args.projector_ckpt, args.dataset, device=args.device,
+        args.lm, args.projector_ckpt, args.dataset, lm_dtype=args.lm_dtype, device=args.device,
         batch_size=args.batch_size,
         int8={None: False, "1": True}.get(args.int8, args.int8),
         speculative=args.speculative,

@@ -23,8 +23,6 @@ import logging
 import os.path as osp
 import sys
 
-import torch
-
 from dmi_tpu_torch.models import hypernet as hn
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.training.embeddings import (
@@ -33,6 +31,7 @@ from dmi_tpu_torch.training.embeddings import (
 )
 from dmi_tpu_torch.training.hypernet_trainer import HypernetTrainer
 from dmi_tpu_torch.training.projector_trainer import load_projector
+from dmi_tpu_torch.utils.rng import CounterRNG
 from dmi_tpu_torch.training.model_utils import (
     build_lm,
     build_tokenizer,
@@ -93,7 +92,7 @@ def main(name, train_args, hn_args, projector_args, data_args, menc_args, lm_arg
         use_pos_encs=hn_args.hn_use_pos_encs, attn_dropout=hn_args.hn_attn_dropout,
         transformer_dropout=hn_args.hn_transformer_dropout,
     )
-    gen = torch.Generator(device=device).manual_seed(train_args.seed)
+    gen = CounterRNG(train_args.seed, device=device)  # the same draws on any device
     hn_params = hn.init(hn_spec, gen, device=device)
 
     def build(datasets, encoders):

@@ -16,8 +16,6 @@ import logging
 import os.path as osp
 import sys
 
-import torch
-
 from dmi_tpu_torch.models import lora as lora_mod
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.training.embeddings import build_embedding_managers
@@ -29,6 +27,7 @@ from dmi_tpu_torch.training.model_utils import (
     require_device,
 )
 from dmi_tpu_torch.training.projector_trainer import load_projector
+from dmi_tpu_torch.utils.rng import CounterRNG
 
 log = logging.getLogger("dmi_tpu_torch")
 
@@ -70,7 +69,7 @@ def main(name, data_args, lora_args, lm_args, menc_args, projector_args, train_a
     frozen = load_projector(projector_args.proj_name_or_path, proj_spec)
     lora_spec = lora_mod.LoraSpec(rank=lora_args.lora_rank, alpha=lora_args.lora_alpha,
                                   n_proj_layers=lora_args.lora_n_proj_layers)
-    gen = torch.Generator(device=device).manual_seed(train_args.seed)
+    gen = CounterRNG(train_args.seed, device=device)  # the same draws on any device
     lora_params = lora_mod.init(lora_spec, proj_spec, gen, device=device)
     loaders = [
         DatasetLoader(dataset_spec(ds), tokenizer, train_args, enc.split("/")[-1],

@@ -21,8 +21,6 @@ import logging
 import os.path as osp
 import sys
 
-import torch
-
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.training.embeddings import build_embedding_managers
 from dmi_tpu_torch.training.model_utils import (
@@ -32,6 +30,7 @@ from dmi_tpu_torch.training.model_utils import (
     require_device,
 )
 from dmi_tpu_torch.training.projector_trainer import ProjectorTrainer
+from dmi_tpu_torch.utils.rng import CounterRNG
 
 log = logging.getLogger("dmi_tpu_torch")
 
@@ -66,7 +65,7 @@ def main(name, data_args, lm_args, menc_args, projector_args, train_args, device
         n_layers=projector_args.proj_n_layers,
         dropout=projector_args.proj_dropout,
     )
-    gen = torch.Generator(device=device).manual_seed(train_args.seed)
+    gen = CounterRNG(train_args.seed, device=device)  # the same draws on any device
     proj_params = proj.init(proj_spec, gen, device=device)
 
     log.info("Building loaders")

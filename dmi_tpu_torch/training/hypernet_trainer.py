@@ -30,7 +30,8 @@ Random draws are explicit per micro-step, as ProjectorTrainer's dropout is:
 micro-step s's rotation from (seed, 2s), its hypernet dropout from
 (seed, 2s + 1), few-shot step s's dropout from (seed, 3s + 2), the indices
 of dmi_tpu's fold_in (hypernet_trainer.py:432-433,718).  The bits are
-torch's, not JAX's; `rotation(step)` is the one place the rotation is
+the port's counter-based ones (the same on the CPU and the card), not
+JAX's; `rotation(step)` is the one place the rotation is
 drawn, so a test can hand in JAX's matrix.  The LLM and the frozen
 projector never require grad.
 """

@@ -34,6 +34,7 @@ import torch
 
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.training import hf_weights
+from dmi_tpu_torch.utils.rng import CounterRNG
 
 log = logging.getLogger("dmi_tpu_torch")
 
@@ -372,5 +373,5 @@ def build_lm(lm_args, tokenizer, seed: int = 0,
             vocab_size=vocab, hidden_size=64, n_layers=2, n_heads=4, n_kv=2,
             intermediate=128, dtype=dtype, eos=(tokenizer.eos_token_id,),
         )
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = CounterRNG(seed, device=device)  # the same weights on any device
     return cfg, llama.init(cfg, gen, device)

@@ -18,9 +18,10 @@ The LLM is frozen: its parameters never require grad, and the gradient
 flows through every layer's attention (the flash kernels' backward on a
 card) to the soft token and the projector.  Eval loss and generate run the
 projector through fused_mlp2, with parameters that require grad, under
-torch.no_grad().  Dropout draws from one generator per micro-step, seeded
+torch.no_grad().  Dropout draws from one stream per micro-step, seeded
 from (seed, step): the counterpart of jax.random.fold_in(base_key, step),
-so a resumed run draws what the uninterrupted run drew.
+so a resumed run draws what the uninterrupted run drew, and a counter-based
+one (utils.rng.CounterRNG), so the CPU and the card draw the same masks.
 
 The data, eval, results and logging modules (the port's copies of
 dmi_tpu's framework-free ones) are imported where they are used: a trainer
@@ -60,15 +61,15 @@ from dmi_tpu_torch.training.optim import (
 from dmi_tpu_torch.training.trainer import StepConditions, pick_loader, strip_to_assistant
 from dmi_tpu_torch.utils.grad_stats import grad_summary, host_grad_summary, named_leaves, tree_map
 from dmi_tpu_torch.utils.profiling import trace
+from dmi_tpu_torch.utils.rng import CounterRNG
 
 log = logging.getLogger("dmi_tpu_torch")
 
 
-def dropout_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout stream of micro-step `step`: a generator on `device`
-    seeded from (seed, step) alone."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+def dropout_generator(seed: int, step: int, device) -> CounterRNG:
+    """The dropout stream of micro-step `step`: drawn on `device` from (seed,
+    step) alone, with the same bits on every device."""
+    return CounterRNG(seed, step, device=device)
 
 
 def device_batch(batch, device):

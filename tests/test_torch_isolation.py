@@ -1,8 +1,11 @@
 """The port stands alone: no module of dmi_tpu_torch, nor chip_smoke.py,
-imports dmi_tpu or JAX, lazily or not; the framework-free modules it
-carries are dmi_tpu's with only the package name of their imports
-rewritten; and every entry point runs on the card unless asked for the CPU,
-failing here, where torch sees no card, before it loads anything.
+imports dmi_tpu or JAX, lazily or not, nor a package the card's machine
+lacks (transformers only inside the guarded places listed below); the
+framework-free modules it carries are dmi_tpu's with only the package name
+of their imports rewritten, and the third-party scorers they import swapped
+for the port's own stand-ins (SUBSTITUTIONS); and every entry point runs on
+the card unless asked for the CPU, failing here, where torch sees no card,
+before it loads anything.
 """
 
 import ast
@@ -15,18 +18,53 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "dmi_tpu_torch"
 FORBIDDEN = ("dmi_tpu", "jax", "jaxlib", "optax", "flax", "orbax")
+# packages the card's machine does not have: the port carries stand-ins
+ABSENT_ON_CARD = ("tokenizers", "nltk", "rouge_score", "regex", "transformers")
+# the only imports of those packages the port keeps, as (file, function,
+# package): in the copies, each inside a try whose except takes the
+# documented fallback (SciBERT's tokenizer absent: the BasicTokenizer
+# stand-in, and the eval environment's record of it; wordnet absent: METEOR
+# without the synonym stage; the hub's Llama tokenizer absent: stats.py's
+# __main__ counts with the fixture's); and the tokenizer of a real HF LM
+# (test: LMs use the port's own)
+GUARDED_IMPORTS = {("data/stats.py", None, "transformers"),
+                   ("evals/captions.py", "get_chebi_tokenizer", "transformers"),
+                   ("evals/environment.py", "_chebi_tokenizer_kind", "transformers"),
+                   ("evals/meteor15.py", "wordnet_synonyms", "nltk"),
+                   ("training/model_utils.py", "build_tokenizer", "transformers")}
 
 # the framework-free dmi_tpu modules the port keeps its own copies of
 COPIES = [
     "config.py", "registry.py", "chat_templates.py", "training/results.py", "utils/logging.py",
     "data/__init__.py", "data/collator.py", "data/loader.py", "data/inffs.py", "data/sampler.py",
-    "data/prefetch.py", "data/tok_fixture.py",
+    "data/prefetch.py", "data/fixtures.py", "data/stats.py",
     *(f"evals/{p.name}" for p in sorted((REPO / "dmi_tpu" / "evals").glob("*.py"))),
 ]
+# the third-party imports a copy swaps for the port's own stand-in, besides
+# the dmi_tpu -> dmi_tpu_torch rewrite (tests/test_torch_evals_standalone.py
+# holds each stand-in to its original)
+SUBSTITUTIONS = {
+    "from nltk.stem.porter import": "from dmi_tpu_torch.evals.stem import",
+    "from nltk.stem.snowball import": "from dmi_tpu_torch.evals.stem import",
+    "from nltk.translate.bleu_score import": "from dmi_tpu_torch.evals.nltk_bleu import",
+    "from rouge_score import rouge_scorer": "from dmi_tpu_torch.evals import rouge_scorer",
+    "from transformers.models.bert.tokenization_bert import":
+        "from dmi_tpu_torch.evals.basic_tokenizer import",
+}
 _HEADER = ("# Copy of dmi_tpu/{rel} with its dmi_tpu imports rewritten to dmi_tpu_torch, so that\n"
            "# the port loads no module of the JAX package (tests/test_torch_isolation.py holds "
            "the two equal).\n")
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)dmi_tpu(?=[.\s])")
+
+
+def _ported_line(line: str) -> str:
+    """A line of a dmi_tpu module as its copy has it."""
+    line = _IMPORT.sub(r"\1dmi_tpu_torch", line)
+    body = line.lstrip()
+    for original, own in SUBSTITUTIONS.items():
+        if body.startswith(original + " ") or body.rstrip("\n") == original:
+            return line[:len(line) - len(body)] + own + body[len(original):]
+    return line
 
 
 def _forbidden_imports(path: Path):
@@ -54,6 +92,43 @@ def test_port_and_smoke_import_no_dmi_tpu_or_jax():
     assert not bad, bad
 
 
+def _imports_in_functions(path: Path):
+    """(innermost enclosing function or None, module) of every import."""
+    found = []
+
+    def visit(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                found.extend((fn, a.name) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                found.append((fn, child.module))
+            visit(child, fn)
+
+    visit(ast.parse(path.read_text(), str(path)), None)
+    return found
+
+
+def test_port_and_smoke_import_no_package_the_card_lacks():
+    """Only in the guarded places of GUARDED_IMPORTS, each of which is still
+    there."""
+    bad, seen = {}, set()
+    for p in _sources():
+        rel = str(p.relative_to(PORT)) if p.is_relative_to(PORT) else p.name
+        for fn, module in _imports_in_functions(p):
+            top = module.split(".")[0]
+            if top not in ABSENT_ON_CARD:
+                continue
+            if (rel, fn, top) in GUARDED_IMPORTS:
+                seen.add((rel, fn, top))
+            else:
+                bad.setdefault(rel, []).append((fn, module))
+    assert not bad, bad
+    assert seen == GUARDED_IMPORTS
+
+
 def test_isolation_check_sees_lazy_imports(tmp_path):
     """The check reads nested, lazy imports too, and tells dmi_tpu_torch apart."""
     src = tmp_path / "m.py"
@@ -63,14 +138,28 @@ def test_isolation_check_sees_lazy_imports(tmp_path):
     assert _forbidden_imports(src) == [(4, "dmi_tpu.config"), (5, "jax.numpy")]
 
 
+def test_every_substitution_is_used():
+    """Each row of SUBSTITUTIONS rewrites a line of some copy, and no copy
+    keeps an import of a scorer package the card lacks."""
+    used = set()
+    for rel in COPIES:
+        for line in (REPO / "dmi_tpu" / rel).read_text().splitlines(keepends=True):
+            used.update(k for k in SUBSTITUTIONS if line.lstrip().startswith(k))
+    assert used == set(SUBSTITUTIONS)
+    assert _ported_line("    from nltk.stem.porter import PorterStemmer\n") == (
+        "    from dmi_tpu_torch.evals.stem import PorterStemmer\n")
+    assert _ported_line("from rouge_score import rouge_scorer\n") == (
+        "from dmi_tpu_torch.evals import rouge_scorer\n")
+    assert _ported_line("from rouge_score import scoring\n") == "from rouge_score import scoring\n"
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_matches_dmi_tpu(rel):
     """A copy drifts from its original in neither direction: it is the
     original with `dmi_tpu` rewritten to `dmi_tpu_torch` in its import
-    statements, under a two-line header."""
+    statements and SUBSTITUTIONS applied to them, under a two-line header."""
     original = (REPO / "dmi_tpu" / rel).read_text().splitlines(keepends=True)
-    want = _HEADER.format(rel=rel) + "".join(_IMPORT.sub(r"\1dmi_tpu_torch", line)
-                                             for line in original)
+    want = _HEADER.format(rel=rel) + "".join(map(_ported_line, original))
     assert (PORT / rel).read_text() == want
 
 
