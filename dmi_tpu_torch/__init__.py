@@ -15,7 +15,8 @@ and stage-3 few-shot integration (train_hypernet); the LoRA baseline
 (train_lora).  The projector MLP2, the single-token decode attention, the
 causal flash attention (forward and backward) and the fused LoRA layer 0
 are hand-written CUDA kernels for sm_90a (csrc/, bound through ops/cuda/).
-ROADMAP.md lists what comes next.
+Serving also runs tensor- and data-parallel over torch.distributed
+(parallel/, Captioner(mesh_shape=...)).  ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"

@@ -365,10 +365,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ids[b] = the index of the best pair over the blocks: score descending, then
-// index ascending
+// index ascending; scores[b] (where scores is not null) its score, for the
+// merge of a vocab-sharded head's ranks
 __global__ void merge_kernel(const float* __restrict__ part_val,
                              const int* __restrict__ part_idx, int* __restrict__ ids,
-                             int blocks, int B) {
+                             float* __restrict__ scores, int blocks, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   float best = part_val[b];
@@ -382,6 +383,7 @@ __global__ void merge_kernel(const float* __restrict__ part_val,
     }
   }
   ids[b] = bidx;
+  if (scores != nullptr) scores[b] = best;
 }
 
 // ---- host ----
@@ -401,8 +403,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <int kMode>
 int launch(const void* embed, const float* scales, const void* h, const float* act_scales,
-           float* part_val, int* part_idx, int* ids, int V, int H, int B, int blocks,
-           cudaStream_t stream) {
+           float* part_val, int* part_idx, int* ids, float* scores, int V, int H, int B,
+           int blocks, cudaStream_t stream) {
   using R = Ring<kMode>;
   const int batch_tiles = (B + kTileB - 1) / kTileB;
   const int tiles = (V + kTileV - 1) / kTileV;
@@ -434,7 +436,8 @@ int launch(const void* embed, const float* scales, const void* h, const float* a
   head_argmax_kernel<kMode><<<dim3(blocks, batch_tiles), kThreads, R::kSmem, stream>>>(
       e_map, h_map, scales, act_scales, part_val, part_idx, V, H, B);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  merge_kernel<<<(B + 127) / 128, 128, 0, stream>>>(part_val, part_idx, ids, blocks, B);
+  merge_kernel<<<(B + 127) / 128, 128, 0, stream>>>(part_val, part_idx, ids, scores, blocks,
+                                                    B);
   return (int)cudaGetLastError();
 }
 
@@ -444,11 +447,12 @@ int launch(const void* embed, const float* scales, const void* h, const float* a
 // first failed launch, 0 on success.  mode: 0 bf16, 1 q, 2 q8.  The launch
 // plan of ops/cuda/head_argmax.py:plan: `blocks` persistent blocks a batch
 // tile (each walks a contiguous run of the 256-row vocab tiles).  The ring's
-// stages are the kernel's own (Ring<mode>::kStages).
+// stages are the kernel's own (Ring<mode>::kStages).  scores: null, or [B]
+// f32 that takes each column's winning (bf16-rounded) score.
 extern "C" int dmi_head_argmax(const void* embed, const void* scales, const void* h,
                                const void* act_scales, void* part_val, void* part_idx,
-                               void* ids, int V, int H, int B, int mode, int blocks,
-                               void* stream) {
+                               void* ids, void* scores, int V, int H, int B, int mode,
+                               int blocks, void* stream) {
   if (V < 1 || H < 16 || B < 16 || H % 16 || B % 16) return (int)cudaErrorInvalidValue;
   if (!aligned16(embed) || !aligned16(h)) return (int)cudaErrorMisalignedAddress;
   if ((mode != kModeBf16 && scales == nullptr) || (mode == kModeQ8 && act_scales == nullptr))
@@ -459,12 +463,13 @@ extern "C" int dmi_head_argmax(const void* embed, const void* scales, const void
   float* pv = static_cast<float*>(part_val);
   int* pi = static_cast<int*>(part_idx);
   int* out = static_cast<int*>(ids);
+  float* best = static_cast<float*>(scores);
   if (mode == kModeBf16)
-    return launch<kModeBf16>(embed, sc, h, as, pv, pi, out, V, H, B, blocks, st);
+    return launch<kModeBf16>(embed, sc, h, as, pv, pi, out, best, V, H, B, blocks, st);
   if (mode == kModeQ)
-    return launch<kModeQ>(embed, sc, h, as, pv, pi, out, V, H, B, blocks, st);
+    return launch<kModeQ>(embed, sc, h, as, pv, pi, out, best, V, H, B, blocks, st);
   if (mode == kModeQ8)
-    return launch<kModeQ8>(embed, sc, h, as, pv, pi, out, V, H, B, blocks, st);
+    return launch<kModeQ8>(embed, sc, h, as, pv, pi, out, best, V, H, B, blocks, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -58,7 +58,8 @@ from dmi_tpu_torch.models.quant import dequantize, int_matmul, quantize_act, unp
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
 from dmi_tpu_torch.ops.cuda.decode_mlp import _decode_mlp_plain, fused_decode_mlp_bl
 from dmi_tpu_torch.ops.cuda.head_argmax import _head_argmax_plain, head_argmax, head_logits_bl
-from dmi_tpu_torch.ops.cuda.w4_matmul import _w4_mm_plain, _w8_mm_plain, w4_mm_bl, w8_mm_bl
+from dmi_tpu_torch.ops.cuda.w4_matmul import (_rescale, _w4_mm_plain, _w8_mm_plain, w4_mm_bl,
+                                              w8_mm_bl)
 from dmi_tpu_torch.utils import rng
 
 NEG_INF = llama.NEG_INF
@@ -94,7 +95,7 @@ def _run_layers(cfg, params, x, rope, bias, caches, cache_index: int,
     for i, lw in enumerate(params["layers"]):
         b, (cos, sin) = llama.layer_inputs(cfg, i, bias, bias_sw, rope, rope_local)
         x = llama._block(cfg, x, lw, cos, sin, b, (k_cache[i], v_cache[i]), cache_index,
-                         plain=plain)
+                         plain=plain, shard=params.get("shard"))
     if last_only:
         x = x[:, -1:, :]
     x = llama.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -161,7 +162,10 @@ def greedy_generate(
     The batch-first loop.  Returns [B, max_new_tokens] int64 generated ids
     (pad-filled after a row's EOS).  plain=True runs the decode attention's
     plain twin in place of the CUDA kernel (a reference path for
-    comparisons on the card)."""
+    comparisons on the card).  A sharded tree (parallel.shard_llm_params)
+    decodes its shard under its local config; every model rank returns the
+    same ids."""
+    cfg = llama.local_config(cfg, params)
     B, T, _ = inputs_embeds.shape
     device = inputs_embeds.device
     tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
@@ -285,6 +289,7 @@ def sample_generate(
     n), the batch-last loop's request-indexed draw with req = row, so the
     two loops' sampled tokens can be compared.  dmi_tpu's sample_generate
     splits one key per step instead (the draws then depend on the batch)."""
+    cfg = llama.local_config(cfg, params)
     B, T, _ = inputs_embeds.shape
     device = inputs_embeds.device
     tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
@@ -347,14 +352,18 @@ def _rope_interleaved_bl(x, cos, sin):
     return out.reshape(x.shape).to(x.dtype)
 
 
-def _rms_norm_bl(x, scale, eps):
-    """rms_norm over the leading (feature) axis of a batch-last [H, B]."""
+def _rms_norm_bl(x, scale, eps, shard=None):
+    """rms_norm over the leading (feature) axis of a batch-last [H, B]
+    (shard: a whole-width norm over this rank's rows, as llama.rms_norm)."""
     xf = x.float()
-    var = (xf * xf).mean(dim=0, keepdim=True)
+    if shard is None:
+        var = (xf * xf).mean(dim=0, keepdim=True)
+    else:
+        var = shard.psum((xf * xf).sum(dim=0, keepdim=True)) / (x.shape[0] * shard.m)
     return (xf * torch.rsqrt(var + eps) * scale.float()[:, None]).to(x.dtype)
 
 
-def _mm_bl(w, h, plain: bool = False):
+def _mm_bl(w, h, plain: bool = False, shard=None):
     """Batch-last matmul: w [in, out] (or a quantized dict of
     models/quant.py), h [in, B] -> [out, B]; equals (h^T @ w)^T.
 
@@ -363,49 +372,76 @@ def _mm_bl(w, h, plain: bool = False):
     grouped "qp" weights ("s4g") unpack and run G partial products weighted
     by their groups' scales, which dmi_tpu also computes outside its kernel;
     "q" weights are widened to h's dtype per call (eager torch materialises
-    the widened copy that XLA fuses into its dot)."""
+    the widened copy that XLA fuses into its dot).
+
+    shard: w is row-parallel (wo, w_down: its rows this rank's slice of the
+    contraction).  The partial products are summed in f32 over the model
+    group and rounded once to h's dtype, never per rank; the activations
+    take the amax over all of the contraction, so hq and a are the one-rank
+    ones.  The int8 kernels run their f32 instance with unit scales, so
+    their partials are the integer accumulators (exact in f32 below 2**24):
+    their sum, rescaled in the kernel's order, is the one-rank product bit
+    for bit."""
+    if shard is None:
+        def red(t):
+            return t
+    else:
+        def red(t):
+            return shard.psum(t.float())
     if not isinstance(w, dict):
-        return w.t() @ h
-    if "q8" in w:
-        hq, a = quantize_act(h, axis=0)  # a [1, B]
-        return (_w8_mm_plain if plain else w8_mm_bl)(w, hq, a, h.dtype)
-    if "qp" in w:
-        hq, a = quantize_act(h, axis=0)
-        if "s4g" in w:
-            q8 = unpack_w4(w["qp"])
-            s4g = w["s4g"]  # [G, out]
-            G, K = s4g.shape[0], q8.shape[0]
-            qg = q8.reshape(G, K // G, q8.shape[1])
-            hg = hq.reshape(G, K // G, hq.shape[1])
-            acc = int_matmul(qg.transpose(1, 2), hg)  # [G, out, B]
-            return ((acc * s4g[:, :, None]).sum(dim=0) * a).to(h.dtype)
-        return (_w4_mm_plain if plain else w4_mm_bl)(w, hq, a, h.dtype)
+        return w.t() @ h if shard is None else red(w.float().t() @ h.float()).to(h.dtype)
     if "q" in w:
-        return (w["q"].to(h.dtype).t() @ h) * w["s"].to(h.dtype).reshape(-1, 1)
-    raise ValueError(f"unknown quantized dict keys {sorted(w)}")
+        if shard is None:
+            return (w["q"].to(h.dtype).t() @ h) * w["s"].to(h.dtype).reshape(-1, 1)
+        return (red(w["q"].float().t() @ h.float()).to(h.dtype)
+                * w["s"].to(h.dtype).reshape(-1, 1))
+    if "q8" not in w and "qp" not in w:
+        raise ValueError(f"unknown quantized dict keys {sorted(w)}")
+    hq, a = quantize_act(h, axis=0, reduce=None if shard is None else shard.pmax)  # a [1, B]
+    if "s4g" in w:
+        q8 = unpack_w4(w["qp"])
+        s4g = w["s4g"]  # [G, out]
+        G, K = s4g.shape[0], q8.shape[0]
+        qg = q8.reshape(G, K // G, q8.shape[1])
+        hg = hq.reshape(G, K // G, hq.shape[1])
+        acc = int_matmul(qg.transpose(1, 2), hg)  # [G, out, B]
+        return (red((acc * s4g[:, :, None]).sum(dim=0)) * a).to(h.dtype)
+    if "q8" in w:
+        mm = _w8_mm_plain if plain else w8_mm_bl
+    else:
+        mm = _w4_mm_plain if plain else w4_mm_bl
+    if shard is None:
+        return mm(w, hq, a, h.dtype)
+    unit = {k: torch.ones_like(v) if k == "s" else v for k, v in w.items()}
+    return _rescale(red(mm(unit, hq, torch.ones_like(a), torch.float32)), w["s"], a, h.dtype)
 
 
-def _moe_mlp_bl(cfg, lw, hn, plain: bool = False):
+def _moe_mlp_bl(cfg, lw, hn, plain: bool = False, shard=None):
     """The dense-evaluated sparse-MoE MLP, batch-last (dmi_tpu's
     _moe_mlp_bl): hn [H, B] -> [H, B], llama._moe_mlp's math with the
     expert axis leading.  The router product runs in the model dtype (f32
     with moe_gate_fp32); the expert stacks are dequantized into their
     products (torch ops, as dmi_tpu's XLA einsums; no kernel); deepseek's
     shared experts go through _mm_bl, so a quantized tree runs them on the
-    int8 kernels."""
+    int8 kernels.  shard: this rank's experts and shared-expert slice, as
+    llama._moe_mlp."""
     if cfg.moe_gate_fp32:
         router = dequantize(lw["w_router"], torch.float32).float().t() @ hn.float()
     else:
         router = _mm_bl(lw["w_router"], hn, plain)  # [E, B]
     w_e = llama.moe_gate_weights(cfg, router.t()).t().to(hn.dtype)  # [E, B]
+    if shard is not None:
+        w_e = w_e[shard.e0:shard.e1]
     g = dequantize(lw["moe_w1"], hn.dtype).transpose(1, 2) @ hn  # [E, I, B]
     u = dequantize(lw["moe_w3"], hn.dtype).transpose(1, 2) @ hn
     y = dequantize(lw["moe_w2"], hn.dtype).transpose(1, 2) @ (llama.mlp_activation(cfg, g) * u)
     out = (y * w_e[:, None, :]).sum(dim=0)  # [H, B]
+    if shard is not None:
+        out = shard.psum(out.float()).to(hn.dtype)
     if cfg.n_shared_experts:
         gate = llama.mlp_activation(cfg, _mm_bl(lw["w_shared_gate"], hn, plain))
         out = out + _mm_bl(lw["w_shared_down"], gate * _mm_bl(lw["w_shared_up"], hn, plain),
-                           plain)
+                           plain, shard)
     return out
 
 
@@ -471,7 +507,8 @@ def _mla_prefill_compressed(cfg, params, inputs_embeds, total: int, plain: bool 
     latent = init_latent_cache(cfg, B, total, device)
     x = llama.scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
     for i, lw in enumerate(params["layers"]):
-        x = llama._block(cfg, x, lw, cos, sin, bias, plain=plain, latent_out=latent[i, :, :T])
+        x = llama._block(cfg, x, lw, cos, sin, bias, plain=plain, latent_out=latent[i, :, :T],
+                         shard=params.get("shard"))
     x = llama.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_norm_eps)
     logits = llama.final_softcap(cfg, llama._head_matmul(x, params, cfg))
     return logits[:, 0], latent
@@ -547,7 +584,16 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     with cfg.mlp_act, quantized weights the int8 kernels (_mm_bl) and
     attention the decode-attention kernel on the step's transposed q/k/v;
     MoE layers take _moe_mlp_bl and MLA layers _mla_attn_bl (torch ops, as
-    dmi_tpu's XLA); plain=True runs every kernel's plain twin instead."""
+    dmi_tpu's XLA); plain=True runs every kernel's plain twin instead.
+
+    A sharded tree (parallel.shard_llm_params) steps its shard under its
+    local config: the kernels run at this rank's heads and MLP columns, wo's
+    and the MLP's partial outputs are summed over the model group (the int8
+    kernels' in f32), and the vocab-sharded logits are gathered; the final
+    norm's output (head=False) is replicated, for the fused head's merge."""
+    cfg = llama.local_config(cfg, params)
+    shard = params.get("shard")
+    rows = llama.row_parallel(shard)
     mla = cfg.kv_lora_rank is not None
     k_cache, v_cache = (caches, None) if mla else caches
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -604,7 +650,8 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
                     q, k, v = (q + lw["bq"][:, None], k + lw["bk"][:, None],
                                v + lw["bv"][:, None])
             if cfg.qk_norm_wide:
-                q, k = _rms_norm_bl(q, lw["q_norm"], eps), _rms_norm_bl(k, lw["k_norm"], eps)
+                q = _rms_norm_bl(q, lw["q_norm"], eps, rows)
+                k = _rms_norm_bl(k, lw["k_norm"], eps, rows)
             q, k = q.reshape(nkv, g, hd, N), k.reshape(nkv, hd, N)
             if cfg.qk_norm:
                 q = _rms_norm_head_bl(q, lw["q_norm"], eps)
@@ -617,27 +664,31 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
                           k_cache[li][:, :, :span], v_cache[li][:, :, :span], b,
                           scale, cfg.attn_logit_softcap)  # [B, nh, P, hd]
             attn = attn.permute(1, 3, 2, 0).reshape(nh * hd, N).contiguous()
-        x = x + llama._block_out(cfg, mm(lw["wo"], attn), lw, "ln_post_attn", "ln_attn",
-                                 _rms_norm_bl)
+        x = x + llama._block_out(cfg, _mm_bl(lw["wo"], attn, plain, rows), lw, "ln_post_attn",
+                                 "ln_attn", _rms_norm_bl)
         hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_mlp"], eps)
         if cfg.num_experts:  # never the decode-MLP kernel, as in dmi_tpu
-            mlp_out = _moe_mlp_bl(cfg, lw, hn, plain)
+            mlp_out = _moe_mlp_bl(cfg, lw, hn, plain, rows)
         elif "w_gu" in lw and not isinstance(lw["w_gu"], dict):
             # the whole MLP in one weight stream
             mlp_out = mlp(lw["w_gu"], lw["w_down"], hn, cfg.mlp_act)
+            if rows is not None:  # the kernel emits h's dtype: summed in f32
+                mlp_out = rows.psum(mlp_out.float()).to(hn.dtype)
         elif "w_gu" in lw:  # quantized layouts go through _mm_bl
             gate, up = mm(lw["w_gu"], hn).chunk(2, dim=0)
-            mlp_out = mm(lw["w_down"], llama.mlp_activation(cfg, gate) * up)
+            mlp_out = _mm_bl(lw["w_down"], llama.mlp_activation(cfg, gate) * up, plain, rows)
         else:
             gate = llama.mlp_activation(cfg, mm(lw["w_gate"], hn))
-            mlp_out = mm(lw["w_down"], gate * mm(lw["w_up"], hn))
+            mlp_out = _mm_bl(lw["w_down"], gate * mm(lw["w_up"], hn), plain, rows)
         x = x + llama._block_out(cfg, mlp_out, lw, "ln_post_mlp", "ln_mlp", _rms_norm_bl)
     x = _rms_norm_bl(x, params["final_norm"], eps)
     if not head:
         return x
     if cfg.tie_word_embeddings:
-        return head_logits_bl(params["embed"], x)
-    return mm(params["lm_head"], x)
+        logits = head_logits_bl(params["embed"], x)
+    else:
+        logits = mm(params["lm_head"], x)
+    return logits if shard is None else shard.gather_vocab(logits, 0)
 
 
 def fused_head_weights(cfg: LlamaConfig, params: dict) -> Optional[dict]:
@@ -646,13 +697,37 @@ def fused_head_weights(cfg: LlamaConfig, params: dict) -> Optional[dict]:
     embed, or an untied bf16 lm_head [H, V] transposed into rows (one copy
     a call; dmi_tpu keeps an untied head on its logits path, and the argmax
     of the same bf16 logits is the same function).  A quantized untied head
-    ({"q"|"q8"|"qp", "s" [1, V]}) takes _mm_bl and an argmax."""
+    ({"q"|"q8"|"qp", "s" [1, V]}) takes _mm_bl and an argmax.  A sharded
+    tree's rows are its vocab block, and the tree carries its Shard along
+    for head_ids' merge."""
     if cfg.dtype != torch.bfloat16:
         return None
     if cfg.tie_word_embeddings:
-        return {"embed": params["embed"]}
-    head = params["lm_head"]
-    return None if isinstance(head, dict) else {"embed": head.t().contiguous()}
+        head_w = {"embed": params["embed"]}
+    elif isinstance(params["lm_head"], dict):
+        return None
+    else:
+        head_w = {"embed": params["lm_head"].t().contiguous()}
+    if "shard" in params:
+        head_w["shard"] = params["shard"]
+    return head_w
+
+
+def head_ids(head_w: dict, out: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Greedy ids [B] of the final norm's output out [H, B] through the
+    fused head + argmax over head_w (fused_head_weights), or its plain twin
+    when `plain`.  A sharded head's kernel also writes each column's
+    winning score, and the shards' (score, id) pairs are merged over the
+    model group (Shard.argmax: the higher score, then the smaller global
+    id, as the whole head's argmax)."""
+    shard = head_w.get("shard")
+    if shard is None:
+        return _head_argmax_plain(head_w["embed"], out) if plain else head_argmax(head_w, out)
+    if plain:
+        ids, scores = _head_argmax_plain(head_w["embed"], out, scores=True)
+    else:
+        ids, scores = head_argmax(head_w, out, scores=True)
+    return shard.argmax(scores, ids)
 
 
 def _prefill_caches(cfg, params, inputs_embeds, total: int, plain: bool = False):
@@ -660,6 +735,7 @@ def _prefill_caches(cfg, params, inputs_embeds, total: int, plain: bool = False)
     positions, next-token logits [B, V]).  MLA fills the latent cache
     through _mla_prefill_compressed; the others fill the K/V caches through
     prefill."""
+    cfg = llama.local_config(cfg, params)
     if cfg.kv_lora_rank is not None:
         logits, latent = _mla_prefill_compressed(cfg, params, inputs_embeds, total, plain)
         return latent, logits
@@ -698,7 +774,10 @@ def greedy_generate_bl(
     twin (a reference path for comparisons on the card).
 
     MLA (deepseek-v2) prefills through _mla_prefill_compressed and steps
-    over the latent cache (absorbed attention), as dmi_tpu's loop does."""
+    over the latent cache (absorbed attention), as dmi_tpu's loop does.
+    A sharded tree (parallel.shard_llm_params) decodes its shard; every
+    model rank returns the same ids."""
+    cfg = llama.local_config(cfg, params)
     B, T, _ = inputs_embeds.shape
     device = inputs_embeds.device
     tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
@@ -713,6 +792,8 @@ def greedy_generate_bl(
                              "unquantized untied lm_head; this untied head takes the logits "
                              "path (fused_head=False)")
         head_w = {"embed": params["embed"]}  # head_argmax refuses an f32 state
+        if "shard" in params:
+            head_w["shard"] = params["shard"]
     caches, logits0 = _prefill_caches(cfg, params if prefill_params is None else prefill_params,
                                       inputs_embeds, T + max_new_tokens, plain)
     eos = torch.tensor(cfg.eos_token_ids, dtype=torch.long, device=device)
@@ -720,9 +801,7 @@ def greedy_generate_bl(
     def select(out):
         """A step's output as the loop's carry: with the fused head the raw
         argmax ids of the final norm's output, never logits; else the logits."""
-        if not fused_head:
-            return out
-        return _head_argmax_plain(head_w["embed"], out) if plain else head_argmax(head_w, out)
+        return head_ids(head_w, out, plain) if fused_head else out
 
     sel = logits0.argmax(dim=-1) if fused_head else logits0.t()
     done = torch.zeros(B, dtype=torch.bool, device=device)
@@ -768,7 +847,9 @@ def sample_generate_bl(
     (_decode_step_bl) with head=True: the full [V, B] logits from
     head_logits_bl (the fused head + argmax is greedy-only).  EOS/pad
     semantics, prefill_params and plain as greedy_generate_bl.  Returns
-    [B, max_new_tokens] int64."""
+    [B, max_new_tokens] int64.  A sharded tree samples from the gathered
+    logits, the same draws on every model rank."""
+    cfg = llama.local_config(cfg, params)
     B, T, _ = inputs_embeds.shape
     device = inputs_embeds.device
     tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=device)

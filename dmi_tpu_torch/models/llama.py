@@ -660,32 +660,49 @@ def final_softcap(cfg: LlamaConfig, logits: torch.Tensor) -> torch.Tensor:
 def embed_tokens(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding rows; a quantized embed ({"q"|"q8", "s" [V, 1]}) gathers
     int8 rows and rescales them by their row scales in cfg.dtype.  gemma-3
-    scales the rows here (Gemma3TextScaledWordEmbedding)."""
+    scales the rows here (Gemma3TextScaledWordEmbedding).  A sharded tree
+    looks up its vocab rows and sums the model ranks' (Shard.embed)."""
     embed = params["embed"]
-    if isinstance(embed, dict):
-        qk = "q8" if "q8" in embed else "q"
-        rows = embed[qk][input_ids].to(cfg.dtype) * embed["s"][input_ids].to(cfg.dtype)
-    else:
-        rows = embed[input_ids]
+
+    def lookup(ids):
+        if isinstance(embed, dict):
+            qk = "q8" if "q8" in embed else "q"
+            return embed[qk][ids].to(cfg.dtype) * embed["s"][ids].to(cfg.dtype)
+        return embed[ids]
+
+    shard = params.get("shard")
+    rows = lookup(input_ids) if shard is None else shard.embed(input_ids, lookup)
     if cfg.embedding_normalizer is not None and cfg.embedding_scale_at_lookup:
         rows = rows * in_dtype(cfg.embedding_normalizer, rows.dtype)
     return rows
 
 
-def _mm(h: torch.Tensor, w) -> torch.Tensor:
+def _mm(h: torch.Tensor, w, shard=None) -> torch.Tensor:
     """h [..., in] @ w [in, out], dispatching on the quantized weight dicts
     of models/quant.py (dmi_tpu's llama._mm): h @ (q * s) == (h @ q) * s
     with per-output-column scales.  "q8" and "qp" weights quantize the
     activations per token and take the exact integer product
     (quant.int_matmul), rescaled by both factors in dmi_tpu's order.  This
-    is the prefill's form; the decode loop's is decode._mm_bl."""
+    is the prefill's form; the decode loop's is decode._mm_bl.
+
+    shard: w is row-parallel, its rows this rank's slice of the contraction
+    (wo, w_down): the partial products, in f32 (integers for "q8" and
+    "qp"), are summed over the model group before the scales apply and the
+    one rounding to h's dtype, and the activations are quantized with the
+    amax over all of the contraction (the one-rank scales)."""
+    if shard is None:
+        def red(t):
+            return t
+    else:
+        def red(t):
+            return shard.psum(t.float())
     if not isinstance(w, dict):
-        return h @ w
+        return h @ w if shard is None else red(h.float() @ w.float()).to(h.dtype)
+    if "q8" in w or "qp" in w:
+        hq, a = quantize_act(h, axis=-1, reduce=None if shard is None else shard.pmax)
     if "q8" in w:
-        hq, a = quantize_act(h, axis=-1)
-        return (int_matmul(hq, w["q8"]) * a * w["s"]).to(h.dtype)
+        return (red(int_matmul(hq, w["q8"])) * a * w["s"]).to(h.dtype)
     if "qp" in w:
-        hq, a = quantize_act(h, axis=-1)
         q8 = unpack_w4(w["qp"])
         if "s4g" in w:
             # grouped scales: G partial products, each weighted by its
@@ -695,9 +712,11 @@ def _mm(h: torch.Tensor, w) -> torch.Tensor:
             hg = hq.reshape(*hq.shape[:-1], G, 1, K // G)
             qg = q8.reshape(G, K // G, q8.shape[-1])
             acc = int_matmul(hg, qg).squeeze(-2)  # [..., G, out]
-            return ((acc * s4g).sum(dim=-2) * a).to(h.dtype)
-        return (int_matmul(hq, q8) * a * w["s"]).to(h.dtype)
+            return (red((acc * s4g).sum(dim=-2)) * a).to(h.dtype)
+        return (red(int_matmul(hq, q8)) * a * w["s"]).to(h.dtype)
     if "q" in w:
+        if shard is not None:
+            return red(h.float() @ w["q"].float()).to(h.dtype) * w["s"].to(h.dtype)
         return (h @ w["q"].to(h.dtype)) * w["s"].to(h.dtype)
     raise ValueError(f"unknown quantized dict keys {sorted(w)}")
 
@@ -705,7 +724,14 @@ def _mm(h: torch.Tensor, w) -> torch.Tensor:
 def _head_matmul(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor:
     """Tied head: logits = x @ embed.T (a transposed view, no copy); a
     quantized embed's per-row scales are the head's output-channel scales.
-    Untied: x @ lm_head through _mm."""
+    Untied: x @ lm_head through _mm.  A sharded tree's vocab-sharded
+    logits are gathered over the model group, in global vocab order."""
+    shard = params.get("shard")
+    logits = _head_matmul_local(x, params, cfg)
+    return logits if shard is None else shard.gather_vocab(logits, -1)
+
+
+def _head_matmul_local(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor:
     if not cfg.tie_word_embeddings:
         return _mm(x, params["lm_head"])
     embed = params["embed"]
@@ -717,9 +743,18 @@ def _head_matmul(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tenso
     return x @ embed.t()
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, shard=None) -> torch.Tensor:
+    """RMSNorm over the last axis in f32.  shard: x holds this rank's
+    columns of a norm over the whole width (olmo2's q/k norms; scale is the
+    matching slice): the sum of squares is summed over the model group and
+    divided by x's width times m, which is the whole width's mean also
+    where the ranks hold copies of one kv head (each copy counted m/nkv
+    times over a width m/nkv times too small)."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if shard is None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = shard.psum((xf * xf).sum(dim=-1, keepdim=True)) / (x.shape[-1] * shard.m)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
@@ -751,28 +786,34 @@ def moe_gate_weights(cfg: LlamaConfig, router_logits: torch.Tensor) -> torch.Ten
     return torch.zeros_like(probs).scatter(-1, idx, vals)
 
 
-def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor) -> torch.Tensor:
+def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor, shard=None) -> torch.Tensor:
     """The sparse-MoE MLP over h [B, T, H], dense-evaluated (dmi_tpu's
     _moe_mlp): every expert's gated MLP runs on every token, combined with
     moe_gate_weights (0 for the experts not chosen), so the result equals
     HF's sparse dispatch.  The router product runs in the model dtype, or
     in f32 with moe_gate_fp32 (deepseek); the expert stacks are
     dequantized into the products; deepseek's shared experts add an
-    always-on gated MLP."""
+    always-on gated MLP.  shard: the layer holds this rank's experts
+    [e0, e1) and its slice of the shared experts; the router is whole, and
+    the partial combine is summed over the model group."""
     B, T, H = h.shape
     if cfg.moe_gate_fp32:
         router = h.float() @ dequantize(lw["w_router"], torch.float32).float()
     else:
         router = _mm(h, lw["w_router"])  # [B, T, E]
     w_e = moe_gate_weights(cfg, router).to(h.dtype).reshape(B * T, -1)
+    if shard is not None:
+        w_e = w_e[:, shard.e0:shard.e1]
     x = h.reshape(1, B * T, H)
     g = x @ dequantize(lw["moe_w1"], h.dtype)  # [E, N, I]
     u = x @ dequantize(lw["moe_w3"], h.dtype)
     y = (mlp_activation(cfg, g) * u) @ dequantize(lw["moe_w2"], h.dtype)  # [E, N, H]
     out = torch.einsum("enh,ne->nh", y, w_e).reshape(B, T, H)
+    if shard is not None:
+        out = shard.psum(out.float()).to(h.dtype)
     if cfg.n_shared_experts:
         gate = mlp_activation(cfg, _mm(h, lw["w_shared_gate"]))
-        out = out + _mm(gate * _mm(h, lw["w_shared_up"]), lw["w_shared_down"])
+        out = out + _mm(gate * _mm(h, lw["w_shared_up"]), lw["w_shared_down"], shard)
     return out
 
 
@@ -834,8 +875,24 @@ def _mla_qkv(cfg: LlamaConfig, lw, h, cos, sin):
     return q, k, kv[..., dn:], torch.cat([latent, k_pe[:, 0]], dim=-1)
 
 
+def local_config(cfg: LlamaConfig, params: dict) -> LlamaConfig:
+    """The config a tree computes under: cfg itself for a whole tree, this
+    rank's head counts for a tree of parallel.shard_llm_params (its Shard's
+    `local`; a config already local is kept)."""
+    shard = params.get("shard")
+    return cfg if shard is None else shard.local(cfg)
+
+
+def row_parallel(shard):
+    """The Shard whose partial products the model code sums: None for a
+    whole tree and for a model group of one rank, whose products are whole
+    (so a one-rank mesh computes exactly what the unsharded tree does; its
+    embedding, head gather and merge still run through the collectives)."""
+    return shard if shard is not None and shard.m > 1 else None
+
+
 def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: int = 0,
-           plain: bool = False, key_mask=None, latent_out=None):
+           plain: bool = False, key_mask=None, latent_out=None, shard=None):
     """One transformer block over x [B, T, H] with this layer's weights lw,
     every branch of dmi_tpu's _block: q/k/v biases (fused or not), olmo2's
     whole-width q/k norms before the head reshape and the per-head q/k
@@ -857,7 +914,14 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
     carries the key mask and, on a sliding layer, the window.  Nothing on
     this path is written in place, except that an MLA layer writes its
     compressed rows into latent_out [B, T, r + dr] when one is given (the
-    batch-last loop's prefill)."""
+    batch-last loop's prefill).
+
+    shard: lw is this rank's shard of the layer (parallel/sharding.py): the
+    block computes its heads and MLP columns under the shard's local config
+    and sums wo's and the MLP's partial products over the model group."""
+    if shard is not None:
+        cfg = shard.local(cfg)
+    shard = row_parallel(shard)
     B, T, H = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
@@ -878,7 +942,7 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
             if "bq" in lw:
                 q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
         if cfg.qk_norm_wide:  # olmo2: over the whole projection
-            q, k = rms_norm(q, lw["q_norm"], eps), rms_norm(k, lw["k_norm"], eps)
+            q, k = rms_norm(q, lw["q_norm"], eps, shard), rms_norm(k, lw["k_norm"], eps, shard)
         q = q.reshape(B, T, nh, hd).transpose(1, 2)
         k = k.reshape(B, T, nkv, hd).transpose(1, 2)
         v = v.reshape(B, T, nkv, hd).transpose(1, 2)
@@ -904,17 +968,17 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
         k, v = _write_cache(cache_kv, cache_index, k, v)
         attn = _attention(q, k, v, bias, scale, cap)
     attn = attn.transpose(1, 2).reshape(B, T, nh * attn.shape[-1])
-    x = x + _block_out(cfg, _mm(attn, lw["wo"]), lw, "ln_post_attn", "ln_attn")
+    x = x + _block_out(cfg, _mm(attn, lw["wo"], shard), lw, "ln_post_attn", "ln_attn")
 
     h = x if cfg.norm_after else rms_norm(x, lw["ln_mlp"], eps)
     if cfg.num_experts:
-        out = _moe_mlp(cfg, lw, h)
+        out = _moe_mlp(cfg, lw, h, shard)
     else:
         if "w_gu" in lw:  # fused layout
             gate, up = _mm(h, lw["w_gu"]).chunk(2, dim=-1)
         else:
             gate, up = _mm(h, lw["w_gate"]), _mm(h, lw["w_up"])
-        out = _mm(mlp_activation(cfg, gate) * up, lw["w_down"])
+        out = _mm(mlp_activation(cfg, gate) * up, lw["w_down"], shard)
     return x + _block_out(cfg, out, lw, "ln_post_mlp", "ln_mlp")
 
 
@@ -947,6 +1011,7 @@ def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
     layer runs `_attention` with the additive [B, T, T] bias, a sliding
     layer's with the window, and the rope tables of its kind."""
     B, T = inputs_embeds.shape[:2]
+    shard = params.get("shard")
     x = scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
     pos = torch.arange(T, device=x.device)
     rope = rope_tables(cfg, pos)
@@ -961,7 +1026,7 @@ def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
             bias_sw = torch.where(valid & window_mask(cfg, pos[:, None], pos), 0.0, NEG_INF)
     for i, lw in enumerate(params["layers"]):
         b, (cos, sin) = layer_inputs(cfg, i, bias, bias_sw, rope, rope_local)
-        x = _block(cfg, x, lw, cos, sin, b, plain=plain, key_mask=attention_mask)
+        x = _block(cfg, x, lw, cos, sin, b, plain=plain, key_mask=attention_mask, shard=shard)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return final_softcap(cfg, _head_matmul(x, params, cfg))
 

@@ -105,11 +105,15 @@ def quantize_tensor_int4(w: torch.Tensor, group_size: Optional[int] = None) -> d
     return {"qp": pack_w4(q), "s4g": s.squeeze(-2)}
 
 
-def quantize_act(h: torch.Tensor, axis: int) -> tuple:
+def quantize_act(h: torch.Tensor, axis: int, reduce=None) -> tuple:
     """Dynamic symmetric per-token int8 activations: the scale runs over the
-    contraction axis.  Returns (h_q int8, scales f32 with the axis kept)."""
+    contraction axis.  Returns (h_q int8, scales f32 with the axis kept).
+    reduce: the max over the model group (Shard.pmax) when h holds this
+    rank's slice of the contraction axis (a row-parallel product's input),
+    so that the scales, and so the int8 values, are the one-rank ones."""
     hf = h.float()
-    a = _scale(hf.abs().amax(dim=axis, keepdim=True), 127.0)
+    amax = hf.abs().amax(dim=axis, keepdim=True)
+    a = _scale(amax if reduce is None else reduce(amax), 127.0)
     return _round_clip(hf / a, 127), a
 
 

@@ -53,7 +53,10 @@ Differences from dmi_tpu, each a consequence of eager torch or a repair:
     not JAX's threefry; dmi_tpu's fold_in(K, 1) and fold_in(K, 2) become
     _subkeys(K, 1) and _subkeys(K, 2);
   * the engines are host loops over rounds (dmi_tpu's bulk engine is one
-    on-device while_loop); mesh raises NotImplementedError (A.10); the
+    on-device while_loop); on a mesh (dmi_tpu's _pin_spec_pool shards the
+    pool over 'data') each data rank runs its share of the queue in pool / d
+    slots, and acceptance is decided from the merged, replicated tokens, so
+    the model ranks of one data rank run their rounds in lockstep; the
     queue is not padded to a bucketed length (bucket_queue_len bounds XLA
     compiles, which eager torch does not have).
 """
@@ -70,7 +73,7 @@ from dmi_tpu_torch.models import decode as dec
 from dmi_tpu_torch.models import llama, mmmodel
 from dmi_tpu_torch.models import projector as proj
 from dmi_tpu_torch.models.llama import LlamaConfig
-from dmi_tpu_torch.ops.cuda.head_argmax import _head_argmax_plain, head_argmax
+from dmi_tpu_torch.parallel.collectives import engine_shard
 
 NEG = llama.NEG_INF
 
@@ -98,7 +101,7 @@ def _select(out: torch.Tensor, head_w: Optional[dict], plain: bool) -> torch.Ten
     logits [V, n]."""
     if head_w is None:
         return out.argmax(dim=0)
-    return _head_argmax_plain(head_w["embed"], out) if plain else head_argmax(head_w, out)
+    return dec.head_ids(head_w, out, plain)
 
 
 def _verify_step_bl(cfg, params, h, caches, qpos, bias, rt: int, bias_sw=None,
@@ -253,6 +256,7 @@ def _draft_setup(draft_cfg, draft_params, draft_prefill_params, draft_inputs_emb
     port writes caches in place and both models write the same rows, so
     the draft takes a copy."""
     _refuse_mla(draft_cfg)
+    draft_cfg = llama.local_config(draft_cfg, draft_params)
     Bd, Td, _ = draft_inputs_embeds.shape
     Sd = Td + (k + 1) * max_rounds
     if from_target is not None:
@@ -773,9 +777,7 @@ class _SpecPool:
     rnd: int = 0            # engine rounds so far (the ring row's source)
 
 
-def _check_engine(cfg, draft_cfg, budget: int, k: int, mesh, sample) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet (ROADMAP.md A.10 (parallelism))")
+def _check_engine(cfg, draft_cfg, budget: int, k: int, sample) -> None:
     if k < 1:
         raise ValueError("speculative engine needs k >= 1")
     if budget < 2:
@@ -921,12 +923,25 @@ def speculative_bulk_caption(
     speculative_sample_bl on the same request ids whatever the slot,
     admission order or pool size.  The draft consumes the target's
     assembled prompt (the self-draft shares its embedding space).
-    Returns (tokens [N, budget] int64, rounds, admissions)."""
-    _check_engine(cfg, draft_cfg, budget, k, mesh, sample)
+    Returns (tokens [N, budget] int64, rounds, admissions).
+
+    mesh: the (data, model) DeviceMesh the four trees were sharded over
+    (parallel.shard_llm_params): each data rank serves its contiguous
+    share of the queue in pool / d slots (chunk at most that), and the
+    tokens of every rank are gathered in queue order; rounds and
+    admissions are this rank's."""
+    _check_engine(cfg, draft_cfg, budget, k, sample)
+    shard = engine_shard(mesh, params, draft_params, prefill_params, draft_prefill_params)
+    if shard is not None:
+        lo, hi = shard.rows(queue.shape[0])
+        queue, req_base = queue[lo:hi], req_base + lo
+        pool = max(2, pool // shard.n_data)
+        chunk = min(chunk, pool)
     if not 1 <= chunk <= pool:
         # chunk > pool would leave the admission condition (free >= chunk)
         # false for ever
         raise ValueError(f"chunk must be in [1, pool], got {chunk}")
+    cfg, draft_cfg = llama.local_config(cfg, params), llama.local_config(draft_cfg, draft_params)
     N = queue.shape[0]
     dev = queue.device
     eos = torch.tensor(cfg.eos_token_ids, dtype=torch.long, device=dev)
@@ -960,7 +975,7 @@ def speculative_bulk_caption(
         _spec_round_step(cfg, params, draft_cfg, draft_params, state, T, budget, k, eos,
                          sliding_on, d_sliding, sample, seed, req_base, head_w, d_head_w, plain)
     out[state.slot_req] = state.core.tokens  # the remaining tenants
-    return out[:N], state.rnd, admissions
+    return (out[:N] if shard is None else shard.gather_rows(out[:N])), state.rnd, admissions
 
 
 def spec_admit_chunk(cfg, params, draft_cfg, draft_params, pspec, pparams, state: _SpecPool,
@@ -1005,7 +1020,8 @@ class SpeculativeStreamingCaptioner:
     keyed by (request, age), equal to the batch speculative sampler row for
     row.  For a workload known up front speculative_bulk_caption has no
     harvest round trips.  `dispatches` counts admissions and round runs;
-    plain=True runs every kernel's twin."""
+    plain=True runs every kernel's twin.  mesh: the (data, model) DeviceMesh
+    the four trees were sharded over (as speculative_bulk_caption)."""
 
     def __init__(self, cfg: LlamaConfig, llm_params: dict, draft_cfg: LlamaConfig,
                  draft_params: dict, pspec, pparams, prefix_ids, budget: int, pad_token_id: int,
@@ -1017,7 +1033,14 @@ class SpeculativeStreamingCaptioner:
                  plain: bool = False):
         self.sample = ((float(temperature), int(top_k), float(top_p))
                        if temperature is not None else None)
-        _check_engine(cfg, draft_cfg, budget, k, mesh, self.sample)
+        _check_engine(cfg, draft_cfg, budget, k, self.sample)
+        self.shard = engine_shard(mesh, llm_params, draft_params, prefill_params,
+                                  draft_prefill_params)
+        if self.shard is not None:
+            pool = max(2, pool // self.shard.n_data)
+            admit = min(admit, pool - 1)
+            cfg = llama.local_config(cfg, llm_params)
+            draft_cfg = llama.local_config(draft_cfg, draft_params)
         if pool < 2:
             raise ValueError("pool must be >= 2 (one slot is scratch)")
         if not 1 <= admit <= pool - 1:
@@ -1044,7 +1067,12 @@ class SpeculativeStreamingCaptioner:
 
     def run(self, embeddings: np.ndarray) -> torch.Tensor:
         """Caption every row (embeddings [N, mm_dim], already normalised);
-        returns LongTensor [N, budget] on the CPU."""
+        returns LongTensor [N, budget] on the CPU (on a mesh: this data
+        rank's share served, every rank's rows returned)."""
+        lo, hi = (0, embeddings.shape[0]) if self.shard is None else self.shard.rows(
+            embeddings.shape[0])
+        embeddings = embeddings[lo:hi]
+        req_base = self.req_base + lo
         N = embeddings.shape[0]
         if self.state is None:
             self.state = _spec_pool_state(self.cfg, self.draft_cfg, self.pool, self.T,
@@ -1083,7 +1111,7 @@ class SpeculativeStreamingCaptioner:
                     self.pparams, self.state, chunk, prefix_chunk, slots, fresh,
                     next_req + np.arange(self.admit), self.T, self.budget, self.pad,
                     self.prefill_params, self.draft_prefill_params, self.sample, self.seed,
-                    self.req_base, self.share_prefill, self.plain)
+                    req_base, self.share_prefill, self.plain)
                 self.dispatches += 1
                 self._occupied[free[:take]] = True
                 self._slot_req[free[:take]] = np.arange(next_req, next_req + take)
@@ -1092,7 +1120,9 @@ class SpeculativeStreamingCaptioner:
                 self.state = spec_rounds(self.cfg, self.params, self.draft_cfg,
                                          self.draft_params, self.state, self.T, self.budget,
                                          self.k, self.rounds, self.sample, self.seed,
-                                         self.req_base, self.plain)
+                                         req_base, self.plain)
                 self.dispatches += 1
             fetch_and_harvest()
-        return torch.as_tensor(out)
+        if self.shard is None:
+            return torch.as_tensor(out)
+        return self.shard.gather_rows(torch.as_tensor(out).to(self.device)).cpu()

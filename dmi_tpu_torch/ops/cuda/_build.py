@@ -56,9 +56,9 @@ _SIGNATURES = {
     # w_gu, w_down, h, act_buf, partial, counters, out, H, I, B, n, wgs, stages,
     # down_stages, splits, per_split, act, dtype, stream
     "dmi_decode_mlp": [_P] * 7 + [_I] * 11 + [_P],
-    # embed, scales, h, act_scales, part_val, part_idx, ids, V, H, B, mode, blocks,
-    # stream
-    "dmi_head_argmax": [_P] * 7 + [_I] * 5 + [_P],
+    # embed, scales, h, act_scales, part_val, part_idx, ids, scores (or null), V, H, B,
+    # mode, blocks, stream
+    "dmi_head_argmax": [_P] * 8 + [_I] * 5 + [_P],
     # a, b, out, M, N, K, block_m, int8, stream
     "dmi_block_mm": [_P] * 3 + [_I] * 5 + [_P],
     # w, h, out, O, B, I, block_o, stream

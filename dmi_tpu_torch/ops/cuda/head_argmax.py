@@ -10,7 +10,10 @@ score, first index) pair per batch column in registers, so the [V, B] logits
 never reach device memory.  Persistent blocks walk contiguous runs of vocab
 tiles (launch plan: `plan`); a second small kernel merges their pairs by
 (score descending, index ascending), which is deterministic and is argmax's
-first-occurrence rule.
+first-occurrence rule, and writes each column's winning score beside its id
+where asked: a vocab-sharded head's ranks merge those pairs by the same rule
+(parallel/collectives.py), as the TPU kernel's second output (best score
+[1, B]) allows.
 
 Three weight modes (models/quant.py), each with the rounding order of the
 logits path it replaces (decode._head_logits_bl), so the compare sees the
@@ -89,10 +92,15 @@ def head_logits_bl(embed, h) -> torch.Tensor:
     return embed @ h
 
 
-def _head_argmax_plain(embed, h) -> torch.Tensor:
+def _head_argmax_plain(embed, h, scores: bool = False):
     """The kernel's math in plain torch: the logits path followed by the
-    argmax over the vocab axis (first occurrence on ties) -> [B] int64."""
-    return head_logits_bl(embed, h).argmax(dim=0)
+    argmax over the vocab axis (first occurrence on ties) -> [B] int64, and
+    with scores=True also each column's winning logit as f32 [B] (the
+    bf16-rounded score the kernel compares)."""
+    if not scores:
+        return head_logits_bl(embed, h).argmax(dim=0)
+    best, ids = head_logits_bl(embed, h).max(dim=0)
+    return ids, best.float()
 
 
 def _mode(embed) -> str:
@@ -105,14 +113,17 @@ def _mode(embed) -> str:
     raise ValueError(f"head argmax: unknown quantized embed keys {sorted(embed)}")
 
 
-def head_argmax(params: dict, h: torch.Tensor) -> torch.Tensor:
+def head_argmax(params: dict, h: torch.Tensor, scores: bool = False):
     """Greedy next-token ids straight from the final hidden state.
 
     params: {"embed": the head's rows [V, H]}: the decode weight tree's tied
     embedding (bf16, "q" or "q8"), or decode.fused_head_weights' rows.
     h [H, B] bf16, the batch-last output of the final norm -> [B] int64.
     The kernel bakes in bf16 score rounding; an f32 model takes the logits
-    path instead (decode.greedy_generate_bl)."""
+    path instead (decode.greedy_generate_bl).  scores=True returns (ids,
+    scores [B] f32): the merge kernel also writes each column's winning
+    bf16-rounded score, which a vocab-sharded head's ranks compare
+    (parallel.collectives.Shard.argmax)."""
     global launches
     embed = params["embed"]
     mode = _mode(embed)
@@ -129,7 +140,7 @@ def head_argmax(params: dict, h: torch.Tensor) -> torch.Tensor:
     if e.device != h.device:
         raise ValueError("head argmax: all tensors must be on one device")
     if h.device.type == "cpu":
-        return _head_argmax_plain(embed, h)
+        return _head_argmax_plain(embed, h, scores)
     if h.device.type != "cuda":
         raise ValueError(f"head argmax: no kernel for device {h.device}")
     if not e.is_contiguous():
@@ -138,7 +149,8 @@ def head_argmax(params: dict, h: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"head argmax kernel: H {H} must be a multiple of 16 (TMA rows of "
                          "16-byte multiples)")
     if B == 0:
-        return torch.empty((0,), dtype=torch.long, device=h.device)
+        empty = torch.empty((0,), dtype=torch.long, device=h.device)
+        return (empty, empty.float()) if scores else empty
     dev = h.device
     # the kernels take the batch in multiples of 16 columns (their ids are
     # dropped): 16-byte rows of h for TMA
@@ -160,12 +172,14 @@ def head_argmax(params: dict, h: torch.Tensor) -> torch.Tensor:
     part_val = torch.empty(p["part"], dtype=torch.float32, device=dev)
     part_idx = torch.empty(p["part"], dtype=torch.int32, device=dev)
     ids = torch.empty((Bp,), dtype=torch.int32, device=dev)
+    best = torch.empty((Bp,), dtype=torch.float32, device=dev) if scores else None
     err = _build.lib().dmi_head_argmax(
         e.data_ptr(), scales.data_ptr() if scales is not None else None, xp.data_ptr(),
         act_scales.data_ptr() if act_scales is not None else None,
-        part_val.data_ptr(), part_idx.data_ptr(), ids.data_ptr(), V, H, Bp, MODES[mode],
+        part_val.data_ptr(), part_idx.data_ptr(), ids.data_ptr(),
+        best.data_ptr() if scores else None, V, H, Bp, MODES[mode],
         p["blocks"], torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "head argmax")
     launches += 1
-    return ids[:B].long()
+    return (ids[:B].long(), best[:B]) if scores else ids[:B].long()

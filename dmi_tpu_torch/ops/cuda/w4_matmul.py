@@ -41,9 +41,12 @@ from dmi_tpu_torch.models.quant import int_matmul
 from dmi_tpu_torch.ops.cuda import _build
 
 # launches of the packed (W4A8) kernel and of the int8 (W8A8) kernel since
-# each count was last set to 0
+# each count was last set to 0; f32_launches counts the launches of either
+# with an f32 output (a row-parallel product's partial, summed over the
+# model group before one rounding)
 launches = 0
 w8_launches = 0
+f32_launches = 0
 
 TILE_M = 128     # kTileM of csrc/w4_matmul.cu: output channels of a block
 TILE_B = 128     # kTileB: batch columns of a block
@@ -126,7 +129,7 @@ def _w8_mm_plain(w: dict, hq, a, out_dtype):
 
 def _launch(wq, s, hq, a, out_dtype, packed: bool):
     """Check the tensors, launch csrc/w4_matmul.cu and count the launch."""
-    global launches, w8_launches
+    global launches, w8_launches, f32_launches
     K, B = hq.shape
     out_dim = wq.shape[1]
     tensors = (wq, s, hq, a)
@@ -171,6 +174,8 @@ def _launch(wq, s, hq, a, out_dtype, packed: bool):
         launches += 1
     else:
         w8_launches += 1
+    if out_dtype == torch.float32:
+        f32_launches += 1
     return out
 
 

@@ -24,6 +24,15 @@ W4A8 copy of the same weights as the draft (models/speculative.py): greedy
 captions identical to the plain loop's, sampled ones with its law, on the
 batch engine and (engine="bulk") the speculative slot engine.
 
+mesh_shape=(d, m) serves on a (data, model) mesh of d x m ranks, one
+process a rank (parallel/): every process calls
+parallel.init_distributed() and builds the same Captioner with the same
+inputs; each holds its model rank's shard of the weights (m-way tensor
+parallelism) and decodes its data rank's rows of every batch, and every
+rank returns the whole workload's captions.  On a multi-card machine:
+`torchrun --nproc-per-node N script.py`; several ranks on one card (or on
+the CPU) run over gloo.
+
 CLI:  python -m dmi_tpu_torch.serve --lm test:tiny --projector-ckpt P
       --dataset sydney --embs embs.npy --out captions.json
       [--int8 [1|w8a8|w4a8]] [--temperature T --top-k K --top-p P --seed S]
@@ -47,6 +56,7 @@ from dmi_tpu_torch.models.llama import fuse_projections
 from dmi_tpu_torch.models.quant import quantize_llama
 from dmi_tpu_torch.models.speculative import speculative_bulk_caption
 from dmi_tpu_torch.ops import l2_normalize
+from dmi_tpu_torch.parallel import make_mesh, shard_llm_params
 from dmi_tpu_torch.streaming import StreamingCaptioner
 from dmi_tpu_torch.training.checkpoint import load_pytree
 from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer, require_device
@@ -59,10 +69,6 @@ from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer, requir
 # the card's captions/s of both engines are in PERF.md.
 _BULK_MAX_POOL = 384
 _BULK_LEN_RATIO = 0.75
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 class Captioner:
@@ -87,8 +93,14 @@ class Captioner:
     call.  It takes precedence over batch_first, as dmi_tpu's speculative
     pipeline does over its batch-first switch.
 
-    Surface difference from dmi_tpu.serve.Captioner: mesh_shape raises
-    NotImplementedError naming its ROADMAP item; caption_ids takes the
+    mesh_shape=(d, m): one process a rank, each after
+    parallel.init_distributed(); the whole tree is fused and quantized
+    first, then each tree (the loop's, the prefill's, the draft's) is cut
+    to this model rank's shard (parallel.shard_llm_params), and each batch
+    to this data rank's rows (batch_size % d == 0, as dmi_tpu requires).
+    Every rank returns the same ids, gathered in row order.
+
+    Surface difference from dmi_tpu.serve.Captioner: caption_ids takes the
     whole caption() surface (engine, sampling) and returns ids, for callers
     with no tokenizer.  Sampling on the batch engine always runs the
     batch-last loop (batch_first pins the greedy loop only), as in dmi_tpu.
@@ -117,8 +129,6 @@ class Captioner:
     ):
         if int8 not in (False, True, "w8a8", "w4a8"):
             raise ValueError(f"int8 must be False, True, 'w8a8' or 'w4a8', got {int8!r}")
-        if mesh_shape:
-            raise _not_ported("mesh_shape", "A.10 (parallelism)")
         if speculative and int8 == "w4a8":
             raise ValueError("speculative=k needs a draft cheaper than the target loop; the "
                              "w4a8 target is already the cheapest flavor")
@@ -135,6 +145,7 @@ class Captioner:
                 raise ValueError("pass pad_token_id when there is no tokenizer")
             pad_token_id = tokenizer.pad_token_id
         self.llm_cfg = llm_cfg
+        self.device = llm_params["final_norm"].device
         llm_params = fuse_projections(llm_params)
         # self-speculation: the draft is a W4A8 copy of the same weights, its
         # prefill the unquantized tree (the target's prompt cache, shared)
@@ -149,6 +160,26 @@ class Captioner:
             llm_params = quantize_llama(llm_params, bits=4)
         elif int8:
             llm_params = quantize_llama(llm_params, native=(int8 == "w8a8"))
+        self.mesh = self.shard = None
+        if mesh_shape:
+            # quantize the whole trees first (above), then shard them: every
+            # scale is then the one-rank scale
+            self.mesh = make_mesh(tuple(mesh_shape), device=self.device)
+
+            def cut(tree):
+                return None if tree is None else shard_llm_params(self.mesh, tree, llm_cfg)
+
+            whole = self.draft_prefill_params or self.llm_params_prefill
+            local = cut(llm_params)
+            unquantized = local if whole is llm_params else cut(whole)
+            llm_params = local
+            self.draft_params = cut(self.draft_params)
+            self.draft_prefill_params = unquantized if self.spec_k else None
+            self.llm_params_prefill = unquantized if int8 in ("w8a8", "w4a8") else None
+            self.shard = llm_params["shard"]
+            if batch_size % self.shard.n_data:
+                raise ValueError(f"batch_size {batch_size} must split evenly over the "
+                                 f"{self.shard.n_data} data ranks")
         self.llm_params = llm_params
         self.batch_first = batch_first
         self.proj_spec = proj_spec
@@ -157,7 +188,6 @@ class Captioner:
         self.max_new_tokens = max_new_tokens
         self.batch_size = batch_size
         self.pad_token_id = pad_token_id
-        self.device = self.llm_params["final_norm"].device
         self.engine_decision = None  # (engine, reason) of the last caption_ids call
         self.bulk_engine = None  # the StreamingCaptioner of the last bulk run
         self._prefix = torch.as_tensor(
@@ -216,15 +246,19 @@ class Captioner:
         a CUDA device); returns (tokens [batch_size, max_new], real rows).
         row_start: the chunk's first workload row.  Sampling draws with
         request-indexed keys, request = workload row, so the bulk engine
-        draws the same tokens for the same rows."""
+        draws the same tokens for the same rows.  On a mesh this rank
+        decodes its data rank's rows only (caption_ids gathers them)."""
         real = chunk.shape[0]
         if real < self.batch_size:  # pad the tail to the batch shape
             chunk = np.concatenate(
                 [chunk, np.repeat(chunk[-1:], self.batch_size - real, axis=0)], axis=0
             )
-        embs = l2_normalize(torch.as_tensor(chunk, dtype=torch.float32, device=self.device))
+        lo, hi = (0, self.batch_size) if self.shard is None else self.shard.rows(self.batch_size)
+        embs = l2_normalize(torch.as_tensor(chunk[lo:hi], dtype=torch.float32,
+                                            device=self.device))
         soft = proj.apply(self.proj_spec, self.proj_params, embs, plain=plain)
-        req_ids = torch.arange(row_start, row_start + self.batch_size, device=self.device)
+        req_ids = torch.arange(row_start + lo, row_start + hi, device=self.device)
+        prefix = self._prefix[: hi - lo]
         if self.spec_k:
             common = dict(k=self.spec_k, prefill_params=self.llm_params_prefill,
                           draft_prefill_params=self.draft_prefill_params, share_prefill=True,
@@ -232,27 +266,31 @@ class Captioner:
             if temperature is None:
                 tokens, rounds = mmmodel.caption_generate_speculative(
                     self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
-                    self._prefix, self.max_new_tokens, self.pad_token_id, **common)
+                    prefix, self.max_new_tokens, self.pad_token_id, **common)
             else:
                 tokens, rounds = mmmodel.caption_sample_speculative(
                     self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
-                    self._prefix, self.max_new_tokens, self.pad_token_id, seed, temperature,
+                    prefix, self.max_new_tokens, self.pad_token_id, seed, temperature,
                     top_k, top_p, req_ids, **common)
             self.spec_rounds += rounds
         elif temperature is None:
             tokens = mmmodel.caption_generate(
-                self.llm_cfg, self.llm_params, soft, self._prefix,
+                self.llm_cfg, self.llm_params, soft, prefix,
                 self.max_new_tokens, self.pad_token_id,
                 prefill_params=self.llm_params_prefill, batch_first=self.batch_first,
                 plain=plain,
             )
         else:
             tokens = mmmodel.caption_sample(
-                self.llm_cfg, self.llm_params, soft, self._prefix, self.max_new_tokens,
+                self.llm_cfg, self.llm_params, soft, prefix, self.max_new_tokens,
                 self.pad_token_id, seed, temperature, top_k, top_p, req_ids=req_ids,
                 prefill_params=self.llm_params_prefill, plain=plain,
             )
         return tokens, real
+
+    def _rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of a batch's tokens, in row order."""
+        return tokens if self.shard is None else self.shard.gather_rows(tokens)
 
     def _caption_bulk(self, embeddings: np.ndarray, temperature=None, top_k: int = 0,
                       seed: int = 0, req_base: int = 0, top_p: float = 1.0,
@@ -267,7 +305,7 @@ class Captioner:
             # run_bulk uses every slot, but the pool invariant is >= 2
             pool=max(2, self.batch_size), admit=max(1, min(64, self.batch_size // 4)),
             prefill_params=self.llm_params_prefill, temperature=temperature, top_k=top_k,
-            top_p=top_p, seed=seed, req_base=req_base, plain=plain,
+            top_p=top_p, seed=seed, req_base=req_base, mesh=self.mesh, plain=plain,
         )
         return eng.run_bulk(l2_normalize(torch.as_tensor(embeddings, device=self.device)))
 
@@ -290,8 +328,8 @@ class Captioner:
             self.proj_params, queue, self._prefix[:1].expand(chunk, -1),
             1 + self._prefix.shape[1], self.max_new_tokens, self.pad_token_id, chunk,
             max(chunk, self.batch_size), k=self.spec_k, prefill_params=self.llm_params_prefill,
-            draft_prefill_params=self.draft_prefill_params, sample=sample, seed=seed,
-            share_prefill=True, plain=plain)
+            draft_prefill_params=self.draft_prefill_params, mesh=self.mesh, sample=sample,
+            seed=seed, share_prefill=True, plain=plain)
         self.spec_rounds += rounds
         return toks.cpu()
 
@@ -351,7 +389,7 @@ class Captioner:
             # decide from the first batch, served on the batch engine
             tokens, _ = self._dispatch_batch(embeddings[: self.batch_size], row_start=0,
                                              **sampling)
-            tokens = tokens.cpu()
+            tokens = self._rows(tokens).cpu()
             out.append(tokens)
             # the loops write pad after a row ends: its non-pad count is
             # the caption's length
@@ -375,7 +413,7 @@ class Captioner:
             self._dispatch_batch(embeddings[s: s + self.batch_size], row_start=s, **sampling)
             for s in range(start, n, self.batch_size)
         ]
-        out.extend(tokens[:real].cpu() for tokens, real in pending)
+        out.extend(self._rows(tokens)[:real].cpu() for tokens, real in pending)
         if not out:
             return torch.zeros((0, self.max_new_tokens), dtype=torch.long)
         return torch.cat(out)

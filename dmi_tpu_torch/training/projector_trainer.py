@@ -123,8 +123,8 @@ class ProjectorTrainer:
     ):
         if train_args.mesh_shape:
             raise NotImplementedError(
-                "mesh_shape (multi-card training) is not ported yet (ROADMAP.md A.10, "
-                "parallelism)"
+                "mesh_shape (multi-card training) is not ported yet (ROADMAP.md A.10b, "
+                "parallel training; serving on a mesh is Captioner(mesh_shape=...))"
             )
         self.name = name
         self.llm_cfg = llm_cfg

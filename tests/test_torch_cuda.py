@@ -759,6 +759,30 @@ def test_w4_kernel_equals_twin_bit_for_bit(cuda, K, out, B, out_dtype):
     assert torch.equal(got, want)
 
 
+# the row-parallel shards of Llama-3.2-1B's wo and w_down at m = 2 and 4
+# (their partial products leave the kernel in f32 and are summed over the
+# model group before one rounding)
+ROW_SHARDS = [(1024, 2048, 128), (4096, 2048, 128), (512, 2048, 128), (2048, 2048, 128),
+              (4096, 2048, 64)]
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["w4", "w8"])
+@pytest.mark.parametrize("K,out,B", ROW_SHARDS)
+def test_int8_kernels_f32_instance_at_row_shards(cuda, K, out, B, packed):
+    """The f32-output instance at the row shards, bit for bit with the twin,
+    counted in f32_launches."""
+    wf = _normal((K, out), cuda, 0, 0.05)
+    hq, a = quant.quantize_act(_normal((K, B), cuda, 1), axis=0)
+    w = quant.quantize_tensor_int4(wf) if packed else quant.quantize_tensor(wf, native=True)
+    kernel, twin = ((tw4.w4_mm_bl, tw4._w4_mm_plain) if packed else
+                    (tw4.w8_mm_bl, tw4._w8_mm_plain))
+    n0 = tw4.f32_launches
+    got = kernel(w, hq, a, torch.float32)
+    assert tw4.f32_launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, twin(w, hq, a, torch.float32))
+
+
 @pytest.mark.parametrize("K,out,B", [(64, 256, 16), (1024, 256, 128), (64, 250, 5)],
                          ids=["one-split", "many-splits", "byte-copy"])
 def test_w4_kernel_sign_extends_every_nibble(cuda, K, out, B):
@@ -983,6 +1007,31 @@ def test_head_argmax_kernel_is_deterministic(cuda, mode):
     params = _head_params(mode, 128256, 2048, cuda)
     h = _normal((2048, 128), cuda, 1).bfloat16()
     assert torch.equal(tha.head_argmax(params, h), tha.head_argmax(params, h))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q", "q8"])
+@pytest.mark.parametrize("V,B", [(64128, 128), (64128, 64), (32064, 128), (1001, 16)],
+                         ids=["block-m2", "block-m2-dp2", "block-m4", "ragged"])
+def test_head_argmax_kernel_scores_match_twin(cuda, mode, V, B):
+    """The vocab block of a model rank (Llama-3.2-1B's 128256 rows over 2
+    and 4 ranks): with scores, the kernel gives the ids it gives without,
+    and each column's score is its id's logit as the twin rounds it (q8:
+    bit for bit; bf16 and q: the same value, the kernel's rounding of its
+    own sum, within one bf16 step a rounding)."""
+    params = _head_params(mode, V, 2048, cuda)
+    h = _normal((2048, B), cuda, 1).bfloat16()
+    ids, scores = tha.head_argmax(params, h, scores=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, tha.head_argmax(params, h))
+    assert scores.shape == (B,) and scores.dtype == torch.float32
+    want_ids, want = tha._head_argmax_plain(params["embed"], h, scores=True)
+    logits = tha.head_logits_bl(params["embed"], h).float()
+    mine = logits.gather(0, ids[None])[0]
+    if mode == "q8":
+        assert torch.equal(ids, want_ids) and torch.equal(scores, want)
+        return
+    steps = 2 if mode == "q" else 1
+    assert bool(((scores - mine).abs() <= steps * 2.0 ** -7 * mine.abs()).all())
 
 
 def test_head_argmax_kernel_encodes_embed_maps_once(cuda):

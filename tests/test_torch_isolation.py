@@ -212,10 +212,13 @@ def test_require_device(monkeypatch):
         require_device()
 
 
-# the decode path: serving, the models and every op (the kernel build reads
-# CUDA_HOME to find nvcc, and nothing else)
-DECODE_PATH = [PORT / "serve.py", *sorted((PORT / "models").glob("*.py")),
-               *(p for p in sorted((PORT / "ops").rglob("*.py")) if p.name != "_build.py")]
+# the decode path: serving, the models, every op and the parallel layer (the
+# kernel build reads CUDA_HOME to find nvcc, and parallel/distributed.py
+# torchrun's variables, and nothing else)
+DECODE_PATH = [PORT / "serve.py", PORT / "streaming.py", *sorted((PORT / "models").glob("*.py")),
+               *(p for p in sorted((PORT / "ops").rglob("*.py")) if p.name != "_build.py"),
+               *(p for p in sorted((PORT / "parallel").glob("*.py"))
+                 if p.name != "distributed.py")]
 # dmi_tpu's switches of the same path
 JAX_SWITCHES = ("DMI_DECODE_BATCH_FIRST", "DMI_PALLAS_HEAD_ARGMAX", "DMI_PALLAS_DECODE_MLP",
                 "DMI_W4_XLA", "DMI_W4_BO", "DMI_PIN_WEIGHTS")
@@ -249,6 +252,23 @@ def test_decode_path_reads_no_environment_variable():
     bad = {str(p.relative_to(REPO)): lines for p in DECODE_PATH
            if (lines := _reads_environment(p))}
     assert not bad, bad
+
+
+def test_parallel_layer_is_scanned_and_only_its_entry_reads_the_environment():
+    """parallel/ is among the sources the import checks scan; of its modules
+    only distributed.py reads the environment (torchrun's MASTER_ADDR,
+    MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK and LOCAL_WORLD_SIZE), and
+    serving reaches a mesh through it alone."""
+    parallel = {p.name for p in _sources() if p.parent == PORT / "parallel"}
+    assert {"__init__.py", "mesh.py", "distributed.py", "sharding.py",
+            "collectives.py"} <= parallel
+    assert {p.name for p in DECODE_PATH if p.parent == PORT / "parallel"} == parallel - {
+        "distributed.py"}
+    assert _reads_environment(PORT / "parallel" / "distributed.py")
+    names = set(re.findall(r"[\"']([A-Z_]+)[\"']", (PORT / "parallel" / "distributed.py")
+                           .read_text()))
+    assert {"MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+            "LOCAL_WORLD_SIZE"} <= names
 
 
 def test_environment_check_sees_reads(tmp_path):

@@ -142,16 +142,19 @@ def test_captioner_prefix_ids_without_tokenizer(tokenizer):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"int8": "fp8"}, "int8 must be"), ({"mesh_shape": (1, 1)}, "A.10"),
+    ({"int8": "fp8"}, "int8 must be"), ({"mesh_shape": (1, 1)}, "init_distributed"),
     ({"speculative": 2, "int8": "w4a8"}, "cheapest flavor"),
 ])
 def test_captioner_refuses_unported_options(tokenizer, kwargs, item):
     """int8 serving is ported (tests/test_torch_decode_bl.py): of int8 only a
     mode dmi_tpu does not have is refused; speculative decoding is ported
     (tests/test_torch_speculative*.py), and refuses a w4a8 target with
-    dmi_tpu's reason."""
+    dmi_tpu's reason; serving on a mesh is ported
+    (tests/test_torch_parallel_spmd.py) and needs a process group first."""
     _, tcap = _captioners(tokenizer)
-    with pytest.raises(ValueError if "int8" in kwargs else NotImplementedError, match=item):
+    err = ValueError if "int8" in kwargs else RuntimeError if "mesh_shape" in kwargs else \
+        NotImplementedError
+    with pytest.raises(err, match=item):
         Captioner(tcap.llm_cfg, tcap.llm_params, tcap.proj_spec, tcap.proj_params,
                   tokenizer, PREFIX, 10, **kwargs)
 

@@ -152,13 +152,13 @@ def test_engine_guards():
                       (dict(chunk=2, pool=4, k=0, budget=6), "k >= 1")):
         with pytest.raises(ValueError, match=match):
             _bulk(t, embs, kw["budget"], kw["chunk"], kw["pool"], kw["k"], tparams)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="sharded"):  # a mesh takes sharded trees
         _bulk(t, embs, 6, 2, 4, 2, tparams, mesh=object())
     for kw, match in ((dict(pool=1), "pool"), (dict(pool=4, admit=4), "admit")):
         with pytest.raises(ValueError, match=match):
             tspec.SpeculativeStreamingCaptioner(tcfg, tparams, tcfg, tparams, tspec_, tpp, PREFIX,
                                                 6, PAD, k=2, **kw)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="sharded"):
         tspec.SpeculativeStreamingCaptioner(tcfg, tparams, tcfg, tparams, tspec_, tpp, PREFIX, 6,
                                             PAD, mesh=object())
     mla = dataclasses.replace(tcfg, kv_lora_rank=8)

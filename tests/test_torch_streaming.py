@@ -321,5 +321,5 @@ def test_engine_state_and_option_checks():
         _engine(t, 7, pool=1, admit=1)
     with pytest.raises(ValueError, match="admit"):
         _engine(t, 7, pool=4, admit=5)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="sharded"):  # a mesh takes sharded trees
         _engine(t, 7, pool=4, admit=2, mesh=object())
