@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of dmi_tpu_torch's serving paths (batch-first, batch-last,
 quantized, sampled, continuous batching, tensor- and data-parallel), its
-three training stages (with the LoRA baseline) and its loading of HF-layout
-weights and reference torch checkpoints on one CUDA card.
+three training stages (with the LoRA baseline, and on a mesh) and its
+loading of HF-layout weights and reference torch checkpoints on one CUDA
+card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -192,6 +193,23 @@ weights and reference torch checkpoints on one CUDA card.
    one rank's (K cache layer by layer), the W4A8 token loop from one
    prompt pass bit-equal sharded and whole, and a tiny f32 model's ids at
    (1, 2) and (2, 1) identical to one rank's.
+20. Training on a mesh at Llama-3.2-1B's full width: the flash kernels at a
+   model rank's heads (16/4 timed, 8/2 held), mlp2 and lora0 at a data
+   rank's rows, each against its twin and timed; the device time of a
+   (1, 2) micro-step's row-parallel products (wo, w_down shards) in f32, as
+   the training path computes them, beside bf16; (a) stage 1 on a one-rank
+   NCCL mesh (1, 1) bit-equal to the unsharded trainer (step 0's loss and
+   projector gradients, 4 micro-steps' losses, the projector after them);
+   (b) two gloo worker processes on cuda:0 at (1, 2) and (2, 1): stage 1
+   (projector/v1's shapes, 4 updates) and stage 2 (hypernet/v4's, 2
+   micro-steps), step 0's loss within TOL["loss"] of one rank's and each
+   gradient leaf within TOL["logits"] of its largest one-rank gradient,
+   micro-steps/s beside one rank's, the share of the wall in the
+   collective calls, launch counts of the flash kernels, mlp2 (an eval
+   loss) and lora0 on both workers; (c) a tiny f32 model's losses over 4
+   updates with dropout equal to one rank's to 1e-5 relative; (d) a
+   torch.distributed.checkpoint directory written and read back across the
+   workers, bit for bit.
 
 Step 0 of every training path compares the loss within TOL["loss"] of the
 plain path's and each trainable leaf's gradient within TOL["logits"] of
@@ -4121,6 +4139,463 @@ def parallel_phase(torch, dev) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Training on a mesh (ROADMAP A.10b)
+# ---------------------------------------------------------------------------
+
+PT_STEPS = 4  # stage-1 micro-steps of the parallel training runs, one update each
+PT_HN_STEPS = 2  # stage-2 micro-steps (inside one accumulation window)
+PT_TIMEOUT = 900  # seconds the training workers may take, set-up included
+PT_TINY = dict(batch=4, text=24, mm=16)  # the tiny f32 runs' data
+PT_ARGS = dict(TRAIN_ARGS, gradient_accumulation_steps=1)
+PT_TINY_DROPOUT = 0.1  # the tiny runs draw dropout: a data rank's rows get one rank's mask
+# the hypernet's key bias has a gradient of 0 in exact arithmetic (see
+# hypernet_phase): held to the bound of the key weight's
+PT_ZERO = {"attn.k.b": "attn.k.w"}
+
+
+def _pt_stage1(torch, dev, cfg, params, mesh_shape=None, tmp="."):
+    """A stage-1 ProjectorTrainer at projector/v1's shapes on the full-width
+    model (train_phase's projector from SEED + 4), and its data."""
+    import types
+
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.projector_trainer import ProjectorTrainer
+
+    spec = proj.ProjectorSpec(mm_dim=TRAIN_MM_DIM, lm_dim=cfg.hidden_size,
+                              dropout=TRAIN_DROPOUT)
+    pp = proj.init(spec, torch.Generator(device=dev).manual_seed(SEED + 4), device=dev)
+    data = SyntheticCaptions(PT_STEPS, mm=spec.mm_dim, vocab=cfg.vocab_size)
+    args = types.SimpleNamespace(**dict(PT_ARGS, mesh_shape=mesh_shape), checkpoint_dir=tmp)
+    trainer = ProjectorTrainer("smoke-mesh", cfg, params, spec, pp, [data],
+                               [EmbeddingManager("smoke-encoder", device=dev)], None, args)
+    return trainer, [(0, data.train_batch(s)) for s in range(PT_STEPS)]
+
+
+def _pt_stage2(torch, dev, cfg, params, mesh_shape=None, tmp="."):
+    """A stage-2 HypernetTrainer at hypernet/v4's shapes (hypernet_phase's
+    hypernet from SEED + 8, the frozen projector), and its batches."""
+    import types
+
+    from dmi_tpu_torch.models import hypernet as hn
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.hypernet_trainer import HypernetTrainer
+
+    spec, frozen = frozen_projector(torch, dev)
+    hspec = hn.HypnetSpec(**HN_SPEC)
+    hparams = hn.init(hspec, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev)
+    data = SyntheticCaptions(PT_HN_STEPS, batch=HN_BATCH, text=HN_TEXT, mm=spec.mm_dim,
+                             subset=HN_SUBSET, stream=7, vocab=cfg.vocab_size)
+    args = types.SimpleNamespace(**dict(HN_ARGS, mesh_shape=mesh_shape), checkpoint_dir=tmp)
+    trainer = HypernetTrainer("smoke-mesh-hypernet", cfg, params, spec, frozen, hspec, hparams,
+                              [data], [EmbeddingManager("smoke-encoder", device=dev)], [], [],
+                              None, args, types.SimpleNamespace(**FEWSHOT))
+    return trainer, [trainer.fetch_batch(s) for s in range(PT_HN_STEPS)]
+
+
+def _pt_tiny(torch, dev, mesh_shape=None, tmp="."):
+    """A stage-1 ProjectorTrainer on the tiny f32 model of the parallel
+    phase (_parallel_tiny), dropout on, and its batches."""
+    import types
+
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.training.embeddings import EmbeddingManager
+    from dmi_tpu_torch.training.projector_trainer import ProjectorTrainer
+
+    cfg, params, spec, pp, _ = _parallel_tiny(torch, dev)
+    spec = dataclasses.replace(spec, dropout=PT_TINY_DROPOUT)
+    data = SyntheticCaptions(PT_STEPS, batch=PT_TINY["batch"], text=PT_TINY["text"],
+                             mm=PT_TINY["mm"], stream=17, vocab=cfg.vocab_size)
+    args = types.SimpleNamespace(**dict(PT_ARGS, mesh_shape=mesh_shape), checkpoint_dir=tmp)
+    trainer = ProjectorTrainer("smoke-mesh-tiny", cfg, params, spec, pp, [data],
+                               [EmbeddingManager("smoke-encoder", device=dev)], None, args)
+    return trainer, [(0, data.train_batch(s)) for s in range(PT_STEPS)], (cfg, params)
+
+
+def _pt_step0(torch, trainer, loss_fn):
+    """Step 0's global loss and trainable gradients by leaf name (summed over
+    the data ranks on a mesh), without touching the trainer's
+    accumulators."""
+    from dmi_tpu_torch.training import mesh as tm
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    names = [n for n, _ in named_leaves(trainer.params)]
+    part = loss_fn()
+    grads = torch.autograd.grad(part, trainer.leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(trainer.leaves, grads)]
+    if trainer.shard is not None:
+        trainer.shard.reduce_grads(grads)
+    return (tm.global_value(trainer.shard, part.detach()).float().cpu(),
+            {n: g.cpu() for n, g in zip(names, grads)})
+
+
+def _pt_run(torch, trainer, batches, steps, total):
+    """`steps` timed train_steps; returns (losses, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(s, total, batches[s])[0] for s in range(steps)]
+    torch.cuda.synchronize()
+    return torch.stack(losses).float().cpu(), time.perf_counter() - t0
+
+
+def _parallel_train_worker(rank, world, store, out_dir, device):
+    """One rank of the training world on cuda:0 over gloo: stage 1 and
+    stage 2 at full width and the tiny f32 runs at each mesh of
+    PARALLEL_MESHES (step 0's loss and gradients, the timed micro-steps,
+    launch counts, wall time inside the collectives), an eval loss at each
+    mesh, and a DCP checkpoint at (1, 2); saved to out_dir/train{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from dmi_tpu_torch import parallel
+    from dmi_tpu_torch.parallel import collectives
+    from dmi_tpu_torch.training import checkpoint as ckpt
+    from dmi_tpu_torch.utils.grad_stats import named_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    parallel.init_distributed(init_method=f"file://{store}", rank=rank, world_size=world,
+                              backend="gloo")
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    collectives.all_reduce = timed(collectives.all_reduce)
+    collectives.all_gather = timed(collectives.all_gather)
+    cfg, params, _, _, _ = _parallel_model(torch, dev)
+    res = {"checksum": _bits_sum(torch, params["embed"]), "runs": {}}
+
+    def record(label, make, steps, total):
+        """Step 0 and a warm-up step on one trainer, the timed run on a
+        fresh one (the one-rank run's order); returns the latter."""
+        trainer, batches = make()
+        loss0, grads0 = _pt_step0(torch, trainer, lambda: trainer.micro_loss(0, batches[0]))
+        trainer.train_step(0, total, batches[0])
+        del trainer
+        trainer, batches = make()
+        _reset_counts()
+        spent[0] = 0.0
+        losses, secs = _pt_run(torch, trainer, batches, steps, total)
+        res["runs"][label] = {"loss0": loss0, "grads0": grads0, "losses": losses, "secs": secs,
+                              "collective_secs": spent[0], "counts": _counts()}
+        return trainer, batches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for shape in PARALLEL_MESHES:
+            trainer, batches = record(f"{shape} stage 1", lambda: _pt_stage1(
+                torch, dev, cfg, params, shape, tmp), PT_STEPS, PT_STEPS)
+            batch = batches[0][1]
+            _reset_counts()
+            ev = trainer.eval_loss(trainer.emb_mgrs[0].get_embeddings(batch["embs"]),
+                                   *trainer._device_batch(batch))
+            res["runs"][f"{shape} eval"] = {"loss": ev.float().cpu(), "counts": _counts()}
+            trained = trainer.param_tree()
+            del trainer
+            torch.cuda.empty_cache()
+
+            trainer, _ = record(f"{shape} stage 2", lambda: _pt_stage2(
+                torch, dev, cfg, params, shape, tmp), PT_HN_STEPS, 10**9)
+            del trainer
+            torch.cuda.empty_cache()
+
+            trainer, batches, (tcfg, tparams) = _pt_tiny(torch, dev, shape, tmp)
+            res["runs"][f"{shape} tiny"] = {
+                "losses": _pt_run(torch, trainer, batches, PT_STEPS, PT_STEPS)[0]}
+            if shape == (1, 2):
+                # the sharded tiny tree and the full-width trained projector
+                # through a torch.distributed.checkpoint directory both ranks share
+                tree = {"llm": trainer.llm_params, "proj": trained, "step": PT_STEPS}
+                path = os.path.join(out_dir, "dcp")
+                t0 = time.perf_counter()
+                ckpt.save_pytree_dcp(path, tree)
+                back = ckpt.load_pytree_dcp(path, ckpt.sharded_like(tree))
+                torch.cuda.synchronize()
+                pairs = [(a, b) for part in ("llm", "proj")
+                         for (_, a), (_, b) in zip(named_leaves(tree[part]),
+                                                   named_leaves(back[part]))
+                         if torch.is_tensor(a)]
+                res["dcp"] = {"bit_equal": back["step"] == PT_STEPS and all(
+                    a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+                    "leaves": len(pairs), "secs": time.perf_counter() - t0,
+                    "files": sorted(os.listdir(path))}
+            del trainer
+    del params
+    torch.save(res, os.path.join(out_dir, f"train{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_train_kernel_phase(torch, dev):
+    """The kernels of training on a mesh at their shard shapes, each against
+    its twin and timed: the three flash kernels at a model rank's heads of
+    Llama-3.2-1B at m = 2 (16/4, hd 64, B 32, T 65; 8/2 of m = 4 held too),
+    mlp2 at a data rank's rows of the stage-1 eval batch at d = 2 (B 16, mm
+    768) and lora0 at a data rank's rows of stage 2 at d = 2 (B 2)."""
+    from dmi_tpu_torch.models import projector as proj
+    from dmi_tpu_torch.ops import l2_normalize
+    from dmi_tpu_torch.ops.cuda import flash_attn as fa
+    from dmi_tpu_torch.ops.cuda import lora0 as l0
+    from dmi_tpu_torch.ops.cuda import projector as pk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    B, T, hd = TRAIN_BATCH, TRAIN_TEXT + 1, FLASH_HEADS[2]
+    results, errs = {}, {"fwd": [], "dkv": [], "dq": []}
+    times = None
+    for nh, nkv in ((FLASH_HEADS[0] // 2, FLASH_HEADS[1] // 2),
+                    (FLASH_HEADS[0] // 4, FLASH_HEADS[1] // 4)):
+        print(f"kernels flash attention at a model rank's heads ({nh}/{nkv}, hd {hd}, B {B}, "
+              f"T {T}, bf16, causal):")
+        q, k, v = (torch.randn(B, T, n, hd, generator=gen, device=dev).bfloat16()
+                   .transpose(1, 2).requires_grad_() for n in (nh, nkv, nkv))
+        do = torch.randn(B, nh, T, hd, generator=gen, device=dev).bfloat16()
+        out = fa.flash_attention(q, k, v, None, 0.125)
+        ref = fa._flash_attn_plain(q, k, v, None, 0.125)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        want = torch.autograd.grad(ref, (q, k, v), do)
+        errs["fwd"].append(compare(torch, "out", out.detach(), ref.detach(), TOL["bfloat16"]))
+        errs["dq"].append(compare(torch, "dq", got[0], want[0], GRAD_TOL["bfloat16"]))
+        errs["dkv"].append(max(compare(torch, "dk", got[1], want[1], GRAD_TOL["bfloat16"]),
+                               compare(torch, "dv", got[2], want[2], GRAD_TOL["bfloat16"])))
+        if times is None:  # m = 2's shard: the kernels line
+            times = flash_timings(torch, fa, *(x.detach() for x in (q, k, v)), do)
+            for name, kt in times.items():
+                print(f"    {name} {nh}/{nkv}: {report_times(kt)}; library: "
+                      "scaled_dot_product_attention, causal, GQA")
+    for part, name in (("fwd", "flash_fwd"), ("dkv", "flash_bwd_dkv"), ("dq", "flash_bwd_dq")):
+        results[f"{name}_tp"] = {"max_abs_err": max(errs[part]), **times[name]}
+
+    rows = TRAIN_BATCH // 2
+    print(f"kernel fused_mlp2 at a data rank's rows (B {rows}, mm {TRAIN_MM_DIM}, lm 2048, f32):")
+    spec = proj.ProjectorSpec(mm_dim=TRAIN_MM_DIM, lm_dim=2048)
+    p = proj.init(spec, gen, device=dev)["layers"]
+    x = l2_normalize(torch.randn(rows, TRAIN_MM_DIM, generator=gen, device=dev))
+    args = (x, p[0]["w"], p[0]["b"], p[1]["w"], p[1]["b"])
+    err = compare(torch, f"B={rows}", pk.fused_mlp2(*args), pk._mlp2_plain(*args),
+                  TOL["float32"])
+    t = {**device_times(torch, lambda: pk.fused_mlp2(*args), lambda: pk._mlp2_plain(*args),
+                        lambda: torch.addmm(p[1]["b"], torch.nn.functional.gelu(
+                            torch.addmm(p[0]["b"], x, p[0]["w"]), approximate="tanh"),
+                            p[1]["w"])),
+         **least_time(nbytes(*args) + rows * 2048 * 4,
+                      2 * rows * (p[0]["w"].numel() + p[1]["w"].numel()), torch.float32)}
+    print(f"    {report_times(t)}; library: addmm, gelu, addmm")
+    results["mlp2_dp"] = {"max_abs_err": err, **t}
+
+    rows = HN_BATCH // 2
+    mm, lm, r = TRAIN_MM_DIM, 2048, HN_RANK
+    print(f"kernel fused_lora_layer0 at a data rank's rows (B {rows}, mm {mm}, lm {lm}, r {r}, "
+          "f32):")
+    shapes = [(rows, mm), (mm, lm), (lm,), (mm, r), (r, lm), (lm,)]
+    scales = [1.0, mm ** -0.5, 0.1, mm ** -0.5, r ** -0.5, 0.1]
+    call = [torch.randn(sh, generator=gen, device=dev) * c for sh, c in zip(shapes, scales)]
+    x, w0, b0, A, Bm, d = call
+    err = compare(torch, f"B={rows}", l0.fused_lora_layer0(*call), l0._lora0_plain(*call),
+                  TOL["float32"])
+    t = {**device_times(torch, lambda: l0.fused_lora_layer0(*call),
+                        lambda: l0._lora0_plain(*call),
+                        lambda: torch.nn.functional.gelu(
+                            torch.addmm(torch.addmm(b0 + d, x, w0), x @ A, Bm),
+                            approximate="tanh")),
+         **least_time(nbytes(*call) + rows * lm * 4, 2 * rows * (mm * lm + mm * r + r * lm),
+                      torch.float32)}
+    print(f"    {report_times(t)}; library: add, addmm, matmul, addmm, gelu")
+    results["lora0_dp"] = {"max_abs_err": err, **t}
+    row_parallel_products(torch, dev, gen)
+    return results
+
+
+def row_parallel_products(torch, dev, gen) -> None:
+    """Device time of the row-parallel products of one stage-1 micro-step on
+    one rank at (1, 2) (Llama-3.2-1B's wo 1024 -> 2048 and w_down 4096 ->
+    2048 shards, B 32, T 65, every layer), as llama._mm computes them on the
+    training path: the bf16 activations and weight shard cast to f32, the
+    f32 product forward, the f32 product of the output gradient with the
+    weight shard backward, cast to bf16 (the weights are frozen: no dW);
+    beside the same two products in bf16.  Prints both; a card holding two
+    ranks runs twice this a micro-step."""
+    L, rows, H = 16, TRAIN_BATCH * (TRAIN_TEXT + 1), 2048
+    parts = []
+    for k in (H // 2, 2 * H):  # wo's and w_down's contraction at m = 2 (I 8192 / 2)
+        h = torch.randn(rows, k, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(k, H, generator=gen, device=dev) * k ** -0.5).bfloat16()
+        g = torch.randn(rows, H, generator=gen, device=dev).bfloat16()
+        parts.append((h, w, g))
+
+    def f32():
+        for h, w, g in parts:
+            wf = w.float()
+            h.float() @ wf
+            (g.float() @ wf.t()).bfloat16()
+
+    def bf16():
+        for h, w, g in parts:
+            h @ w
+            g @ w.t()
+
+    ms32, ms16 = device_ms(f32), device_ms(bf16)
+    flops = 2 * 2 * rows * H * sum(h.shape[1] for h, _, _ in parts)
+    print(f"row-parallel products of a (1, 2) stage-1 micro-step on one rank ({L} layers, wo "
+          f"and w_down shards, B*T {rows}, forward and input-gradient products): f32 as "
+          f"llama._mm computes them on the training path (casts included) {L * ms32!r} ms, "
+          f"{flops / ms32 / 1e9!r} TFLOP/s; the same products in bf16 {L * ms16!r} ms, "
+          f"{flops / ms16 / 1e9!r} TFLOP/s")
+
+
+def parallel_train_phase(torch, dev) -> dict:
+    """Training on a mesh at Llama-3.2-1B's full width: (a) a one-rank NCCL
+    mesh (1, 1) in this process, whose stage-1 step 0 (loss and projector
+    gradients) and PT_STEPS micro-steps (losses and the projector after
+    them) are bit-equal to the unsharded trainer's; (b) two gloo worker
+    processes on cuda:0 (_parallel_train_worker) at (1, 2) and (2, 1): stage
+    1 and stage 2's step-0 loss within TOL["loss"] of one rank's and every
+    gradient leaf within TOL["logits"] of its largest one-rank gradient,
+    their micro-steps/s beside one rank's and the share of the wall inside
+    the collectives, launch counts of the flash kernels, mlp2 and lora0 on
+    both ranks; (c) the tiny f32 model's losses over PT_STEPS updates (with
+    dropout) equal to one rank's to 1e-5 relative; (d) a DCP checkpoint
+    saved and read back across the workers bit for bit.  Returns the
+    workers' launch counts by path."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dmi_tpu_torch import parallel
+
+    cfg, params, _, _, _ = _parallel_model(torch, dev)
+    L = cfg.num_hidden_layers
+    one = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, batches = _pt_stage1(torch, dev, cfg, params, tmp=tmp)
+        one["stage 1 step 0"] = _pt_step0(torch, trainer, lambda: trainer.micro_loss(
+            0, batches[0]))
+        trainer.train_step(0, PT_STEPS, batches[0])  # warm-up
+        trainer.opt.zero_grad(set_to_none=True)
+        # the timed run from the same start as the (1, 1) run below
+        t1, batches = _pt_stage1(torch, dev, cfg, params, tmp=tmp)
+        del trainer
+        one["stage 1"] = _pt_run(torch, t1, batches, PT_STEPS, PT_STEPS)
+        one["stage 1 params"] = [t.detach().clone() for t in t1.leaves]
+        del t1
+        trainer, hbatches = _pt_stage2(torch, dev, cfg, params, tmp=tmp)
+        one["stage 2 step 0"] = _pt_step0(torch, trainer, lambda: trainer.micro_loss(
+            0, hbatches[0]))
+        trainer.train_step(0, 10**9, hbatches[0])  # warm-up
+        trainer.opt.zero_grad(set_to_none=True)
+        one["stage 2"] = _pt_run(torch, trainer, hbatches, PT_HN_STEPS, 10**9)
+        del trainer
+        trainer, tbatches, _ = _pt_tiny(torch, dev, tmp=tmp)
+        one["tiny"] = _pt_run(torch, trainer, tbatches, PT_STEPS, PT_STEPS)[0]
+        del trainer
+        torch.cuda.empty_cache()
+
+        with socket.socket() as s:  # a free port on this machine for the one-rank store
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        parallel.init_distributed(init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                                  backend="nccl")
+        try:
+            mesh_t, batches = _pt_stage1(torch, dev, cfg, params, (1, 1), tmp)
+            loss0, grads0 = _pt_step0(torch, mesh_t, lambda: mesh_t.micro_loss(0, batches[0]))
+            losses, _ = _pt_run(torch, mesh_t, batches, PT_STEPS, PT_STEPS)
+            final = [t.detach().clone() for t in mesh_t.leaves]
+            del mesh_t
+        finally:
+            dist.destroy_process_group()
+    ref_loss0, ref_grads0 = one["stage 1 step 0"]
+    equal = {"step-0 loss": torch.equal(loss0, ref_loss0),
+             "step-0 gradients": all(torch.equal(grads0[n], g) for n, g in ref_grads0.items()),
+             "losses": torch.equal(losses, one["stage 1"][0]),
+             "projector after the run": all(torch.equal(a, b) for a, b in
+                                            zip(final, one["stage 1 params"]))}
+    print(f"parallel training (a) one-rank NCCL mesh (1, 1), stage 1 ({PT_STEPS} micro-steps, "
+          f"B {TRAIN_BATCH}, T {TRAIN_TEXT + 1}): bit-equal to the unsharded trainer: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"the one-rank training mesh differs from the unsharded run: "
+                             f"{equal}")
+    base = _bits_sum(torch, params["embed"])
+    del params, final, one["stage 1 params"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out_dir, codes = _spawn(torch, _parallel_train_worker, 2, PT_TIMEOUT, dev)
+    if codes != [0, 0]:
+        raise AssertionError(f"parallel training (b): the gloo workers exited with {codes}")
+    ranks = [torch.load(os.path.join(out_dir, f"train{r}.pt"), weights_only=False)
+             for r in range(2)]
+    print(f"parallel training (b) two gloo ranks on {dev}: {time.perf_counter() - t0!r} s "
+          "with set-up")
+    if any(r["checksum"] != base for r in ranks):
+        raise AssertionError("the training workers built other weights than this process")
+    failures, paths = [], {}
+    want = {"stage 1": {k: L * PT_STEPS for k in ("flash_fwd", "flash_bwd_dkv",
+                                                   "flash_bwd_dq")},
+            "stage 2": {"lora0": PT_HN_STEPS,
+                        **{k: L * PT_HN_STEPS for k in ("flash_fwd", "flash_bwd_dkv",
+                                                        "flash_bwd_dq")}},
+            "eval": {"mlp2": 1, "flash_fwd": L}}
+    steps = {"stage 1": PT_STEPS, "stage 2": PT_HN_STEPS}
+    for shape in PARALLEL_MESHES:
+        for stage in ("stage 1", "stage 2"):
+            name = f"{shape} {stage}"
+            run = ranks[0]["runs"][name]
+            ref_loss0, ref_grads0 = one[f"{stage} step 0"]
+            print(f"parallel training {name}:")
+            for r, rank in enumerate(ranks):
+                mine = rank["runs"][name]
+                _expect(f"parallel training {name} rank {r}", mine["counts"], want[stage])
+                if not torch.equal(mine["losses"], run["losses"]):
+                    failures.append(f"{name}: ranks 0 and {r} report other losses")
+            try:
+                compare(torch, "step-0 loss against one rank", run["loss0"], ref_loss0,
+                        TOL["loss"])
+                for n, gr in ref_grads0.items():
+                    g = run["grads0"][n]
+                    compare(torch, f"step-0 gradient {n} {tuple(g.shape)}", g, gr,
+                            TOL["logits"], scale=ref_grads0[PT_ZERO.get(n, n)].abs().max().item())
+            except AssertionError as e:  # every measurement prints before the phase fails
+                failures.append(f"{name}: {e}")
+            ref_secs = one[stage][1]
+            share = max(rk["runs"][name]["collective_secs"] / rk["runs"][name]["secs"]
+                        for rk in ranks)
+            print(f"  {steps[stage] / run['secs']!r} micro-steps/s (one rank: "
+                  f"{steps[stage] / ref_secs!r}); host wall time inside the collective "
+                  f"calls (gloo's waits for the kernels queued before them included): "
+                  f"{share!r} of the run; losses {run['losses'].tolist()} (one rank "
+                  f"{one[stage][0].tolist()})")
+            paths[f"parallel train {name}"] = run["counts"]
+        name = f"{shape} eval"
+        for r, rank in enumerate(ranks):
+            _expect(f"parallel training {name} rank {r}", rank["runs"][name]["counts"],
+                    want["eval"])
+        print(f"parallel training {name}: loss {ranks[0]['runs'][name]['loss'].item()!r}")
+        paths[f"parallel train {name}"] = ranks[0]["runs"][name]["counts"]
+        tiny = ranks[0]["runs"][f"{shape} tiny"]["losses"]
+        rel = ((tiny - one["tiny"]).abs() / one["tiny"].abs()).max().item()
+        print(f"parallel training (c) {shape} tiny f32, dropout {PT_TINY_DROPOUT}: losses over "
+              f"{PT_STEPS} updates {tiny.tolist()} against one rank's {one['tiny'].tolist()}: "
+              f"largest relative difference {rel!r} (bound 1e-5)")
+        if rel > 1e-5:
+            failures.append(f"{shape} tiny: losses differ from one rank's")
+    dcp = [rk["dcp"] for rk in ranks]
+    print(f"parallel training (d) DCP checkpoint at (1, 2) (the sharded tiny tree and the "
+          f"trained projector): restored bit for bit {[d['bit_equal'] for d in dcp]}, "
+          f"{dcp[0]['leaves']} leaves, save + load {max(d['secs'] for d in dcp)!r} s, files "
+          f"{dcp[0]['files']}")
+    if not all(d["bit_equal"] for d in dcp):
+        failures.append("the DCP checkpoint did not restore bit for bit")
+    if failures:
+        raise AssertionError(f"parallel training phase: {failures}")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -4195,6 +4670,8 @@ def main() -> int:
     paths.update(cli_phase(torch, dev))
     kernels.update(parallel_kernel_phase(torch, dev))
     paths.update(parallel_phase(torch, dev))
+    kernels.update(parallel_train_kernel_phase(torch, dev))
+    paths.update(parallel_train_phase(torch, dev))
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("dmi_tpu", "jax"))
     if jax_side:
         raise AssertionError(f"the smoke loaded modules of the JAX side: {jax_side}")
@@ -4321,7 +4798,30 @@ def main() -> int:
                                   "parallel (1, 2) bf16", "head_argmax"),
                "w4_mm_tp_f32": ("w4_mm_bl with an f32 output at a row-parallel w_down shard "
                                 "(K 4096 -> 2048; launches: the f32-output ones of (1, 2) w4a8)",
-                                *int8_mm, "parallel (1, 2) w4a8", "w4_mm_f32")}
+                                *int8_mm, "parallel (1, 2) w4a8", "w4_mm_f32"),
+               "flash_fwd_tp": ("flash_attention forward at a model rank's heads (16/4 of "
+                                "Llama-3.2-1B at m 2, B 32, T 65; launches: rank 0 of stage 1 "
+                                "at (1, 2))", "dmi_tpu_torch/csrc/flash_attn_fwd.cu",
+                                f"dmi_tpu/models/llama.py:1086 ({flash}:758 "
+                                "_flash_attention_impl)", "parallel train (1, 2) stage 1",
+                                "flash_fwd"),
+               "flash_bwd_dkv_tp": ("flash_attention backward dK/dV at a model rank's heads "
+                                    "(16/4, B 32, T 65)", "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
+                                    f"dmi_tpu/models/llama.py:1086 ({flash}:1121 "
+                                    "_flash_attention_bwd_dkv)", "parallel train (1, 2) stage 1",
+                                    "flash_bwd_dkv"),
+               "flash_bwd_dq_tp": ("flash_attention backward dQ at a model rank's heads (16/4, "
+                                   "B 32, T 65)", "dmi_tpu_torch/csrc/flash_attn_bwd.cu",
+                                   f"dmi_tpu/models/llama.py:1086 ({flash}:1456 "
+                                   "_flash_attention_bwd_dq)", "parallel train (1, 2) stage 1",
+                                   "flash_bwd_dq"),
+               "mlp2_dp": ("fused_mlp2 at a data rank's rows (B 16 of the stage-1 eval batch at "
+                           "(2, 1), mm 768)", "dmi_tpu_torch/csrc/mlp2.cu",
+                           "dmi_tpu/ops/pallas/projector.py:167", "parallel train (2, 1) eval",
+                           "mlp2"),
+               "lora0_dp": ("fused_lora_layer0 at a data rank's rows (B 2 of stage 2 at (2, 1))",
+                            "dmi_tpu_torch/csrc/lora0.cu", "dmi_tpu/ops/pallas/projector.py:251",
+                            "parallel train (2, 1) stage 2", "lora0")}
     print(f"launches by path: {paths}")
     report = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": paths[path][count], **kernels[key]}

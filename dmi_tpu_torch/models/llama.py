@@ -749,12 +749,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, shard=None) -> to
     matching slice): the sum of squares is summed over the model group and
     divided by x's width times m, which is the whole width's mean also
     where the ranks hold copies of one kv head (each copy counted m/nkv
-    times over a width m/nkv times too small)."""
+    times over a width m/nkv times too small).  Each rank's columns consume
+    the shared sum, so its backward sums the ranks' gradients too
+    (Shard.psum_shared)."""
     xf = x.float()
     if shard is None:
         var = (xf * xf).mean(dim=-1, keepdim=True)
     else:
-        var = shard.psum((xf * xf).sum(dim=-1, keepdim=True)) / (x.shape[-1] * shard.m)
+        var = shard.psum_shared((xf * xf).sum(dim=-1, keepdim=True)) / (x.shape[-1] * shard.m)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
@@ -795,7 +797,9 @@ def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor, shard=None) -> torch.T
     dequantized into the products; deepseek's shared experts add an
     always-on gated MLP.  shard: the layer holds this rank's experts
     [e0, e1) and its slice of the shared experts; the router is whole, and
-    the partial combine is summed over the model group."""
+    the partial combine is summed over the model group.  The experts read
+    h and their gate weights through Shard.copy (the router's gradient
+    sums the model ranks'); the router reads h as it is."""
     B, T, H = h.shape
     if cfg.moe_gate_fp32:
         router = h.float() @ dequantize(lw["w_router"], torch.float32).float()
@@ -803,7 +807,8 @@ def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor, shard=None) -> torch.T
         router = _mm(h, lw["w_router"])  # [B, T, E]
     w_e = moe_gate_weights(cfg, router).to(h.dtype).reshape(B * T, -1)
     if shard is not None:
-        w_e = w_e[:, shard.e0:shard.e1]
+        w_e = shard.copy(w_e)[:, shard.e0:shard.e1]
+        h = shard.copy(h)
     x = h.reshape(1, B * T, H)
     g = x @ dequantize(lw["moe_w1"], h.dtype)  # [E, N, I]
     u = x @ dequantize(lw["moe_w3"], h.dtype)
@@ -848,7 +853,7 @@ def _write_cache(cache_kv, cache_index: int, k, v):
     return k_cache[:, :, :end], v_cache[:, :, :end]
 
 
-def _mla_qkv(cfg: LlamaConfig, lw, h, cos, sin):
+def _mla_qkv(cfg: LlamaConfig, lw, h, cos, sin, shard=None):
     """MLA's q, k, v over h [B, T, H] (HF DeepseekV2Attention, dmi_tpu's
     expanded oracle): q per head [qk_nope | qk_rope], through the q_lora
     bottleneck where the layer has one; k and v expanded from one normed
@@ -856,22 +861,24 @@ def _mla_qkv(cfg: LlamaConfig, lw, h, cos, sin):
     shared roped key channel (MQA on the positional dims).  Returns q, k
     [B, nh, T, dn + dr], v [B, nh, T, dv] and the compressed rows
     [B, T, r + dr] (normed latent | roped shared key) that the batch-last
-    loop caches."""
+    loop caches.  shard: the layer holds this rank's heads; the replicated
+    latents (and h before a plain wq) enter them through Shard.copy."""
+    copy = (lambda t: t) if shard is None else shard.copy
     B, T, _ = h.shape
     nh, eps = cfg.num_attention_heads, cfg.rms_norm_eps
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     dv = cfg.v_head_dim
     if "wq" in lw:  # the Lite layout: a plain q projection
-        q = _mm(h, lw["wq"])
+        q = _mm(copy(h), lw["wq"])
     else:
-        q = _mm(rms_norm(_mm(h, lw["wq_a"]), lw["q_a_norm"], eps), lw["wq_b"])
+        q = _mm(copy(rms_norm(_mm(h, lw["wq_a"]), lw["q_a_norm"], eps)), lw["wq_b"])
     q = q.reshape(B, T, nh, dn + dr).transpose(1, 2)
     kv_a = _mm(h, lw["wkv_a"])  # [B, T, r + dr]
     latent = rms_norm(kv_a[..., :r], lw["kv_a_norm"], eps)
     k_pe = apply_rope_interleaved(kv_a[:, None, :, r:], cos, sin)  # [B, 1, T, dr]
-    kv = _mm(latent, lw["wkv_b"]).reshape(B, T, nh, dn + dv).transpose(1, 2)
+    kv = _mm(copy(latent), lw["wkv_b"]).reshape(B, T, nh, dn + dv).transpose(1, 2)
     q = torch.cat([q[..., :dn], apply_rope_interleaved(q[..., dn:], cos, sin)], dim=-1)
-    k = torch.cat([kv[..., :dn], k_pe.expand(B, nh, T, dr)], dim=-1)
+    k = torch.cat([kv[..., :dn], copy(k_pe).expand(B, nh, T, dr)], dim=-1)
     return q, k, kv[..., dn:], torch.cat([latent, k_pe[:, 0]], dim=-1)
 
 
@@ -918,7 +925,9 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
 
     shard: lw is this rank's shard of the layer (parallel/sharding.py): the
     block computes its heads and MLP columns under the shard's local config
-    and sums wo's and the MLP's partial products over the model group."""
+    and sums wo's and the MLP's partial products over the model group.
+    Under autograd the normed h enters the column products through
+    Shard.copy, whose backward sums the model ranks' partial gradients."""
     if shard is not None:
         cfg = shard.local(cfg)
     shard = row_parallel(shard)
@@ -928,10 +937,12 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
 
     h = x if cfg.norm_after else rms_norm(x, lw["ln_attn"], eps)
     if cfg.kv_lora_rank is not None:
-        q, k, v, rows = _mla_qkv(cfg, lw, h, cos, sin)
+        q, k, v, rows = _mla_qkv(cfg, lw, h, cos, sin, shard)
         if latent_out is not None:
             latent_out.copy_(rows)
     else:
+        if shard is not None:
+            h = shard.copy(h)
         if "w_qkv" in lw:  # fused layout (fuse_projections)
             qkv = _mm(h, lw["w_qkv"])
             if "b_qkv" in lw:
@@ -974,6 +985,8 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
     if cfg.num_experts:
         out = _moe_mlp(cfg, lw, h, shard)
     else:
+        if shard is not None:
+            h = shard.copy(h)
         if "w_gu" in lw:  # fused layout
             gate, up = _mm(h, lw["w_gu"]).chunk(2, dim=-1)
         else:
@@ -998,7 +1011,8 @@ def _block_out(cfg: LlamaConfig, out, lw, post: str, after: str, norm=None):
 
 
 def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
-            attention_mask: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
+            attention_mask: Optional[torch.Tensor] = None, plain: bool = False,
+            vocab_local: bool = False) -> torch.Tensor:
     """Full-sequence forward with no cache -> logits [B, T, V], through
     final_softcap (dmi_tpu's llama.forward, llama.py:1255-1379).
 
@@ -1009,7 +1023,12 @@ def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
     tensors, and their plain twin for CPU tensors or when `plain`;
     elsewhere (gemma's softcaps, a window that binds, dual rope) every
     layer runs `_attention` with the additive [B, T, T] bias, a sliding
-    layer's with the window, and the rope tables of its kind."""
+    layer's with the window, and the rope tables of its kind.
+
+    vocab_local: a sharded tree returns this rank's vocab shard [B, T,
+    v1 - v0] of the logits, ungathered (the loss's input, causal_lm_nll;
+    the whole vocab at m = 1); the final norm's output enters the head
+    through Shard.copy.  A whole tree ignores it."""
     B, T = inputs_embeds.shape[:2]
     shard = params.get("shard")
     x = scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
@@ -1028,31 +1047,51 @@ def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
         b, (cos, sin) = layer_inputs(cfg, i, bias, bias_sw, rope, rope_local)
         x = _block(cfg, x, lw, cos, sin, b, plain=plain, key_mask=attention_mask, shard=shard)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return final_softcap(cfg, _head_matmul(x, params, cfg))
+    if not vocab_local or shard is None:
+        return final_softcap(cfg, _head_matmul(x, params, cfg))
+    if shard.m > 1:
+        x = shard.copy(x)
+    return final_softcap(cfg, _head_matmul_local(x, params, cfg))
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """HF CausalLM loss: shift, ignore -100, token-mean cross-entropy in f32
-    (dmi_tpu's llama.causal_lm_loss); 0 when no label is valid."""
+def causal_lm_nll(logits: torch.Tensor, labels: torch.Tensor, groups: Optional[int] = None,
+                  shard=None) -> tuple:
+    """HF CausalLM loss's pieces: shift, ignore -100, the summed f32
+    cross-entropy and the count of valid labels, whole ([]) or per group
+    of G stacked micro-batches ([G]).  shard: logits are this rank's vocab
+    shard of a tree over m > 1 model ranks (forward(vocab_local=True)),
+    read by Shard.vocab_parallel_nll without a gather; otherwise the
+    unsharded path."""
     shift_logits = logits[:, :-1, :].float()
     shift_labels = labels[:, 1:]
     valid = shift_labels != -100
-    nll = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
-                          shift_labels.reshape(-1), ignore_index=-100, reduction="sum")
-    return nll / valid.sum().clamp(min=1)
+    flat_logits = shift_logits.reshape(-1, shift_logits.shape[-1])
+    if row_parallel(shard) is None:
+        nll = F.cross_entropy(flat_logits, shift_labels.reshape(-1), ignore_index=-100,
+                              reduction="sum" if groups is None else "none")
+    else:
+        nll = shard.vocab_parallel_nll(flat_logits, shift_labels.reshape(-1))
+        if groups is None:
+            nll = nll.sum()
+    if groups is None:
+        return nll, valid.sum()
+    gb, t = shift_labels.shape
+    return nll.reshape(groups, gb // groups * t).sum(1), valid.reshape(groups, -1).sum(1)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, shard=None) -> torch.Tensor:
+    """HF CausalLM loss: shift, ignore -100, token-mean cross-entropy in f32
+    (dmi_tpu's llama.causal_lm_loss); 0 when no label is valid.  shard:
+    vocab-sharded logits, as causal_lm_nll takes them."""
+    nll, count = causal_lm_nll(logits, labels, shard=shard)
+    return nll / count.clamp(min=1)
 
 
 def causal_lm_loss_grouped(logits: torch.Tensor, labels: torch.Tensor,
-                           groups: int) -> torch.Tensor:
+                           groups: int, shard=None) -> torch.Tensor:
     """causal_lm_loss of G stacked micro-batches in one [G*B, T] forward ->
     [G] per-group token-mean losses, each equal to causal_lm_loss on that
     group's rows alone (dmi_tpu's llama.causal_lm_loss_grouped).  Rows padded
     past their own micro-batch length must carry -100 labels."""
-    shift_logits = logits[:, :-1, :].float()
-    shift_labels = labels[:, 1:]
-    valid = shift_labels != -100
-    nll = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
-                          shift_labels.reshape(-1), ignore_index=-100, reduction="none")
-    gb, t = shift_labels.shape
-    nll = nll.reshape(groups, gb // groups * t).sum(1)
-    return nll / valid.reshape(groups, -1).sum(1).clamp(min=1)
+    nll, count = causal_lm_nll(logits, labels, groups, shard)
+    return nll / count.clamp(min=1)

@@ -54,12 +54,22 @@ def caption_loss(
     to the LLM, so the loss runs full causal attention over the pad
     columns, whose positions carry loss.  mask_padding=True passes it (keys
     masked, queries not).  plain=True runs the attention's plain twin in
-    place of the CUDA kernels."""
+    place of the CUDA kernels.
+
+    On a sharded tree (parallel.shard_llm_params; the rows are this data
+    rank's) it returns the pair (summed NLL, count of valid labels) of these
+    rows, from vocab-sharded logits: the trainer divides the sum by the
+    count summed over the data ranks (the global token mean, exact for
+    uneven counts)."""
     inputs_embeds, attention_mask, labels = assemble_inputs(
         cfg, llm_params, soft_tokens, input_ids, attention_mask, labels
     )
+    shard = llm_params.get("shard")
     logits = llama.forward(cfg, llm_params, inputs_embeds,
-                           attention_mask if mask_padding else None, plain=plain)
+                           attention_mask if mask_padding else None, plain=plain,
+                           vocab_local=shard is not None)
+    if shard is not None:
+        return llama.causal_lm_nll(logits, labels, shard=shard)
     return llama.causal_lm_loss(logits, labels)
 
 
@@ -79,12 +89,17 @@ def caption_loss_grouped(
     coalesced stage-2 step.  Groups padded to a common T extend labels with
     -100 and the mask with 0: causal attention keeps the extension invisible
     to real positions, so each group's loss equals its own caption_loss up
-    to summation order."""
+    to summation order.  On a sharded tree: the pair ([G] summed NLLs, [G]
+    counts) of this data rank's rows, as caption_loss."""
     inputs_embeds, attention_mask, labels = assemble_inputs(
         cfg, llm_params, soft_tokens, input_ids, attention_mask, labels
     )
+    shard = llm_params.get("shard")
     logits = llama.forward(cfg, llm_params, inputs_embeds,
-                           attention_mask if mask_padding else None, plain=plain)
+                           attention_mask if mask_padding else None, plain=plain,
+                           vocab_local=shard is not None)
+    if shard is not None:
+        return llama.causal_lm_nll(logits, labels, groups, shard)
     return llama.causal_lm_loss_grouped(logits, labels, groups)
 
 

@@ -22,8 +22,29 @@ would insert them:
     score, then the smaller global index;
   * the all-gather of rows over the data ranks, in row order.
 
-Forward only: the autograd Functions of sharded training come with ROADMAP
-A.10b.
+Training differentiates three of them, each an autograd Function used when
+grad is enabled and its input requires grad (the forward-only path stays
+the raw collective):
+
+  * `copy` (copy into the model group): the identity forward, a psum of the
+    gradient backward, where a replicated activation enters sharded
+    computation (the normed h before w_qkv, w_gu and the experts, the
+    expert gate weights, MLA's latents and shared roped key, the final
+    norm's output before the vocab-sharded head);
+  * `psum` (reduce from the model group): a psum forward, the identity
+    backward, after wo, w_down and the routed MLP, whose sum replicated
+    computation consumes;
+  * `psum_shared`: a psum both ways, for a sum that sharded computation
+    consumes (olmo2's whole-width q/k norms: every rank's gradient of the
+    shared variance is partial).
+
+The vocab-parallel loss (`vocab_parallel_nll`) reads this rank's vocab
+shard of the logits: pmax and psum of its max and exps and the target's
+logit, with the local softmax minus the local one-hot as its backward.
+Over the data ranks, `reduce_grads` sums the trainable leaves' gradients
+and `psum_data` sums a loss's (sum, count); `broadcast` sends rank 0's
+parameters once at set-up.  The gather of vocab-sharded logits and the
+argmax merge stay forward only: they serve decoding.
 
 Transport.  The ops run on the process group's backend, fixed when the
 mesh is made: NCCL across cards, gloo on the CPU and for several ranks on
@@ -55,6 +76,77 @@ def all_gather(x: torch.Tensor, group) -> list:
     return out
 
 
+class _Copy(torch.autograd.Function):
+    """Identity forward, psum over `group` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """psum over `group` forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PsumShared(torch.autograd.Function):
+    """psum over `group` both ways."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-row negative log-likelihood [N] of global targets [N] (-100:
+    ignored, 0) from this rank's vocab shard [N, v1 - v0] of the logits
+    (f32, or f64 in the tests), in their dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, target, shard):
+        def red(t, op):
+            return t if shard.model_group is None else all_reduce(t, op, shard.model_group)
+
+        top = red(logits.max(dim=-1).values.contiguous(), dist.ReduceOp.MAX)
+        exps = (logits - top[:, None]).exp()
+        total = red(exps.sum(dim=-1), dist.ReduceOp.SUM)
+        mine = (target >= shard.v0) & (target < shard.v1)
+        local = torch.where(mine, target - shard.v0, 0)
+        picked = logits.gather(1, local[:, None])[:, 0] - top
+        picked = red(torch.where(mine, picked, 0.0), dist.ReduceOp.SUM)
+        valid = target != -100
+        ctx.save_for_backward(exps, total, local, mine, valid)
+        return torch.where(valid, total.log() - picked, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        exps, total, local, mine, valid = ctx.saved_tensors
+        grad = exps / total[:, None]
+        grad.scatter_add_(1, local[:, None], -mine.to(grad.dtype)[:, None])
+        return grad * torch.where(valid, g, 0.0)[:, None], None, None
+
+
 def merge_argmax(scores: list, ids: list) -> torch.Tensor:
     """The best of per-shard pairs: scores and global ids, one [B] tensor a
     shard.  The higher score wins, and among equal scores the smaller
@@ -77,7 +169,8 @@ class Shard:
     nkv); experts [e0, e0 + E/m); vocab rows [v0, v1) of blocks of
     ceil(V / m) (the last one shorter); data: this rank's index among
     n_data data-parallel replicas; data_ranks: the global rank of each
-    replica's model rank 0, in data order."""
+    replica's model rank 0, in data order; data_group: the n_data ranks
+    that share this rank's model index (its gradients' all-reduce)."""
 
     model_group: object  # None: the mesh has no model axis (m == 1)
     m: int
@@ -97,6 +190,7 @@ class Shard:
     v0: int
     v1: int
     block: int
+    data_group: object = None  # the ranks of this model index; None when n_data == 1
 
     # -- the shard's config ------------------------------------------------
 
@@ -118,10 +212,36 @@ class Shard:
     # -- model-group collectives -------------------------------------------
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every model rank's x (a new contiguous tensor)."""
+        """The sum of every model rank's x (a new contiguous tensor); under
+        autograd its backward is the identity (replicated computation
+        consumes the sum)."""
         if self.model_group is None:
             return x
+        if _tracked(x):
+            return _Reduce.apply(x, self.model_group)
         return all_reduce(x.contiguous().clone(), dist.ReduceOp.SUM, self.model_group)
+
+    def psum_shared(self, x: torch.Tensor) -> torch.Tensor:
+        """psum whose backward is a psum too: for a sum that each rank's
+        sharded computation consumes."""
+        if self.model_group is None:
+            return x
+        if _tracked(x):
+            return _PsumShared.apply(x, self.model_group)
+        return all_reduce(x.contiguous().clone(), dist.ReduceOp.SUM, self.model_group)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """x as it is, entering sharded computation: under autograd the
+        model ranks' partial gradients of x are summed."""
+        if self.model_group is None or not _tracked(x):
+            return x
+        return _Copy.apply(x, self.model_group)
+
+    def vocab_parallel_nll(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Per-row NLL [N] in f32 of global targets [N] (-100 rows: 0) from
+        this rank's vocab shard of the logits [N, v1 - v0], which are never
+        gathered."""
+        return _VocabParallelNLL.apply(logits.float(), target, self)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max of every model rank's x."""
@@ -161,6 +281,42 @@ class Shard:
         return merge_argmax(s, i)
 
     # -- data ranks ----------------------------------------------------------
+
+    def _data_ranks_group(self):
+        if self.data_group is None and self.n_data > 1:
+            raise ValueError("the data-rank sums of training need a (data, model) mesh "
+                             "(parallel.make_mesh), not a (replica, data, model) one")
+        return self.data_group
+
+    def psum_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of x over the data ranks of this model index (no
+        autograd: losses' sums and counts)."""
+        group = self._data_ranks_group()
+        if group is None:
+            return x
+        return all_reduce(x.detach().contiguous().clone(), dist.ReduceOp.SUM, group)
+
+    def reduce_grads(self, grads: list) -> None:
+        """Sum every tensor of `grads` over the data ranks, in place (one
+        flat all-reduce a dtype and device)."""
+        group = self._data_ranks_group()
+        if group is None:
+            return
+        buckets: dict = {}
+        for g in grads:
+            buckets.setdefault((g.dtype, g.device), []).append(g)
+        for bucket in buckets.values():
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            all_reduce(flat, dist.ReduceOp.SUM, group)
+            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+                g.copy_(part.view_as(g))
+
+    @staticmethod
+    def broadcast(tensors: list) -> None:
+        """Global rank 0's values of `tensors` on every rank, in place."""
+        with torch.no_grad():
+            for t in tensors:
+                dist.broadcast(t.data, 0)
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Every data replica's rows of x (dim 0; the counts may differ), in

@@ -68,6 +68,54 @@ def init_distributed(init_method: Optional[str] = None, rank: Optional[int] = No
     return True
 
 
+def launch_device(device="cuda") -> torch.device:
+    """An entry point's device, after init_distributed() (dmi_tpu's CLIs
+    call it first): the device as asked for a single process (no launcher
+    variables); under torchrun, gloo on the CPU and this rank's card
+    (rank_device) with NCCL otherwise."""
+    dev = torch.device(device)
+    if not init_distributed(backend="gloo" if dev.type == "cpu" else None):
+        return dev
+    return dev if dev.type == "cpu" else rank_device()
+
+
+def on_rank0(fn, share: bool = True):
+    """fn() on the process that writes a run's shared files -- a single
+    process, or global rank 0 of a process group -- and None on the other
+    ranks.  share: rank 0's result goes to every rank, and no rank returns
+    before rank 0's fn() has, so the others may read what it wrote (a
+    collective: every rank calls it at the same point); share=False for
+    state only rank 0 keeps, such as its metric logger."""
+    if not dist.is_initialized():
+        return fn()
+    box = [fn() if dist.get_rank() == 0 else None]
+    if share:
+        dist.broadcast_object_list(box, 0)
+    return box[0]
+
+
+def rank0_first(fn):
+    """fn() on global rank 0 first and on the other ranks after it (a
+    barrier between): for set-up that writes a shared cache, such as the
+    data loaders' columnar files, which the other ranks then read."""
+    if not dist.is_initialized():
+        return fn()
+    if dist.get_rank() == 0:
+        out = fn()
+        dist.barrier()
+        return out
+    dist.barrier()
+    return fn()
+
+
+def require_mesh(mesh_shape) -> None:
+    """Raise when several ranks run a trainer without a mesh: each would
+    train its own copy and write the same files."""
+    if dist.is_initialized() and dist.get_world_size() > 1 and not mesh_shape:
+        raise ValueError(f"{dist.get_world_size()} ranks need mesh_shape in the config "
+                         "(e.g. [world, 1] for data parallelism)")
+
+
 def make_multihost_mesh(
     ici_shape: Optional[Sequence[int]] = None,
     axis_names: Tuple[str, ...] = ("replica", "data", "model"),

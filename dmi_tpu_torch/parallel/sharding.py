@@ -116,11 +116,23 @@ def make_shard(mesh: DeviceMesh, cfg, vocab: int) -> Shard:
         data, n_data = data * grid.shape[i] + coord[i], n_data * int(grid.shape[i])
     data_ranks = tuple(int(g) for g in grid.reshape(-1, m)[:, 0])
     return plan_shard(cfg, vocab, m, r, model_group=group, n_data=n_data, data=data,
-                      data_ranks=data_ranks)
+                      data_ranks=data_ranks, data_group=_data_group(mesh))
+
+
+def _data_group(mesh: DeviceMesh):
+    """The process group of this rank's data replicas (the ranks that share
+    its model index): the mesh's one batch axis.  None with one replica,
+    and on a (replica, data, model) mesh, whose batch spans two axes: it
+    serves, and its Shard refuses the data-rank sums of training (the
+    trainers lay a (data, model) mesh)."""
+    axes = batch_axes(mesh)
+    if len(axes) != 1 or mesh.mesh.shape[mesh.mesh_dim_names.index(axes[0])] == 1:
+        return None
+    return mesh.get_group(axes[0])
 
 
 def plan_shard(cfg, vocab: int, m: int, r: int, model_group=None, n_data: int = 1,
-               data: int = 0, data_ranks: tuple = (0,)) -> Shard:
+               data: int = 0, data_ranks: tuple = (0,), data_group=None) -> Shard:
     """Model rank r's Shard of m of a model of config cfg and `vocab` rows.
     Raises where the model does not split evenly: m must divide the query
     heads and the experts, and divide the kv heads or be a multiple of
@@ -145,7 +157,7 @@ def plan_shard(cfg, vocab: int, m: int, r: int, model_group=None, n_data: int = 
     return Shard(model_group=model_group, m=m, r=r, n_data=n_data, data=data,
                  data_ranks=data_ranks, nh=nh, nkv=nkv, nh_l=nh // m, nkv_l=nkv_l, kv_rep=kv_rep, experts=E,
                  e0=r * E // m, e1=(r + 1) * E // m, vocab=vocab, v0=r * block,
-                 v1=min(vocab, (r + 1) * block), block=block)
+                 v1=min(vocab, (r + 1) * block), block=block, data_group=data_group)
 
 
 def _block_of(n: int, sh: Shard, what: str) -> tuple:

@@ -2,6 +2,7 @@
 dmi_tpu/train_hypernet.py; reference dmi/train_hypernet.py).
 
     python -m dmi_tpu_torch.train_hypernet <config.json> [--device cpu]
+    torchrun --nproc-per-node N -m dmi_tpu_torch.train_hypernet <config with mesh_shape>
 
   mode=train   — stage 2: train the hypernetwork on the high-resource datasets
   mode=fewshot — stage 3: few-shot integration, a sweep over
@@ -25,6 +26,12 @@ import sys
 
 from dmi_tpu_torch.models import hypernet as hn
 from dmi_tpu_torch.models import projector as proj
+from dmi_tpu_torch.parallel.distributed import (
+    launch_device,
+    on_rank0,
+    rank0_first,
+    require_mesh,
+)
 from dmi_tpu_torch.training.embeddings import (
     build_embedding_managers,
     build_fewshot_embedding_managers,
@@ -68,8 +75,8 @@ def main(name, train_args, hn_args, projector_args, data_args, menc_args, lm_arg
     if train_args.mode not in ("train", "fewshot"):
         raise ValueError(f"mode {train_args.mode!r}: train or fewshot")
     apply_debug_overrides(train_args, "hypernet")
-    dump_config_snapshot(name, data_args, hn_args, lm_args, menc_args, projector_args,
-                         train_args, fewshot_args)
+    on_rank0(lambda: dump_config_snapshot(name, data_args, hn_args, lm_args, menc_args,
+                                          projector_args, train_args, fewshot_args))
     tokenizer = build_tokenizer(lm_args)
     llm_cfg, llm_params = build_lm(lm_args, tokenizer, seed=train_args.seed, device=device)
     emb_mgrs = build_embedding_managers(menc_args, device)
@@ -96,11 +103,12 @@ def main(name, train_args, hn_args, projector_args, data_args, menc_args, lm_arg
     hn_params = hn.init(hn_spec, gen, device=device)
 
     def build(datasets, encoders):
-        return [
+        # the loaders write their columnar caches: rank 0 first under torchrun
+        return rank0_first(lambda: [
             DatasetLoader(dataset_spec(ds), tokenizer, train_args, enc.split("/")[-1],
                           is_instruct, data_args.data_root)
             for ds, enc in zip(datasets, encoders)
-        ]
+        ])
 
     loaders = (build(data_args.dataset_names_or_paths, menc_args.menc_names_or_paths)
                if train_args.mode == "train" else [])
@@ -131,12 +139,15 @@ def main(name, train_args, hn_args, projector_args, data_args, menc_args, lm_arg
 
 def run(config_path: str, device="cuda") -> None:
     require_device(device)
+    # under torchrun: join the process group first, as dmi_tpu's CLIs do
+    device = launch_device(device)
     from dmi_tpu_torch.config import hypernet_post_init, parse_config
     from dmi_tpu_torch.training.results import average_seed_results, run_exists
 
     (data_args, hn_args, lm_args, menc_args, projector_args, train_args,
      fewshot_args) = parse_config(config_path, _groups())
     name = osp.splitext(osp.basename(config_path))[0]
+    require_mesh(train_args.mesh_shape)
     hypernet_post_init(hn_args, projector_args, train_args, menc_args)
 
     def groups():
@@ -163,9 +174,9 @@ def run(config_path: str, device="cuda") -> None:
                 continue
             main(output_fname, *groups(), device=device)
         if len(data_args.fewshot_dataset_names_or_paths) == 1:
-            average_seed_results(seeds, name, dataset_size,
-                                 data_args.fewshot_dataset_names_or_paths[0], "hypernet",
-                                 train_args.output_root)
+            on_rank0(lambda: average_seed_results(seeds, name, dataset_size,
+                                                  data_args.fewshot_dataset_names_or_paths[0],
+                                                  "hypernet", train_args.output_root))
 
 
 def cli(argv=None):

@@ -2,6 +2,7 @@
 reference dmi/train_lora.py).
 
     python -m dmi_tpu_torch.train_lora <config.json> [--device cpu]
+    torchrun --nproc-per-node N -m dmi_tpu_torch.train_lora <config with mesh_shape>
 
 A sweep over (epochs, dataset_size) pairs x seeds with an idempotent skip of
 completed runs, then per-dataset seed averaging.  Accepts the reference's
@@ -18,6 +19,12 @@ import sys
 
 from dmi_tpu_torch.models import lora as lora_mod
 from dmi_tpu_torch.models import projector as proj
+from dmi_tpu_torch.parallel.distributed import (
+    launch_device,
+    on_rank0,
+    rank0_first,
+    require_mesh,
+)
 from dmi_tpu_torch.training.embeddings import build_embedding_managers
 from dmi_tpu_torch.training.lora_trainer import LoraTrainer
 from dmi_tpu_torch.training.model_utils import (
@@ -56,8 +63,8 @@ def main(name, data_args, lora_args, lm_args, menc_args, projector_args, train_a
     is_instruct = is_instruct_lm(lm_args.lm_name_or_path)
     apply_debug_overrides(train_args, "lora")
     lora_post_init(train_args, menc_args, lora_args, projector_args)
-    dump_config_snapshot(name, data_args, lora_args, lm_args, menc_args, projector_args,
-                         train_args)
+    on_rank0(lambda: dump_config_snapshot(name, data_args, lora_args, lm_args, menc_args,
+                                          projector_args, train_args))
     tokenizer = build_tokenizer(lm_args)
     llm_cfg, llm_params = build_lm(lm_args, tokenizer, seed=train_args.seed, device=device)
     emb_mgrs = build_embedding_managers(menc_args, device)
@@ -71,11 +78,12 @@ def main(name, data_args, lora_args, lm_args, menc_args, projector_args, train_a
                                   n_proj_layers=lora_args.lora_n_proj_layers)
     gen = CounterRNG(train_args.seed, device=device)  # the same draws on any device
     lora_params = lora_mod.init(lora_spec, proj_spec, gen, device=device)
-    loaders = [
+    # the loaders write their columnar caches: rank 0 first under torchrun
+    loaders = rank0_first(lambda: [
         DatasetLoader(dataset_spec(ds), tokenizer, train_args, enc.split("/")[-1],
                       is_instruct, data_args.data_root)
         for ds, enc in zip(data_args.dataset_names_or_paths, menc_args.menc_names_or_paths)
-    ]
+    ])
     trainer = LoraTrainer(
         lora_spec=lora_spec, lora_params=lora_params, frozen_proj_params=frozen, name=name,
         llm_cfg=llm_cfg, llm_params=llm_params, proj_spec=proj_spec, loaders=loaders,
@@ -94,6 +102,8 @@ def main(name, data_args, lora_args, lm_args, menc_args, projector_args, train_a
 
 def run(config_path: str, device="cuda") -> None:
     require_device(device)
+    # under torchrun: join the process group first, as dmi_tpu's CLIs do
+    device = launch_device(device)
     from dmi_tpu_torch.config import parse_config
     from dmi_tpu_torch.training.results import average_seed_results, run_exists
 
@@ -101,6 +111,7 @@ def run(config_path: str, device="cuda") -> None:
         config_path, _groups()
     )
     name = osp.splitext(osp.basename(config_path))[0]
+    require_mesh(train_args.mesh_shape)
     seeds = train_args.seeds
     train_args.seeds = None
     epochs_l, dataset_size_l = train_args.epochs_l, train_args.dataset_size_l
@@ -121,8 +132,9 @@ def run(config_path: str, device="cuda") -> None:
                 data_args, lora_args, lm_args, menc_args, projector_args, train_args)),
                 device=device)
         if len(data_args.dataset_names_or_paths) == 1:
-            average_seed_results(seeds, name, dataset_size, data_args.dataset_names_or_paths[0],
-                                 "lora", train_args.output_root)
+            on_rank0(lambda: average_seed_results(seeds, name, dataset_size,
+                                                  data_args.dataset_names_or_paths[0], "lora",
+                                                  train_args.output_root))
 
 
 def cli(argv=None):

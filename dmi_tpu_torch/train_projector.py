@@ -2,6 +2,7 @@
 (counterpart of dmi_tpu/train_projector.py).
 
     python -m dmi_tpu_torch.train_projector <config.json> [--device cpu]
+    torchrun --nproc-per-node N -m dmi_tpu_torch.train_projector <config with mesh_shape>
 
 Mirrors the reference entry point (dmi/train_projector.py:186-347): a sweep over
 (epochs, dataset_size) pairs x seeds with an idempotent skip of completed
@@ -22,6 +23,12 @@ import os.path as osp
 import sys
 
 from dmi_tpu_torch.models import projector as proj
+from dmi_tpu_torch.parallel.distributed import (
+    launch_device,
+    on_rank0,
+    rank0_first,
+    require_mesh,
+)
 from dmi_tpu_torch.training.embeddings import build_embedding_managers
 from dmi_tpu_torch.training.model_utils import (
     build_lm,
@@ -51,7 +58,8 @@ def main(name, data_args, lm_args, menc_args, projector_args, train_args, device
     is_instruct = is_instruct_lm(lm_args.lm_name_or_path)
     apply_debug_overrides(train_args, "projector")
     projector_post_init(train_args, menc_args, projector_args)
-    dump_config_snapshot(name, data_args, lm_args, menc_args, projector_args, train_args)
+    on_rank0(lambda: dump_config_snapshot(name, data_args, lm_args, menc_args, projector_args,
+                                          train_args))
 
     log.info("Building tokenizer / language model")
     tokenizer = build_tokenizer(lm_args)
@@ -70,11 +78,12 @@ def main(name, data_args, lm_args, menc_args, projector_args, train_args, device
 
     log.info("Building loaders")
     model_names = [m.split("/")[-1] for m in menc_args.menc_names_or_paths]
-    loaders = [
+    # the loaders write their columnar caches: rank 0 first under torchrun
+    loaders = rank0_first(lambda: [
         DatasetLoader(dataset_spec(ds_name), tokenizer, train_args, model_name, is_instruct,
                       data_args.data_root)
         for ds_name, model_name in zip(data_args.dataset_names_or_paths, model_names)
-    ]
+    ])
     trainer = ProjectorTrainer(
         name=name, llm_cfg=llm_cfg, llm_params=llm_params, proj_spec=proj_spec,
         proj_params=proj_params, loaders=loaders, emb_mgrs=emb_mgrs, tokenizer=tokenizer,
@@ -92,6 +101,8 @@ def main(name, data_args, lm_args, menc_args, projector_args, train_args, device
 
 def run(config_path: str, device="cuda") -> None:
     require_device(device)
+    # under torchrun: join the process group first, as dmi_tpu's CLIs do
+    device = launch_device(device)
     from dmi_tpu_torch.config import parse_config
     from dmi_tpu_torch.training.results import average_seed_results, run_exists
 
@@ -99,6 +110,7 @@ def run(config_path: str, device="cuda") -> None:
         config_path, _groups()
     )
     name = osp.splitext(osp.basename(config_path))[0]
+    require_mesh(train_args.mesh_shape)
     if len(menc_args.menc_names_or_paths) != len(data_args.dataset_names_or_paths):
         raise ValueError("one encoder per dataset: menc_names_or_paths and "
                          "dataset_names_or_paths differ in length")
@@ -125,9 +137,9 @@ def run(config_path: str, device="cuda") -> None:
                  copy.deepcopy(menc_args), copy.deepcopy(projector_args),
                  copy.deepcopy(train_args), device=device)
         if len(data_args.dataset_names_or_paths) == 1:
-            average_seed_results(seeds, name, dataset_size,
-                                 data_args.dataset_names_or_paths[0], train_type,
-                                 train_args.output_root)
+            on_rank0(lambda: average_seed_results(seeds, name, dataset_size,
+                                                  data_args.dataset_names_or_paths[0],
+                                                  train_type, train_args.output_root))
 
 
 def cli(argv=None):

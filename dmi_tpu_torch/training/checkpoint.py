@@ -17,10 +17,16 @@ same envelope, through models.torch_import, as dmi_tpu's load_pytree does:
 their optimizer_state_dict is None there, and the resume paths read the
 torch AdamW moments on their own (torch_import.optax_moments_from_checkpoint,
 optim.set_adamw_moments).
+
+`save_pytree_dcp` / `load_pytree_dcp` are the counterparts of dmi_tpu's
+orbax backend (save_pytree_orbax / load_pytree_orbax, sharded_like) over
+torch.distributed.checkpoint: on a mesh every rank writes and reads only
+its own shards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import os.path as osp
 import pickle
@@ -30,6 +36,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from dmi_tpu_torch.parallel.collectives import Shard
 
 # optimizer_state_dict["format"] of the port's AdamW state
 ADAMW_FORMAT = "dmi_tpu_torch.adamw"
@@ -135,10 +143,124 @@ def save_pytree(path: str, obj: Dict[str, Any]) -> None:
         pickle.dump(to_numpy(obj), f)
 
 
+# ---------------------------------------------------------------------------
+# Sharded checkpoints over torch.distributed.checkpoint
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """A tensor leaf's shape, dtype and device, without its buffer: a
+    restore target's leaf (sharded_like), allocated by load_pytree_dcp
+    just before it is read."""
+
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    """{path: leaf} of a tree of dicts, lists and tuples; the tensors of a
+    sharded tree (a dict holding a Shard under "shard") are keyed by their
+    model rank, so each model rank's shards are its own entries and the
+    data replicas of one model rank write them once.  The Shard itself is
+    not written: the restore target carries it."""
+    if isinstance(tree, dict):
+        shard = tree.get("shard")
+        if isinstance(shard, Shard):
+            prefix = f"{prefix}model{shard.r}of{shard.m}/"
+        for k, v in tree.items():
+            if k == "shard" and isinstance(v, Shard):
+                continue
+            _flatten(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}/", out)
+    else:
+        out[prefix[:-1]] = tree
+
+
+def _rebuild(tree, prefix: str, flat: dict):
+    """tree with every leaf replaced by flat's value at its path."""
+    if isinstance(tree, dict):
+        shard = tree.get("shard")
+        if isinstance(shard, Shard):
+            prefix = f"{prefix}model{shard.r}of{shard.m}/"
+        return {k: v if k == "shard" and isinstance(v, Shard)
+                else _rebuild(v, f"{prefix}{k}/", flat) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, f"{prefix}{i}/", flat) for i, v in enumerate(tree))
+    return flat[prefix[:-1]]
+
+
+def save_pytree_dcp(path: str, obj: Dict[str, Any]) -> None:
+    """Write a tree with torch.distributed.checkpoint (dmi_tpu's
+    save_pytree_orbax).  Under a process group every rank calls it: the
+    replicated leaves are written once, and each rank writes its own
+    shards of a sharded LLM tree (parallel.shard_llm_params).  Leaves that
+    are not tensors (ints, floats, None) are pickled beside them."""
+    import torch.distributed.checkpoint as dcp
+
+    flat: dict = {}
+    _flatten(obj, "", flat)
+    dcp.save(flat, checkpoint_id=osp.abspath(path))
+
+
+def load_pytree_dcp(path: str, like: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Read a tree that save_pytree_dcp wrote (dmi_tpu's load_pytree_orbax).
+    like: the restore target, a tree of the same structure whose tensor
+    leaves are READ INTO IN PLACE and whose LeafSpec leaves (sharded_like)
+    are allocated here; a sharded tree's Shard places it, so each rank
+    reads only its own shards.  Without like (one process), every entry is
+    read whole into a nested dict (lists come back as dicts keyed "0",
+    "1", ...)."""
+    import torch.distributed.checkpoint as dcp
+
+    path = osp.abspath(path)
+    if like is None:
+        meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        flat = {}
+        for key, m in meta.items():
+            if hasattr(m, "size"):
+                flat[key] = torch.empty(tuple(m.size), dtype=m.properties.dtype)
+            else:
+                flat[key] = None
+        dcp.load(flat, checkpoint_id=path)
+        out: dict = {}
+        for key, value in flat.items():
+            node, parts = out, key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = value
+        return out
+    flat = {}
+    _flatten(like, "", flat)
+    for key, leaf in flat.items():
+        if isinstance(leaf, LeafSpec):
+            flat[key] = torch.empty(leaf.shape, dtype=leaf.dtype, device=leaf.device)
+    dcp.load(flat, checkpoint_id=path)
+    return _rebuild(like, "", flat)
+
+
+def sharded_like(tree):
+    """A restore target for load_pytree_dcp: `tree` with each tensor leaf
+    replaced by its LeafSpec (shape, dtype, device) and everything else,
+    its Shards included, kept; it holds none of tree's buffers, so a
+    restore never keeps two copies of large sharded state."""
+    if isinstance(tree, dict):
+        return {k: sharded_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(sharded_like(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return LeafSpec(tuple(tree.shape), tree.dtype, tree.device)
+    return tree
+
+
 class BestCheckpointer:
     """One rolling "best" checkpoint per (model name, save type), replaced
     only when the tracked metric improves (reference semantics,
-    dmi/train.py:215-254); step checkpoints are cleaned up."""
+    dmi/train.py:215-254); step checkpoints are cleaned up.  Under a
+    process group global rank 0 alone reads and writes the file and sends
+    its decision to every rank (all ranks call save)."""
 
     def __init__(self, ckpt_dir: str, model_name: str, save_type: str, mode: str = "max"):
         if mode not in ("max", "min"):
@@ -164,6 +286,12 @@ class BestCheckpointer:
              optimizer_state=None) -> bool:
         """Save if metric improves; returns True when the best was replaced.
         An old checkpoint without this metric name is replaced."""
+        from dmi_tpu_torch.parallel.distributed import on_rank0
+
+        return on_rank0(lambda: self._save(step_idx, metric, metric_name, state_dict,
+                                           optimizer_state))
+
+    def _save(self, step_idx, metric, metric_name, state_dict, optimizer_state) -> bool:
         old = None
         if osp.exists(self.best_path):
             old = load_pytree(self.best_path).get(metric_name)

@@ -34,6 +34,13 @@ the port's counter-based ones (the same on the CPU and the card), not
 JAX's; `rotation(step)` is the one place the rotation is
 drawn, so a test can hand in JAX's matrix.  The LLM and the frozen
 projector never require grad.
+
+mesh_shape (d, m) trains on a (data, model) mesh (training/mesh.py): the
+LLM sharded over the model axis; the hypernet, the frozen projector, the
+conditioning subset and every draw replicated, so each rank draws the
+rotation and dropout the one-rank run draws; each data rank runs lora0 and
+the LLM on its rows of the batch (a coalesced chunk [k, B, ...] splits on
+B, dmi_tpu's P(None, "data", None)), each group with its own (sum, count).
 """
 
 from __future__ import annotations
@@ -49,8 +56,9 @@ import torch
 from dmi_tpu_torch.models import hypernet as hn
 from dmi_tpu_torch.models import mmmodel
 from dmi_tpu_torch.models import projector as proj
-from dmi_tpu_torch.models.llama import LlamaConfig, fuse_projections
+from dmi_tpu_torch.models.llama import LlamaConfig
 from dmi_tpu_torch.models.torch_import import optax_moments_from_checkpoint
+from dmi_tpu_torch.parallel.distributed import on_rank0
 from dmi_tpu_torch.ops.linalg import interleave_rows, pad_features, random_orthogonal
 from dmi_tpu_torch.training.checkpoint import (
     BestCheckpointer,
@@ -58,6 +66,7 @@ from dmi_tpu_torch.training.checkpoint import (
     save_pytree,
     to_tensor,
 )
+from dmi_tpu_torch.training import mesh as tm
 from dmi_tpu_torch.training.generation import (
     comp_metric,
     metrics_for,
@@ -138,15 +147,11 @@ class HypernetTrainer:
         fewshot_args,
         data_root: str = "data",
     ):
-        if train_args.mesh_shape:
-            raise NotImplementedError(
-                "mesh_shape (multi-card training) is not ported yet (ROADMAP.md A.10b, "
-                "parallel training; serving on a mesh is Captioner(mesh_shape=...))"
-            )
         self.name = name
         self.llm_cfg = llm_cfg
-        self.llm_params = fuse_projections(llm_params)
-        self.device = self.llm_params["embed"].device
+        self.device = llm_params["embed"].device
+        self.llm_params, self.mesh, self.shard = tm.mesh_llm(train_args, llm_cfg, llm_params,
+                                                             self.device)
         self.proj_spec = proj_spec
         self.frozen_proj = tree_map(lambda t: to_tensor(t, self.device), frozen_proj_params)
         self.hn_spec = hn_spec
@@ -165,6 +170,7 @@ class HypernetTrainer:
         self.params = tree_map(lambda t: to_tensor(t, self.device).clone().requires_grad_(),
                                hn_params)
         self.leaves = [t for _, t in named_leaves(self.params)]
+        tm.broadcast_leaves(self.shard, self.leaves)
         self.opt = make_optimizer(train_args, self.leaves)
         self.total_steps = sum(ld.total_train_steps() for ld in self.loaders)
         self.lr_fn = make_lr_fn(train_args, max(self.total_steps, 1))
@@ -207,7 +213,14 @@ class HypernetTrainer:
         return proj.lora_apply(self.proj_spec, self.frozen_proj, mm2, *adapters, plain=plain)
 
     def _device_batch(self, batch):
-        return device_batch(batch, self.device)
+        """The batch's (ids, mask, labels) on the device: this data rank's
+        rows on a mesh."""
+        return tuple(tm.local_rows(self.shard, t) for t in device_batch(batch, self.device))
+
+    def _loss(self, out) -> torch.Tensor:
+        """caption_loss's output as the loss this rank backpropagates (its
+        data rank's part on a mesh, tm.token_mean_part)."""
+        return tm.token_mean_part(self.shard, out)
 
     def param_tree(self) -> dict:
         return tree_map(torch.Tensor.detach, self.params)
@@ -253,12 +266,13 @@ class HypernetTrainer:
         flash attention in place of the kernels."""
         idx, batch, subset_raw = prefetched if prefetched is not None else self.fetch_batch(step)
         mgr = self.emb_mgrs[idx]
-        soft = self._soft(self.params, mgr.get_embeddings(batch["embs"]),
-                          mgr.get_embeddings(subset_raw), step, plain)
-        return mmmodel.caption_loss(self.llm_cfg, self.llm_params, soft,
-                                    *self._device_batch(batch), plain=plain)
+        mm = tm.local_rows(self.shard, mgr.get_embeddings(batch["embs"]))
+        soft = self._soft(self.params, mm, mgr.get_embeddings(subset_raw), step, plain)
+        return self._loss(mmmodel.caption_loss(self.llm_cfg, self.llm_params, soft,
+                                               *self._device_batch(batch), plain=plain))
 
     def _update(self, step: int) -> None:
+        tm.reduce_grads(self.shard, self.opt)
         # summary of the full accumulated gradient the optimizer consumes
         self._last_grad_stats = grad_summary(tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, self.params))
@@ -270,19 +284,20 @@ class HypernetTrainer:
     def train_step(self, step: int, total_steps: int, prefetched=None):
         """Accumulate micro-step `step`'s gradient; on the accumulation
         boundary, clip, update and zero it.  Returns (loss / accum as a
-        device scalar, whether it updated)."""
+        device scalar, the global loss on a mesh; whether it updated)."""
         loss = self.micro_loss(step, prefetched) / self.train_args.gradient_accumulation_steps
         loss.backward()
         do_update = self.cond.grad_acc(step, total_steps)
         if do_update:
             self._update(step)
-        return loss.detach(), do_update
+        return tm.global_value(self.shard, loss.detach()), do_update
 
     def _stack_chunk(self, chunk, mgr):
         """k same-loader micro-batches (step, idx, batch, subset) packed for
         one dispatch: each padded to the chunk's longest T with labels -100
         and mask 0 (causally invisible and outside the loss), stacked
-        [k, B, ...], mm and subset L2-normalized in one call each."""
+        [k, B, ...], mm and subset L2-normalized in one call each.  On a mesh
+        mm and the batch keep this data rank's rows of B."""
         T = max(b["input_ids"].shape[1] for _, _, b, _ in chunk)
 
         def padded(b, key, fill):
@@ -292,21 +307,26 @@ class HypernetTrainer:
 
         stacked = {key: np.stack([padded(b, key, fill) for _, _, b, _ in chunk])
                    for key, fill in (("input_ids", 0), ("attention_mask", 0), ("labels", -100))}
-        mm = mgr.get_embeddings(np.stack([b["embs"] for _, _, b, _ in chunk]))
+        mm = tm.local_rows(self.shard, mgr.get_embeddings(
+            np.stack([b["embs"] for _, _, b, _ in chunk])), dim=1)
         raw0 = chunk[0][3]
         if isinstance(raw0, (tuple, list)):
             subset = mgr.get_embeddings(tuple(np.stack([c[3][j] for c in chunk])
                                               for j in range(len(raw0))))
         else:
             subset = mgr.get_embeddings(np.stack([c[3] for c in chunk]))
-        return mm, subset, device_batch(stacked, self.device), [s for s, _, _, _ in chunk]
+        dev = tuple(tm.local_rows(self.shard, t, dim=1)
+                    for t in device_batch(stacked, self.device))
+        return mm, subset, dev, [s for s, _, _, _ in chunk]
 
     def coalesced_loss(self, mm_k, subset_k, ids_k, mask_k, labels_k, steps,
                        plain: bool = False) -> torch.Tensor:
         """The summed loss of k stacked micro-batches over the accumulation
         (the scale of k sequential micro-steps' losses): per-group rotation
         and dropout from each global step index, one grouped lora0 launch,
-        one [k*B]-row LLM forward with per-group token-mean losses."""
+        one [k*B]-row LLM forward with per-group token-mean losses (on a
+        mesh, B is this data rank's rows and each group's mean counts the
+        labels of every data rank's)."""
         k, B = mm_k.shape[:2]
         mm2, adapters = [], []
         for g, step in enumerate(steps):
@@ -318,17 +338,18 @@ class HypernetTrainer:
         soft = proj.lora_apply(self.proj_spec, self.frozen_proj, torch.stack(mm2),
                                *_stack_adapters(adapters), plain=plain)
         T = ids_k.shape[-1]
-        losses = mmmodel.caption_loss_grouped(
+        losses = self._loss(mmmodel.caption_loss_grouped(
             self.llm_cfg, self.llm_params, soft.reshape(k * B, -1), ids_k.reshape(k * B, T),
             mask_k.reshape(k * B, T), labels_k.reshape(k * B, T), k, plain=plain,
-        )
+        ))
         return losses.sum() / self.train_args.gradient_accumulation_steps
 
     def run_window(self, window):
         """Accumulate one accumulation window's micro-batches, [(step, idx,
         batch, subset)]: grouped by loader, full chunks of k coalesced, the
         rest one at a time (the order of a window's gradient sum is free).
-        Returns the window's accumulated loss (device scalar)."""
+        Returns the window's accumulated loss (device scalar; the global
+        one on a mesh)."""
         per = defaultdict(list)
         for item in window:
             per[item[1]].append(item)
@@ -349,7 +370,7 @@ class HypernetTrainer:
                     pos += 1
                 loss.backward()
                 loss_sum = loss_sum + loss.detach()
-        return loss_sum
+        return tm.global_value(self.shard, loss_sum)
 
     def _after_update(self, step, total, accumulated, mlog, cur_eval_loss):
         """Logging, eval, generate and checkpointing after an update at `step`;
@@ -360,16 +381,17 @@ class HypernetTrainer:
             rec = {"train_loss": acc}
             if self._last_grad_stats is not None:
                 rec.update(host_grad_summary(self._last_grad_stats))
-            mlog.log(rec, step)
+            on_rank0(lambda: mlog.log(rec, step), share=False)
         if self.cond.evaluate(step, total):
             cur_eval_loss = self.evaluate()
             log.info("Step: %d Eval Loss: %.3f", step, cur_eval_loss)
-            mlog.log({"eval_loss": cur_eval_loss}, step)
+            on_rank0(lambda: mlog.log({"eval_loss": cur_eval_loss}, step), share=False)
         if self.cond.generate(step, total, include_final=False):
             all_metrics, _, _, _ = self.generate(mode="eval")
             log.info("Step: %d Metrics: %s", step, all_metrics)
             for mname, ms in all_metrics.items():
-                mlog.log({f"{k} - {mname}": v for k, v in ms.items()}, step)
+                on_rank0(lambda: mlog.log({f"{k} - {mname}": v for k, v in ms.items()}, step),
+                         share=False)
         if self.cond.save(step, total):
             self.ckpt.save(step, cur_eval_loss, "loss", self.param_tree(),
                            optimizer_state=self.optimizer_state()
@@ -382,7 +404,8 @@ class HypernetTrainer:
 
         total = self.total_steps
         cur_eval_loss = float("inf")
-        mlog = MetricLogger(self.name, f"dmi_{self.TRAINER_TYPE}")
+        mlog = on_rank0(lambda: MetricLogger(self.name, f"dmi_{self.TRAINER_TYPE}"),
+                        share=False)
         prefetcher = Prefetcher(self.fetch_batch, depth=2 * self.coalesce)
         accumulated, window = 0.0, []
         for step, (idx, batch, subset_raw) in prefetcher.run(start_step, total):
@@ -405,9 +428,12 @@ class HypernetTrainer:
 
     @torch.no_grad()
     def eval_loss(self, mm, subset, ids, mask, labels) -> torch.Tensor:
-        """Loss of one eval batch: no rotation, no dropout."""
-        soft = self._soft(self.params, mm, subset, None)
-        return mmmodel.caption_loss(self.llm_cfg, self.llm_params, soft, ids, mask, labels)
+        """Loss of one eval batch: no rotation, no dropout.  mm are the
+        global batch's rows, ids, mask and labels this data rank's
+        (_device_batch); on a mesh it returns the global batch's loss."""
+        soft = self._soft(self.params, tm.local_rows(self.shard, mm), subset, None)
+        return tm.global_value(self.shard, self._loss(mmmodel.caption_loss(
+            self.llm_cfg, self.llm_params, soft, ids, mask, labels)))
 
     def evaluate(self, fewshot_idx: Optional[int] = None) -> float:
         """Per-batch mean loss (dmi/train_hypernet.py:310-352); one host sync
@@ -460,17 +486,21 @@ class HypernetTrainer:
                     self.tokenizer, batch["input_ids"], skip_special_tokens=True)))
                 ids.extend(batch["ids"])
                 subset = mgr.get_embeddings(loader.subset_batch(bi, split))
-                mm = mgr.get_embeddings(pad_emb_rows(batch["embs"], bsz))
+                mm = tm.local_rows(self.shard, mgr.get_embeddings(pad_emb_rows(batch["embs"],
+                                                                               bsz)))
                 tokens = mmmodel.caption_generate(
-                    self.llm_cfg, self.llm_params, self._soft_for_generate(mm, subset), prefix,
-                    loader.max_new_tokens, self.tokenizer.pad_token_id,
+                    self.llm_cfg, self.llm_params, self._soft_for_generate(mm, subset),
+                    tm.local_rows(self.shard, prefix), loader.max_new_tokens,
+                    self.tokenizer.pad_token_id,
                 )
+                if self.shard is not None:
+                    tokens = self.shard.gather_rows(tokens)
                 preds.extend(safe_batch_decode(self.tokenizer, tokens.cpu().numpy()[:real],
                                                skip_special_tokens=True))
             name = mgr.short_name
             all_gts[name], all_preds[name], all_ids[name] = gts, preds, ids
-            all_metrics[name] = metrics_for(loader, preds, ids, gts, self.name, mode,
-                                            self.data_root)
+            all_metrics[name] = on_rank0(lambda: metrics_for(
+                loader, preds, ids, gts, self.name, mode, self.data_root))
         return all_metrics, all_gts, all_preds, all_ids
 
     # ------------------------------------------------------------------
@@ -513,16 +543,18 @@ class HypernetTrainer:
         gen = dropout_generator(self.train_args.seed, 3 * step + 2, self.device)
         mm = mgr.get_embeddings(batch["embs"])
         if self.generated_projector is not None:
-            soft = proj.apply(self.proj_spec, self.generated_projector, mm, train=True,
-                              generator=gen)
+            # over the global batch (its dropout mask is the one-rank run's)
+            soft = tm.local_rows(self.shard, proj.apply(
+                self.proj_spec, self.generated_projector, mm, train=True, generator=gen))
         else:
+            mm = tm.local_rows(self.shard, mm)
             mm2, z = process_embeddings(mm, mgr.get_embeddings(subset_raw),
                                         feed_txt_embs=self.train_args.feed_txt_embs,
                                         rotation=None, pad_to=self.pad_to)
             adapters = hn.apply(self.hn_spec, self.params, z, train=True, generator=gen)
             soft = proj.lora_apply(self.proj_spec, self.frozen_proj, mm2, *adapters, plain=plain)
-        return mmmodel.caption_loss(self.llm_cfg, self.llm_params, soft,
-                                    *self._device_batch(batch), plain=plain)
+        return self._loss(mmmodel.caption_loss(self.llm_cfg, self.llm_params, soft,
+                                               *self._device_batch(batch), plain=plain))
 
     def fewshot_optimizer(self):
         """A fresh AdamW over the few-shot trainable set (:220-224), with the
@@ -548,9 +580,10 @@ class HypernetTrainer:
         loss.backward()
         do_update = self.cond.grad_acc(step, total_steps)
         if do_update:
+            tm.reduce_grads(self.shard, opt)
             clip_and_step(opt, self.train_args.max_grad_norm)
             opt.zero_grad(set_to_none=True)
-        return loss.detach(), do_update
+        return tm.global_value(self.shard, loss.detach()), do_update
 
     def fewshot_generate(self):
         """dmi/train_hypernet.py:202-295."""
@@ -561,7 +594,8 @@ class HypernetTrainer:
 
         args = self.train_args
         accum = args.gradient_accumulation_steps
-        mlog = MetricLogger(self.name, f"dmi_{self.TRAINER_TYPE}")
+        mlog = on_rank0(lambda: MetricLogger(self.name, f"dmi_{self.TRAINER_TYPE}"),
+                        share=False)
         all_test = {"metrics": {}, "gts": {}, "preds": {}, "ids": {}}
         for emb_idx, (loader, mgr) in enumerate(zip(self.fewshot_loaders,
                                                     self.fewshot_emb_mgrs)):
@@ -584,38 +618,39 @@ class HypernetTrainer:
                 if not did_update:
                     continue
                 if (step + 1) % args.logging_steps == 0 and step > 0:
-                    log.info("Fewshot step %d/%d loss %.3f", step, total, float(accumulated))
-                    mlog.log({"train_loss": float(accumulated)}, step)
+                    acc = float(accumulated)
+                    log.info("Fewshot step %d/%d loss %.3f", step, total, acc)
+                    on_rank0(lambda: mlog.log({"train_loss": acc}, step), share=False)
                 if self.cond.evaluate(step, total):
                     all_metrics, _, _, _ = self.generate("eval", fewshot_idx=emb_idx)
                     metric_name, cur = comp_metric(all_metrics)
                     if best_metric < cur:
                         log.info("Best %s: %s < %s", metric_name, best_metric, cur)
                         best_metric = cur
-                        save_pytree(fs_ckpt.best_path, {
+                        on_rank0(lambda: save_pytree(fs_ckpt.best_path, {
                             "step_idx": step,
                             "hypernet_state_dict": self.param_tree(),
                             "generated_projector": None if self.generated_projector is None
                             else tree_map(torch.Tensor.detach, self.generated_projector),
                             metric_name: cur,
-                        })
+                        }))
 
             best = fs_ckpt.load_best()
             if best is not None:
                 set_leaves(self.params, best["hypernet_state_dict"])
                 if best.get("generated_projector") is not None:
                     set_leaves(self.generated_projector, best["generated_projector"])
-            tm, tg, tp, ti = self.generate("test", fewshot_idx=emb_idx)
+            tmet, tg, tp, ti = self.generate("test", fewshot_idx=emb_idx)
             name = mgr.short_name
-            all_test["metrics"][name] = tm[name]
+            all_test["metrics"][name] = tmet[name]
             all_test["gts"][name] = tg[name]
             all_test["preds"][name] = tp[name]
             all_test["ids"][name] = ti[name]
             self.generated_projector = None  # (:294-295)
 
-        save_run_results(
+        on_rank0(lambda: save_run_results(
             args.output_root, self.TRAINER_TYPE, self.name,
             all_test["metrics"], all_test["gts"], all_test["preds"], all_test["ids"],
             eval_env=eval_environment(self.fewshot_loaders[0].dataset_name),
-        )
+        ))
         return all_test["metrics"]

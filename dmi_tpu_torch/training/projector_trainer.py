@@ -23,6 +23,12 @@ from (seed, step): the counterpart of jax.random.fold_in(base_key, step),
 so a resumed run draws what the uninterrupted run drew, and a counter-based
 one (utils.rng.CounterRNG), so the CPU and the card draw the same masks.
 
+mesh_shape (d, m) trains on a (data, model) mesh, one process a rank
+(training/mesh.py): the LLM sharded over the model axis, the projector
+replicated, each data rank on its rows of the global batch, the gradients
+summed over the data ranks before the clip; every rank returns the global
+loss, and global rank 0 alone writes files and computes caption metrics.
+
 The data, eval, results and logging modules (the port's copies of
 dmi_tpu's framework-free ones) are imported where they are used: a trainer
 fed batches directly, as the card smoke feeds it, loads none of them.
@@ -39,9 +45,11 @@ import torch
 
 from dmi_tpu_torch.models import mmmodel
 from dmi_tpu_torch.models import projector as proj
-from dmi_tpu_torch.models.llama import LlamaConfig, fuse_projections
+from dmi_tpu_torch.models.llama import LlamaConfig
 from dmi_tpu_torch.models.torch_import import optax_moments_from_checkpoint
+from dmi_tpu_torch.parallel.distributed import on_rank0
 from dmi_tpu_torch.training.checkpoint import BestCheckpointer, load_pytree, to_tensor
+from dmi_tpu_torch.training import mesh as tm
 from dmi_tpu_torch.training.generation import (
     comp_metric,
     metrics_for,
@@ -121,15 +129,11 @@ class ProjectorTrainer:
         train_args,
         data_root: str = "data",
     ):
-        if train_args.mesh_shape:
-            raise NotImplementedError(
-                "mesh_shape (multi-card training) is not ported yet (ROADMAP.md A.10b, "
-                "parallel training; serving on a mesh is Captioner(mesh_shape=...))"
-            )
         self.name = name
         self.llm_cfg = llm_cfg
-        self.llm_params = fuse_projections(llm_params)
-        self.device = self.llm_params["embed"].device
+        self.device = llm_params["embed"].device
+        self.llm_params, self.mesh, self.shard = tm.mesh_llm(train_args, llm_cfg, llm_params,
+                                                             self.device)
         self.proj_spec = proj_spec
         self.loaders = loaders
         self.emb_mgrs = emb_mgrs
@@ -146,6 +150,7 @@ class ProjectorTrainer:
         self.params = tree_map(lambda t: to_tensor(t, self.device).clone().requires_grad_(),
                                proj_params)
         self.leaves = [t for _, t in named_leaves(self.params)]
+        tm.broadcast_leaves(self.shard, self.leaves)
         self.opt = make_optimizer(train_args, self.leaves)
         self.total_steps = sum(ld.total_train_steps() for ld in loaders)
         self.lr_fn = make_lr_fn(train_args, self.total_steps)
@@ -164,7 +169,9 @@ class ProjectorTrainer:
         return proj.apply(self.proj_spec, params, embs)
 
     def _device_batch(self, batch):
-        return device_batch(batch, self.device)
+        """The batch's (ids, mask, labels) on the device: this data rank's
+        rows on a mesh."""
+        return tuple(tm.local_rows(self.shard, t) for t in device_batch(batch, self.device))
 
     # ------------------------------------------------------------------
 
@@ -178,36 +185,43 @@ class ProjectorTrainer:
     def micro_loss(self, step: int, prefetched=None, plain: bool = False) -> torch.Tensor:
         """Micro-step `step`'s loss on its batch and dropout draw, before the
         accumulation scaling; differentiable in the projector parameters.
-        plain=True runs the attention's plain twin in place of the kernels."""
+        plain=True runs the attention's plain twin in place of the kernels.
+        On a mesh it is this data rank's part (tm.token_mean_part): the
+        projector runs over the global batch, so its dropout mask is the
+        one-rank run's, and the rank keeps its rows' soft tokens."""
         idx, batch = prefetched if prefetched is not None else self.fetch_batch(step)
         embs = self.emb_mgrs[idx].get_embeddings(batch["embs"])
         ids, mask, labels = self._device_batch(batch)
         gen = dropout_generator(self.train_args.seed, step, self.device)
-        soft = self._soft_train(self.params, embs, gen)
-        return mmmodel.caption_loss(self.llm_cfg, self.llm_params, soft, ids, mask, labels,
-                                    plain=plain)
+        soft = tm.local_rows(self.shard, self._soft_train(self.params, embs, gen))
+        return tm.token_mean_part(self.shard, mmmodel.caption_loss(
+            self.llm_cfg, self.llm_params, soft, ids, mask, labels, plain=plain))
 
     def train_step(self, step: int, total_steps: int, prefetched=None):
         """Accumulate micro-step `step`'s gradient; on the accumulation
         boundary, clip, update and zero it.  Returns (loss / accum as a
-        device scalar, whether it updated)."""
+        device scalar, the global loss on a mesh; whether it updated)."""
         loss = self.micro_loss(step, prefetched) / self.train_args.gradient_accumulation_steps
         loss.backward()
         do_update = self.cond.grad_acc(step, total_steps)
         if do_update:
+            tm.reduce_grads(self.shard, self.opt)
             # summary of the full accumulated gradient the optimizer consumes
             self._last_grad_stats = grad_summary(tree_map(lambda t: t.grad, self.params))
             set_lr(self.opt, self.lr_fn(self.sched_step))
             clip_and_step(self.opt, self.train_args.max_grad_norm)
             self.opt.zero_grad(set_to_none=True)
             self.sched_step = step
-        return loss.detach(), do_update
+        return tm.global_value(self.shard, loss.detach()), do_update
 
     @torch.no_grad()
     def eval_loss(self, embs, ids, mask, labels) -> torch.Tensor:
-        """Loss of one eval batch with the eval-mode projector (fused_mlp2)."""
-        soft = self._soft_eval(self.params, embs)
-        return mmmodel.caption_loss(self.llm_cfg, self.llm_params, soft, ids, mask, labels)
+        """Loss of one eval batch with the eval-mode projector (fused_mlp2);
+        embs are the global batch's, ids, mask and labels this data rank's
+        rows (_device_batch).  On a mesh: the global batch's loss."""
+        soft = self._soft_eval(self.params, tm.local_rows(self.shard, embs))
+        return tm.global_value(self.shard, tm.token_mean_part(self.shard, mmmodel.caption_loss(
+            self.llm_cfg, self.llm_params, soft, ids, mask, labels)))
 
     def evaluate(self) -> float:
         """Mean of per-batch losses across all eval loaders
@@ -231,7 +245,9 @@ class ProjectorTrainer:
 
     @torch.no_grad()
     def generate(self, mode: str = "eval"):
-        """Decode + metrics for every loader (dmi/train_projector.py:131-164)."""
+        """Decode + metrics for every loader (dmi/train_projector.py:131-164);
+        on a mesh each data rank decodes its rows on the sharded tree, the
+        rows are gathered, and global rank 0 alone scores the captions."""
         if mode not in ("eval", "test"):
             raise ValueError(f"mode {mode!r}")
         split = "validation" if mode == "eval" else "test"
@@ -247,19 +263,22 @@ class ProjectorTrainer:
                                              skip_special_tokens=True)
                 gts.extend(strip_to_assistant(gt_texts))
                 ids.extend(batch["ids"])
-                embs = self.emb_mgrs[emb_idx].get_embeddings(pad_emb_rows(batch["embs"], bsz))
+                embs = tm.local_rows(self.shard, self.emb_mgrs[emb_idx].get_embeddings(
+                    pad_emb_rows(batch["embs"], bsz)))
                 tokens = mmmodel.caption_generate(
                     self.llm_cfg, self.llm_params, self._soft_eval(self.params, embs),
-                    prefix, loader.max_new_tokens, self.tokenizer.pad_token_id,
+                    tm.local_rows(self.shard, prefix), loader.max_new_tokens,
+                    self.tokenizer.pad_token_id,
                 )
+                if self.shard is not None:
+                    tokens = self.shard.gather_rows(tokens)
                 preds.extend(safe_batch_decode(self.tokenizer, tokens.cpu().numpy()[:real],
                                                skip_special_tokens=True))
             all_gts[mgr_name] = gts
             all_preds[mgr_name] = preds
             all_ids[mgr_name] = ids
-            all_metrics[mgr_name] = metrics_for(
-                loader, preds, ids, gts, self.name, mode, self.data_root
-            )
+            all_metrics[mgr_name] = on_rank0(lambda: metrics_for(
+                loader, preds, ids, gts, self.name, mode, self.data_root))
         return all_metrics, all_gts, all_preds, all_ids
 
     # ------------------------------------------------------------------
@@ -307,7 +326,8 @@ class ProjectorTrainer:
         accum = self.train_args.gradient_accumulation_steps
         accumulated = 0.0
         cur_metric, comp_name = float("-inf"), "coco_cider"
-        mlog = MetricLogger(self.name, f"dmi_{self.TRAINER_TYPE}")
+        mlog = on_rank0(lambda: MetricLogger(self.name, f"dmi_{self.TRAINER_TYPE}"),
+                        share=False)
         prefetcher = Prefetcher(self.fetch_batch, depth=2)
         last_log_t, last_log_step = time.perf_counter(), start_step
         with trace(self.train_args.profile_dir):
@@ -327,36 +347,37 @@ class ProjectorTrainer:
                     rec = {"train_loss": acc, "steps_per_s": sps}
                     if self._last_grad_stats is not None:
                         rec.update(host_grad_summary(self._last_grad_stats))
-                    mlog.log(rec, step)
+                    on_rank0(lambda: mlog.log(rec, step), share=False)
                 if self.cond.evaluate(step, total):
                     ev = self.evaluate()
                     log.info("Step: %d Eval Loss: %.3f", step, ev)
-                    mlog.log({"eval_loss": ev}, step)
+                    on_rank0(lambda: mlog.log({"eval_loss": ev}, step), share=False)
                 if self.cond.generate(step, total):
                     all_metrics, all_gts, all_preds, _ = self.generate("eval")
                     comp_name, cur_metric = self.comp_metric_value(all_metrics)
                     log.info("Step: %d Metrics: %s", step, all_metrics)
                     for mgr, ms in all_metrics.items():
-                        mlog.log({f"{k} - {mgr}": v for k, v in ms.items()}, step)
-                        mlog.log({f"samples - {mgr}": [
+                        on_rank0(lambda: mlog.log({f"{k} - {mgr}": v for k, v in ms.items()},
+                                                  step), share=False)
+                        on_rank0(lambda: mlog.log({f"samples - {mgr}": [
                             {"expected": g, "prediction": p}
                             for g, p in list(zip(all_gts[mgr], all_preds[mgr]))[:10]
-                        ]}, step)
+                        ]}, step), share=False)
                 if self.cond.save(step, total):
                     self.ckpt.save(
                         step, cur_metric, comp_name, self.param_tree(),
                         optimizer_state=self.optimizer_state()
                         if self.train_args.save_state else None,
                     )
-        mlog.finish()
+        on_rank0(lambda: mlog.finish(), share=False)
 
         best = self.ckpt.load_best()
         if best is not None:
             self._set_params(best[f"{self.SAVE_TYPE}_state_dict"])
         test_metrics, test_gts, test_preds, test_ids = self.generate("test")
-        save_run_results(
+        on_rank0(lambda: save_run_results(
             self.train_args.output_root, self.TRAINER_TYPE, self.name,
             test_metrics, test_gts, test_preds, test_ids,
             eval_env=eval_environment(self.loaders[0].dataset_name),
-        )
+        ))
         return test_metrics

@@ -575,6 +575,18 @@ def test_flash_bf16_tensor_core_backward(cuda, hd, T, masked):
                        torch.bfloat16)
 
 
+@pytest.mark.parametrize("heads", [(16, 4), (8, 2)], ids=["m2", "m4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_at_a_model_ranks_heads(cuda, heads, dtype):
+    """Training on a (data, model) mesh: the flash forward and backward at
+    one model rank's heads of Llama-3.2-1B (16/4 at m = 2, 8/2 at m = 4, hd
+    64) at stage 1's B 32, T 65 and stage 2's B 4, T 329 (causal, no mask)
+    and with a key mask, against the twin's autograd."""
+    nh, nkv = heads
+    for B, T, masked in ((32, 65, False), (4, 329, False), (4, 65, True)):
+        _flash_vs_twin(*_flash_args(B, nh, nkv, T, 64, dtype, cuda, masked), dtype)
+
+
 @pytest.mark.parametrize("hd", [36, 64])
 def test_flash_bf16_backward_unaligned_rows(cuda, hd):
     """q, k and v one element off 16 bytes (and at hd 36 no 16-byte vector

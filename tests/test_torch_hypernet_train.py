@@ -269,15 +269,16 @@ def test_stage3_fewshot_matches_dmi_tpu(tok, finetune_generated):
 
 
 def test_trainers_refuse_unported_options():
-    """Multi-card training names its ROADMAP item; the LoRA baseline does not
-    fine-tune from a checkpoint, as dmi_tpu's refuses to."""
+    """Multi-card training (ported: tests/test_torch_parallel_train.py)
+    needs a process group first; the LoRA baseline does not fine-tune from a
+    checkpoint, as dmi_tpu's refuses to."""
     import types
 
     from dmi_tpu_torch.training.lora_trainer import LoraTrainer
 
-    with pytest.raises(NotImplementedError, match="A.10"):
-        HypernetTrainer("x", None, None, None, None, None, None, [], [], [], [], None,
-                        _args(mesh_shape=[1, 1]), None)
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        HypernetTrainer("x", None, {"embed": torch.zeros(2, 2)}, None, None, None, None, [], [],
+                        [], [], None, _args(mesh_shape=[1, 1]), None)
     with pytest.raises(NotImplementedError, match="fine-tune"):
         LoraTrainer(lora_spec=None, lora_params=[], frozen_proj_params={},
                     train_args=types.SimpleNamespace(finetune_from_checkpoint="ck.pt"))

@@ -448,11 +448,12 @@ def test_checkpoints_read_across_packages(fixture_data, tmp_path):
 
 
 def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
-    """Multi-card training names A.10; a hub id the HF cache does not hold is
-    an error that names where it looked.  The MoE and MLA families, once
-    refused here, build (tests/test_torch_families_e2e.py trains them)."""
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ProjectorTrainer("x", None, None, None, None, [], [], None,
+    """Multi-card training (ported: tests/test_torch_parallel_train.py) needs
+    a process group first; a hub id the HF cache does not hold is an error
+    that names where it looked.  The MoE and MLA families, once refused
+    here, build (tests/test_torch_families_e2e.py trains them)."""
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        ProjectorTrainer("x", None, {"embed": torch.zeros(2, 2)}, None, None, [], [], None,
                          _train_args(mesh_shape=[1, 1]))
     from dmi_tpu.config import LMArgs
     from dmi_tpu_torch.training.model_utils import build_lm
