@@ -995,9 +995,12 @@ def spec_kernel_phase(torch, dev):
     bias the row bookkeeping builds (earlier rounds' accepted rows, this
     round's rows up to each position, one finished slot), bf16 and f32,
     against its twin, timed beside its bound and SDPA with the same float
-    mask [B, 1, P, S]; two calls bit-equal; the decode MLP (H 2048, I 8192,
-    silu) and the bf16 head + argmax (V 128256) at 640 columns against
-    their twins, timed."""
+    mask [B, 1, P, S]; two calls bit-equal; the same at P 2 and 4 (the
+    round's first P rows), at OLMoE's heads (group 1: 16/16, hd 128) and at
+    Gemma-2-2B's (8/4 heads, hd 256 on the CUDA cores, scale 256^-0.5,
+    softcap 50; SDPA without it); the decode MLP (H 2048, I 8192, silu) and
+    the bf16 head + argmax (V 128256) at 640 columns against their twins,
+    timed."""
     import torch.nn.functional as F
 
     from dmi_tpu_torch.ops.cuda import decode_attn as da
@@ -1022,31 +1025,49 @@ def spec_kernel_phase(torch, dev):
     sees = torch.arange(S)[None, :] <= (rt + torch.arange(P))[:, None]  # [P, S]
     bias = torch.where(valid[:, None, :] & sees[None], 0.0,
                        torch.finfo(torch.float32).min).to(dev)
-    print(f"kernel fused_decode_attention with P = {P} query positions per cache row (K3) vs "
-          f"_decode_attn_plain (B {B}, 32/8 heads, hd 64, S {S}, round {rnd}'s rows):")
+    print(f"kernel fused_decode_attention with P query positions per cache row (K3) vs "
+          f"_decode_attn_plain (B {B}, S {S}, round {rnd}'s rows; position p sees the rows "
+          f"up to rt + p):")
     errs = []
-    for dtype in (torch.bfloat16, torch.float32):
-        q = torch.randn(B, 32, P, 64, generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn(B, 8, S, 64, generator=gen, device=dev).to(dtype) for _ in range(2))
-        args = (q, k, v, bias)
-        label = f"B={B} P={P} S={S} {str(dtype)[6:]}"
-        out = da.fused_decode_attention(*args)
-        errs.append(compare(torch, label, out, da._decode_attn_plain(*args), TOL[str(dtype)[6:]]))
-        if not torch.equal(out, da.fused_decode_attention(*args)):
-            raise AssertionError(f"K3 {label}: two calls on the same inputs differ")
-        if dtype != torch.bfloat16:
-            continue
-        mask = bias.view(B, 1, P, S).to(dtype)
-        t = {**device_times(
-            torch, lambda: da.fused_decode_attention(*args), lambda: da._decode_attn_plain(*args),
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)),
-             **least_time(nbytes(q, k, v, bias, q), 4 * B * 32 * P * S * 64, dtype)}
-        us = host_us(torch, lambda: da.fused_decode_attention(*args))
-        print(f"    {label}: {report_times(t)}; library: scaled_dot_product_attention, GQA, "
-              f"float mask [B, 1, P, S]; K and V alone {nbytes(k, v) / 1e6!r} MB; plan "
-              f"{da.plan(B * P, 8, 4, S, 64, 2)}; host time per call {us!r} us; two calls "
-              f"bit-equal")
-        results["decode_attention_spec"] = t
+    # (query heads, kv heads, hd, P, dtypes, scale, softcap): the verify's
+    # shape first (the kernels line's entry), then P 2 and 4, OLMoE's heads
+    # and Gemma-2-2B's
+    cases = ((32, 8, 64, P, (torch.bfloat16, torch.float32), None, None),
+             (32, 8, 64, 2, (torch.bfloat16, torch.float32), None, None),
+             (32, 8, 64, 4, (torch.bfloat16, torch.float32), None, None),
+             (16, 16, 128, P, (torch.bfloat16,), None, None),
+             (8, 4, 256, P, (torch.bfloat16,), 256 ** -0.5, 50.0))
+    for nh, nkv, hd, npos, dtypes, scale, cap in cases:
+        pb = bias[:, :npos].contiguous()
+        for dtype in dtypes:
+            q = torch.randn(B, nh, npos, hd, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(B, nkv, S, hd, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            args = (q, k, v, pb, scale, cap)
+            label = f"B={B} {nh}/{nkv} heads hd={hd} P={npos} S={S} {str(dtype)[6:]}"
+            out = da.fused_decode_attention(*args)
+            err = compare(torch, label, out, da._decode_attn_plain(*args), TOL[str(dtype)[6:]])
+            if (nh, npos) == (32, P):  # the kernels line's entry: the verify's shape
+                errs.append(err)
+            if not torch.equal(out, da.fused_decode_attention(*args)):
+                raise AssertionError(f"K3 {label}: two calls on the same inputs differ")
+            if dtype != torch.bfloat16:
+                continue
+            mask = pb.view(B, 1, npos, S).to(dtype)
+            t = {**device_times(
+                torch, lambda: da.fused_decode_attention(*args),
+                lambda: da._decode_attn_plain(*args),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale,
+                                                       enable_gqa=True)),
+                 **least_time(nbytes(q, k, v, pb, q), 4 * B * nh * npos * S * hd, dtype)}
+            us = host_us(torch, lambda: da.fused_decode_attention(*args))
+            print(f"    {label}: {report_times(t)}; library: scaled_dot_product_attention, "
+                  f"GQA, float mask [B, 1, P, S]{', no softcap' if cap else ''}; K and V alone "
+                  f"{nbytes(k, v) / 1e6!r} MB; plan "
+                  f"{da.plan(B, nkv, nh // nkv, S, hd, 2, npos)}; host time per call {us!r} "
+                  f"us; two calls bit-equal")
+            if (nh, npos) == (32, P):
+                results["decode_attention_spec"] = t
     results["decode_attention_spec"]["max_abs_err"] = max(errs)
 
     N = P * B

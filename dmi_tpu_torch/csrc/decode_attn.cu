@@ -1,20 +1,21 @@
-// Single-token grouped-query decode attention for Hopper.
+// Grouped-query decode attention for Hopper: one query position per cache
+// row (a decode step) or P of them (K3: a speculative verify forward).
 //
 // Replaces the TPU kernel dmi_tpu/ops/pallas/decode_attn.py:_decode_attn_pallas
 // (body _kernel), behind fused_decode_attention, and adds the score scale and
 // the attention softcap that its oracle llama._decode_attention takes.
 //
-//   q [B, P, nh, hd], k/v [B, nkv, S, hd] (rows contiguous, batch and head
+//   q [B, nh, P, hd], k/v [B, nkv, S, hd] (rows contiguous, batch and head
 //   strides free, so a view of the first S positions of a longer cache is
-//   read in place), bias [S] f32 shared by the batch or [B * P, S] f32 (a
-//   row per query row: the slots of a continuous-batching engine decode at
-//   different ages; row stride 0 reads the one shared row)  ->  out
-//   [B, P, nh, hd] in v's dtype.  P query positions per cache row (K3: a
-//   speculative verify forward attends from the k + 1 positions of a round
-//   at once, dmi_tpu/models/speculative.py:142-145): the kernel's query
-//   rows are the B * P (row, position) pairs, and query row n reads cache
-//   row n / P.  P = 1 is the single-token step.
-//
+//   read in place), bias [S] f32 shared by the batch, [B, S] f32 (a row per
+//   cache row: the slots of a continuous-batching engine decode at
+//   different ages; row stride 0 reads the one shared row) or, with P > 1,
+//   [B, P, S] f32 (a row per position)  ->  out [B, nh, P, hd] in v's dtype,
+//   q and out in q's own layout.  P query positions per cache row (K3: the
+//   verify attends from the k + 1 positions of a round at once,
+//   dmi_tpu/models/speculative.py:142-145) are more query rows over the same
+//   K and V: the g x P (head, position) pairs of a (cache row, kv head),
+//   row i * P + p for head i and position p, one contiguous run of q.
 // Math, as the Pallas body (decode_attn.py:55-64): s = (q . k) * scale with
 // exact products and f32 sums, s = cap * tanh(s / cap) when a softcap is
 // set, then s += bias (the softcap before the bias, as in the twin), p =
@@ -71,13 +72,28 @@
 // and S 16384 36.98-37.35 against 30.43-30.77 (32 splits). A [B, S] bias
 // (the slot engine's ring masks) at B 128, S 38: 9.60-9.62 us against
 // 15.66-15.67 us for SDPA with the same float mask (two runs).
-// K3 (P > 1) reads each cache row's K and V once per query position, the
-// later reads mostly from L2: the simplest design that is right.  Folding
-// the P positions into the tensor-core tile's rows (g * P <= 16) would read
-// them once; PERF.md row 3s has its time.  Both kernels are templated on
-// kPos (P > 1): with the query row's cache row computed at run time in every
-// instance, the P = 1 tensor-core instances took 2-3 more registers and rows
-// 3 and 3r 3% longer, so the P = 1 instances keep the code they had.
+// K3 (P > 1) folds the positions into the block's query rows: a block owns
+// one (cache row, kv head, position chunk, split) and stages each chunk of
+// its K and V once, with the bias rows of its positions, for all g x P rows
+// (the first K3 gave each (row, position) pair a block of its own and
+// staged the same K and V P times: 92.4-95.2 us at the verify's shape, B
+// 128, 32/8 heads, hd 64, P 5, S 121, against an 11.13 us bound).  Position
+// chunks only where g x P rows pass a block's cap (four row tiles on the
+// tensor cores, kMaxGroup on the CUDA cores): then each chunk's block
+// stages the K and V again.  On the tensor cores each row tile has a warp
+// of its own (one warp over all of a block's tiles was slower).  At the
+// verify's shape the plan's 1024 blocks run in one wave, and their stamps
+// (scripts/torch_decode_attn_timestamps.py) show the card receiving every
+// block's K and V at 2.6-3.0 TB/s inside the key loop: what remains is the
+// first chunk's arrival (about 3 us, every block asking at once) and the
+// output at the end (2-2.5 us), hence K3's 16-byte row stores through
+// shared memory (with 2-byte stores from the fragments the same plan took
+// 24.6 us). Measured by scripts/torch_decode_attn_compare.py (NVIDIA H100
+// 80GB HBM3, 700.00 W): 21.0-21.2 us at the verify's shape against 218 us
+// for SDPA with the float mask.  Each query row's sums run in the order of
+// the P = 1 call with its q and bias row under the same plan, and the P = 1
+// instances compile from the same code with one row tile and one position
+// (kPos false): the same registers, outputs bit-equal to before.
 #include <cuda_pipeline.h>
 #include <math.h>
 #include <stdint.h>
@@ -141,8 +157,10 @@ struct Params {
   // call at B 128, S 23 took 7.87-8.06 us against 7.22-7.51 us.
   int bias_sb;
   bool vec;  // hd a multiple of the 16-byte vector, every q, K and V row 16-byte aligned
-  // query positions per cache row (K3), in the padding after vec so that
-  // Params keeps its 128 bytes and every other member its offset
+  // query positions per cache row (K3) and per block (a position chunk), in
+  // the padding after vec so that Params keeps its 128 bytes and every other
+  // member its offset
+  unsigned char pos_chunk;
   unsigned short pos;
   long long k_sb, k_sh, v_sb, v_sh;
   float scale, softcap;
@@ -150,32 +168,47 @@ struct Params {
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Layout of the dynamic shared memory, in bytes from its start: the K and V
-// stages ([stages][2][chunk][width] of T, width = hd rounded up to the
-// 16-byte vector, zeros past hd), the bias stages ([stages][chunk] f32), q
-// ([group][width] f32), the scores ([group][chunk] f32) and m, l, alpha
-// ([group] f32 each).  Mirrored by ops/cuda/decode_attn.py:smem_bytes.
+// Layout of the CUDA-core kernel's dynamic shared memory, in bytes from its
+// start: the K and V stages ([stages][2][chunk][width] of T, width = hd
+// rounded up to the 16-byte vector, zeros past hd), the bias stages
+// ([stages][pos][chunk] f32: a row per position of the block), q
+// ([rows][width] f32), the scores ([rows][chunk] f32) and m, l, alpha
+// ([rows] f32 each), rows = group x pos.  Mirrored by
+// ops/cuda/decode_attn.py:smem_bytes.
 struct Layout {
   int width, bias, q, sc, stats, total;
-  __host__ __device__ Layout(int itemsize, int group, int hd, int chunk, int stages) {
+  __host__ __device__ Layout(int itemsize, int group, int pos, int hd, int chunk, int stages) {
+    const int rows = group * pos;
     width = round_up(hd, 16 / itemsize);
     bias = stages * 2 * chunk * width * itemsize;
-    q = bias + round_up(stages * chunk, 4) * 4;
-    sc = q + group * width * 4;
-    stats = sc + group * chunk * 4;
-    total = stats + 3 * group * 4;
+    q = bias + round_up(stages * pos * chunk, 4) * 4;
+    sc = q + rows * width * 4;
+    stats = sc + rows * chunk * 4;
+    total = stats + 3 * rows * 4;
   }
 };
 
-// Keys [c0, c0 + n) of this block's kv head into a stage of K and V, and
-// their bias values into bs.
+// The bias values of keys [c0, c0 + n) into bs: one row, or (kPos) the rows
+// of the block's pn positions, row stride sb in device memory and pitch in
+// bs.
+template <bool kPos>
+__device__ __forceinline__ void stage_bias(float* bs, const float* brow, int c0, int n, int pn,
+                                           int sb, int pitch, int tid, int n_threads) {
+  if constexpr (!kPos) {
+    for (int j = tid; j < n; j += n_threads) __pipeline_memcpy_async(bs + j, brow + c0 + j, 4);
+  } else {
+    for (int i = tid; i < pn * n; i += n_threads) {
+      const int r = i / n, j = i - r * n;
+      __pipeline_memcpy_async(bs + r * pitch + j, brow + (size_t)r * sb + c0 + j, 4);
+    }
+  }
+}
+
+// Keys [c0, c0 + n) of this block's kv head into a stage of K and V.
 template <typename T>
-__device__ __forceinline__ void stage_chunk(T* ks, T* vs, float* bs, const T* kh, const T* vh,
-                                            const float* bias, int c0, int n, int hd, int width,
-                                            bool vec) {
+__device__ __forceinline__ void stage_chunk(T* ks, T* vs, const T* kh, const T* vh, int c0,
+                                            int n, int hd, int width, bool vec) {
   constexpr int kV = Vec<T>::kN;
-  for (int j = threadIdx.x; j < n; j += kThreads)
-    __pipeline_memcpy_async(bs + j, bias + c0 + j, 4);
   if (vec) {  // width == hd: a K and a V copy of 16 bytes per step
     const int per_row = hd / kV, shift = 31 - __clz(per_row);
     const bool pow2 = per_row == 1 << shift;  // hd 8, 16, .. 256 in bf16: no division
@@ -196,17 +229,22 @@ __device__ __forceinline__ void stage_chunk(T* ks, T* vs, float* bs, const T* kh
   }
 }
 
-// One block per (batch row x kv head, split); kPP (query head, hd pair)
-// accumulators per thread, kPP * kThreads >= group * ceil(hd / 2).  At most
-// 64 registers a thread for kPP <= 4, so that 8 blocks fit an SM: the
-// serving shape's 1024 blocks then run in one wave.
+// One block per (cache row x kv head, split, position chunk); kPP (query
+// row, hd pair) accumulators per thread, kPP * kThreads >= rows * ceil(hd /
+// 2).  At most 64 registers a thread for kPP <= 4, so that 8 blocks fit an
+// SM: the serving shape's 1024 blocks then run in one wave.  kPos: the
+// block's rows are the group's heads at each of its pn positions (row i *
+// pn + j: head i, position p0 + j), at most kMaxGroup of them.
 template <typename T, int kPP, bool kPos>
 __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel(const Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kV = Vec<T>::kN;
   const int b = blockIdx.x / a.nkv, kvh = blockIdx.x % a.nkv, split = blockIdx.y;
-  const int g = a.group, hd = a.hd, chunk = a.chunk;
-  const Layout lay(sizeof(T), g, hd, chunk, a.stages);
+  const int pc = kPos ? a.pos_chunk : 1;             // positions a block (the layout's)
+  const int p0 = kPos ? blockIdx.z * pc : 0;         // the block's first position
+  const int pn = kPos ? min(pc, a.pos - p0) : 1;     // and its count
+  const int g = a.group * pn, hd = a.hd, chunk = a.chunk;  // g: the block's query rows
+  const Layout lay(sizeof(T), a.group, pc, hd, chunk, a.stages);
   const int width = lay.width;
   T* kv_s = reinterpret_cast<T*>(smem);
   float* bias_s = reinterpret_cast<float*>(smem + lay.bias);
@@ -215,35 +253,41 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
   float* m_s = reinterpret_cast<float*>(smem + lay.stats);
   float* l_s = m_s + g;
   float* alpha_s = l_s + g;
-  const int nh = a.nkv * g;
-  const int bc = kPos ? b / a.pos : b;  // the query row's cache row
-  const T* kh = static_cast<const T*>(a.k) + bc * a.k_sb + kvh * a.k_sh;
-  const T* vh = static_cast<const T*>(a.v) + bc * a.v_sb + kvh * a.v_sh;
-  const float* brow = a.bias + (size_t)b * a.bias_sb;  // this query row's bias
+  const int nh = a.nkv * a.group;
+  const T* kh = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* vh = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  // the first bias row: the cache row's, or that of its position p0
+  const float* brow = a.bias + (size_t)(kPos ? b * a.pos + p0 : b) * a.bias_sb;
+  // row r's q and out row: head kvh * group + r / pn of cache row b, position p0 + r % pn
+  const size_t row0 = (size_t)b * nh + kvh * a.group;
+  auto qrow = [&](int r) -> size_t {
+    return kPos ? (row0 + r / pn) * a.pos + p0 + r % pn : row0 + r;
+  };
   const int s0 = split * a.keys_per_split;
   const int s1 = min(a.S, s0 + a.keys_per_split);
   const int n_chunks = (s1 - s0 + chunk - 1) / chunk;  // >= 1: no split is empty
   auto k_buf = [&](int st) { return kv_s + (size_t)(2 * st) * chunk * width; };
   auto v_buf = [&](int st) { return kv_s + (size_t)(2 * st + 1) * chunk * width; };
 
-  stage_chunk<T>(k_buf(0), v_buf(0), bias_s, kh, vh, brow, s0, min(chunk, s1 - s0), hd, width,
-                 a.vec);
+  stage_bias<kPos>(bias_s, brow, s0, min(chunk, s1 - s0), pn, a.bias_sb, chunk, threadIdx.x,
+                   kThreads);
+  stage_chunk<T>(k_buf(0), v_buf(0), kh, vh, s0, min(chunk, s1 - s0), hd, width, a.vec);
   __pipeline_commit();
   // q while the first chunk is in flight
-  const T* qb = static_cast<const T*>(a.q) + ((size_t)b * nh + kvh * g) * hd;
+  const T* qb = static_cast<const T*>(a.q);
   if (a.vec) {
     const int per_row = hd / kV;
     for (int i = threadIdx.x; i < g * per_row; i += kThreads) {
       const int h = i / per_row, d = (i % per_row) * kV;
       float f[kV];
-      Vec<T>::load(f, qb + h * hd + d);
+      Vec<T>::load(f, qb + qrow(h) * hd + d);
 #pragma unroll
       for (int e = 0; e < kV; ++e) q_s[h * width + d + e] = f[e];
     }
   } else {
     for (int i = threadIdx.x; i < g * width; i += kThreads) {
       const int h = i / width, d = i % width;
-      q_s[i] = d < hd ? Num<T>::load(qb[h * hd + d]) : 0.f;
+      q_s[i] = d < hd ? Num<T>::load(qb[qrow(h) * hd + d]) : 0.f;
     }
   }
   for (int h = threadIdx.x; h < g; h += kThreads) m_s[h] = -INFINITY, l_s[h] = 0.f;
@@ -264,14 +308,16 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
     __syncthreads();  // chunk c has landed; every thread is done with chunk c - 1
     if (c + 1 < n_chunks) {
       const int st = (c + 1) & 1;
-      stage_chunk<T>(k_buf(st), v_buf(st), bias_s + st * chunk, kh, vh, brow, c0 + chunk,
-                     min(chunk, s1 - c0 - chunk), hd, width, a.vec);
+      stage_bias<kPos>(bias_s + st * pc * chunk, brow, c0 + chunk, min(chunk, s1 - c0 - chunk),
+                       pn, a.bias_sb, chunk, threadIdx.x, kThreads);
+      stage_chunk<T>(k_buf(st), v_buf(st), kh, vh, c0 + chunk, min(chunk, s1 - c0 - chunk), hd,
+                     width, a.vec);
     }
     __pipeline_commit();
     const int cur = a.stages == 2 ? c & 1 : 0;
     const T* ks = k_buf(cur);
     const T* vs = v_buf(cur);
-    const float* bc = bias_s + cur * chunk;
+    const float* bc = bias_s + cur * pc * chunk;  // row r's: bc + (r % pn) * chunk
 
     // scores: lpk lanes a key, kThreads / lpk keys a pass, kHeads heads at once
     for (int j0 = 0; j0 < n; j0 += kThreads >> lpk_log) {
@@ -308,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
             if (h0 + i < g) {
               float sv = part[i] * a.scale;
               if (a.softcap > 0.f) sv = a.softcap * tanhf(sv / a.softcap);
-              sc[(h0 + i) * chunk + j] = sv + bc[j];
+              sc[(h0 + i) * chunk + j] = sv + bc[(kPos ? (h0 + i) % pn * chunk : 0) + j];
             }
           }
         }
@@ -371,8 +417,7 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
   }
   // no barrier: m_s and l_s were last written before the last chunk's p . v
 
-  const size_t row0 = (size_t)b * nh + kvh * g;  // this block's first query head
-  const size_t rows = (size_t)gridDim.x / a.nkv * nh;
+  const size_t rows = (size_t)gridDim.x / a.nkv * nh * (kPos ? a.pos : 1);  // of out
   float* part_m = a.part;
   float* part_l = part_m + rows * a.splits;
   float* part_acc = part_l + rows * a.splits;
@@ -382,44 +427,49 @@ __global__ void __launch_bounds__(kThreads, kPP <= 4 ? 8 : 1) decode_attn_kernel
     const int h = p / hp, d = 2 * (p % hp);
     if (h >= g) continue;
     if (a.splits == 1) {
-      T* o = static_cast<T*>(a.out) + (row0 + h) * hd + d;
+      T* o = static_cast<T*>(a.out) + qrow(h) * hd + d;
       const float l = l_s[h];
       o[0] = Num<T>::store(acc[i][0] / l);
       if (d + 1 < hd) o[1] = Num<T>::store(acc[i][1] / l);
     } else {
-      float* o = part_acc + ((row0 + h) * a.splits + split) * hd + d;
+      float* o = part_acc + (qrow(h) * a.splits + split) * hd + d;
       o[0] = acc[i][0];
       if (d + 1 < hd) o[1] = acc[i][1];
     }
   }
   if (a.splits > 1)
     for (int h = threadIdx.x; h < g; h += kThreads) {
-      part_m[(row0 + h) * a.splits + split] = m_s[h];
-      part_l[(row0 + h) * a.splits + split] = l_s[h];
+      part_m[qrow(h) * a.splits + split] = m_s[h];
+      part_l[qrow(h) * a.splits + split] = l_s[h];
     }
 }
 
 // ---- bf16 at hd <= 128 and group <= 16: the products on the tensor cores ----
 //
-// The group's query heads are the 16 rows of an mma.sync m16n8k16 tile
-// (rows past the group are zeros, never written), so one warp's product
-// with 16 staged keys is kD x 2 mmas for the scores and kD x 4 for p . v,
-// with the fragment routines of the flash kernels (csrc/flash_mma.cuh): Q
-// fragments in registers, K rows by ldmatrix, V rows by ldmatrix.trans, K
-// and V tiles at a pitch of 16 kD + 8 elements. The 16-key tiles of a
-// chunk are dealt to the block's warps (one warp when the split is one
-// chunk, four over 64-key chunks); each warp keeps its own online softmax
-// (m, l and the 16 x hd accumulators, as the C fragments) over its tiles,
-// and at the end four warps' states are combined in warp order through
-// shared memory, one warp's written from its registers: no barrier per
-// chunk beyond the ring's. Scores and p stay f32 (exp2 on the SFU, 2^-22
-// relative); p enters p . v as two bf16 terms, hi = bf16(p) and lo =
-// bf16(p - hi), so that the product sees 16 significant bits of each
-// weight (error below 2^-16 of it, far inside the output's bf16 rounding)
-// where one bf16 rounding would keep 8: the TPU kernel multiplies V by f32
-// p. kRows: a bias row per query row (row stride bias_sb); the instances of
-// the one shared row keep the code they had before the per-row bias.  kPos:
-// P > 1 query positions per cache row (K3, always with kRows).
+// The block's query rows are the rows of mma.sync m16n8k16 tiles: the
+// group's heads (P = 1: one tile), or (kPos) its g x pn (head, position)
+// pairs, ceil(g pn / 16) tiles (rows past them are zeros, never written).
+// Each warp holds one row tile: one warp's product with 16 staged keys is
+// kD x 2 mmas for the scores and kD x 4 for p . v, with the fragment
+// routines of the flash kernels (csrc/flash_mma.cuh): Q fragments in
+// registers, K rows by ldmatrix, V rows by ldmatrix.trans, K and V tiles at
+// a pitch of 16 kD + 8 elements. The warps of a row tile deal the 16-key
+// tiles of a chunk among them (P = 1: one warp when the split is one chunk,
+// four over 64-key chunks; K3: one warp a row tile over every key); each
+// warp keeps its own online softmax (m, l and the 16 x hd accumulators, as
+// the C fragments) over its key tiles, and at the end the states of a row
+// tile's warps are combined in warp order through shared memory, one
+// warp's written from its registers: no barrier per chunk beyond the
+// ring's. Scores and p stay f32 (exp2 on the SFU, 2^-22 relative); p enters
+// p . v as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), so that the
+// product sees 16 significant bits of each weight (error below 2^-16 of
+// it, far inside the output's bf16 rounding) where one bf16 rounding would
+// keep 8: the TPU kernel multiplies V by f32 p. kRows: a bias row per cache
+// row (row stride bias_sb); the instances of the one shared row keep the
+// code they had before the per-row bias. kPos: P > 1 positions (always with
+// kRows); a warp that alone holds its row tile writes it through its rows of
+// Q's shared memory, a 16-byte vector a lane (every block of a wave ends at
+// once, so its stores are on the call's critical path).
 template <int kD, bool kRows, bool kPos>
 __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params a) {
   using dmi::flash::bf16;
@@ -428,14 +478,26 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
   extern __shared__ __align__(16) unsigned char smem[];
   const int nw = blockDim.x >> 5, chunk = a.chunk;  // chunk: 16-key tiles, dealt to the warps
   const int b = blockIdx.x / a.nkv, kvh = blockIdx.x % a.nkv, split = blockIdx.y;
+  const int pc = kPos ? a.pos_chunk : 1;          // positions a block (the layout's)
+  const int p0 = kPos ? blockIdx.z * pc : 0;      // the block's first position
+  const int pn = kPos ? min(pc, a.pos - p0) : 1;  // and its count
   const int g = a.group, hd = a.hd, nh = a.nkv * g;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [16][kLd]
-  bf16* sKV = sQ + 16 * kLd;                 // [stages][K, V][chunk][kLd]
-  float* sB = reinterpret_cast<float*>(sKV + a.stages * 2 * chunk * kLd);  // [stages][chunk]
-  const int bc = kPos ? b / a.pos : b;  // the query row's cache row
-  const bf16* kh = static_cast<const bf16*>(a.k) + bc * a.k_sb + kvh * a.k_sh;
-  const bf16* vh = static_cast<const bf16*>(a.v) + bc * a.v_sb + kvh * a.v_sh;
-  const float* brow = kRows ? a.bias + (size_t)b * a.bias_sb : a.bias;  // this query row's bias
+  const int rows = g * pn;  // row i * pn + j: head i, position p0 + j
+  // the row tiles (kPos: the layout's), a warp each; the nkw warps of a
+  // tile deal its key tiles
+  const int tiles = kPos ? (g * pc + 15) / 16 : 1, nkw = nw / tiles, qrows = 16 * tiles;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [qrows][kLd]
+  bf16* sKV = sQ + qrows * kLd;              // [stages][K, V][chunk][kLd]
+  float* sB = reinterpret_cast<float*>(sKV + a.stages * 2 * chunk * kLd);  // [stages][pc][chunk]
+  const bf16* kh = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* vh = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  // the block's first bias row: the shared one, the cache row's, or that of position p0
+  const float* brow =
+      kRows ? a.bias + (size_t)(kPos ? b * a.pos + p0 : b) * a.bias_sb : a.bias;
+  const size_t row0 = (size_t)b * nh + kvh * g;
+  auto qrow = [&](int r) -> size_t {  // row r's q and out row
+    return kPos ? (row0 + r / pn) * a.pos + p0 + r % pn : row0 + r;
+  };
   const int s0 = split * a.keys_per_split;
   const int s1 = min(a.S, s0 + a.keys_per_split);
   const int n_chunks = (s1 - s0 + chunk - 1) / chunk;  // >= 1: no split is empty
@@ -450,15 +512,36 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
       dmi::flash::stage_rows<kD, 16>(v_buf(st) + t * 16 * kLd, vh, hd, c0 + 16 * t, s1, hd,
                                      a.vec, threadIdx.x, blockDim.x);
     }
-    for (int j = threadIdx.x; j < min(chunk, s1 - c0); j += blockDim.x)
-      __pipeline_memcpy_async(sB + st * chunk + j, brow + c0 + j, 4);
+    stage_bias<kPos>(sB + st * pc * chunk, brow, c0, min(chunk, s1 - c0), pn, a.bias_sb, chunk,
+                     threadIdx.x, blockDim.x);
   };
-  const bf16* qb = static_cast<const bf16*>(a.q) + ((size_t)b * nh + kvh * g) * hd;
-  dmi::flash::stage_rows<kD, 16>(sQ, qb, hd, 0, g, hd, a.vec, threadIdx.x, blockDim.x);
+  constexpr int kVPR = kD * 2;  // 16-byte vectors a row of Q
+  const bf16* q = static_cast<const bf16*>(a.q);
+  if constexpr (kPos) {  // the block's rows of q, zeros past them
+    for (int v = threadIdx.x; v < qrows * kVPR; v += blockDim.x) {
+      const int r = v / kVPR, c = (v % kVPR) * 8;
+      bf16* d = sQ + r * kLd + c;
+      const bf16* src = q + (r < rows ? qrow(r) : 0) * hd + c;
+      if (a.vec) {
+        const bool ok = r < rows && c < hd;
+        __pipeline_memcpy_async(d, ok ? src : q, 16, ok ? 0 : 16);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          d[i] = (r < rows && c + i < hd) ? src[i] : __float2bfloat16(0.f);
+      }
+    }
+  } else {
+    dmi::flash::stage_rows<kD, 16>(sQ, q + row0 * hd, hd, 0, g, hd, a.vec, threadIdx.x,
+                                   blockDim.x);
+  }
   stage(0, s0);
   __pipeline_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tig = lane & 3;
+  const int kw = warp / tiles, rt = 16 * (warp % tiles);  // key group, first row of the tile
+  // kPos: the bias row (in a stage) of each of the thread's two fragment rows
+  const int brw[2] = {kPos ? (rt + gq) % pn * chunk : 0, kPos ? (rt + gq + 8) % pn * chunk : 0};
   uint32_t qf[kD][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[2 * kD][4];
 #pragma unroll
@@ -475,16 +558,16 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
     if (c == 0) {
 #pragma unroll
       for (int kd = 0; kd < kD; ++kd)
-        dmi::flash::ldsm_x4(qf[kd], sQ + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + kd * 16 +
-                                        (lane >> 4) * 8);
+        dmi::flash::ldsm_x4(qf[kd], sQ + (rt + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                                        kd * 16 + (lane >> 4) * 8);
     }
     const int cur = a.stages == 2 ? c & 1 : 0;
-    for (int t = warp; t < chunk / 16; t += nw) {  // the warp's 16-key tiles of the chunk
-    const int nk = min(16, s1 - (c0 + 16 * t));    // keys of the tile
+    for (int t = kw; t < chunk / 16; t += nkw) {  // the warp's 16-key tiles of the chunk
+    const int nk = min(16, s1 - (c0 + 16 * t));   // keys of the tile
     if (nk <= 0) break;
     const bf16* ks = k_buf(cur) + 16 * t * kLd;
     const bf16* vs = v_buf(cur) + 16 * t * kLd;
-    const float* bs = sB + cur * chunk + 16 * t;
+    const float* bs = sB + cur * pc * chunk + 16 * t;
     float s[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -498,7 +581,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
       dmi::flash::mma_bf16(s[0], qf[kd], kb[0], kb[1]);
       dmi::flash::mma_bf16(s[1], qf[kd], kb[2], kb[3]);
     }
-    // element e of tile j: head row gq + 8 (e / 2), key j * 8 + 2 tig + e % 2;
+    // element e of tile j: row gq + 8 (e / 2), key j * 8 + 2 tig + e % 2;
     // keys past the split are -inf (p = 0 even where every key carries finfo.min)
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -508,7 +591,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
         const int key = j * 8 + tig * 2 + (e & 1);
         float x = s[j][e] * a.scale;
         if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-        x = key < nk ? x + bs[key] : -INFINITY;
+        x = key < nk ? x + bs[brw[e >> 1] + key] : -INFINITY;
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -559,17 +642,35 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const size_t row0 = (size_t)b * nh + kvh * g;
-  const size_t rows = (size_t)gridDim.x / a.nkv * nh;
+  const size_t out_rows = (size_t)gridDim.x / a.nkv * nh * (kPos ? a.pos : 1);
   float* part_m = a.part;
-  float* part_l = part_m + rows * a.splits;
-  float* part_acc = part_l + rows * a.splits;
-  if (nw == 1) {  // one warp: its fragments are the block's state
+  float* part_l = part_m + out_rows * a.splits;
+  float* part_acc = part_l + out_rows * a.splits;
+  if (nkw == 1) {  // one warp a row tile: its fragments are the tile's state
+    if (kPos && a.splits == 1 && a.vec) {  // through the warp's own rows of sQ
+      bf16* so = sQ + rt * kLd;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int n = 0; n < 2 * kD; ++n)
+          *reinterpret_cast<uint32_t*>(so + (gq + 8 * r) * kLd + n * 8 + tig * 2) =
+              dmi::flash::pack_bf16(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+      __syncwarp();
+      const int vpr = hd / 8;  // 16-byte vectors a row of out
+      for (int v = lane; v < 16 * vpr; v += 32) {
+        const int r = v / vpr, c = (v - r * vpr) * 8;
+        if (rt + r < rows)
+          *reinterpret_cast<uint4*>(static_cast<bf16*>(a.out) + qrow(rt + r) * hd + c) =
+              *reinterpret_cast<const uint4*>(so + r * kLd + c);
+      }
+      return;
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = gq + 8 * r;
-      if (row >= g) continue;
-      const size_t at = (row0 + row) * a.splits + split;
+      const int row = rt + gq + 8 * r;
+      if (row >= rows) continue;
+      const size_t qo = qrow(row);
+      const size_t at = qo * a.splits + split;
 #pragma unroll
       for (int n = 0; n < 2 * kD; ++n)
 #pragma unroll
@@ -577,8 +678,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
           const int col = n * 8 + tig * 2 + e;
           if (col >= hd) continue;
           if (a.splits == 1)
-            static_cast<bf16*>(a.out)[(row0 + row) * hd + col] =
-                __float2bfloat16(o[n][2 * r + e] / l[r]);
+            static_cast<bf16*>(a.out)[qo * hd + col] = __float2bfloat16(o[n][2 * r + e] / l[r]);
           else
             part_acc[at * hd + col] = o[n][2 * r + e];
         }
@@ -586,50 +686,51 @@ __global__ void __launch_bounds__(kThreads) decode_attn_mma_kernel(const Params 
     }
     return;
   }
-  // Several warps: their states through shared memory (over the K/V
-  // stages), weighted by w = exp(m_warp - max m) and added in warp order
+  // Several warps a row tile: their states through shared memory (over the
+  // K/V stages), weighted by w = exp(m_warp - max m) and added in the order
+  // of their key tiles
   __syncthreads();  // every warp is done with the K/V stages
-  float* sml = reinterpret_cast<float*>(sKV);  // [nw][m, l][16], then [nw][16] weights, [16] den
-  float* so = sml + nw * 48 + 16;              // [nw][16][hd] o
+  float* sml = reinterpret_cast<float*>(sKV);  // [nkw][m, l][qrows], [nkw][qrows] weights, [qrows] den
+  float* so = sml + nkw * 3 * qrows + qrows;   // [nkw][qrows][hd] o
   if (tig == 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      sml[warp * 32 + gq + 8 * r] = m[r];
-      sml[warp * 32 + 16 + gq + 8 * r] = l[r];
+      sml[kw * 2 * qrows + rt + gq + 8 * r] = m[r];
+      sml[kw * 2 * qrows + qrows + rt + gq + 8 * r] = l[r];
     }
 #pragma unroll
   for (int n = 0; n < 2 * kD; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = n * 8 + tig * 2 + (e & 1);
-      if (col < hd) so[(warp * 16 + gq + 8 * (e >> 1)) * hd + col] = o[n][e];
+      if (col < hd) so[(kw * qrows + rt + gq + 8 * (e >> 1)) * hd + col] = o[n][e];
     }
   __syncthreads();
-  float* wts = sml + nw * 32;
-  for (int h = threadIdx.x; h < g; h += blockDim.x) {
+  float* wts = sml + nkw * 2 * qrows;
+  for (int h = threadIdx.x; h < rows; h += blockDim.x) {
     float mx = -INFINITY, den = 0.f;
-    for (int w = 0; w < nw; ++w) mx = fmaxf(mx, sml[w * 32 + h]);
-    for (int w = 0; w < nw; ++w) {
-      const float mw = sml[w * 32 + h];
+    for (int w = 0; w < nkw; ++w) mx = fmaxf(mx, sml[w * 2 * qrows + h]);
+    for (int w = 0; w < nkw; ++w) {
+      const float mw = sml[w * 2 * qrows + h];
       const float wt = mw == -INFINITY ? 0.f : expf(mw - mx);
-      wts[w * 16 + h] = wt;
-      den = fmaf(wt, sml[w * 32 + 16 + h], den);
+      wts[w * qrows + h] = wt;
+      den = fmaf(wt, sml[w * 2 * qrows + qrows + h], den);
     }
-    wts[nw * 16 + h] = den;
+    wts[nkw * qrows + h] = den;
     if (a.splits > 1) {
-      const size_t at = (row0 + h) * a.splits + split;
+      const size_t at = qrow(h) * a.splits + split;
       part_m[at] = mx, part_l[at] = den;
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < g * hd; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
     const int h = i / hd, d = i - h * hd;
     float num = 0.f;
-    for (int w = 0; w < nw; ++w) num = fmaf(wts[w * 16 + h], so[(w * 16 + h) * hd + d], num);
+    for (int w = 0; w < nkw; ++w) num = fmaf(wts[w * qrows + h], so[(w * qrows + h) * hd + d], num);
     if (a.splits == 1)
-      static_cast<bf16*>(a.out)[(row0 + h) * hd + d] = __float2bfloat16(num / wts[nw * 16 + h]);
+      static_cast<bf16*>(a.out)[qrow(h) * hd + d] = __float2bfloat16(num / wts[nkw * qrows + h]);
     else
-      part_acc[((row0 + h) * a.splits + split) * hd + d] = num;
+      part_acc[(qrow(h) * a.splits + split) * hd + d] = num;
   }
 }
 
@@ -691,7 +792,7 @@ __global__ void __launch_bounds__(kMergeThreads)
 
 template <typename T>
 int launch_merge(const Params& a, int B, cudaStream_t stream) {
-  const int rows = B * a.nkv * a.group;
+  const int rows = B * a.nkv * a.group * a.pos;
   const int groups = std::max(1, kMergeThreads / a.hd);
   const size_t smem = (a.splits + groups * (a.hd + 1) + kMergeThreads / 32) * sizeof(float);
   merge_kernel<T><<<rows, kMergeThreads, smem, stream>>>(a.part, static_cast<T*>(a.out), rows,
@@ -707,15 +808,16 @@ int launch_kernel(K kernel, const Params& a, int B, int threads, int smem, cudaS
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<dim3(B * a.nkv, a.splits), threads, smem, stream>>>(a);
+  const int pos_chunks = (a.pos + a.pos_chunk - 1) / a.pos_chunk;
+  kernel<<<dim3(B * a.nkv, a.splits, pos_chunks), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The CUDA-core kernel: kPP (query head, hd pair) accumulators a thread
+// The CUDA-core kernel: kPP (query row, hd pair) accumulators a thread
 template <typename T, bool kPos>
 int launch_fma_instance(const Params& a, int B, cudaStream_t stream) {
-  const int smem = Layout(sizeof(T), a.group, a.hd, a.chunk, a.stages).total;
-  const int pairs = a.group * ((a.hd + 1) / 2);
+  const int smem = Layout(sizeof(T), a.group, a.pos_chunk, a.hd, a.chunk, a.stages).total;
+  const int pairs = a.group * a.pos_chunk * ((a.hd + 1) / 2);
   auto run = [&](auto kernel) { return launch_kernel(kernel, a, B, kThreads, smem, stream); };
   if (pairs <= kThreads) return run(decode_attn_kernel<T, 1, kPos>);
   if (pairs <= 2 * kThreads) return run(decode_attn_kernel<T, 2, kPos>);
@@ -731,18 +833,30 @@ int launch_fma(const Params& a, int B, cudaStream_t stream) {
                    : launch_fma_instance<T, false>(a, B, stream);
 }
 
-// The tensor-core kernel at hd <= 16 kD: Q, the K and V stages, the bias
-// stages (the warps' states reuse the K and V stages at the end)
+// Row tiles of 16 a block of the tensor-core kernel holds at most, a warp
+// each
+constexpr int kMmaTiles = kWarps;
+
+// The tensor-core kernel's dynamic shared memory: Q's rows (the block's
+// row tiles), then the K and V stages and the bias stages
+// ([stages][pos_chunk][chunk] f32), which the warps' states reuse at the
+// end where several warps share a row tile ([nkw][3][rows] f32, [rows]
+// f32, [nkw][rows][hd] f32). Mirrored by ops/cuda/decode_attn.py:smem_bytes.
+int mma_smem(int kd, const Params& a, int warps) {
+  const int tiles = (a.group * a.pos_chunk + 15) / 16, nkw = warps / tiles;
+  const int ld = kd * 16 + 8, rows = 16 * tiles;
+  const int stages = a.stages * 2 * a.chunk * ld * 2 + a.stages * a.pos_chunk * a.chunk * 4;
+  const int states = nkw > 1 ? (nkw * 3 * rows + rows + nkw * rows * a.hd) * 4 : 0;
+  return rows * ld * 2 + std::max(stages, states);
+}
+
 template <int kD>
 int launch_mma(const Params& a, int B, int warps, cudaStream_t stream) {
-  const int smem = (16 + a.stages * 2 * a.chunk) * (kD * 16 + 8) * 2 + a.stages * a.chunk * 4;
-  if (a.pos > 1)
-    return launch_kernel(decode_attn_mma_kernel<kD, true, true>, a, B, 32 * warps, smem, stream);
-  return a.bias_sb
-             ? launch_kernel(decode_attn_mma_kernel<kD, true, false>, a, B, 32 * warps, smem,
-                             stream)
-             : launch_kernel(decode_attn_mma_kernel<kD, false, false>, a, B, 32 * warps, smem,
-                             stream);
+  const int smem = mma_smem(kD, a, warps);
+  auto run = [&](auto kernel) { return launch_kernel(kernel, a, B, 32 * warps, smem, stream); };
+  if (a.pos > 1) return run(decode_attn_mma_kernel<kD, true, true>);
+  return a.bias_sb ? run(decode_attn_mma_kernel<kD, true, false>)
+                   : run(decode_attn_mma_kernel<kD, false, false>);
 }
 
 int launch_bf16_mma(const Params& a, int B, int warps, cudaStream_t stream) {
@@ -756,46 +870,59 @@ int launch_bf16_mma(const Params& a, int B, int warps, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). B counts query rows: B / pos cache
-// rows of pos query positions each (pos = 1: one a cache row), query row n
-// reading cache row n / pos. The plan (chunk, keys_per_split,
-// splits, stages, warps) comes from ops/cuda/decode_attn.py:plan: splits of
-// keys_per_split keys tile [0, S), none empty; chunk is a multiple of 16; one
-// stage only where a split is one chunk. bf16 at hd <= 128 and group <= 16
-// runs on the tensor cores with `warps` warps (at most one per 16-key tile of
-// a chunk of at most 64 keys); every other call (f32 always) on the CUDA
-// cores, with warps = 4. Strides are in elements (bias_sb 0 for one bias row
-// shared by the batch, S for a row per query row); a softcap <= 0 means none.
-// Rows move by 16-byte copies when hd is a multiple of the 16-byte vector and
-// every q, K and V row is 16-byte aligned, else element by element. part
-// (f32, splits > 1 only) is scratch of B * nh * splits * (hd + 2) floats the
-// caller allocates. Returns the CUDA error code of the first failed launch.
+// Plain C entry point (bound with ctypes). B cache rows, each with pos query
+// positions (pos = 1: a decode step), dealt to blocks pos_chunk at a time
+// (1 when pos = 1; group x pos_chunk query rows a block: at most 16 x
+// kMmaTiles on the tensor cores, kMaxGroup on the CUDA cores). The plan
+// (chunk, keys_per_split, splits, stages, warps, pos_chunk) comes from
+// ops/cuda/decode_attn.py:plan: splits of keys_per_split keys tile [0, S),
+// none empty; chunk is a multiple of 16; one stage only where a split is one
+// chunk. bf16 at hd <= 128 and group <= 16 runs on the tensor cores with
+// `warps` warps, a multiple of the block's row tiles, which deal a chunk's
+// 16-key tiles among the warps of a row tile (at most one each, chunks of at
+// most 64 keys); every other call (f32 always) on the CUDA cores, with
+// warps = 4. Strides
+// are in elements (bias_sb 0 for one bias row shared by the batch, S for a
+// row per cache row or, pos > 1, per (cache row, position)); a softcap <= 0
+// means none. Rows move by 16-byte copies when hd is a multiple of the
+// 16-byte vector and every q, K and V row is 16-byte aligned, else element
+// by element. part (f32, splits > 1 only) is scratch of B * nh * pos *
+// splits * (hd + 2) floats the caller allocates. Returns the CUDA error code
+// of the first failed launch.
 extern "C" int dmi_decode_attn(const void* q, const void* k, const void* v, const void* bias,
-                               void* out, void* part, int B, int pos, int nkv, int group,
-                               int S, int hd,
+                               void* out, void* part, int B, int pos, int pos_chunk, int nkv,
+                               int group, int S, int hd,
                                int chunk, int keys_per_split, int splits, int stages, int warps,
                                long long k_sb, long long k_sh, long long v_sb, long long v_sh,
                                long long bias_sb, float scale, float softcap, int dtype,
                                void* stream) {
   if (hd < 1 || hd > kMaxHd || group < 1 || group > kMaxGroup || S < 1 || chunk < 16 ||
-      pos < 1 || pos > 0xffff || B % pos || (pos > 1 && bias_sb == 0) ||
+      pos < 1 || pos > 0xffff || pos_chunk < 1 || pos_chunk > pos ||
+      (pos > 1 && bias_sb == 0) || (pos == 1 && pos_chunk != 1) ||
+      (pos + pos_chunk - 1) / pos_chunk > 0xffff ||
       chunk % 16 || keys_per_split < 1 || splits < 1 || splits > kMaxSplits ||
       (long long)splits * keys_per_split < S || (long long)(splits - 1) * keys_per_split >= S ||
       stages < 1 || stages > 2 || (stages == 1 && std::min(keys_per_split, S) > chunk) ||
       (splits > 1 && part == nullptr) || (long long)B * nkv > 0x7fffffffLL ||
+      (long long)B * nkv * group * pos > 0x7fffffffLL ||
       (bias_sb != 0 && bias_sb < S) || bias_sb < 0 || bias_sb > 0x7fffffffLL ||
       (dtype != dmi::kFloat32 && dtype != dmi::kBFloat16))
     return (int)cudaErrorInvalidValue;
   const bool mma = dtype == dmi::kBFloat16 && hd <= 128 && group <= 16;
-  if (mma ? warps < 1 || warps > kWarps || 16 * warps > chunk || chunk > 64 : warps != kWarps)
+  const int tiles = (group * pos_chunk + 15) / 16;
+  if (group * pos_chunk > (mma ? 16 * kMmaTiles : kMaxGroup) ||
+      (mma ? warps < 1 || warps > kWarps || warps % tiles || 16 * (warps / tiles) > chunk ||
+                 chunk > 64
+           : warps != kWarps))
     return (int)cudaErrorInvalidValue;
   const int vn = dtype == dmi::kFloat32 ? 4 : 8;
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const bool vec = hd % vn == 0 && aligned(q) && aligned(k) && aligned(v) && k_sb % vn == 0 &&
+  const bool vec = hd % vn == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(out) &&
+                   k_sb % vn == 0 &&
                    k_sh % vn == 0 && v_sb % vn == 0 && v_sh % vn == 0;
   Params a{q, k, v, static_cast<const float*>(bias), out, static_cast<float*>(part), nkv, group,
            S, hd, chunk, keys_per_split, splits, stages, (int)bias_sb, vec,
-           (unsigned short)pos, k_sb, k_sh, v_sb, v_sh, scale, softcap};
+           (unsigned char)pos_chunk, (unsigned short)pos, k_sb, k_sh, v_sb, v_sh, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;
   if (mma) e = launch_bf16_mma(a, B, warps, s);

@@ -37,10 +37,10 @@ _SIGNATURES = {
     "dmi_mlp2": [_P] * 7 + [_I] * 7 + [_P],
     # x, w0, b0, a, bm, d, out, G, B, mm, lm, r, tb, dtype, stream
     "dmi_lora0": [_P] * 7 + [_I] * 7 + [_P],
-    # q, k, v, bias, out, part, B, nkv, group, S, hd, chunk, keys_per_split,
-    # splits, stages, warps, k_sb, k_sh, v_sb, v_sh, bias_sb, scale, softcap, dtype,
-    # stream
-    "dmi_decode_attn": [_P] * 6 + [_I] * 11 + [_L] * 5 + [_F, _F, _I, _P],
+    # q, k, v, bias, out, part, B, pos, pos_chunk, nkv, group, S, hd, chunk,
+    # keys_per_split, splits, stages, warps, k_sb, k_sh, v_sb, v_sh, bias_sb, scale,
+    # softcap, dtype, stream
+    "dmi_decode_attn": [_P] * 6 + [_I] * 12 + [_L] * 5 + [_F, _F, _I, _P],
     # q, k, v, key_mask, o, lse, B, nh, nkv, T, hd, strides[12], scale, kd, hpb,
     # vec, dtype, stream
     "dmi_flash_fwd": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _I, _I, _I, _P],

@@ -23,9 +23,16 @@ position) or a [B, S] row per batch row (dmi_tpu's [B, 1, S]: the slots of
 the continuous-batching engine, streaming.py, decode at different ages);
 the kernel reads either through a row stride, 0 or S.  With P query
 positions per cache row (the k + 1 positions of a speculative round,
-models/speculative.py) the bias is [B, P, S], a row per (row, position):
-the kernel's query rows are the B x P pairs, each reading its cache row's
-K and V, so `plan` counts B x P x nkv blocks.
+models/speculative.py) the bias is [B, P, S], a row per (row, position),
+and q and the output are [B, nh, P, hd] (K3).  A block then owns one
+(cache row, kv head) and its g x P (head, position) query rows, q's own
+contiguous run, and stages each chunk of the row's K and V once for all of
+them: on the tensor cores they fill ceil(g P / 16) mma row tiles, a warp
+each, at most MMA_MAX_TILES; on the CUDA cores at most MAX_GROUP rows.
+Past that cap `plan` deals the positions to blocks in position chunks, so
+it counts B x nkv x position chunks x splits blocks.  q and the output keep
+q's layout: the wrapper copies only a q that is not contiguous (the
+batch-last step's view, as at P = 1).
 
 `fused_decode_attention` runs `_decode_attn_plain` for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; there is no fallback
@@ -54,9 +61,11 @@ MAX_GROUP = 32          # kMaxGroup: query heads of a block
 MMA_MAX_HEAD_DIM = 128  # bf16 up to this hd and MMA_MAX_GROUP runs on the tensor cores
 MMA_MAX_GROUP = 16      # the group's heads are the 16 rows of an mma tile
 MMA_KD = (1, 2, 3, 4, 6, 8)  # the tensor-core kernel's instances: hd padded to 16 kd
+MMA_MAX_TILES = 4       # row tiles of 16 a block at most, a warp each (kMmaTiles)
 SMEM_LIMIT = 232448     # 227 KB: a block's shared memory on the H100
 CHUNKS = (64, 32, 16)   # keys per staged chunk, the largest whose two stages fit first
 SMS = 132               # streaming multiprocessors of the H100
+SM_SMEM = 233472        # shared memory of an SM (228 KB), of which a block also takes 1 KB
 TARGET_BLOCKS = 8 * SMS  # blocks a call should reach before S is split (half as many
                          # when each split needs several chunks)
 MAX_SPLITS = 4096       # kMaxSplits: the merge keeps every split's weight in shared memory
@@ -73,47 +82,87 @@ def tensor_cores(itemsize: int, group: int, hd: int) -> bool:
     return itemsize == 2 and hd <= MMA_MAX_HEAD_DIM and group <= MMA_MAX_GROUP
 
 
-def smem_bytes(itemsize: int, group: int, hd: int, chunk: int, stages: int) -> int:
-    """Dynamic shared memory of a block.  The tensor-core kernel: 16 rows of
-    Q and the K and V stages as bf16 at a pitch of 16 kd + 8, the bias
-    stages.  The CUDA-core kernel (Layout of csrc/decode_attn.cu): the K and
-    V stages at hd rounded up to the 16-byte vector, the bias stages, q and
-    the scores in f32, and m, l, alpha per query head."""
+def _mma_kd(hd: int) -> int:
+    return next(d for d in MMA_KD if 16 * d >= hd)
+
+
+def block_rows(itemsize: int, group: int, hd: int) -> int:
+    """The most query rows a block holds: MMA_MAX_TILES row tiles of 16 on
+    the tensor cores (a warp each), MAX_GROUP on the CUDA cores."""
+    return 16 * MMA_MAX_TILES if tensor_cores(itemsize, group, hd) else MAX_GROUP
+
+
+def smem_bytes(itemsize: int, group: int, hd: int, chunk: int, stages: int, pos: int = 1,
+               warps: int = 1) -> int:
+    """Dynamic shared memory of a block holding the group's heads at pos
+    query positions each (rows = group x pos).  The tensor-core kernel
+    (mma_smem of csrc/decode_attn.cu): Q's rows in whole tiles of 16 and the
+    K and V stages as bf16 at a pitch of 16 kd + 8, the bias stages (a row
+    per position); where several warps share a row tile their states reuse
+    the stages at the end.  The CUDA-core kernel (Layout of
+    csrc/decode_attn.cu): the K and V stages at hd rounded up to the 16-byte
+    vector, the bias stages, q and the scores in f32, and m, l, alpha per
+    query row."""
+    rows = group * pos
     if tensor_cores(itemsize, group, hd):
-        kd = next(d for d in MMA_KD if 16 * d >= hd)
-        return (16 + stages * 2 * chunk) * (16 * kd + 8) * 2 + stages * chunk * 4
+        qrows = 16 * -(-rows // 16)
+        ld, nkw = 16 * _mma_kd(hd) + 8, warps // (qrows // 16)
+        staged = stages * 2 * chunk * ld * 2 + stages * pos * chunk * 4
+        states = (nkw * 3 * qrows + qrows + nkw * qrows * hd) * 4 if nkw > 1 else 0
+        return qrows * ld * 2 + max(staged, states)
     width = _round_up(hd, 16 // itemsize)
-    return (stages * 2 * chunk * width * itemsize + _round_up(stages * chunk, 4) * 4
-            + group * width * 4 + group * chunk * 4 + 3 * group * 4)
+    return (stages * 2 * chunk * width * itemsize + _round_up(stages * pos * chunk, 4) * 4
+            + rows * width * 4 + rows * chunk * 4 + 3 * rows * 4)
 
 
 @functools.lru_cache(maxsize=None)
-def plan(B: int, nkv: int, group: int, S: int, hd: int, itemsize: int) -> dict:
+def plan(B: int, nkv: int, group: int, S: int, hd: int, itemsize: int, P: int = 1) -> dict:
     """The kernel's launch plan: keys per staged chunk, keys per split,
-    splits of S over blocks, stages of the K/V ring and warps of a block.
-    Cached per shape, so that a decode loop pays a dictionary lookup a call.
+    splits of S over blocks, stages of the K/V ring and warps of a block;
+    with P > 1 query positions per cache row also the positions a block
+    holds (`pos_chunk`) and their chunks (`pos_chunks`).  Cached per shape,
+    so that a decode loop pays a dictionary lookup a call.
 
-    S is split only when B x nkv blocks fall short of TARGET_BLOCKS and S
-    exceeds MIN_SPLIT_KEYS, into splits of whole chunks, none empty: at the
-    serving shapes (B 64-256 x 8 kv heads, S <= 38) one split, one launch
-    and no merge.  Splits of one chunk aim at TARGET_BLOCKS blocks, longer
-    ones at half as many (their two stages take more shared memory, so
-    fewer fit an SM, and as many blocks would run in two waves).  The
+    P = 1: S is split only when B x nkv blocks fall short of TARGET_BLOCKS
+    and S exceeds MIN_SPLIT_KEYS, into splits of whole chunks, none empty:
+    at the serving shapes (B 64-256 x 8 kv heads, S <= 38) one split, one
+    launch and no merge.  Splits of one chunk aim at TARGET_BLOCKS blocks,
+    longer ones at half as many (their two stages take more shared memory,
+    so fewer fit an SM, and as many blocks would run in two waves).  The
     tensor-core kernel runs one warp over a split of one chunk (no combine
     of warps' states) and four warps over 64-key chunks; the CUDA-core
     kernel four warps over the largest of CHUNKS whose two stages fit a
     block's shared memory.  A chunk is no longer than the split rounded up
-    to 16 keys; one stage when a split is one chunk."""
+    to 16 keys; one stage when a split is one chunk.
+
+    P > 1 (K3): the positions of a (cache row, kv head) share its blocks,
+    all P when group x P rows fit `block_rows`, else in as few even position
+    chunks as fit.  The tensor-core kernel runs a warp on each row tile of
+    16, over every key of the split.  S is split only when B x nkv x
+    position chunks blocks fall short of the SMs: the merge takes a block
+    per query row, and at the verify's shape (B 128, 1024 blocks) two
+    splits and their merge took 71-74 us where one split took 21-27 us
+    (scripts/torch_decode_attn_compare.py, NVIDIA H100 80GB HBM3).  A split
+    longer than the P = 1 chunk streams in the largest of CHUNKS whose
+    blocks all fit the card at once (by shared memory), else in chunks of
+    16 keys: every block of the call starts at once and streams its K and
+    V, and a block that waits for a slot starts its reads only when another
+    has ended."""
     mma = tensor_cores(itemsize, group, hd)
+    pos_chunks = -(-P // max(1, block_rows(itemsize, group, hd) // group))
+    pc = -(-P // pos_chunks)  # even chunks: the last holds at most as many
     cmax = 64 if mma else next(
-        (c for c in CHUNKS if smem_bytes(itemsize, group, hd, c, 2) <= SMEM_LIMIT), CHUNKS[-1])
+        (c for c in CHUNKS if smem_bytes(itemsize, group, hd, c, 2, pc) <= SMEM_LIMIT),
+        CHUNKS[-1])
+    blocks = B * nkv * pos_chunks
+
     def split_keys(target):
-        want = -(-target // (B * nkv))
+        want = -(-target // blocks)
         return max(MIN_SPLIT_KEYS, _round_up(-(-S // want), cmax),
                    _round_up(-(-S // MAX_SPLITS), cmax))
 
     splits, keys = 1, S
-    if B * nkv < TARGET_BLOCKS and S > MIN_SPLIT_KEYS:
+    if blocks < (TARGET_BLOCKS if P == 1 else SMS) and S > MIN_SPLIT_KEYS:
         keys = split_keys(TARGET_BLOCKS)
         if keys > cmax:  # splits of several chunks: half as many blocks, each one wave
             keys = split_keys(TARGET_BLOCKS // 2)
@@ -125,10 +174,20 @@ def plan(B: int, nkv: int, group: int, S: int, hd: int, itemsize: int) -> dict:
         chunk = min(cmax, _round_up(keys, 16))
     else:
         warps, chunk = 4, min(cmax, _round_up(keys, 16))
+    if P > 1:
+        if mma:  # a warp a row tile
+            warps = -(-group * pc // 16)
+        if keys > chunk:  # the largest chunk whose blocks all fit the card at once
+            fits = [c for c in CHUNKS if c <= cmax and SMS * (SM_SMEM // (
+                smem_bytes(itemsize, group, hd, c, 2, pc, warps) + 1024)) >= blocks * splits]
+            chunk = fits[0] if fits else CHUNKS[-1]
     stages = 1 if keys <= chunk else 2
-    return {"chunk": chunk, "keys_per_split": keys, "splits": splits, "stages": stages,
-            "warps": warps, "tensor_cores": mma, "blocks": B * nkv * splits,
-            "smem": smem_bytes(itemsize, group, hd, chunk, stages)}
+    out = {"chunk": chunk, "keys_per_split": keys, "splits": splits, "stages": stages,
+           "warps": warps, "tensor_cores": mma, "blocks": blocks * splits,
+           "smem": smem_bytes(itemsize, group, hd, chunk, stages, pc, warps)}
+    if P > 1:
+        out.update(pos_chunk=pc, pos_chunks=pos_chunks)
+    return out
 
 
 def _decode_attn_plain(q, k, v, bias, scale=None, softcap=None):
@@ -215,7 +274,7 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
     longer cache's first S positions is read in place), bias [S] f32
     (batch-uniform: every row decodes at one position), [B, S] f32 (a row
     per batch row) or, with P query positions per cache row, [B, P, S] f32
-    (a row per position) -> [B, nh, P, hd].
+    (a row per position) -> [B, nh, P, hd] in v's dtype.
 
     The batch loops pass a view of the written positions and a zero [S]
     row.  The continuous-batching engine attends over its whole ring cache
@@ -224,7 +283,6 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
     the average of its V rows, finite, as the twin does.  The speculative
     verify forward attends from the k + 1 positions of a round, P = k + 1,
     each with its own causal row (K3)."""
-    global launches, row_launches, pos_launches
     B, nh, P, hd = q.shape
     _, nkv, S, _ = k.shape
     # P > 1 positions take a row each: a shared [S] or [B, S] row would let
@@ -259,30 +317,36 @@ def fused_decode_attention(q, k, v, bias, scale=None, softcap=None):
     for t in (k, v):
         if t.stride(3) != 1 or t.stride(2) != hd:
             raise ValueError("decode attention kernel: k/v rows must be contiguous")
-    code = _build.dtype_code(q.dtype)
-    # the kernel's query rows: the B x P (row, position) pairs, each [nh, hd]
-    # (no copy at P = 1 for a contiguous q)
-    qr = q.transpose(1, 2).contiguous()
-    out = torch.empty((B, P, nh, hd), dtype=v.dtype, device=q.device)
+    q = q.contiguous()  # read in its own layout: no copy for a contiguous q
+    out = torch.empty((B, nh, P, hd), dtype=v.dtype, device=q.device)
     if B == 0 or P == 0:
-        return out.transpose(1, 2)
-    p = plan(B * P, nkv, group, S, hd, q.element_size())
+        return out
+    _launch(q, k, v, bias, out, plan(B, nkv, group, S, hd, q.element_size(), P), scale,
+            softcap)
+    return out
+
+
+def _launch(q, k, v, bias, out, p, scale=None, softcap=None):
+    """One call of the kernel (and of its merge where p splits S) under the
+    plan p, on tensors fused_decode_attention has checked; counted."""
+    global launches, row_launches, pos_launches
+    B, nh, P, hd = q.shape
+    _, nkv, S, _ = k.shape
     part = None
     if p["splits"] > 1:  # f32 partials (m, l, acc) of every split, merged in order
-        part = torch.empty(B * P * nh * p["splits"] * (hd + 2), dtype=torch.float32,
+        part = torch.empty(B * nh * P * p["splits"] * (hd + 2), dtype=torch.float32,
                            device=q.device)
     err = _build.lib().dmi_decode_attn(
-        qr.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
-        B * P, P, nkv, group, S, hd, p["chunk"], p["keys_per_split"], p["splits"], p["stages"],
-        p["warps"], k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        S if bias.ndim > 1 else 0,
+        B, P, p.get("pos_chunk", 1), nkv, nh // nkv, S, hd, p["chunk"], p["keys_per_split"],
+        p["splits"], p["stages"], p["warps"], k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), S if bias.ndim > 1 else 0,
         float(scale if scale is not None else 1.0 / math.sqrt(hd)),
         float(softcap) if softcap is not None else 0.0,
-        code, torch.cuda.current_stream(q.device).cuda_stream,
+        _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "decode attention")
     launches += 1
     row_launches += int(bias.ndim == 2)
     pos_launches += int(P > 1)
-    return out.transpose(1, 2)

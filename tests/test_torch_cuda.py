@@ -410,25 +410,70 @@ def _k3_args(B, nh, nkv, P, S, hd, dtype, dev, seed=0):
     return q, k, v, bias.to(dev)
 
 
-@pytest.mark.parametrize("P", [2, 5])
-@pytest.mark.parametrize("S", [38, 121, 3073])
-@pytest.mark.parametrize("hd,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
-                                      (256, torch.bfloat16), (64, torch.float32)])
-@pytest.mark.parametrize("group,softcap", [(4, None), (1, None), (4, 2.0)])
-def test_decode_attn_k3_matches_twin(cuda, P, S, hd, dtype, group, softcap):
+# (B, nkv, P, S, hd, dtype, group, softcap): every (P, S, head width and
+# dtype, group and softcap) of the grid at B 16 (B 2 at S 3073) over 2 kv
+# heads, then the folded design's own cases
+_K3_CASES = [
+    (2 if S == 3073 else 16, 2, P, S, hd, dtype, group, softcap)
+    for P in (2, 5) for S in (38, 121, 3073)
+    for hd, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (256, torch.bfloat16),
+                      (64, torch.float32))
+    for group, softcap in ((4, None), (1, None), (4, 2.0))
+] + [
+    # g x P = 16: one full tile (hd 64 and 128), and P 4 on the CUDA cores
+    (16, 2, 4, 38, 64, torch.bfloat16, 4, None),
+    (16, 2, 4, 121, 128, torch.bfloat16, 4, None),
+    (16, 2, 4, 121, 64, torch.float32, 4, None),
+    # the verify's shape: B 128, 32/8 heads, P 5 (20 rows, two tiles), S 121
+    (128, 8, 5, 121, 64, torch.bfloat16, 4, None),
+    (128, 8, 5, 121, 64, torch.float32, 4, None),
+    # past a block's rows: group 16 at P 5 is 80 rows, in position chunks of
+    # 3 and 2 on the tensor cores (48 rows, three warps, at most 64) and of
+    # 2, 2 and 1 on the CUDA cores (kMaxGroup 32)
+    (16, 2, 5, 121, 64, torch.bfloat16, 16, None),
+    (16, 2, 5, 121, 128, torch.bfloat16, 16, None),
+    (16, 2, 5, 38, 256, torch.bfloat16, 16, 2.0),
+    (16, 2, 5, 121, 64, torch.float32, 16, None),
+    (2, 2, 5, 3073, 128, torch.bfloat16, 16, None),  # and S split over blocks
+    (16, 2, 17, 121, 64, torch.bfloat16, 4, None),   # 68 rows: chunks of 9 and 8 positions
+    (16, 1, 17, 121, 64, torch.float32, 32, None),   # one position a block, 32 rows
+    # group 1 at OLMoE's heads (16/16, hd 128): 5 rows of one tile
+    (128, 16, 5, 121, 128, torch.bfloat16, 1, None),
+    # Gemma-2's head width on the CUDA cores (8/4 heads, hd 256)
+    (128, 4, 5, 121, 256, torch.bfloat16, 2, 50.0),
+]
+
+
+@pytest.mark.parametrize("B,nkv,P,S,hd,dtype,group,softcap", _K3_CASES)
+def test_decode_attn_k3_matches_twin(cuda, B, nkv, P, S, hd, dtype, group, softcap):
     """P query positions per cache row (K3), on both instances (bf16 at hd
     64 and 128 on the tensor cores, hd 256 and f32 on the CUDA cores), at
-    the verify's S (38, 121) and split over blocks (3073 at B 2): the kernel
-    against its twin, one launch counted as a K3 launch, finite with a
-    fully masked position, two calls bit-equal."""
-    B = 2 if S == 3073 else 16
-    q, k, v, bias = _k3_args(B, 2 * group, 2, P, S, hd, dtype, cuda)
+    the verify's S (38, 121) and split over blocks (3073 at B 2), with the
+    g x P rows of a (cache row, kv head) in one row tile or several (a warp
+    each), or dealt to blocks in position chunks: the kernel against its
+    twin, one launch counted as a K3 launch, finite with a fully masked
+    position, two calls bit-equal."""
+    q, k, v, bias = _k3_args(B, nkv * group, nkv, P, S, hd, dtype, cuda)
+    p = tda.plan(B, nkv, group, S, hd, q.element_size(), P)
+    assert p["blocks"] == B * nkv * p["pos_chunks"] * p["splits"]
     n0, p0, r0 = tda.launches, tda.pos_launches, tda.row_launches
     out = tda.fused_decode_attention(q, k, v, bias, None, softcap)
     assert (tda.launches, tda.pos_launches, tda.row_launches) == (n0 + 1, p0 + 1, r0)
-    assert out.shape == q.shape and bool(torch.isfinite(out.float()).all())
+    assert out.shape == q.shape and out.is_contiguous()
+    assert bool(torch.isfinite(out.float()).all())
     _close(out, tda._decode_attn_plain(q, k, v, bias, None, softcap), TOL[dtype])
     assert torch.equal(out, tda.fused_decode_attention(q, k, v, bias, None, softcap))
+
+
+def test_decode_attn_k3_reads_a_strided_q_like_a_contiguous_one(cuda):
+    """The batch-last step passes q as a permuted view of its [nh * hd, P *
+    B] product: the wrapper copies it into q's own layout, and the result
+    is the contiguous q's bit for bit."""
+    q, k, v, bias = _k3_args(128, 32, 8, 5, 121, 64, torch.bfloat16, cuda)
+    view = q.permute(1, 3, 2, 0).contiguous().permute(3, 0, 2, 1)  # [B, nh, P, hd], hd-major
+    assert not view.is_contiguous() and torch.equal(view, q)
+    assert torch.equal(tda.fused_decode_attention(view, k, v, bias),
+                       tda.fused_decode_attention(q, k, v, bias))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -222,6 +222,120 @@ def test_decode_attn_plan_fits_shared_memory(itemsize):
                 assert p["smem"] <= tda.SMEM_LIMIT
 
 
+# plan(..., P=1) at the serving shapes and the long caches, as the P = 1
+# instances had them before K3 folded its positions into a block's rows
+_P1_PLANS = {
+    (128, 8, 4, 23, 64, 2): {"chunk": 32, "keys_per_split": 23, "splits": 1, "stages": 1,
+                             "warps": 1, "tensor_cores": True, "blocks": 1024, "smem": 11648},
+    (128, 8, 4, 38, 64, 2): {"chunk": 48, "keys_per_split": 38, "splits": 1, "stages": 1,
+                             "warps": 1, "tensor_cores": True, "blocks": 1024, "smem": 16320},
+    (256, 8, 4, 23, 64, 2): {"chunk": 32, "keys_per_split": 23, "splits": 1, "stages": 1,
+                             "warps": 1, "tensor_cores": True, "blocks": 2048, "smem": 11648},
+    (64, 8, 4, 37, 64, 2): {"chunk": 48, "keys_per_split": 37, "splits": 1, "stages": 1,
+                            "warps": 1, "tensor_cores": True, "blocks": 512, "smem": 16320},
+    (128, 8, 4, 38, 64, 4): {"chunk": 48, "keys_per_split": 38, "splits": 1, "stages": 1,
+                             "warps": 4, "tensor_cores": False, "blocks": 1024, "smem": 26608},
+    (128, 4, 2, 38, 256, 2): {"chunk": 48, "keys_per_split": 38, "splits": 1, "stages": 1,
+                              "warps": 4, "tensor_cores": False, "blocks": 512, "smem": 51800},
+    (128, 16, 1, 38, 128, 2): {"chunk": 48, "keys_per_split": 38, "splits": 1, "stages": 1,
+                               "warps": 1, "tensor_cores": True, "blocks": 2048, "smem": 30656},
+    (128, 4, 4, 38, 64, 2): {"chunk": 48, "keys_per_split": 38, "splits": 1, "stages": 1,
+                             "warps": 1, "tensor_cores": True, "blocks": 512, "smem": 16320},
+    (2, 8, 4, 3073, 64, 2): {"chunk": 64, "keys_per_split": 64, "splits": 49, "stages": 1,
+                             "warps": 1, "tensor_cores": True, "blocks": 784, "smem": 20992},
+    (2, 8, 4, 16384, 64, 2): {"chunk": 64, "keys_per_split": 512, "splits": 32, "stages": 2,
+                              "warps": 4, "tensor_cores": True, "blocks": 512, "smem": 39680},
+    (128, 8, 4, 121, 64, 2): {"chunk": 64, "keys_per_split": 64, "splits": 2, "stages": 1,
+                              "warps": 1, "tensor_cores": True, "blocks": 2048, "smem": 20992},
+}
+
+
+@pytest.mark.parametrize("shape", list(_P1_PLANS))
+def test_decode_attn_plan_p1_is_unchanged(shape):
+    """One query position per cache row plans as before K3's redesign, with
+    P given or left out: the same dictionary, no key added."""
+    assert tda.plan(*shape) == _P1_PLANS[shape]
+    assert tda.plan(*shape, P=1) == _P1_PLANS[shape]
+
+
+_K3_SHAPES = [(B, nkv, group, hd, itemsize) for B, nkv in ((128, 8), (2, 2), (16, 2))
+              for group in (1, 4, 16, 32) for hd in (64, 128, 256) for itemsize in (2, 4)]
+
+
+@pytest.mark.parametrize("B,nkv,group,hd,itemsize", _K3_SHAPES)
+def test_decode_attn_plan_covers_every_position_once(B, nkv, group, hd, itemsize):
+    """P query positions per cache row: the position chunks tile [0, P),
+    none empty, the last no longer than the others; every (cache row, kv
+    head, position) in exactly one block of each split, so that the plan
+    counts B x nkv x position chunks x splits blocks (not B x P x nkv); the
+    keys tiled by the splits as at P = 1."""
+    for P in range(2, 18):
+        for S in (38, 121, 3073):
+            p = tda.plan(B, nkv, group, S, hd, itemsize, P)
+            pc, n = p["pos_chunk"], p["pos_chunks"]
+            chunks = [range(z * pc, min(P, (z + 1) * pc)) for z in range(n)]
+            assert sorted(x for c in chunks for x in c) == list(range(P))
+            assert all(len(c) >= 1 for c in chunks) and len(chunks[-1]) <= pc
+            assert p["blocks"] == B * nkv * n * p["splits"]
+            assert n == -(-P // max(1, tda.block_rows(itemsize, group, hd) // group))
+            starts = [i * p["keys_per_split"] for i in range(p["splits"])]
+            assert starts[-1] < S <= p["splits"] * p["keys_per_split"]
+            assert p["stages"] == (1 if min(S, p["keys_per_split"]) <= p["chunk"] else 2)
+
+
+@pytest.mark.parametrize("B,nkv,group,hd,itemsize", _K3_SHAPES)
+def test_decode_attn_plan_rows_within_the_cap(B, nkv, group, hd, itemsize):
+    """A block holds at most `block_rows` query rows (the tensor-core
+    kernel's row tiles, a warp each; kMaxGroup on the CUDA cores) and the
+    C entry's warps: on the tensor cores one warp a row tile, at most four,
+    chunks of 16-64 keys; on the CUDA cores four."""
+    for P in range(2, 18):
+        p = tda.plan(B, nkv, group, 121, hd, itemsize, P)
+        rows = group * p["pos_chunk"]
+        assert rows <= tda.block_rows(itemsize, group, hd)
+        if p["tensor_cores"]:
+            assert rows <= 16 * tda.MMA_MAX_TILES and p["warps"] == -(-rows // 16) <= 4
+            assert 16 <= p["chunk"] <= 64
+        else:
+            assert rows <= tda.MAX_GROUP and p["warps"] == 4
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("group", [1, 4, 16, 32])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_attn_k3_smem_within_the_limit(itemsize, group, hd):
+    """Shared memory at P 1-17 (the query rows of the position chunk and a
+    bias row per position): the plan's within SMEM_LIMIT and equal to
+    smem_bytes of its chunk, stages, positions and warps; and two stages of
+    the plan's chunk fit too."""
+    for P in range(1, 18):
+        for S in (38, 121, 3073):
+            p = tda.plan(2, 2, group, S, hd, itemsize, P)
+            pc = p.get("pos_chunk", 1)
+            assert p["smem"] == tda.smem_bytes(itemsize, group, hd, p["chunk"], p["stages"], pc,
+                                               p["warps"])
+            assert p["smem"] <= tda.SMEM_LIMIT
+            assert tda.smem_bytes(itemsize, group, hd, p["chunk"], 2, pc,
+                                  p["warps"]) <= tda.SMEM_LIMIT
+
+
+def test_decode_attn_k3_plan_at_the_verify_shape():
+    """The speculative verify's call (B 128, 32/8 heads, hd 64, P 5, S 121):
+    its 20 rows a (cache row, kv head) in one block of two warps, one split
+    (no merge over the 20480 query rows), chunks of 32 keys (the largest
+    whose 1024 blocks all fit the card at once); at S 38 the P = 1 call's
+    chunk, so that each row's sums run as in that call."""
+    p = tda.plan(128, 8, 4, 121, 64, 2, 5)
+    assert (p["blocks"], p["pos_chunks"], p["splits"], p["warps"], p["chunk"]) == (1024, 1, 1,
+                                                                                    2, 32)
+    assert tda.SMS * (tda.SM_SMEM // (p["smem"] + 1024)) >= 1024
+    assert tda.SMS * (tda.SM_SMEM // (tda.smem_bytes(2, 4, 64, 64, 2, 5, 2) + 1024)) < 1024
+    for itemsize in (2, 4):
+        one, k3 = tda.plan(128, 8, 4, 38, 64, itemsize), tda.plan(128, 8, 4, 38, 64, itemsize, 5)
+        assert (k3["chunk"], k3["splits"], k3["stages"]) == (one["chunk"], one["splits"],
+                                                             one["stages"])
+
+
 @pytest.mark.parametrize("S,keys,splits,chunk,masked,softcap", [
     (300, None, None, None, None, None),     # the plan's own splits
     (3100, None, None, None, (2050, 3100), None),  # a finfo.min tail over whole splits
