@@ -1921,7 +1921,8 @@ def _reset_counts():
     pk.launches = da.launches = da.row_launches = da.pos_launches = l0.launches = 0
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
     dm.launches = ha.launches = w4.launches = w4.w8_launches = 0
-    bm.launches = sm.launches = wp.split_out_launches = wp.split_k_launches = 0
+    bm.launches = bm.bf16_launches = sm.launches = 0
+    wp.split_out_launches = wp.split_k_launches = 0
 
 
 def _counts() -> dict:
@@ -1943,7 +1944,8 @@ def _counts() -> dict:
             "flash_fwd": fa.fwd_launches, "flash_bwd_dkv": fa.dkv_launches,
             "flash_bwd_dq": fa.dq_launches, "decode_mlp": dm.launches,
             "head_argmax": ha.launches, "w4_mm": w4.launches, "w8_mm": w4.w8_launches,
-            "block_mm": bm.launches, "stream_mm": sm.launches,
+            "block_mm": bm.launches - bm.bf16_launches, "block_mm_bf16": bm.bf16_launches,
+            "stream_mm": sm.launches,
             "w4_split_out": wp.split_out_launches, "w4_split_k": wp.split_k_launches}
 
 
@@ -2276,7 +2278,8 @@ def probe_phase(torch):
     print(f"probes: {time.perf_counter() - t0!r} s")
     # a kernel's variant: its gate's call, 3 warm-ups and PROBE_INNER timed calls
     per = 1 + 3 + PROBE_INNER
-    _expect("probes", counts, {"block_mm": 2 * per, "stream_mm": len(BLOCK_OUT) * per,
+    _expect("probes", counts, {"block_mm": per, "block_mm_bf16": per,
+                               "stream_mm": len(BLOCK_OUT) * per,
                                "w4_split_out": per, "w4_split_k": per})
 
     def entry(r, kernel, plain, library, bound_key, err_key):
@@ -2284,6 +2287,12 @@ def probe_phase(torch):
                 "library_ms": r.get(f"{library}_ms"),
                 "bound_ms": r[f"{bound_key}_bound_us"] / 1e3,
                 "bound_by": r[f"{bound_key}_bound_by"]}
+
+    def against(e):
+        """the kernel's time over its library call's, and its bound's share of it"""
+        lib = "no library call" if e["library_ms"] is None else \
+            f"{e['ms'] / e['library_ms']!r}x the library"
+        return f"{lib}, {e['bound_ms'] / e['ms']!r} of its bound"
 
     print(f"  block_mm N {r9['N']}, block_m {r9['block_m']} ({r9['device']}): int8 "
           f"{r9['cuda_int8_ms'] * 1e3!r} us ({r9['cuda_int8_tflops']!r} TOP/s), bf16 "
@@ -2307,6 +2316,8 @@ def probe_phase(torch):
     kernels = {
         "block_mm": entry(r9, "cuda_int8", "plain_int8", "torch_int8", "cuda_int8",
                           "cuda_int8_max_abs_err"),
+        "block_mm_bf16": entry(r9, "cuda_bf16", "plain_bf16", "torch_bf16", "cuda_bf16",
+                               "cuda_bf16_max_abs_err"),
         "stream_mm": entry(r10, f"cuda_bo{best}", "plain", "torch", "cuda",
                            f"cuda_bo{best}_max_abs_err"),
         "w4_split_out": entry(r11, "cuda_split_out", "plain_split_out", "torch_w4_split_out",
@@ -2314,6 +2325,8 @@ def probe_phase(torch):
         "w4_split_k": entry(r11, "cuda_split_k", "plain_split_k", "torch_w4_split_k",
                             "cuda_split_k", "cuda_split_k_max_abs_err"),
     }
+    for name, e in kernels.items():
+        print(f"  {name}: {e['ms'] * 1e3!r} us, {against(e)}")
     return counts, kernels
 
 
@@ -4750,6 +4763,9 @@ def main() -> int:
                          "serving w8a8", "w8_mm"),
                "block_mm": ("block_mm int8", "dmi_tpu_torch/csrc/block_mm.cu",
                             "scripts/profile_int8_mxu.py:74 (pallas_mm)", "probes", "block_mm"),
+               "block_mm_bf16": ("block_mm bf16", "dmi_tpu_torch/csrc/block_mm.cu",
+                                 "scripts/profile_int8_mxu.py:74 (pallas_mm)", "probes",
+                                 "block_mm_bf16"),
                "stream_mm": ("stream_mm_bl", "dmi_tpu_torch/csrc/stream_mm.cu",
                              "scripts/profile_mlp_stream.py:67 (pallas_mm)", "probes",
                              "stream_mm"),

@@ -106,40 +106,6 @@ __device__ __forceinline__ bool beats(float v, int i, float best, int bi) {
   return v > best || (v == best && i < bi);
 }
 
-// d (64 x 128 s32) += A (64 x 32 s8) * B (32 x 128 s8), both K-major by
-// descriptor
-__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // the accumulators of a mode: f32 sums, or int32 sums in the q8 mode
 template <int kMode>
 using Acc = std::conditional_t<kMode == kModeQ8, int, float>;
@@ -178,10 +144,6 @@ __device__ __forceinline__ void widen_rows(const unsigned char* a8, unsigned cha
     *reinterpret_cast<uint4*>(cvt + swz128(row, 32 * c)) = lo;
     *reinterpret_cast<uint4*>(cvt + swz128(row, 32 * c + 16)) = hi;
   }
-}
-
-__device__ __forceinline__ void consumer_bar(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 template <int kMode>
@@ -243,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // q8: the batch tile's activation scales, in shared memory for the epilogues
   if constexpr (kMode == kModeQ8) {
     if (ct < kTileB) act_s[ct] = b0 + ct < B ? act_scales[b0 + ct] : 1.0f;
-    consumer_bar(3, kConsumers);
+    named_bar_sync(3, kConsumers);
   }
   unsigned char* my_cvt = cvt + cw * 128 * 128;
   float run_best = -INFINITY;  // thread ct < kTileB: column b0 + ct's best so far
@@ -271,10 +233,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const unsigned char* st = ring + s * R::kStageBytes;
       const unsigned char* hs = st + R::kABytes;
       if constexpr (kMode == kModeQ) {
-        consumer_bar(1 + cw, 128);  // the group's wgmma of the last chunk has read my_cvt
+        named_bar_sync(1 + cw, 128);  // the group's wgmma of the last chunk has read my_cvt
         widen_rows(st + cw * 128 * 64, my_cvt, t);
         fence_proxy_async();
-        consumer_bar(1 + cw, 128);
+        named_bar_sync(1 + cw, 128);
       }
       wgmma_fence();
       if constexpr (kMode == kModeQ8) {
@@ -343,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           ri[col] = bi;
         }
       }
-    consumer_bar(3, kConsumers);
+    named_bar_sync(3, kConsumers);
     if (ct < kTileB) {
       const float* bv = red_val + (tile & 1) * 8 * kTileB;
       const int* bx = red_idx + (tile & 1) * 8 * kTileB;

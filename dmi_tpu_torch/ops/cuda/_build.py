@@ -59,10 +59,11 @@ _SIGNATURES = {
     # embed, scales, h, act_scales, part_val, part_idx, ids, scores (or null), V, H, B,
     # mode, blocks, stream
     "dmi_head_argmax": [_P] * 8 + [_I] * 5 + [_P],
-    # a, b, out, M, N, K, block_m, int8, stream
-    "dmi_block_mm": [_P] * 3 + [_I] * 5 + [_P],
-    # w, h, out, O, B, I, block_o, stream
-    "dmi_stream_mm": [_P] * 3 + [_I] * 4 + [_P],
+    # a, b, bt (int8 TMA: scratch for b^T), out, M, N, K, block_m, int8, tma, grid, stages,
+    # stream
+    "dmi_block_mm": [_P] * 4 + [_I] * 8 + [_P],
+    # w, h, out, O, B, I, block_o, tma, grid_x, grid_y, stages, stream
+    "dmi_stream_mm": [_P] * 3 + [_I] * 8 + [_P],
     # p, h, out, OUT, B, K, split_k, stream
     "dmi_w4_probe": [_P] * 3 + [_I] * 4 + [_P],
 }
@@ -167,6 +168,9 @@ def _kernel_name(mangled: str) -> str:
                 return name
             body = rest[1:rest.find("Ev")]
             args = re.findall(r"L[a-z](\d+)E", body) or (["float"] if body[:1] == "f" else [])
+            for code, ty in (("a", "int8"), ("13__nv_bfloat16", "bf16")):  # a leading type
+                if body.startswith(code + "L"):
+                    args.insert(0, ty)
             return f"{name}<{', '.join(args)}>"
     return mangled
 

@@ -1178,9 +1178,12 @@ def _ints(shape, lo, hi, dev, seed):
 
 # (M, N, K): the probe's --small and default squares; tiles that divide
 # nothing, with whole 16-byte rows and without (K 70 and N 200 are not
-# multiples of an int8 vector)
+# multiples of an int8 vector: the wmma instance); a persistent walk of
+# more tiles than SMs with ragged last row and column tiles and a partial
+# last K box (336 bytes of int8 = 2 x 128 + 80; bf16 5 x 64 + 16); a
+# partial last K box alone (208)
 BLOCK_MM_SHAPES = [(256, 256, 256), (4096, 4096, 4096), (129, 136, 144), (130, 200, 70),
-                   (17, 5, 33)]
+                   (17, 5, 33), (2000, 2992, 336), (384, 512, 208)]
 
 
 @pytest.mark.parametrize("block_m", tbm.BLOCK_M)
@@ -1207,8 +1210,10 @@ def test_block_mm_bf16_kernel_matches_twin(cuda, M, N, K, block_m):
 
 
 # (I, O, B): the probe's --small and default shapes, then odd ones (B 5 is
-# not a whole bf16 vector, O 200 fills no tile)
-STREAM_SHAPES = [(128, 256, 32), (2048, 16384, 256), (72, 136, 40), (100, 200, 5)]
+# not a whole bf16 vector, O 200 fills no tile: the wmma instance; I 2088
+# ends in a partial box, O 1096 in a ragged row tile)
+STREAM_SHAPES = [(128, 256, 32), (2048, 16384, 256), (72, 136, 40), (100, 200, 5),
+                 (2088, 1096, 104)]
 
 
 @pytest.mark.parametrize("block_out", tsm.BLOCK_OUT)
@@ -1224,6 +1229,63 @@ def test_stream_mm_kernel_within_one_bf16_step(cuda, I, O, B, block_out):
     # where a sum cancels, two f32 summation orders differ by many bf16
     # steps of the result: the step is counted beyond that slack
     assert bf16_steps(got, ref, f32_sum_slack(w.t(), h)) <= 1
+
+
+@pytest.mark.parametrize("block_m", tbm.BLOCK_M)
+def test_block_mm_kernel_walks_more_tiles_than_sms(cuda, block_m):
+    """A walk of more tiles than SMs, ragged last tiles and a partial last K
+    box, operands at -128 too: int8 exact, bf16 within 1e-5 of max |out|."""
+    M, N, K = 2000, 2992, 336
+    a, b = _ints((M, K), -128, 128, cuda, 2), _ints((K, N), -128, 128, cuda, 3)
+    p = tbm.plan(M, N, K, True, block_m)
+    assert p["route"] == "tma" and p["tiles"] > p["grid"]
+    got = tbm.block_mm(a, b, block_m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tbm._block_mm_plain(a, b))
+    a, b = _normal((M, K), cuda, 2).bfloat16(), _normal((K, N), cuda, 3).bfloat16()
+    got = tbm.block_mm(a, b, block_m)
+    torch.cuda.synchronize()
+    ref = tbm._block_mm_plain(a, b)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("block_m", tbm.BLOCK_M)
+def test_block_mm_int8_kernel_is_exact_at_minus_128(cuda, block_m):
+    """Operands at -128 (whole rows and columns of it, so that one sum
+    reaches 128² K = 2²⁶ at K 4096), still exact."""
+    M, N, K = 256, 512, 4096
+    a, b = _ints((M, K), -128, 128, cuda, 4), _ints((K, N), -128, 128, cuda, 5)
+    a[0] = -128
+    a[1, ::2] = -128
+    b[:, 0] = -128
+    b[::3, 1] = -128
+    got = tbm.block_mm(a, b, block_m)
+    torch.cuda.synchronize()
+    assert got[0, 0].item() == 128 * 128 * K
+    assert torch.equal(got, tbm._block_mm_plain(a, b))
+
+
+def test_block_mm_kernel_takes_an_unaligned_operand_by_its_wmma_instance(cuda):
+    """A base off 16 bytes: the plan picks the wmma instance before the
+    launch, and the result is the twin's."""
+    M, N, K = 130, 136, 144
+    buf = _normal((M * K + 1,), cuda, 6).bfloat16()
+    a, b = buf[1:].view(M, K), _normal((K, N), cuda, 7).bfloat16()
+    assert a.data_ptr() % 16 and tbm.plan(M, N, K, False, aligned=False)["route"] == "wmma"
+    got = tbm.block_mm(a, b)
+    torch.cuda.synchronize()
+    ref = tbm._block_mm_plain(a, b)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("block_out", tsm.BLOCK_OUT)
+def test_stream_mm_kernel_at_the_probe_width_past_a_whole_box(cuda, block_out):
+    """The probe's O and B with a partial last I box (2088 = 32 x 64 + 40)."""
+    I, O, B = 2088, 16384, 256
+    w, h = _normal((I, O), cuda, 8).bfloat16(), _normal((I, B), cuda, 9).bfloat16()
+    got = tsm.stream_mm_bl(w, h, block_out)
+    torch.cuda.synchronize()
+    assert bf16_steps(got, tsm._stream_mm_plain(w, h), f32_sum_slack(w.t(), h)) <= 1
 
 
 # (K, OUT, B): the probe's --small and default shapes, then odd ones
@@ -1265,6 +1327,7 @@ def test_probe_kernels_refuse_what_they_cannot_take(cuda):
     w = a.bfloat16()
     with pytest.raises(ValueError, match="block_out"):
         tsm.stream_mm_bl(w, w, 512)
+
     with pytest.raises(TypeError, match="bf16"):
         tsm.stream_mm_bl(w.float(), w)
     p = torch.zeros((32, 16), dtype=torch.uint8, device=cuda)

@@ -17,7 +17,9 @@ entry points run there only when asked (--device cpu).
 """
 
 import json
+from collections import Counter
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -332,3 +334,153 @@ def test_profile_timer_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_timer.main(["--rounds", "1", "--idle", "0"])
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of kernels 9 and 10 (csrc/block_mm.cu, csrc/stream_mm.cu) and
+# a model of the int8 transpose pass
+# ---------------------------------------------------------------------------
+
+CSRC = Path(tbm.__file__).resolve().parents[2] / "csrc"
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+
+# (M, N, K): the probe's --small and default squares; a persistent walk past
+# the SMs with ragged last tiles and a partial last K box; a partial K box
+# alone; the card tests' odd shapes (rows TMA cannot take: the wmma instance)
+BLOCK_MM_PLAN_SHAPES = [(256, 256, 256), (4096, 4096, 4096), (2000, 2992, 336),
+                        (384, 512, 208), (129, 136, 144), (130, 200, 70), (17, 5, 33)]
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("block_m", tbm.BLOCK_M)
+@pytest.mark.parametrize("M,N,K", BLOCK_MM_PLAN_SHAPES)
+def test_block_mm_plan_fits_and_walks_every_tile_once(M, N, K, block_m, int8):
+    """The ring and the epilogue's buffers fit shared memory, the persistent
+    blocks are one an SM at most, the accumulators 128 a thread at most,
+    and the walk computes each output tile once."""
+    p = tbm.plan(M, N, K, int8, block_m)
+    assert p["smem"] <= SMEM_LIMIT
+    if p["route"] == "wmma":
+        gx, gy = p["grid"]
+        assert (gx - 1) * p["bn"] < N <= gx * p["bn"] and (gy - 1) * p["bm"] < M <= gy * p["bm"]
+        return
+    assert p["bm"] == block_m and p["m64_tiles"] * p["wgmma_n"] // 2 <= 128
+    assert 2 <= p["stages"] <= tbm.MAX_STAGES
+    assert 1 <= p["grid"] <= tbm.SMS and p["grid"] <= p["tiles"]
+    assert p["chunks"] * tbm.STAGE_K_BYTES >= K * (1 if int8 else 2)
+    assert p["bt_bytes"] == (N * K if int8 else 0)
+    assert (p["m_tiles"] - 1) * p["bm"] < M <= p["m_tiles"] * p["bm"]
+    assert (p["n_tiles"] - 1) * p["bn"] < N <= p["n_tiles"] * p["bn"]
+    walk = tbm.tile_walk(p)
+    assert Counter(t for cta in walk for t in cta) == {
+        (m, n): 1 for m in range(p["m_tiles"]) for n in range(p["n_tiles"])}
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1  # balanced
+
+
+def test_block_mm_plan_routes_by_shape():
+    """TMA where rows are whole 16-byte units and bases aligned; else the
+    wmma instance, picked before any launch."""
+    assert tbm.plan(4096, 4096, 4096, True)["route"] == "tma"
+    assert tbm.plan(4096, 4096, 4096, True, 256)["grid"] == 132
+    assert tbm.plan(4096, 4096, 4096, False, 128)["tiles"] == 512
+    assert tbm.plan(130, 200, 70, True)["route"] == "wmma"     # K 70
+    assert tbm.plan(130, 200, 70, False)["route"] == "wmma"
+    assert tbm.plan(130, 200, 144, True)["route"] == "wmma"    # int8 N 200: 8 bytes over
+    assert tbm.plan(130, 200, 144, False)["route"] == "tma"    # bf16 N 200: 400 bytes
+    assert tbm.plan(256, 256, 256, False, aligned=False)["route"] == "wmma"
+    with pytest.raises(ValueError, match="block_m"):
+        tbm.plan(256, 256, 256, True, 96)
+
+
+# (I, O, B): the probe's --small and default shapes; a partial last I box, O
+# ragged; the card tests' odd shapes
+STREAM_PLAN_SHAPES = [(128, 256, 32), (2048, 16384, 256), (2088, 1096, 104), (72, 136, 40),
+                      (100, 200, 5)]
+
+
+@pytest.mark.parametrize("block_out", tsm.BLOCK_OUT)
+@pytest.mark.parametrize("I,O,B", STREAM_PLAN_SHAPES)
+def test_stream_mm_plan_fits_and_covers_every_tile_once(I, O, B, block_out):
+    """The ring (stream_ring.cuh's rule) fits shared memory, and the grid's
+    blocks own each (row tile, batch tile) once."""
+    mt, n = tsm.TILES[block_out]
+    p = tsm.plan(I, O, B, block_out)
+    gx, gy = p["grid"]
+    if p["route"] == "wmma":
+        assert (gx - 1) * p["bn"] < B <= gx * p["bn"] and (gy - 1) * p["bm"] < O <= gy * p["bm"]
+        return
+    assert p["smem"] <= SMEM_LIMIT and 2 <= p["stages"] <= tsm.MAX_STAGES
+    assert p["stage_bytes"] == 8192 * (mt + 2 * n // 64) and p["bn"] == 2 * n
+    assert p["stages"] == min(8, (SMEM_LIMIT - 1024 - 2 * 8 * 8) // p["stage_bytes"])
+    assert (gx - 1) * block_out < O <= gx * block_out
+    assert (gy - 1) * p["bn"] < B <= gy * p["bn"]
+    assert p["chunks"] * 64 >= I
+
+
+def test_stream_mm_plan_routes_by_shape():
+    assert tsm.plan(2048, 16384, 256)["route"] == "tma"
+    assert tsm.plan(2048, 16384, 256)["grid"] == (128, 1)
+    assert tsm.plan(2048, 16384, 256, 64)["grid"] == (256, 1)
+    assert tsm.plan(2048, 16384, 256, 256)["grid"] == (64, 2)
+    assert tsm.plan(100, 200, 5)["route"] == "wmma"           # B 5
+    assert tsm.plan(100, 204, 8)["route"] == "wmma"           # O 204
+    assert tsm.plan(128, 256, 32, aligned=False)["route"] == "wmma"
+    with pytest.raises(ValueError, match="block_out"):
+        tsm.plan(2048, 16384, 256, 96)
+
+
+def test_every_block_m_and_block_out_has_an_instance():
+    """The C entries dispatch every value the wrappers take."""
+    bm_src = (CSRC / "block_mm.cu").read_text()
+    for bm in tbm.BLOCK_M:
+        assert f"block_m == {bm}) return launch_tma<T, {bm}>" in bm_src
+    sm_src = (CSRC / "stream_mm.cu").read_text()
+    for bo in tsm.BLOCK_OUT:
+        assert f"block_o == {bo}) return launch_tma<{bo}>" in sm_src
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm: byte i of the result is byte (s >> 4 i) & 7 of
+    the eight bytes of (y, x)."""
+    b = [(x >> 8 * i) & 0xFF for i in range(4)] + [(y >> 8 * i) & 0xFF for i in range(4)]
+    return sum(b[(s >> 4 * i) & 7] << 8 * i for i in range(4))
+
+
+def _transpose_s8_model(b):
+    """csrc/block_mm.cu's transpose_s8_kernel, block by block and thread by
+    thread: the swizzled 128 x 128 tile in shared memory, each thread's 16
+    words and its four 4 x 4 byte transposes."""
+    K, N = b.shape
+    bt = np.zeros((N, K), np.uint8)
+    for k0 in range(0, K, 128):
+        for n0 in range(0, N, 128):
+            tile = np.zeros((128, 8, 16), np.uint8)
+            for i in range(128 * 8):
+                r, c = i >> 3, i & 7
+                if k0 + r < K and n0 + 16 * c < N:
+                    tile[r, c ^ ((r >> 4) & 7)] = b[k0 + r, n0 + 16 * c:n0 + 16 * c + 16]
+            words = tile.reshape(-1).view("<u4")
+            for t in range(256):
+                ks, n4 = t & 7, t >> 3
+                o = np.zeros((4, 4), "<u4")
+                for g in range(4):
+                    r = [int(words[(16 * ks + 4 * g + q) * 32 + (((n4 >> 2) ^ ks) << 2) + (n4 & 3)])
+                         for q in range(4)]
+                    t0, t1 = _byte_perm(r[0], r[1], 0x5140), _byte_perm(r[0], r[1], 0x7362)
+                    t2, t3 = _byte_perm(r[2], r[3], 0x5140), _byte_perm(r[2], r[3], 0x7362)
+                    o[:, g] = [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+                               _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+                if k0 + 16 * ks >= K:
+                    continue
+                for j in range(4):
+                    if n0 + 4 * n4 + j < N:
+                        bt[n0 + 4 * n4 + j, k0 + 16 * ks:k0 + 16 * ks + 16] = o[j].view(np.uint8)
+    return bt
+
+
+@pytest.mark.parametrize("K,N", [(128, 128), (208, 144), (48, 272)])
+def test_transpose_s8_model_writes_the_transpose(K, N):
+    """The int8 call's b^T pass, ragged tiles included (K and N multiples
+    of 16, as the TMA route requires)."""
+    b = np.random.default_rng(K + N).integers(0, 256, size=(K, N)).astype(np.uint8)
+    np.testing.assert_array_equal(_transpose_s8_model(b), b.T)
