@@ -1922,7 +1922,7 @@ def _reset_counts():
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
     dm.launches = ha.launches = w4.launches = w4.w8_launches = 0
     bm.launches = bm.bf16_launches = sm.launches = 0
-    wp.split_out_launches = wp.split_k_launches = 0
+    wp.split_out_launches = wp.split_k_launches = wp.tma_launches = wp.wmma_launches = 0
 
 
 def _counts() -> dict:
@@ -2265,6 +2265,7 @@ def probe_phase(torch):
     default shapes, with the launch counters set to 0 just before; each
     probe's gate holds its kernels against their twins before it times
     them.  Returns the run's launch counts and the kernels line's entries."""
+    from dmi_tpu_torch.ops.cuda import w4_probe
     from dmi_tpu_torch.ops.cuda.stream_mm import BLOCK_OUT
     from dmi_tpu_torch.probes import profile_int8_mxu, profile_mlp_stream, profile_w4_matmul
 
@@ -2275,6 +2276,7 @@ def probe_phase(torch):
     r10 = profile_mlp_stream.run(inner=PROBE_INNER)
     r11 = profile_w4_matmul.run(inner=PROBE_INNER)
     counts = _counts()
+    w4_routes = {"tma": w4_probe.tma_launches, "wmma": w4_probe.wmma_launches}
     print(f"probes: {time.perf_counter() - t0!r} s")
     # a kernel's variant: its gate's call, 3 warm-ups and PROBE_INNER timed calls
     per = 1 + 3 + PROBE_INNER
@@ -2313,6 +2315,16 @@ def probe_phase(torch):
           f"stream {r11.get('torch_w4_packed_stream_ms')!r}, split-OUT "
           f"{r11.get('torch_w4_split_out_ms')!r}, split-K {r11.get('torch_w4_split_k_ms')!r}; "
           f"bound {r11['cuda_split_k_bound_us']!r} us")
+    # both layouts at the probe's shape take the wgmma route: 11a's and 11b's
+    # launches all counted there
+    print(f"  w4 probe launches by route: {w4_routes}")
+    if w4_routes != {"tma": 2 * per, "wmma": 0}:
+        raise AssertionError(f"w4 probe routes {w4_routes}: the wgmma route did not run")
+    for name, split_k in (("w4_split_out", False), ("w4_split_k", True)):
+        pl = w4_probe.plan(r11["OUT"], r11["batch"], r11["K"], split_k)
+        print(f"  {name}: tiles of {pl['bm']} rows x {pl['bn']} batch columns, "
+              f"{pl.get('tiles')} tiles on {pl['grid']} blocks, {pl.get('stages')} stages of "
+              f"{pl.get('stage_bytes')} bytes")
     kernels = {
         "block_mm": entry(r9, "cuda_int8", "plain_int8", "torch_int8", "cuda_int8",
                           "cuda_int8_max_abs_err"),

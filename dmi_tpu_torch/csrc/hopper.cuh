@@ -2,13 +2,15 @@
 // of TMA boxes in shared memory into wgmma: the decode MLP (decode_mlp.cu,
 // and its ring in stream_ring.cuh, which the weight-stream probe
 // stream_mm.cu shares), the head + argmax (head_argmax.cu), the int8
-// matmuls (w4_matmul.cu) and the blocked matmul probe (block_mm.cu).  The
-// mbarrier and TMA load wrappers and the driver's tensor-map encoder live in
-// flash_mma.cuh, which the flash backward shares; this header adds
+// matmuls (w4_matmul.cu), the blocked matmul probe (block_mm.cu) and the
+// packed-W4 probes (w4_probe.cu).  The mbarrier and TMA load wrappers and
+// the tensor-map encoder (cuTensorMapEncodeTiled) live in flash_mma.cuh,
+// which the flash backward shares; this header adds
 //   - tensor maps of 2-D row-major matrices (any element type, box and
 //     swizzle), encoded on the host and cached by what they were made from;
 //   - wgmma's shared-memory descriptors, fences, waits, and its bf16 (f32
-//     sums) and s8 (s32 sums) instructions, and the row and column a
+//     sums) and s8 (s32 sums) instructions (s8 also with A from registers,
+//     for the packed-W4 probes, w4_probe.cu), and the row and column a
 //     fragment register holds;
 //   - an L2 prefetch of a TMA box, TMA stores and the
 //     programmatic-dependent-launch controls.
@@ -411,6 +413,44 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
         "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128 s32) += A (64 x 32 s8, from registers) * B (32 x 128 s8, K-major by
+// descriptor): the register-A form.  a[0..3] hold the A fragment as
+// mma.sync's m16n8k32 does for warp w's rows 16 w .. 16 w + 15: with g = lane
+// / 4 and tig = lane % 4, a[0] row g, k 4 tig .. 4 tig + 3 (byte i: k 4 tig +
+// i), a[1] row g + 8, a[2] row g at k + 16, a[3] row g + 8 at k + 16.
+__device__ __forceinline__ void wgmma_s8_rs_n128(int (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 

@@ -1,10 +1,10 @@
 // One block-tiled tensor-core matmul (warp-level wmma, a cp.async ring) for
-// the probe kernels of dmi_tpu_torch: the packed-W4 probes (w4_probe.cu,
-// kSplitOut and kSplitK) and, for shapes whose rows TMA cannot take (not
-// whole 16-byte units, or a base off 16 bytes), the wmma instances of the
-// blocked matmul (block_mm.cu, kRowMajorA) and the weight-stream matmul
-// (stream_mm.cu, kTransA), both at kBM 128.  Their main instances are TMA
-// rings into wgmma (block_mm.cu; stream_mm.cu over stream_ring.cuh).
+// the probe kernels of dmi_tpu_torch, at shapes whose rows TMA cannot take
+// (not whole 16-byte units, or a base off 16 bytes): the wmma instances of
+// the blocked matmul (block_mm.cu, kRowMajorA), the weight-stream matmul
+// (stream_mm.cu, kTransA) and the packed-W4 probes (w4_probe.cu, kSplitOut
+// and kSplitK), all at kBM 128.  Their main instances are TMA rings into
+// wgmma (block_mm.cu; stream_mm.cu over stream_ring.cuh; w4_probe.cu).
 //
 //   out[m, n] = sum_k A[m, k] * B[k, n]        out [M, N] row-major
 //

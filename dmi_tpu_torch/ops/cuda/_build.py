@@ -64,8 +64,8 @@ _SIGNATURES = {
     "dmi_block_mm": [_P] * 4 + [_I] * 8 + [_P],
     # w, h, out, O, B, I, block_o, tma, grid_x, grid_y, stages, stream
     "dmi_stream_mm": [_P] * 3 + [_I] * 8 + [_P],
-    # p, h, out, OUT, B, K, split_k, stream
-    "dmi_w4_probe": [_P] * 3 + [_I] * 4 + [_P],
+    # p, h, ht (TMA: scratch for h^T), out, OUT, B, K, split_k, tma, grid, stages, stream
+    "dmi_w4_probe": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -159,9 +159,14 @@ def lib() -> ctypes.CDLL:
 def _kernel_name(mangled: str) -> str:
     """`flash_bwd_dkv_mma_kernel<4, 1>` from an Itanium-mangled kernel name:
     the length-prefixed identifier that ends in `_kernel`, then its integer
-    (and `float`) template arguments."""
+    (and `float`) template arguments.  The length may follow other digits
+    (an anonymous namespace's hash ends in one), so every tail of a run of
+    digits is tried."""
     for m in re.finditer(r"\d+", mangled):
-        name = mangled[m.end():m.end() + int(m.group())]
+        for start in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[start:m.end()])]
+            if name.endswith("_kernel") and name.isidentifier():
+                break
         if name.endswith("_kernel") and name.isidentifier():
             rest = mangled[m.end() + len(name):]
             if not rest.startswith("I"):

@@ -1288,30 +1288,95 @@ def test_stream_mm_kernel_at_the_probe_width_past_a_whole_box(cuda, block_out):
     assert bf16_steps(got, tsm._stream_mm_plain(w, h), f32_sum_slack(w.t(), h)) <= 1
 
 
-# (K, OUT, B): the probe's --small and default shapes, then odd ones
-W4_PROBE_SHAPES = [(64, 128, 4), (2048, 16384, 256), (70, 200, 5), (130, 96, 33), (2, 2, 1)]
+# (K, OUT, B): the probe's --small and default shapes; K past one ring
+# (4096: 16 and 32 stages); a ragged B (100, 8); row tiles past the SMs
+# (OUT 65536: 256 of them) and fewer than the SMs (OUT 512); then odd ones,
+# which take the wmma tile
+W4_PROBE_SHAPES = [(64, 128, 4), (2048, 16384, 256), (4096, 2048, 256), (2048, 16384, 100),
+                   (2048, 16384, 8), (256, 65536, 128), (512, 512, 256), (70, 200, 5),
+                   (130, 96, 33), (2, 2, 1)]
+W4_PROBE = {
+    "split_out": (twp.pack_split_out, twp.w4_dot_split_out, twp._w4_split_out_plain,
+                  "split_out_launches", False),
+    "split_k": (twp.pack_split_k, twp.w4_dot_split_k, twp._w4_split_k_plain,
+                "split_k_launches", True)}
+
+
+def _w4_probe_route_counts():
+    return twp.tma_launches, twp.wmma_launches
 
 
 @pytest.mark.parametrize("layout", ["split_out", "split_k"])
 @pytest.mark.parametrize("K,OUT,B", W4_PROBE_SHAPES)
 def test_w4_probe_kernels_equal_the_int8_product(cuda, K, OUT, B, layout):
-    """Every nibble value, -8 included; exact against the twin and the int8
-    product."""
+    """Every nibble value, -8 included, and h at -128 (a whole row of W at -8
+    against a whole column of h at -128: the largest sum); exact against the
+    twin and the int8 product, on the route plan() names, which the route's
+    launch counter shows ran."""
     w8 = np.random.default_rng(0).integers(-8, 8, size=(K, OUT)).astype(np.int8)
+    w8[:, 0] = -8
     h = _ints((K, B), -128, 128, cuda, 1)
-    pack, fn, plain, count = {
-        "split_out": (twp.pack_split_out, twp.w4_dot_split_out, twp._w4_split_out_plain,
-                      "split_out_launches"),
-        "split_k": (twp.pack_split_k, twp.w4_dot_split_k, twp._w4_split_k_plain,
-                    "split_k_launches")}[layout]
+    h[:, 0] = -128
+    pack, fn, plain, count, split_k = W4_PROBE[layout]
     p = torch.from_numpy(pack(w8)).to(cuda)
-    n0 = getattr(twp, count)
+    route = twp.plan(OUT, B, K, split_k, True)["route"]
+    assert route == ("tma" if K % 16 == 0 and B % 4 == 0 else "wmma")
+    n0, r0 = getattr(twp, count), _w4_probe_route_counts()
     got = fn(p, h)
     assert getattr(twp, count) == n0 + 1
+    assert _w4_probe_route_counts() == (r0[0] + (route == "tma"), r0[1] + (route == "wmma"))
     torch.cuda.synchronize()
     want = (torch.from_numpy(w8).to(cuda).double().t() @ h.double()).to(torch.int32)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert got[0, 0].item() == 8 * 128 * K
     assert torch.equal(got, plain(p, h))
+
+
+@pytest.mark.parametrize("layout", ["split_out", "split_k"])
+def test_w4_probe_kernel_takes_an_unaligned_operand_by_its_wmma_instance(cuda, layout):
+    """A packed base off 16 bytes: the plan picks the wmma tile before the
+    launch, and the result is the int8 product."""
+    K, OUT, B = 256, 512, 64
+    pack, fn, plain, count, split_k = W4_PROBE[layout]
+    w8 = np.random.default_rng(2).integers(-8, 8, size=(K, OUT)).astype(np.int8)
+    packed = torch.from_numpy(pack(w8))
+    buf = torch.empty(packed.numel() + 1, dtype=torch.uint8, device=cuda)
+    p = buf[1:].view(packed.shape)
+    p.copy_(packed)
+    h = _ints((K, B), -128, 128, cuda, 3)
+    assert p.data_ptr() % 16 and twp.plan(OUT, B, K, split_k, aligned=False)["route"] == "wmma"
+    r0 = _w4_probe_route_counts()
+    got = fn(p, h)
+    assert _w4_probe_route_counts() == (r0[0], r0[1] + 1)
+    torch.cuda.synchronize()
+    want = (torch.from_numpy(w8).to(cuda).double().t() @ h.double()).to(torch.int32)
+    assert torch.equal(got, want) and torch.equal(got, plain(p, h))
+
+
+@pytest.mark.parametrize("layout", ["split_out", "split_k"])
+@pytest.mark.parametrize("at_limit", [False, True])
+def test_w4_probe_kernels_are_exact_at_the_wgmma_route_s_largest_k(cuda, layout, at_limit):
+    """A row of W at -8 against a column of h at -128 at the largest K the
+    wgmma route takes (its 16 x int32 sum is 2³¹ - 2¹⁸ split-OUT, 2³¹ - 2¹⁹
+    split-K), and at
+    K_LIMIT, where that sum would reach 2³¹ and plan() takes the wmma tile."""
+    pack, fn, plain, count, split_k = W4_PROBE[layout]
+    K = twp.K_LIMIT if at_limit else twp.K_LIMIT - (32 if split_k else 16)
+    OUT, B = 256, 8
+    route = "wmma" if at_limit else "tma"
+    assert twp.plan(OUT, B, K, split_k)["route"] == route
+    w8 = np.random.default_rng(4).integers(-8, 8, size=(K, OUT)).astype(np.int8)
+    w8[:, 0] = -8
+    h = _ints((K, B), -128, 128, cuda, 5)
+    h[:, 0] = -128
+    p = torch.from_numpy(pack(w8)).to(cuda)
+    r0 = _w4_probe_route_counts()
+    got = fn(p, h)
+    assert _w4_probe_route_counts() == (r0[0] + (not at_limit), r0[1] + at_limit)
+    torch.cuda.synchronize()
+    want = (torch.from_numpy(w8).to(cuda).double().t() @ h.double()).to(torch.int32)
+    assert got[0, 0].item() == 8 * 128 * K
+    assert torch.equal(got, want) and torch.equal(got, plain(p, h))
 
 
 def test_probe_kernels_refuse_what_they_cannot_take(cuda):

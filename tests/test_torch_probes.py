@@ -441,15 +441,21 @@ def test_every_block_m_and_block_out_has_an_instance():
 
 def _byte_perm(x, y, s):
     """CUDA's __byte_perm: byte i of the result is byte (s >> 4 i) & 7 of
-    the eight bytes of (y, x)."""
+    the eight bytes of (y, x).  x, y and s may be arrays (lanes)."""
+    if np.ndim(s):
+        b = np.stack([(x >> 8 * i) & 0xFF for i in range(4)] +
+                     [(y >> 8 * i) & 0xFF for i in range(4)])
+        lanes = np.arange(b.shape[1])
+        return sum(b[(s >> 4 * i) & 7, lanes] << 8 * i for i in range(4))
     b = [(x >> 8 * i) & 0xFF for i in range(4)] + [(y >> 8 * i) & 0xFF for i in range(4)]
     return sum(b[(s >> 4 * i) & 7] << 8 * i for i in range(4))
 
 
 def _transpose_s8_model(b):
-    """csrc/block_mm.cu's transpose_s8_kernel, block by block and thread by
-    thread: the swizzled 128 x 128 tile in shared memory, each thread's 16
-    words and its four 4 x 4 byte transposes."""
+    """csrc/transpose_s8.cuh's transpose_s8_kernel, block by block and thread
+    by thread: the swizzled 128 x 128 tile in shared memory (16-byte units
+    past N zero, as the byte-wise loads of a ragged N leave them), each
+    thread's 16 words and its four 4 x 4 byte transposes."""
     K, N = b.shape
     bt = np.zeros((N, K), np.uint8)
     for k0 in range(0, K, 128):
@@ -458,7 +464,8 @@ def _transpose_s8_model(b):
             for i in range(128 * 8):
                 r, c = i >> 3, i & 7
                 if k0 + r < K and n0 + 16 * c < N:
-                    tile[r, c ^ ((r >> 4) & 7)] = b[k0 + r, n0 + 16 * c:n0 + 16 * c + 16]
+                    row = b[k0 + r, n0 + 16 * c:n0 + 16 * c + 16]
+                    tile[r, c ^ ((r >> 4) & 7), :len(row)] = row
             words = tile.reshape(-1).view("<u4")
             for t in range(256):
                 ks, n4 = t & 7, t >> 3
@@ -478,9 +485,239 @@ def _transpose_s8_model(b):
     return bt
 
 
-@pytest.mark.parametrize("K,N", [(128, 128), (208, 144), (48, 272)])
+@pytest.mark.parametrize("K,N", [(128, 128), (208, 144), (48, 272), (64, 100), (144, 8)])
 def test_transpose_s8_model_writes_the_transpose(K, N):
-    """The int8 call's b^T pass, ragged tiles included (K and N multiples
-    of 16, as the TMA route requires)."""
+    """The int8 call's b^T pass and the W4 probes' h^T pass, ragged tiles
+    included: K a multiple of 16, as both TMA routes require; N a multiple
+    of 16 (block_mm's route) or any width of whole int32 output rows (the
+    W4 probes' B 100 and 8)."""
     b = np.random.default_rng(K + N).integers(0, 256, size=(K, N)).astype(np.uint8)
     np.testing.assert_array_equal(_transpose_s8_model(b), b.T)
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of kernels 11a and 11b (csrc/w4_probe.cu) and a model of the
+# wgmma route's fragment build
+# ---------------------------------------------------------------------------
+
+# (K, OUT, B): the probe's --small and default shapes; K past one ring; a
+# ragged B (100, 8); row tiles past the SMs and fewer than them; the card
+# tests' odd shapes (the wmma tile)
+W4_PLAN_SHAPES = [(64, 128, 4), (2048, 16384, 256), (4096, 2048, 256), (2048, 16384, 100),
+                  (2048, 16384, 8), (256, 65536, 128), (512, 512, 256), (70, 200, 5),
+                  (130, 96, 33), (2, 2, 1)]
+
+
+@pytest.mark.parametrize("split_k", [False, True])
+@pytest.mark.parametrize("K,OUT,B", W4_PLAN_SHAPES)
+def test_w4_probe_plan_fits_and_walks_every_tile_once(K, OUT, B, split_k):
+    """The ring and the epilogue's buffers fit shared memory, the persistent
+    blocks are one an SM at most, the stages cover the packed rows, and the
+    walk computes each tile once."""
+    p = twp.plan(OUT, B, K, split_k, True)
+    if p["route"] == "wmma":
+        gx, gy = p["grid"]
+        rows = OUT if split_k else OUT // 2
+        per = p["bm"] if split_k else p["bm"] // 2
+        assert (gx - 1) * p["bn"] < B <= gx * p["bn"] and (gy - 1) * per < rows <= gy * per
+        return
+    assert p["smem"] <= SMEM_LIMIT and 2 <= p["stages"] <= twp.MAX_STAGES
+    assert p["stage_bytes"] == (2 if split_k else 1) * (16384 + 128 * twp.BLOCK_B)
+    assert p["bn"] == twp.BLOCK_B and p["ht_bytes"] == B * K
+    assert 1 <= p["grid"] <= twp.SMS and p["grid"] <= p["tiles"]
+    assert p["chunks"] * twp.STAGE_ROWS >= (K // 2 if split_k else K)
+    rows_a_tile = 256 if split_k else 128  # output rows, or packed columns of split-OUT
+    rows = OUT if split_k else OUT // 2
+    assert (p["m_tiles"] - 1) * rows_a_tile < rows <= p["m_tiles"] * rows_a_tile
+    assert (p["n_tiles"] - 1) * twp.BLOCK_B < B <= p["n_tiles"] * twp.BLOCK_B
+    walk = twp.tile_walk(p)
+    assert Counter(t for cta in walk for t in cta) == {
+        (m, n): 1 for m in range(p["m_tiles"]) for n in range(p["n_tiles"])}
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1  # balanced
+    # the blocks that share a row tile's packed boxes are neighbours
+    assert walk[0][0] == (0, 0) and (p["n_tiles"] == 1 or walk[1][0] == (0, 1))
+
+
+def test_w4_probe_plan_routes_by_shape():
+    """The wgmma route where TMA takes every operand's rows and the sums fit
+    int32 at 16 x; else the wmma tile, picked before any launch."""
+    for split_k in (False, True):
+        p = twp.plan(16384, 256, 2048, split_k)
+        assert p["route"] == "tma" and p["tiles"] == 128 and p["grid"] == 128
+        assert twp.plan(16384, 100, 2048, split_k)["route"] == "tma"   # B 100: 400-byte rows
+        assert twp.plan(16384, 102, 2048, split_k)["route"] == "wmma"  # B 102: 408
+        assert twp.plan(16384, 256, 2040, split_k)["route"] == "wmma"  # K 2040
+        assert twp.plan(16384, 256, 2048, split_k, aligned=False)["route"] == "wmma"
+        largest = twp.K_LIMIT - (32 if split_k else 16)
+        assert twp.plan(16384, 256, largest, split_k)["route"] == "tma"
+        assert twp.plan(16384, 256, twp.K_LIMIT, split_k)["route"] == "wmma"
+        assert twp.plan(16384, 256, twp.K_LIMIT + 32, split_k)["route"] == "wmma"
+    assert twp.plan(16400, 256, 2048, True)["route"] == "tma"      # 16-byte packed rows
+    assert twp.plan(16400, 256, 2048, False)["route"] == "wmma"    # OUT/2 8200: 8 bytes over
+    assert twp.plan(16384, 256, 2048, True)["stages"] == 3
+    assert twp.plan(16384, 256, 2048, False)["stages"] == 6
+
+
+@pytest.mark.parametrize("split_k", [False, True])
+def test_w4_probe_route_sums_hold_in_int32_below_k_limit(split_k):
+    """The wgmma route sums 16 x each nibble in int32: a row of W at -8
+    (stored as -128) against a column of h at -128.  At the largest K the
+    route takes the 16 x sum holds and shifts back to the true one; at
+    K_LIMIT it wraps, which is why plan() sends that K to the wmma tile."""
+    def sum_16x(K):  # the kernel's accumulation: int32 products and sums, which wrap
+        return int(np.dot(np.full(K, -128, np.int32), np.full(K, -128, np.int32)) >> 4)
+
+    largest = twp.K_LIMIT - (32 if split_k else 16)
+    assert twp.plan(256, 8, largest, split_k)["route"] == "tma"
+    assert sum_16x(largest) == 8 * 128 * largest
+    assert twp.plan(256, 8, twp.K_LIMIT, split_k)["route"] == "wmma"
+    assert sum_16x(twp.K_LIMIT) == -(2 ** 27)  # 2³¹ wrapped, where the sum is +2²⁷
+
+
+def _swz128(row, col):
+    """hopper.cuh's swz128: byte (row, col) of a box of 128-byte rows."""
+    return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15)
+
+
+def _tma_box(t, c0, r0, box_cols, box_rows):
+    """A TMA box of the 2-D uint8 tensor t at (column c0, row r0) as it lands
+    128-byte swizzled: a flat byte array, zeros past the tensor."""
+    rows, cols = t.shape
+    smem = np.zeros(box_rows * 128, np.uint8)
+    for r in range(min(box_rows, rows - r0)):
+        n = min(box_cols, cols - c0)
+        if n <= 0:
+            break
+        for c in range(n):
+            smem[_swz128(r, c)] = t[r0 + r, c0 + c]
+    return smem
+
+
+def _s8(words, byte):
+    """Byte `byte` of each uint32 word as a signed value."""
+    v = (words >> (8 * byte)) & 0xFF
+    return np.where(v >= 128, v - 256, v)
+
+
+def _transposed_words(box, off, sel, base, pairs):
+    """One thread's words of packed rows 4 tig .. 4 tig + 3 (load q at
+    offset off[q], the row order q ^ (tig & 2)) transposed by byte permutes,
+    for each lane: split-K's load_words (4 words: columns 4 c + j) or, from
+    halfwords (pairs), split-OUT's load_pairs (2 words: columns 2 c + h)."""
+    if not pairs:
+        wd = [box.view("<u4")[(base + off[q]) // 4].astype(np.int64) for q in range(4)]
+        t0, t1 = _byte_perm(wd[0], wd[1], 0x5140), _byte_perm(wd[0], wd[1], 0x7362)
+        t2, t3 = _byte_perm(wd[2], wd[3], 0x5140), _byte_perm(wd[2], wd[3], 0x7362)
+        return [_byte_perm(t0, t2, sel[0]), _byte_perm(t0, t2, sel[1]),
+                _byte_perm(t1, t3, sel[0]), _byte_perm(t1, t3, sel[1])]
+    hw = [box.view("<u2")[(base + off[q]) // 2].astype(np.int64) for q in range(4)]
+    x01, x23 = _byte_perm(hw[0], hw[1], 0x5410), _byte_perm(hw[2], hw[3], 0x5410)
+    return [_byte_perm(x01, x23, sel[0]), _byte_perm(x01, x23, sel[1])]
+
+
+def _w4_wgmma_model(p, h, split_k):
+    """csrc/w4_probe.cu's wgmma route, tile by tile and thread by thread:
+    h^T from the pass (_transpose_s8_model), the ring's boxes as TMA lands
+    them, each consumer thread's swizzled loads (rows in the order q ^ (tig
+    & 2)), its byte permutes (the last with the lane's selectors, which undo
+    that order), the x16 nibbles scattered into the A fragment as wgmma reads
+    it, B = h^T by the K-major descriptor, and the epilogue's rows through
+    its buffers and maps."""
+    K, B = h.shape
+    OUT = p.shape[1] if split_k else 2 * p.shape[1]
+    block_b = twp.BLOCK_B
+    pl = twp.plan(OUT, B, K, split_k, True)
+    assert pl["route"] == "tma"
+    ht = _transpose_s8_model(h.view(np.uint8))  # [B, K]
+    out = np.zeros((OUT, B), np.int64)
+    t = np.arange(128)
+    w, g, tig = t >> 5, (t & 31) >> 2, t & 3
+    x = (tig & 2) != 0
+    sel = ((np.where(x, 0x1054, 0x5410), np.where(x, 0x3276, 0x7632)) if split_k else
+           (np.where(x, 0x2064, 0x6420), np.where(x, 0x3175, 0x7531)))
+    rows_half = OUT if split_k else OUT // 2
+    for cta in twp.tile_walk(pl):
+        for m, n in cta:
+            col0, b0 = m * (256 if split_k else 128), n * block_b
+            acc = np.zeros((2, 2, 64, block_b), np.int64)  # [warpgroup][m64 tile][row][col]
+            for c in range(pl["chunks"]):
+                k = c * twp.STAGE_ROWS
+                boxes = [_tma_box(p, col0 + 128 * j, k, 128, 128)
+                         for j in range(2 if split_k else 1)]
+                hts = [_tma_box(ht, k + kh, b0, 128, block_b)
+                       for kh in ((0, K // 2) if split_k else (0,))]
+                for cw in range(2):
+                    col = 32 * w + 4 * g if split_k else 64 * cw + 16 * w + 2 * g
+                    off = [_swz128(4 * tig + (q ^ (tig & 2)), col) for q in range(4)]
+                    box = boxes[cw if split_k else 0]
+                    for kk in range(4):
+                        halves = [_transposed_words(box, off, sel, 4096 * kk + 2048 * half,
+                                                    not split_k) for half in range(2)]
+                        # (tile, nibble, h^T box, the tile's registers' words)
+                        if split_k:
+                            wgmmas = [(i, high, int(high), [halves[e >> 1][2 * i + (e & 1)]
+                                                            for e in range(4)])
+                                      for high in (False, True) for i in range(2)]
+                        else:
+                            v = [halves[e >> 1][e & 1] for e in range(4)]
+                            wgmmas = [(0, False, 0, v), (1, True, 0, v)]
+                        for i, high, hb, words in wgmmas:
+                            bmat = np.array([[hts[hb][_swz128(nn, 32 * kk + kx)] for nn in range(
+                                block_b)] for kx in range(32)], np.uint8).view(np.int8)
+                            a = np.zeros((64, 32), np.int64)
+                            for e in range(4):  # a[e]: row g + 8 (e & 1), k + 16 (e >> 1)
+                                vv = (words[e] if high else words[e] << 4) & 0xF0F0F0F0
+                                for byte in range(4):
+                                    a[16 * w + g + 8 * (e & 1),
+                                      4 * tig + byte + 16 * (e >> 1)] = _s8(vv, byte)
+                            acc[cw, i] += a @ bmat.astype(np.int64)
+            # the epilogue: register r of tile i holds (frag_row, frag_col)
+            for cw in range(2):
+                for i in range(2):
+                    for r in range(block_b // 2):
+                        hh = (r >> 1) & 1
+                        frow, fcol = 16 * w + g + 8 * hh, 8 * (r >> 2) + 2 * tig + (r & 1)
+                        if split_k:  # buffer w >> 1, row 32 (w & 1) + 4 g + 2 i + h
+                            base = 0
+                            orow = (col0 + 128 * cw + 64 * (w >> 1) + 32 * (w & 1) + 4 * g +
+                                    2 * i + hh)
+                        else:  # buffer i, row 16 w + 2 g + h, to the low or the high half
+                            base = i * (OUT // 2)
+                            orow = col0 + 64 * cw + 16 * w + 2 * g + hh
+                        ocol = b0 + fcol
+                        keep = (orow < rows_half) & (ocol < B)
+                        out[base + orow[keep], ocol[keep]] = acc[cw, i][frow, fcol][keep] >> 4
+    return out
+
+
+@pytest.mark.parametrize("split_k", [False, True])
+@pytest.mark.parametrize("K,OUT,B", [(160, 320, 36), (288, 512, 8), (32, 288, 68)])
+def test_w4_wgmma_fragment_model_is_the_product(K, OUT, B, split_k):
+    """The model of the wgmma route reproduces W^T h exactly: nibble -8 and
+    h = -128 included, ragged K stages (split-K's K/2 of 80, 144, 16 rows),
+    ragged row tiles (split-OUT's OUT/2 of 160 and 144) and ragged B."""
+    rng = np.random.default_rng(K + OUT + B)
+    w8 = rng.integers(-8, 8, size=(K, OUT)).astype(np.int8)
+    h = rng.integers(-128, 128, size=(K, B)).astype(np.int8)
+    w8[:, 1], h[:, 0] = -8, -128
+    p = (twp.pack_split_k if split_k else twp.pack_split_out)(w8)
+    want = w8.astype(np.int64).T @ h.astype(np.int64)
+    got = _w4_wgmma_model(p, h, split_k)
+    np.testing.assert_array_equal(got, want)
+    assert got[1, 0] == 8 * 128 * K
+
+
+def test_ptxas_report_names_kernels_behind_a_namespace_hash():
+    """The smoke's and the compare script's register line: a kernel in an
+    anonymous namespace, whose hash may end in a digit before its name's
+    length, is still named with its template arguments."""
+    from dmi_tpu_torch.ops.cuda._build import _kernel_name, ptxas_usage
+
+    mangled = ("_ZN44_GLOBAL__N__a6a287e7_11_w4_probe_cu_5dc5d0e715w4_wgmma_kernel"
+               "ILb1EEEv14CUtensorMap_stS1_S1_S1_iii")
+    assert _kernel_name(mangled) == "w4_wgmma_kernel<1>"
+    assert _kernel_name("_ZN44_GLOBAL__N__a6a287e7_11_w4_probe_cu_5dc5d0e719transpose_s8_"
+                        "kernelEPKhPhii") == "transpose_s8_kernel"
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n")
+    assert ptxas_usage(log) == [("w4_wgmma_kernel<1>", 168, 0, 0)]
