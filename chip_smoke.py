@@ -132,7 +132,16 @@ card.
    loop must give the in-memory run's ids and launch counts, and one
    stage-3 micro-step over the loaded hypernet its loss, launches and
    updated hypernet.  Bytes written and read, load times and device memory
-   are printed.
+   are printed.  Then the paper's LM name (hub_phase): a temporary hub
+   cache holds meta-llama/Llama-3.2-1B-Instruct (the 1B tree in the HF
+   layout and the Llama-3 fixture tokenizer of data/hf_tokenizer.py);
+   build_tokenizer reads the name with the port's reader, held exactly to
+   transformers' output in llama3_tok_golden.json;
+   configs/experiments/projector/v2:llama1b_sydney_rn50_mlp2 runs through
+   train_projector.cli with its lm_name_or_path as written (data sizes,
+   steps, seeds, output root and logging changed) and one serve.main batch
+   on the name, each launching its kernels; the phase's seconds, the
+   tokenizer's load time and its host time per caption are printed.
 
 15. Gemma-2-2B (google/gemma-2-2b's config.json, random bf16 weights) from
    an HF gemma2 directory: its serving kernels at its shapes, the 300
@@ -3656,6 +3665,185 @@ def cli_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The paper's LM name: meta-llama/Llama-3.2-1B-Instruct from a hub cache
+# ---------------------------------------------------------------------------
+
+HUB_NAME = "meta-llama/Llama-3.2-1B-Instruct"
+HUB_CONFIG = "v2:llama1b_sydney_rn50_mlp2"  # under configs/experiments/projector
+# what the phase changes in that config: the data sizes, the steps and the
+# runs (one epoch at the full size of generate_dataset's data, in the
+# working directory, under the first of the default seeds), the results'
+# directory (in the working directory) and the logging
+HUB_OVERRIDES = {"dataset_size_l": ["full"], "epochs_l": [1], "seeds": [55625],
+                 "output_root": "outputs", "logging_steps": 1}
+HUB_N_TRAIN, HUB_N_EVAL = 64, 64  # micro-steps at the config's batch of 64; one eval batch
+HUB_ENCODER = "RemoteCLIP-RN50-Unchanged"
+
+
+def golden_check(tok) -> int:
+    """The reader's ids (with and without bos), decodes, chat renders, chat
+    ids and assistant masks on llama3_tok_golden.json's texts and chats,
+    exactly as transformers computed them; returns the bytes checked."""
+    from dmi_tpu_torch.data import hf_tokenizer
+
+    gold = json.loads(hf_tokenizer.GOLDEN_FILE.read_text(encoding="utf-8"))
+    got = hf_tokenizer.golden_outputs(tok, gold["texts"], gold["chats"], gold["date_string"])
+    wrong = sorted(k for k in set(got) | set(gold) if got.get(k) != gold.get(k))
+    if wrong:
+        raise AssertionError(f"the tokenizer reader differs from transformers' golden output "
+                             f"at {wrong}")
+    return sum(len(json.dumps(v)) for k, v in got.items()
+               if k not in ("texts", "chats", "date_string"))
+
+
+def hub_phase(torch, dev, cfg, params) -> dict:
+    """The paper's configs run as written, by their LM name: a temporary hub
+    cache holds models--meta-llama--Llama-3.2-1B-Instruct/snapshots/<rev>
+    (refs/main) with the 1B tree in the HF layout and the Llama-3 fixture
+    tokenizer (hf_tokenizer.write_llama3_tokenizer_dir), HF_HUB_CACHE points
+    at it and DMI_LM_OVERRIDE is unset.  (a) build_tokenizer reads the name
+    through the port's reader (never transformers), held to the golden file
+    exactly; (b) configs/experiments/projector/HUB_CONFIG with its
+    lm_name_or_path as written through train_projector.cli, on
+    generate_dataset's sydney data (HUB_OVERRIDES: data sizes, steps,
+    logging); (c) one serve.main batch on the name and stage (b)'s best
+    projector.  Each run launches the kernels of CLI_KERNELS; returns its
+    launch counts.  Prints the phase's seconds, the tokenizer's load time
+    and its host time per caption (encode and decode)."""
+    import glob
+    import shutil
+
+    from dmi_tpu_torch import serve, train_projector
+    from dmi_tpu_torch.config import LMArgs
+    from dmi_tpu_torch.data import hf_tokenizer
+    from dmi_tpu_torch.data.fixtures import generate_dataset
+    from dmi_tpu_torch.registry import dataset_spec
+    from dmi_tpu_torch.training.model_utils import build_tokenizer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dmi_hub_")
+    saved_env = {k: os.environ.get(k) for k in ("HF_HUB_CACHE", "DMI_LM_OVERRIDE")}
+    here = os.getcwd()
+    out = {}
+    try:
+        repo = os.path.join(root, "hub", "models--" + HUB_NAME.replace("/", "--"))
+        snapshot = os.path.join(repo, "snapshots", "0123abcd")
+        os.makedirs(snapshot)
+        os.makedirs(os.path.join(repo, "refs"))
+        with open(os.path.join(repo, "refs", "main"), "w") as f:
+            f.write("0123abcd")
+        t0 = time.perf_counter()
+        hub_cfg = dataclasses.replace(cfg, eos_token_ids=(128001, 128008, 128009))
+        lm_bytes = write_hf_llama(torch, snapshot, hub_cfg, params)
+        hf_tokenizer.write_llama3_tokenizer_dir(snapshot)
+        print(f"hub {HUB_NAME}: wrote {lm_bytes} bytes of weights and "
+              f"{sorted(n for n in os.listdir(snapshot) if n.startswith('tok') or 'special' in n)}"
+              f" in {time.perf_counter() - t0!r} s")
+        os.environ["HF_HUB_CACHE"] = os.path.join(root, "hub")
+        os.environ.pop("DMI_LM_OVERRIDE", None)
+
+        # (a) the tokenizer by name, held to transformers' golden output
+        t0 = time.perf_counter()
+        tok = build_tokenizer(LMArgs(lm_name_or_path=HUB_NAME))
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hf_tokenizer.llama3_regex()
+        regex_s = time.perf_counter() - t0
+        if not isinstance(tok, hf_tokenizer.Llama3Tokenizer):
+            raise AssertionError(f"build_tokenizer({HUB_NAME!r}) gave {type(tok)}")
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("transformers",
+                                                                       "tokenizers"))
+        if loaded:
+            raise AssertionError(f"the hub phase loaded {loaded}")
+        checked = golden_check(tok)
+        print(f"  tokenizer: {type(tok).__name__} (bos {tok.bos_token_id}, eos "
+              f"{tok.eos_token_id}, pad {tok.pad_token_id}, vocab {tok.vocab_size} + "
+              f"{len(tok._added)} added) read in {load_s!r} s, its Split pattern's "
+              f"classes built in {regex_s!r} s; golden file held exactly ({checked} bytes of "
+              f"ids, masks, renders and decodes)")
+
+        # (b) stage 1 through the CLI, the config's LM name as written
+        work = os.path.join(root, "work")
+        os.makedirs(work)
+        os.chdir(work)
+        os.environ.setdefault("WANDB_MODE", "disabled")
+        generate_dataset("data", "sydney", HUB_ENCODER, mm_dim=1024, n_train=HUB_N_TRAIN,
+                         n_eval=HUB_N_EVAL, seed=SEED)
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                               "experiments", "projector", f"{HUB_CONFIG}.json")) as f:
+            config = json.load(f)
+        if config["lm_name_or_path"] != HUB_NAME:
+            raise AssertionError(f"{HUB_CONFIG} names {config['lm_name_or_path']}")
+        config.update(HUB_OVERRIDES)
+        with open(f"{HUB_CONFIG}.json", "w") as f:
+            json.dump(config, f, indent=2)
+        runs = {"stage 1": _timed_cli(torch, train_projector.cli,
+                                      [f"{HUB_CONFIG}.json", "--device", dev.type])}
+        best = glob.glob(os.path.join("checkpoints", "*projector-best.pt"))
+        embs = os.path.join("data", dataset_spec("sydney").path, f"test_embs_{HUB_ENCODER}.pkl")
+        if len(best) != 1:
+            raise AssertionError(f"stage 1 left {best}")
+        # (c) one serving batch on the name
+        runs["serve"] = _timed_cli(torch, serve.main, [
+            "--lm", HUB_NAME, "--projector-ckpt", best[0], "--dataset", "sydney", "--embs",
+            embs, "--engine", "batch", "--out", "captions.json", "--device", dev.type])
+        losses, results, captions = cli_record(".")
+        for label, run in runs.items():
+            print(f"  {label} on {HUB_NAME}: {run['seconds']!r} s, launches "
+                  f"{ {k: v for k, v in run['launches'].items() if v} }")
+            missing = [k for k in CLI_KERNELS[label] if not run["launches"][k]]
+            if missing:
+                raise AssertionError(f"{HUB_NAME} {label}: no launch of {missing}")
+            out[f"hub {label}"] = run["launches"]
+        with open(embs, "rb") as f:
+            requests = sorted(pickle.load(f))
+        caps = captions.get("captions.json", {})
+        if (not losses or not all(np.isfinite(v) for v in losses.values())
+                or sorted(caps) != requests or not results):
+            raise AssertionError(f"{HUB_NAME}: losses {losses}, {len(caps)} captions for "
+                                 f"{len(requests)} requests, results {sorted(results)}")
+
+        # the tokenizer's host time per caption, as the loader and serving use it
+        with open(os.path.join("data", dataset_spec("sydney").path,
+                               f"train_embs_{HUB_ENCODER}.pkl"), "rb") as f:
+            texts = [v["caption"] for v in pickle.load(f).values()]
+        # captions of 12 words drawn from SURVEY.md's, for a vocabulary wider
+        # than the fixture's eight captions
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "SURVEY.md"),
+                  encoding="utf-8") as f:
+            words = f.read().split()
+        rng = np.random.default_rng(SEED)
+        distinct = [" ".join(rng.choice(words, 12)) for _ in range(len(texts))]
+        per_caption = {}
+        for label, batch in (("the training chats", texts), ("distinct captions", distinct)):
+            chats = [[{"role": "user", "content": "Describe the satellite image"},
+                      {"role": "assistant", "content": c}] for c in batch]
+            fresh = build_tokenizer(LMArgs(lm_name_or_path=HUB_NAME))  # a cold BPE cache
+            t0 = time.perf_counter()
+            enc = fresh.apply_chat_template(chats, tokenize=True, return_dict=True,
+                                            return_assistant_tokens_mask=True)
+            t1 = time.perf_counter()
+            fresh.batch_decode(enc["input_ids"], skip_special_tokens=True)
+            t2 = time.perf_counter()
+            per_caption[label] = ((t1 - t0) / len(chats) * 1e6, (t2 - t1) / len(chats) * 1e6)
+        print(f"  tokenizer host time per caption (encode with assistant masks, decode; us): "
+              + "; ".join(f"{k} ({len(texts)}, {len(set(b))} distinct): {e!r}, {d!r}"
+                          for (k, (e, d)), b in zip(per_caption.items(), (texts, distinct)))
+              + f"; {len(losses)} finite losses, {len(caps)} captions for {len(requests)} "
+              f"requests, results {sorted(results)}")
+    finally:
+        os.chdir(here)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"hub phase: {time.perf_counter() - t_phase!r} s ({nvidia_smi()})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Tensor- and data-parallel serving (dmi_tpu_torch/parallel/)
 # ---------------------------------------------------------------------------
 
@@ -4699,6 +4887,7 @@ def main() -> int:
                                                                 hn_params)
     paths["LoRA"] = lora_phase(torch, dev, cfg, params)
     paths.update(disk_phase(torch, dev, cfg, params, projector, embs, hn_params, hn_state))
+    paths.update(hub_phase(torch, dev, cfg, params))
     del params, hn_params, hn_state, projector
     torch.cuda.empty_cache()
     gemma_kernels, gemma_paths = gemma_phase(torch, dev)

@@ -17,7 +17,9 @@ pre-tokenizer pattern (a scanner on unicodedata categories, as the card may
 lack the `regex` package); each piece's UTF-8 bytes map to GPT-2's
 printable characters and merge by rank; decoding maps the characters back
 to bytes and replaces invalid UTF-8, with no clean-up of spaces (the
-fixture's clean_up_tokenization_spaces is false).
+fixture's clean_up_tokenization_spaces is false).  data/hf_tokenizer.py
+reads Llama-3's tokenizer.json on this class: its own pre-tokenizer and
+post-processor, ignore_merges and the clean-up of decoded spaces.
 """
 
 from __future__ import annotations
@@ -110,6 +112,9 @@ class ByteLevelBPETokenizer:
     pattern and no prefix space, BPE without dropout or unknown token, no
     post-processor, the ByteLevel decoder) with a Llama-3 chat template."""
 
+    model_input_names = ("input_ids", "token_type_ids", "attention_mask")
+    clean_up_tokenization_spaces = False
+
     def __init__(self, spec: dict, chat_template: str):
         tok = spec["tokenizer"]
         model = tok["model"]
@@ -126,23 +131,29 @@ class ByteLevelBPETokenizer:
         if any(t["lstrip"] or t["rstrip"] or t["single_word"] or t["normalized"]
                for t in tok["added_tokens"]):
             raise NotImplementedError("added tokens that strip, match words or normalize")
+        self._read_model(model, {t["content"]: t["id"] for t in tok["added_tokens"]},
+                         {t["id"] for t in tok["added_tokens"] if t["special"]})
+        self.bos_token = spec["bos_token"]
+        self.eos_token = spec["eos_token"]
+        self.pad_token = spec["pad_token"]
+        self.padding_side = spec["padding_side"]
+        self.chat_template = chat_template
+
+    def _read_model(self, model: dict, added: Dict[str, int], special_ids) -> None:
+        """The BPE model's vocab and merge ranks, and the added tokens."""
         self._vocab: Dict[str, int] = dict(model["vocab"])
         merges = [tuple(m.split(" ")) if isinstance(m, str) else tuple(m)
                   for m in model["merges"]]
         self._ranks = {pair: r for r, pair in enumerate(merges)}
-        self._added = {t["content"]: t["id"] for t in tok["added_tokens"]}
-        self._special_ids = {t["id"] for t in tok["added_tokens"] if t["special"]}
+        self._ignore_merges = bool(model.get("ignore_merges"))
+        self._added = dict(added)
+        self._special_ids = set(special_ids)
         self._id_to_token = {i: t for t, i in self._vocab.items()}
         self._id_to_token.update({i: t for t, i in self._added.items()})
         # leftmost-longest, as tokenizers' added-vocabulary matcher
         self._added_re = re.compile("|".join(
             re.escape(t) for t in sorted(self._added, key=len, reverse=True)))
         self._bpe_cache: Dict[str, List[str]] = {}
-        self.bos_token = spec["bos_token"]
-        self.eos_token = spec["eos_token"]
-        self.pad_token = spec["pad_token"]
-        self.padding_side = spec["padding_side"]
-        self.chat_template = chat_template
 
     # ------------------------------------------------------------- vocab
     def _id(self, token: str) -> Optional[int]:
@@ -168,7 +179,10 @@ class ByteLevelBPETokenizer:
     # ------------------------------------------------------------- encode
     def _bpe(self, word: str) -> List[str]:
         """Merge the lowest-ranked adjacent pair (the leftmost on a tie) until
-        no pair has a rank."""
+        no pair has a rank.  With ignore_merges, a word the vocab holds whole
+        is one token, whatever the merges would give."""
+        if self._ignore_merges and word in self._vocab:
+            return [word]
         if word in self._bpe_cache:
             return self._bpe_cache[word]
         syms = list(word)
@@ -183,7 +197,7 @@ class ByteLevelBPETokenizer:
         return syms
 
     def _encode_stretch(self, text: str, lo: int, hi: int, ids: list, offsets: list):
-        for s, e in _pre_tokenize(text[lo:hi]):
+        for s, e in self._pre_tokenize(text[lo:hi]):
             piece = text[lo + s:lo + e]
             data = piece.encode("utf-8")
             char_of = [c for c, ch in enumerate(piece) for _ in ch.encode("utf-8")]
@@ -204,18 +218,36 @@ class ByteLevelBPETokenizer:
         self._encode_stretch(text, pos, len(text), ids, offsets)
         return ids, offsets
 
-    def __call__(self, text) -> Dict[str, list]:
-        """input_ids, token_type_ids and attention_mask of a string, or of
-        each string of a list (the fixture adds no special tokens)."""
+    def _pre_tokenize(self, text: str) -> List[Tuple[int, int]]:
+        return _pre_tokenize(text)
+
+    def _post_process(self, ids: list, offsets: list, add_special_tokens: bool):
+        """(ids, token type ids, offsets) of one encoding after the
+        post-processor (the fixture has none)."""
+        return ids, [0] * len(ids), offsets
+
+    def _encodings(self, texts, add_special_tokens: bool) -> Tuple[Dict[str, list], list]:
+        """The model inputs of each text, and the offsets of its tokens."""
+        rows = [self._post_process(*self._encode(t), add_special_tokens) for t in texts]
+        out = {"input_ids": [ids for ids, _, _ in rows],
+               "token_type_ids": [types for _, types, _ in rows],
+               "attention_mask": [[1] * len(ids) for ids, _, _ in rows]}
+        out = {k: out[k] for k in self.model_input_names}
+        return out, [offsets for _, _, offsets in rows]
+
+    def __call__(self, text, add_special_tokens: bool = True) -> Dict[str, list]:
+        """The model inputs (input_ids, token_type_ids, attention_mask) of a
+        string, or of each string of a list; the post-processor's special
+        tokens with add_special_tokens."""
         batched = not isinstance(text, str)
-        ids = [self._encode(t)[0] for t in (text if batched else [text])]
-        out = {"input_ids": ids, "token_type_ids": [[0] * len(r) for r in ids],
-               "attention_mask": [[1] * len(r) for r in ids]}
+        out, _ = self._encodings(text if batched else [text], add_special_tokens)
         return out if batched else {k: v[0] for k, v in out.items()}
 
     # ------------------------------------------------------------- decode
     def decode(self, token_ids, skip_special_tokens: bool = False) -> str:
-        """Unknown ids are dropped, as tokenizers drops them."""
+        """Unknown ids are dropped, as tokenizers drops them; the spaces
+        before punctuation and contractions go when the tokenizer's config
+        asks for transformers' clean-up."""
         if hasattr(token_ids, "tolist"):
             token_ids = token_ids.tolist()
         if isinstance(token_ids, int):
@@ -229,7 +261,8 @@ class ByteLevelBPETokenizer:
                 data += bytes(_CHAR_BYTE[c] for c in token)
             else:
                 data += token.encode("utf-8")
-        return data.decode("utf-8", errors="replace")
+        text = data.decode("utf-8", errors="replace")
+        return _clean_up_tokenization(text) if self.clean_up_tokenization_spaces else text
 
     def batch_decode(self, sequences, skip_special_tokens: bool = False) -> List[str]:
         return [self.decode(s, skip_special_tokens) for s in sequences]
@@ -252,16 +285,23 @@ class ByteLevelBPETokenizer:
                                 for c in convs))
         if not tokenize:
             return list(rendered) if batched else rendered[0]
-        rows = [self._encode(text) for text in rendered]
-        out = {"input_ids": [ids for ids, _ in rows],
-               "token_type_ids": [[0] * len(ids) for ids, _ in rows],
-               "attention_mask": [[1] * len(ids) for ids, _ in rows]}
+        out, offsets = self._encodings(rendered, add_special_tokens=False)
         if return_assistant_tokens_mask:
-            out["assistant_masks"] = [_assistant_mask(len(ids), offsets, s)
-                                      for (ids, offsets), s in zip(rows, spans)]
+            out["assistant_masks"] = [_assistant_mask(len(ids), o, s) for ids, o, s in
+                                      zip(out["input_ids"], offsets, spans)]
         if not batched:
             out = {k: v[0] for k, v in out.items()}
         return out if return_dict else out["input_ids"]
+
+
+def _clean_up_tokenization(text: str) -> str:
+    """transformers' clean_up_tokenization: no space before . ? ! , and the
+    English contractions."""
+    for spaced, joined in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                           (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+                           (" 're", "'re")):
+        text = text.replace(spaced, joined)
+    return text
 
 
 def _char_to_token(offsets: List[Tuple[int, int]], char: int) -> Optional[int]:

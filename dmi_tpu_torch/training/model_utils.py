@@ -10,12 +10,14 @@
     qwen3_moe, olmoe, deepseek_v2) in the HF layout from a local directory
     or the HF hub cache (training/hf_weights.py: config.json and
     safetensors or .bin weights, read without transformers), and its
-    tokenizer through transformers.AutoTokenizer
+    tokenizer: in Llama-3's layout read by data/hf_tokenizer.py, any other
+    through transformers.AutoTokenizer
 The DMI_LM_OVERRIDE environment variable substitutes any configured name
 with one of the above, as in dmi_tpu.  What dmi_tpu refuses stays refused
 (mixed dense/sparse stacks, deepseek's group-limited routing, olmoe's
-clip_qkv), as do options outside its layouts.  The tokenizers need
-transformers and tokenizers, so they are imported only here, lazily.
+clip_qkv), as do options outside its layouts.  Tokenizers outside
+Llama-3's layout need transformers and tokenizers, so they are imported
+only here, lazily.
 
 `require_device` is the entry points' device check: they run on the card
 unless asked for the CPU, and fail before loading anything when no card is
@@ -82,17 +84,30 @@ def _refused(what: str):
 
 
 def build_tokenizer(lm_args):
+    """The LM's tokenizer, chosen by its files and never by what is
+    installed: a test LM's is the fixture; a model directory in Llama-3's
+    layout is read by data/hf_tokenizer.py (pure Python, on every machine);
+    any other layout goes to transformers' AutoTokenizer, with the reader's
+    refusal logged (on the card, which lacks transformers, it then fails).
+    pad is set to eos and the chat template overridden by name, as in
+    dmi_tpu."""
     name = _resolve_name(lm_args.lm_name_or_path)
     if is_test_lm(name):
         from dmi_tpu_torch.data.tok_fixture import build_test_tokenizer
 
         return build_test_tokenizer()
-    from transformers import AutoTokenizer
-
     from dmi_tpu_torch.chat_templates import LLMS_CHATTEMPLATES
+    from dmi_tpu_torch.data import hf_tokenizer
 
-    tokenizer = AutoTokenizer.from_pretrained(str(hf_weights.model_dir(name)),
-                                              local_files_only=True)
+    directory = hf_weights.model_dir(name)
+    try:
+        tokenizer = hf_tokenizer.read_tokenizer_dir(directory)
+    except hf_tokenizer.UnsupportedTokenizer as refusal:
+        log.warning("the port's tokenizer reader refuses %s (%s); trying transformers' "
+                    "AutoTokenizer", name, refusal)
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(str(directory), local_files_only=True)
     tokenizer.pad_token = tokenizer.eos_token
     if name in LLMS_CHATTEMPLATES:
         tokenizer.chat_template = LLMS_CHATTEMPLATES[name]
