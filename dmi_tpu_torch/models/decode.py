@@ -61,6 +61,7 @@ from dmi_tpu_torch.ops.cuda.head_argmax import _head_argmax_plain, head_argmax, 
 from dmi_tpu_torch.ops.cuda.w4_matmul import (_rescale, _w4_mm_plain, _w8_mm_plain, w4_mm_bl,
                                               w8_mm_bl)
 from dmi_tpu_torch.utils import rng
+from dmi_tpu_torch.utils.profiling import span
 
 NEG_INF = llama.NEG_INF
 
@@ -424,25 +425,27 @@ def _moe_mlp_bl(cfg, lw, hn, plain: bool = False, shard=None):
     products (torch ops, as dmi_tpu's XLA einsums; no kernel); deepseek's
     shared experts go through _mm_bl, so a quantized tree runs them on the
     int8 kernels.  shard: this rank's experts and shared-expert slice, as
-    llama._moe_mlp."""
-    if cfg.moe_gate_fp32:
-        router = dequantize(lw["w_router"], torch.float32).float().t() @ hn.float()
-    else:
-        router = _mm_bl(lw["w_router"], hn, plain)  # [E, B]
-    w_e = llama.moe_gate_weights(cfg, router.t()).t().to(hn.dtype)  # [E, B]
-    if shard is not None:
-        w_e = w_e[shard.e0:shard.e1]
-    g = dequantize(lw["moe_w1"], hn.dtype).transpose(1, 2) @ hn  # [E, I, B]
-    u = dequantize(lw["moe_w3"], hn.dtype).transpose(1, 2) @ hn
-    y = dequantize(lw["moe_w2"], hn.dtype).transpose(1, 2) @ (llama.mlp_activation(cfg, g) * u)
-    out = (y * w_e[:, None, :]).sum(dim=0)  # [H, B]
-    if shard is not None:
-        out = shard.psum(out.float()).to(hn.dtype)
-    if cfg.n_shared_experts:
-        gate = llama.mlp_activation(cfg, _mm_bl(lw["w_shared_gate"], hn, plain))
-        out = out + _mm_bl(lw["w_shared_down"], gate * _mm_bl(lw["w_shared_up"], hn, plain),
-                           plain, shard)
-    return out
+    llama._moe_mlp.  Span decode.moe."""
+    with span("decode.moe"):
+        if cfg.moe_gate_fp32:
+            router = dequantize(lw["w_router"], torch.float32).float().t() @ hn.float()
+        else:
+            router = _mm_bl(lw["w_router"], hn, plain)  # [E, B]
+        w_e = llama.moe_gate_weights(cfg, router.t()).t().to(hn.dtype)  # [E, B]
+        if shard is not None:
+            w_e = w_e[shard.e0:shard.e1]
+        g = dequantize(lw["moe_w1"], hn.dtype).transpose(1, 2) @ hn  # [E, I, B]
+        u = dequantize(lw["moe_w3"], hn.dtype).transpose(1, 2) @ hn
+        y = (dequantize(lw["moe_w2"], hn.dtype).transpose(1, 2)
+             @ (llama.mlp_activation(cfg, g) * u))
+        out = (y * w_e[:, None, :]).sum(dim=0)  # [H, B]
+        if shard is not None:
+            out = shard.psum(out.float()).to(hn.dtype)
+        if cfg.n_shared_experts:
+            gate = llama.mlp_activation(cfg, _mm_bl(lw["w_shared_gate"], hn, plain))
+            out = out + _mm_bl(lw["w_shared_down"], gate * _mm_bl(lw["w_shared_up"], hn, plain),
+                               plain, shard)
+        return out
 
 
 def _mla_attn_bl(cfg, lw, hn, latent, row: int, span: int, bias, cos, sin,
@@ -590,7 +593,11 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     local config: the kernels run at this rank's heads and MLP columns, wo's
     and the MLP's partial outputs are summed over the model group (the int8
     kernels' in f32), and the vocab-sharded logits are gathered; the final
-    norm's output (head=False) is replicated, for the fused head's merge."""
+    norm's output (head=False) is replicated, for the fused head's merge.
+
+    Spans, each layer: decode.attn from the q/k/v products (or
+    _mla_attn_bl) to wo, then decode.moe (_moe_mlp_bl); then decode.head
+    over the final norm and the head."""
     cfg = llama.local_config(cfg, params)
     shard = params.get("shard")
     rows = llama.row_parallel(shard)
@@ -617,14 +624,14 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
         bias = torch.zeros(pos + 1, dtype=torch.float32, device=h.device)
         window = _window_row(cfg, pos, h.device)
         bias_sw = None if window is None else window[0]
-        row, span = pos, pos + 1
+        row, s_read = pos, pos + 1
     else:
         want = (B, s_total) if P == 1 else (B, P, s_total)
         if bias.shape != want:
             raise ValueError(f"per-slot bias {tuple(bias.shape)}: [B, (P,) S] = {want}")
         if llama.rope_dual(cfg) and rope_local is None:
             raise ValueError("a dual-rope config (gemma-3) needs rope_local beside rope")
-        row, span = write_row, s_total
+        row, s_read = write_row, s_total
     scale = llama.attn_score_scale(cfg)
     attend = _decode_attn_plain if plain else fused_decode_attention
     mlp = _decode_mlp_plain if plain else fused_decode_mlp_bl
@@ -636,36 +643,37 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     for li, lw in enumerate(params["layers"]):
         b, (cos, sin) = llama.layer_inputs(cfg, li, bias, bias_sw, rope, rope_local)
         hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_attn"], eps)
-        if mla:
-            attn = _mla_attn_bl(cfg, lw, hn, k_cache[li], row, span, b, cos, sin, plain)
-        else:
-            if "w_qkv" in lw:
-                qkv = mm(lw["w_qkv"], hn)
-                if "b_qkv" in lw:
-                    qkv = qkv + lw["b_qkv"][:, None]
-                q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=0)
+        with span("decode.attn"):
+            if mla:
+                attn = _mla_attn_bl(cfg, lw, hn, k_cache[li], row, s_read, b, cos, sin, plain)
             else:
-                q, k, v = mm(lw["wq"], hn), mm(lw["wk"], hn), mm(lw["wv"], hn)
-                if "bq" in lw:
-                    q, k, v = (q + lw["bq"][:, None], k + lw["bk"][:, None],
-                               v + lw["bv"][:, None])
-            if cfg.qk_norm_wide:
-                q = _rms_norm_bl(q, lw["q_norm"], eps, rows)
-                k = _rms_norm_bl(k, lw["k_norm"], eps, rows)
-            q, k = q.reshape(nkv, g, hd, N), k.reshape(nkv, hd, N)
-            if cfg.qk_norm:
-                q = _rms_norm_head_bl(q, lw["q_norm"], eps)
-                k = _rms_norm_head_bl(k, lw["k_norm"], eps)
-            q, k = _rope_bl(q, cos, sin), _rope_bl(k, cos, sin)
-            # only the step's own tensors change layout: [.., hd, P, B] -> [B, .., P, hd]
-            k_cache[li][:, :, row:row + P] = k.reshape(nkv, hd, P, B).permute(3, 0, 2, 1)
-            v_cache[li][:, :, row:row + P] = v.reshape(nkv, hd, P, B).permute(3, 0, 2, 1)
-            attn = attend(q.reshape(nh, hd, P, B).permute(3, 0, 2, 1),
-                          k_cache[li][:, :, :span], v_cache[li][:, :, :span], b,
-                          scale, cfg.attn_logit_softcap)  # [B, nh, P, hd]
-            attn = attn.permute(1, 3, 2, 0).reshape(nh * hd, N).contiguous()
-        x = x + llama._block_out(cfg, _mm_bl(lw["wo"], attn, plain, rows), lw, "ln_post_attn",
-                                 "ln_attn", _rms_norm_bl)
+                if "w_qkv" in lw:
+                    qkv = mm(lw["w_qkv"], hn)
+                    if "b_qkv" in lw:
+                        qkv = qkv + lw["b_qkv"][:, None]
+                    q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=0)
+                else:
+                    q, k, v = mm(lw["wq"], hn), mm(lw["wk"], hn), mm(lw["wv"], hn)
+                    if "bq" in lw:
+                        q, k, v = (q + lw["bq"][:, None], k + lw["bk"][:, None],
+                                   v + lw["bv"][:, None])
+                if cfg.qk_norm_wide:
+                    q = _rms_norm_bl(q, lw["q_norm"], eps, rows)
+                    k = _rms_norm_bl(k, lw["k_norm"], eps, rows)
+                q, k = q.reshape(nkv, g, hd, N), k.reshape(nkv, hd, N)
+                if cfg.qk_norm:
+                    q = _rms_norm_head_bl(q, lw["q_norm"], eps)
+                    k = _rms_norm_head_bl(k, lw["k_norm"], eps)
+                q, k = _rope_bl(q, cos, sin), _rope_bl(k, cos, sin)
+                # only the step's own tensors change layout: [.., hd, P, B] -> [B, .., P, hd]
+                k_cache[li][:, :, row:row + P] = k.reshape(nkv, hd, P, B).permute(3, 0, 2, 1)
+                v_cache[li][:, :, row:row + P] = v.reshape(nkv, hd, P, B).permute(3, 0, 2, 1)
+                attn = attend(q.reshape(nh, hd, P, B).permute(3, 0, 2, 1),
+                              k_cache[li][:, :, :s_read], v_cache[li][:, :, :s_read], b,
+                              scale, cfg.attn_logit_softcap)  # [B, nh, P, hd]
+                attn = attn.permute(1, 3, 2, 0).reshape(nh * hd, N).contiguous()
+            attn = _mm_bl(lw["wo"], attn, plain, rows)
+        x = x + llama._block_out(cfg, attn, lw, "ln_post_attn", "ln_attn", _rms_norm_bl)
         hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_mlp"], eps)
         if cfg.num_experts:  # never the decode-MLP kernel, as in dmi_tpu
             mlp_out = _moe_mlp_bl(cfg, lw, hn, plain, rows)
@@ -681,14 +689,15 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
             gate = llama.mlp_activation(cfg, mm(lw["w_gate"], hn))
             mlp_out = _mm_bl(lw["w_down"], gate * mm(lw["w_up"], hn), plain, rows)
         x = x + llama._block_out(cfg, mlp_out, lw, "ln_post_mlp", "ln_mlp", _rms_norm_bl)
-    x = _rms_norm_bl(x, params["final_norm"], eps)
-    if not head:
-        return x
-    if cfg.tie_word_embeddings:
-        logits = head_logits_bl(params["embed"], x)
-    else:
-        logits = mm(params["lm_head"], x)
-    return logits if shard is None else shard.gather_vocab(logits, 0)
+    with span("decode.head"):
+        x = _rms_norm_bl(x, params["final_norm"], eps)
+        if not head:
+            return x
+        if cfg.tie_word_embeddings:
+            logits = head_logits_bl(params["embed"], x)
+        else:
+            logits = mm(params["lm_head"], x)
+        return logits if shard is None else shard.gather_vocab(logits, 0)
 
 
 def fused_head_weights(cfg: LlamaConfig, params: dict) -> Optional[dict]:
@@ -699,7 +708,7 @@ def fused_head_weights(cfg: LlamaConfig, params: dict) -> Optional[dict]:
     of the same bf16 logits is the same function).  A quantized untied head
     ({"q"|"q8"|"qp", "s" [1, V]}) takes _mm_bl and an argmax.  A sharded
     tree's rows are its vocab block, and the tree carries its Shard along
-    for head_ids' merge."""
+    for head_ids' merge.  Span decode.head_rows: the untied head's copy."""
     if cfg.dtype != torch.bfloat16:
         return None
     if cfg.tie_word_embeddings:
@@ -707,7 +716,8 @@ def fused_head_weights(cfg: LlamaConfig, params: dict) -> Optional[dict]:
     elif isinstance(params["lm_head"], dict):
         return None
     else:
-        head_w = {"embed": params["lm_head"].t().contiguous()}
+        with span("decode.head_rows"):
+            head_w = {"embed": params["lm_head"].t().contiguous()}
     if "shard" in params:
         head_w["shard"] = params["shard"]
     return head_w
@@ -719,28 +729,31 @@ def head_ids(head_w: dict, out: torch.Tensor, plain: bool = False) -> torch.Tens
     when `plain`.  A sharded head's kernel also writes each column's
     winning score, and the shards' (score, id) pairs are merged over the
     model group (Shard.argmax: the higher score, then the smaller global
-    id, as the whole head's argmax)."""
-    shard = head_w.get("shard")
-    if shard is None:
-        return _head_argmax_plain(head_w["embed"], out) if plain else head_argmax(head_w, out)
-    if plain:
-        ids, scores = _head_argmax_plain(head_w["embed"], out, scores=True)
-    else:
-        ids, scores = head_argmax(head_w, out, scores=True)
-    return shard.argmax(scores, ids)
+    id, as the whole head's argmax).  Span decode.head, as the step's final
+    norm."""
+    with span("decode.head"):
+        shard = head_w.get("shard")
+        if shard is None:
+            return _head_argmax_plain(head_w["embed"], out) if plain else head_argmax(head_w, out)
+        if plain:
+            ids, scores = _head_argmax_plain(head_w["embed"], out, scores=True)
+        else:
+            ids, scores = head_argmax(head_w, out, scores=True)
+        return shard.argmax(scores, ids)
 
 
 def _prefill_caches(cfg, params, inputs_embeds, total: int, plain: bool = False):
     """The batch-last loops' prompt pass: (caches sized for `total`
     positions, next-token logits [B, V]).  MLA fills the latent cache
     through _mla_prefill_compressed; the others fill the K/V caches through
-    prefill."""
-    cfg = llama.local_config(cfg, params)
-    if cfg.kv_lora_rank is not None:
-        logits, latent = _mla_prefill_compressed(cfg, params, inputs_embeds, total, plain)
-        return latent, logits
-    caches = init_cache(cfg, inputs_embeds.shape[0], total, inputs_embeds.device)
-    return caches, prefill(cfg, params, inputs_embeds, caches, plain=plain)
+    prefill.  Span decode.prefill (the layers take llama._block's)."""
+    with span("decode.prefill"):
+        cfg = llama.local_config(cfg, params)
+        if cfg.kv_lora_rank is not None:
+            logits, latent = _mla_prefill_compressed(cfg, params, inputs_embeds, total, plain)
+            return latent, logits
+        caches = init_cache(cfg, inputs_embeds.shape[0], total, inputs_embeds.device)
+        return caches, prefill(cfg, params, inputs_embeds, caches, plain=plain)
 
 
 @torch.no_grad()
@@ -811,12 +824,14 @@ def greedy_generate_bl(
     # argmax of the last logits.  With no EOS ids no row can finish, and
     # the loop skips the host sync that the all-done test costs.
     while step < max_new_tokens - 1 and not (eos.numel() and bool(done.all())):
-        next_tok = torch.where(done, pad_token_id, sel if fused_head else sel.argmax(dim=0))
-        tokens[:, step] = next_tok
-        done |= torch.isin(next_tok, eos)
-        h = llama.scale_embeds(cfg, llama.embed_tokens(cfg, params, next_tok).t().to(cfg.dtype))
-        sel = select(_decode_step_bl(cfg, params, h.contiguous(), caches, T + step,
-                                     head=not fused_head, plain=plain))
+        with span("decode.step"):
+            next_tok = torch.where(done, pad_token_id, sel if fused_head else sel.argmax(dim=0))
+            tokens[:, step] = next_tok
+            done |= torch.isin(next_tok, eos)
+            h = llama.scale_embeds(cfg, llama.embed_tokens(cfg, params, next_tok).t()
+                                   .to(cfg.dtype))
+            sel = select(_decode_step_bl(cfg, params, h.contiguous(), caches, T + step,
+                                         head=not fused_head, plain=plain))
         step += 1
     tokens[:, step] = torch.where(done, pad_token_id,
                                   sel if fused_head else sel.argmax(dim=0))

@@ -46,6 +46,7 @@ from dmi_tpu_torch.models.quant import dequantize, int_matmul, quantize_act, unp
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
 from dmi_tpu_torch.ops.cuda.flash_attn import _flash_attn_plain, flash_attention
 from dmi_tpu_torch.utils import rng
+from dmi_tpu_torch.utils.profiling import region
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -799,27 +800,30 @@ def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor, shard=None) -> torch.T
     [e0, e1) and its slice of the shared experts; the router is whole, and
     the partial combine is summed over the model group.  The experts read
     h and their gate weights through Shard.copy (the router's gradient
-    sums the model ranks'); the router reads h as it is."""
-    B, T, H = h.shape
-    if cfg.moe_gate_fp32:
-        router = h.float() @ dequantize(lw["w_router"], torch.float32).float()
-    else:
-        router = _mm(h, lw["w_router"])  # [B, T, E]
-    w_e = moe_gate_weights(cfg, router).to(h.dtype).reshape(B * T, -1)
-    if shard is not None:
-        w_e = shard.copy(w_e)[:, shard.e0:shard.e1]
-        h = shard.copy(h)
-    x = h.reshape(1, B * T, H)
-    g = x @ dequantize(lw["moe_w1"], h.dtype)  # [E, N, I]
-    u = x @ dequantize(lw["moe_w3"], h.dtype)
-    y = (mlp_activation(cfg, g) * u) @ dequantize(lw["moe_w2"], h.dtype)  # [E, N, H]
-    out = torch.einsum("enh,ne->nh", y, w_e).reshape(B, T, H)
-    if shard is not None:
-        out = shard.psum(out.float()).to(h.dtype)
-    if cfg.n_shared_experts:
-        gate = mlp_activation(cfg, _mm(h, lw["w_shared_gate"]))
-        out = out + _mm(gate * _mm(h, lw["w_shared_up"]), lw["w_shared_down"], shard)
-    return out
+    sums the model ranks'); the router reads h as it is.  Span llama.moe
+    (its backward llama.moe.bwd)."""
+    with region("llama.moe") as r:
+        h = r.enter(h)
+        B, T, H = h.shape
+        if cfg.moe_gate_fp32:
+            router = h.float() @ dequantize(lw["w_router"], torch.float32).float()
+        else:
+            router = _mm(h, lw["w_router"])  # [B, T, E]
+        w_e = moe_gate_weights(cfg, router).to(h.dtype).reshape(B * T, -1)
+        if shard is not None:
+            w_e = shard.copy(w_e)[:, shard.e0:shard.e1]
+            h = shard.copy(h)
+        x = h.reshape(1, B * T, H)
+        g = x @ dequantize(lw["moe_w1"], h.dtype)  # [E, N, I]
+        u = x @ dequantize(lw["moe_w3"], h.dtype)
+        y = (mlp_activation(cfg, g) * u) @ dequantize(lw["moe_w2"], h.dtype)  # [E, N, H]
+        out = torch.einsum("enh,ne->nh", y, w_e).reshape(B, T, H)
+        if shard is not None:
+            out = shard.psum(out.float()).to(h.dtype)
+        if cfg.n_shared_experts:
+            gate = mlp_activation(cfg, _mm(h, lw["w_shared_gate"]))
+            out = out + _mm(gate * _mm(h, lw["w_shared_up"]), lw["w_shared_down"], shard)
+        return r.leave(out)
 
 
 def attn_score_scale(cfg: LlamaConfig) -> float:
@@ -927,7 +931,10 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
     block computes its heads and MLP columns under the shard's local config
     and sums wo's and the MLP's partial products over the model group.
     Under autograd the normed h enters the column products through
-    Shard.copy, whose backward sums the model ranks' partial gradients."""
+    Shard.copy, whose backward sums the model ranks' partial gradients.
+
+    Spans: llama.attn from the normed input to wo, then llama.moe
+    (_moe_mlp) or llama.mlp, each with its backward range (`.bwd`)."""
     if shard is not None:
         cfg = shard.local(cfg)
     shard = row_parallel(shard)
@@ -936,62 +943,68 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
     eps = cfg.rms_norm_eps
 
     h = x if cfg.norm_after else rms_norm(x, lw["ln_attn"], eps)
-    if cfg.kv_lora_rank is not None:
-        q, k, v, rows = _mla_qkv(cfg, lw, h, cos, sin, shard)
-        if latent_out is not None:
-            latent_out.copy_(rows)
-    else:
-        if shard is not None:
-            h = shard.copy(h)
-        if "w_qkv" in lw:  # fused layout (fuse_projections)
-            qkv = _mm(h, lw["w_qkv"])
-            if "b_qkv" in lw:
-                qkv = qkv + lw["b_qkv"]
-            q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    with region("llama.attn") as r:
+        h = r.enter(h)
+        if cfg.kv_lora_rank is not None:
+            q, k, v, rows = _mla_qkv(cfg, lw, h, cos, sin, shard)
+            if latent_out is not None:
+                latent_out.copy_(rows)
         else:
-            q, k, v = _mm(h, lw["wq"]), _mm(h, lw["wk"]), _mm(h, lw["wv"])
-            if "bq" in lw:
-                q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
-        if cfg.qk_norm_wide:  # olmo2: over the whole projection
-            q, k = rms_norm(q, lw["q_norm"], eps, shard), rms_norm(k, lw["k_norm"], eps, shard)
-        q = q.reshape(B, T, nh, hd).transpose(1, 2)
-        k = k.reshape(B, T, nkv, hd).transpose(1, 2)
-        v = v.reshape(B, T, nkv, hd).transpose(1, 2)
-        if cfg.qk_norm:  # qwen3, gemma-3: per head, before rope
-            q, k = rms_norm(q, lw["q_norm"], eps), rms_norm(k, lw["k_norm"], eps)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            if shard is not None:
+                h = shard.copy(h)
+            if "w_qkv" in lw:  # fused layout (fuse_projections)
+                qkv = _mm(h, lw["w_qkv"])
+                if "b_qkv" in lw:
+                    qkv = qkv + lw["b_qkv"]
+                q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
+            else:
+                q, k, v = _mm(h, lw["wq"]), _mm(h, lw["wk"]), _mm(h, lw["wv"])
+                if "bq" in lw:
+                    q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
+            if cfg.qk_norm_wide:  # olmo2: over the whole projection
+                q, k = (rms_norm(q, lw["q_norm"], eps, shard),
+                        rms_norm(k, lw["k_norm"], eps, shard))
+            q = q.reshape(B, T, nh, hd).transpose(1, 2)
+            k = k.reshape(B, T, nkv, hd).transpose(1, 2)
+            v = v.reshape(B, T, nkv, hd).transpose(1, 2)
+            if cfg.qk_norm:  # qwen3, gemma-3: per head, before rope
+                q, k = rms_norm(q, lw["q_norm"], eps), rms_norm(k, lw["k_norm"], eps)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
-    scale = attn_score_scale(cfg)
-    cap = cfg.attn_logit_softcap
-    if cache_kv is None and bias is None:
-        attend = _flash_attn_plain if plain else flash_attention
-        attn = attend(q, k, v, key_mask, scale)
-    elif cache_kv is None:
-        attn = _attention(q, k, v, bias, scale, cap)
-    elif T == 1:
-        k, v = _write_cache(cache_kv, cache_index, k, v)
-        # MLA's K and V widths differ, which the kernel does not take:
-        # dmi_tpu attends through XLA there, the port through the twin
-        mla = cfg.kv_lora_rank is not None
-        attend = _decode_attn_plain if plain or mla else fused_decode_attention
-        attn = attend(q.contiguous(), k, v, bias[0], scale, cap)
-    else:
-        k, v = _write_cache(cache_kv, cache_index, k, v)
-        attn = _attention(q, k, v, bias, scale, cap)
-    attn = attn.transpose(1, 2).reshape(B, T, nh * attn.shape[-1])
-    x = x + _block_out(cfg, _mm(attn, lw["wo"], shard), lw, "ln_post_attn", "ln_attn")
+        scale = attn_score_scale(cfg)
+        cap = cfg.attn_logit_softcap
+        if cache_kv is None and bias is None:
+            attend = _flash_attn_plain if plain else flash_attention
+            attn = attend(q, k, v, key_mask, scale)
+        elif cache_kv is None:
+            attn = _attention(q, k, v, bias, scale, cap)
+        elif T == 1:
+            k, v = _write_cache(cache_kv, cache_index, k, v)
+            # MLA's K and V widths differ, which the kernel does not take:
+            # dmi_tpu attends through XLA there, the port through the twin
+            mla = cfg.kv_lora_rank is not None
+            attend = _decode_attn_plain if plain or mla else fused_decode_attention
+            attn = attend(q.contiguous(), k, v, bias[0], scale, cap)
+        else:
+            k, v = _write_cache(cache_kv, cache_index, k, v)
+            attn = _attention(q, k, v, bias, scale, cap)
+        attn = attn.transpose(1, 2).reshape(B, T, nh * attn.shape[-1])
+        attn = r.leave(_mm(attn, lw["wo"], shard))
+    x = x + _block_out(cfg, attn, lw, "ln_post_attn", "ln_attn")
 
     h = x if cfg.norm_after else rms_norm(x, lw["ln_mlp"], eps)
     if cfg.num_experts:
         out = _moe_mlp(cfg, lw, h, shard)
     else:
-        if shard is not None:
-            h = shard.copy(h)
-        if "w_gu" in lw:  # fused layout
-            gate, up = _mm(h, lw["w_gu"]).chunk(2, dim=-1)
-        else:
-            gate, up = _mm(h, lw["w_gate"]), _mm(h, lw["w_up"])
-        out = _mm(mlp_activation(cfg, gate) * up, lw["w_down"], shard)
+        with region("llama.mlp") as r:
+            h = r.enter(h)
+            if shard is not None:
+                h = shard.copy(h)
+            if "w_gu" in lw:  # fused layout
+                gate, up = _mm(h, lw["w_gu"]).chunk(2, dim=-1)
+            else:
+                gate, up = _mm(h, lw["w_gate"]), _mm(h, lw["w_up"])
+            out = r.leave(_mm(mlp_activation(cfg, gate) * up, lw["w_down"], shard))
     return x + _block_out(cfg, out, lw, "ln_post_mlp", "ln_mlp")
 
 
@@ -1028,7 +1041,10 @@ def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
     vocab_local: a sharded tree returns this rank's vocab shard [B, T,
     v1 - v0] of the logits, ungathered (the loss's input, causal_lm_nll;
     the whole vocab at m = 1); the final norm's output enters the head
-    through Shard.copy.  A whole tree ignores it."""
+    through Shard.copy.  A whole tree ignores it.
+
+    Span llama.head (its backward llama.head.bwd): the final norm and the
+    head; the layers take _block's spans."""
     B, T = inputs_embeds.shape[:2]
     shard = params.get("shard")
     x = scale_embeds(cfg, inputs_embeds.to(cfg.dtype))
@@ -1046,12 +1062,13 @@ def forward(cfg: LlamaConfig, params: dict, inputs_embeds: torch.Tensor,
     for i, lw in enumerate(params["layers"]):
         b, (cos, sin) = layer_inputs(cfg, i, bias, bias_sw, rope, rope_local)
         x = _block(cfg, x, lw, cos, sin, b, plain=plain, key_mask=attention_mask, shard=shard)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if not vocab_local or shard is None:
-        return final_softcap(cfg, _head_matmul(x, params, cfg))
-    if shard.m > 1:
-        x = shard.copy(x)
-    return final_softcap(cfg, _head_matmul_local(x, params, cfg))
+    with region("llama.head") as r:
+        x = rms_norm(r.enter(x), params["final_norm"], cfg.rms_norm_eps)
+        if not vocab_local or shard is None:
+            return r.leave(final_softcap(cfg, _head_matmul(x, params, cfg)))
+        if shard.m > 1:
+            x = shard.copy(x)
+        return r.leave(final_softcap(cfg, _head_matmul_local(x, params, cfg)))
 
 
 def causal_lm_nll(logits: torch.Tensor, labels: torch.Tensor, groups: Optional[int] = None,
@@ -1082,9 +1099,11 @@ def causal_lm_nll(logits: torch.Tensor, labels: torch.Tensor, groups: Optional[i
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, shard=None) -> torch.Tensor:
     """HF CausalLM loss: shift, ignore -100, token-mean cross-entropy in f32
     (dmi_tpu's llama.causal_lm_loss); 0 when no label is valid.  shard:
-    vocab-sharded logits, as causal_lm_nll takes them."""
-    nll, count = causal_lm_nll(logits, labels, shard=shard)
-    return nll / count.clamp(min=1)
+    vocab-sharded logits, as causal_lm_nll takes them.  Span train.loss
+    (its backward train.loss.bwd)."""
+    with region("train.loss") as r:
+        nll, count = causal_lm_nll(r.enter(logits), labels, shard=shard)
+        return r.leave(nll / count.clamp(min=1))
 
 
 def causal_lm_loss_grouped(logits: torch.Tensor, labels: torch.Tensor,

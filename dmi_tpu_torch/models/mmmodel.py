@@ -16,6 +16,7 @@ import torch
 from dmi_tpu_torch.models import decode as dec
 from dmi_tpu_torch.models import llama
 from dmi_tpu_torch.models.llama import LlamaConfig
+from dmi_tpu_torch.utils.profiling import span
 
 
 def assemble_inputs(
@@ -60,17 +61,18 @@ def caption_loss(
     rank's) it returns the pair (summed NLL, count of valid labels) of these
     rows, from vocab-sharded logits: the trainer divides the sum by the
     count summed over the data ranks (the global token mean, exact for
-    uneven counts)."""
-    inputs_embeds, attention_mask, labels = assemble_inputs(
-        cfg, llm_params, soft_tokens, input_ids, attention_mask, labels
-    )
-    shard = llm_params.get("shard")
-    logits = llama.forward(cfg, llm_params, inputs_embeds,
-                           attention_mask if mask_padding else None, plain=plain,
-                           vocab_local=shard is not None)
-    if shard is not None:
-        return llama.causal_lm_nll(logits, labels, shard=shard)
-    return llama.causal_lm_loss(logits, labels)
+    uneven counts).  Span train.forward."""
+    with span("train.forward"):
+        inputs_embeds, attention_mask, labels = assemble_inputs(
+            cfg, llm_params, soft_tokens, input_ids, attention_mask, labels
+        )
+        shard = llm_params.get("shard")
+        logits = llama.forward(cfg, llm_params, inputs_embeds,
+                               attention_mask if mask_padding else None, plain=plain,
+                               vocab_local=shard is not None)
+        if shard is not None:
+            return llama.causal_lm_nll(logits, labels, shard=shard)
+        return llama.causal_lm_loss(logits, labels)
 
 
 def caption_loss_grouped(

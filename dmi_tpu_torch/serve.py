@@ -60,6 +60,7 @@ from dmi_tpu_torch.parallel import make_mesh, shard_llm_params
 from dmi_tpu_torch.streaming import StreamingCaptioner
 from dmi_tpu_torch.training.checkpoint import load_pytree
 from dmi_tpu_torch.training.model_utils import build_lm, build_tokenizer, require_device
+from dmi_tpu_torch.utils.profiling import span
 
 
 # engine="auto" regime constants, dmi_tpu's (dmi_tpu/serve.py:47-53): never
@@ -247,46 +248,49 @@ class Captioner:
         row_start: the chunk's first workload row.  Sampling draws with
         request-indexed keys, request = workload row, so the bulk engine
         draws the same tokens for the same rows.  On a mesh this rank
-        decodes its data rank's rows only (caption_ids gathers them)."""
-        real = chunk.shape[0]
-        if real < self.batch_size:  # pad the tail to the batch shape
-            chunk = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], self.batch_size - real, axis=0)], axis=0
-            )
-        lo, hi = (0, self.batch_size) if self.shard is None else self.shard.rows(self.batch_size)
-        embs = l2_normalize(torch.as_tensor(chunk[lo:hi], dtype=torch.float32,
-                                            device=self.device))
-        soft = proj.apply(self.proj_spec, self.proj_params, embs, plain=plain)
-        req_ids = torch.arange(row_start + lo, row_start + hi, device=self.device)
-        prefix = self._prefix[: hi - lo]
-        if self.spec_k:
-            common = dict(k=self.spec_k, prefill_params=self.llm_params_prefill,
-                          draft_prefill_params=self.draft_prefill_params, share_prefill=True,
-                          plain=plain)
-            if temperature is None:
-                tokens, rounds = mmmodel.caption_generate_speculative(
-                    self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
-                    prefix, self.max_new_tokens, self.pad_token_id, **common)
+        decodes its data rank's rows only (caption_ids gathers them).  Span
+        serve.dispatch."""
+        with span("serve.dispatch"):
+            real = chunk.shape[0]
+            if real < self.batch_size:  # pad the tail to the batch shape
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], self.batch_size - real, axis=0)], axis=0
+                )
+            lo, hi = ((0, self.batch_size) if self.shard is None
+                      else self.shard.rows(self.batch_size))
+            embs = l2_normalize(torch.as_tensor(chunk[lo:hi], dtype=torch.float32,
+                                                device=self.device))
+            soft = proj.apply(self.proj_spec, self.proj_params, embs, plain=plain)
+            req_ids = torch.arange(row_start + lo, row_start + hi, device=self.device)
+            prefix = self._prefix[: hi - lo]
+            if self.spec_k:
+                common = dict(k=self.spec_k, prefill_params=self.llm_params_prefill,
+                              draft_prefill_params=self.draft_prefill_params, share_prefill=True,
+                              plain=plain)
+                if temperature is None:
+                    tokens, rounds = mmmodel.caption_generate_speculative(
+                        self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
+                        prefix, self.max_new_tokens, self.pad_token_id, **common)
+                else:
+                    tokens, rounds = mmmodel.caption_sample_speculative(
+                        self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
+                        prefix, self.max_new_tokens, self.pad_token_id, seed, temperature,
+                        top_k, top_p, req_ids, **common)
+                self.spec_rounds += rounds
+            elif temperature is None:
+                tokens = mmmodel.caption_generate(
+                    self.llm_cfg, self.llm_params, soft, prefix,
+                    self.max_new_tokens, self.pad_token_id,
+                    prefill_params=self.llm_params_prefill, batch_first=self.batch_first,
+                    plain=plain,
+                )
             else:
-                tokens, rounds = mmmodel.caption_sample_speculative(
-                    self.llm_cfg, self.llm_params, self.llm_cfg, self.draft_params, soft,
-                    prefix, self.max_new_tokens, self.pad_token_id, seed, temperature,
-                    top_k, top_p, req_ids, **common)
-            self.spec_rounds += rounds
-        elif temperature is None:
-            tokens = mmmodel.caption_generate(
-                self.llm_cfg, self.llm_params, soft, prefix,
-                self.max_new_tokens, self.pad_token_id,
-                prefill_params=self.llm_params_prefill, batch_first=self.batch_first,
-                plain=plain,
-            )
-        else:
-            tokens = mmmodel.caption_sample(
-                self.llm_cfg, self.llm_params, soft, prefix, self.max_new_tokens,
-                self.pad_token_id, seed, temperature, top_k, top_p, req_ids=req_ids,
-                prefill_params=self.llm_params_prefill, plain=plain,
-            )
-        return tokens, real
+                tokens = mmmodel.caption_sample(
+                    self.llm_cfg, self.llm_params, soft, prefix, self.max_new_tokens,
+                    self.pad_token_id, seed, temperature, top_k, top_p, req_ids=req_ids,
+                    prefill_params=self.llm_params_prefill, plain=plain,
+                )
+            return tokens, real
 
     def _rows(self, tokens: torch.Tensor) -> torch.Tensor:
         """Every data rank's rows of a batch's tokens, in row order."""
@@ -356,67 +360,75 @@ class Captioner:
         speculative slot engine (a budget of 1 has no round to speculate
         and stays on the batch engine, with the same ids) and "auto" stays
         on the batch engine, as in dmi_tpu (its probe's length model is the
-        plain engines')."""
-        if engine not in ("auto", "batch", "bulk"):
-            raise ValueError(f"unknown engine {engine!r}")
-        embeddings = np.asarray(embeddings, np.float32)
-        n = embeddings.shape[0]
-        sampling = dict(temperature=temperature, top_k=top_k, seed=seed, top_p=top_p,
-                        plain=plain)
-        self.spec_rounds = 0
-        if self.spec_k:
-            if engine == "bulk" and self.max_new_tokens >= 2 and n > 0:
-                self.engine_decision = ("bulk", "explicit (speculative)")
-                return self._caption_bulk_spec(embeddings, **sampling)
-            engine = "batch"
-        decision, reason, probe = engine, "explicit", False
-        if engine == "auto":
-            if n <= self.batch_size:
-                decision, reason = "batch", "single batch (nothing to amortize)"
-            elif self.batch_size > _BULK_MAX_POOL:
-                decision, reason = "batch", (
-                    f"pool {self.batch_size} > {_BULK_MAX_POOL} "
-                    "(bulk measured a wash at 512)")
-            else:
-                decision, probe = "batch", True
-        if decision == "bulk" and n > 0:
-            self.engine_decision = ("bulk", reason)
-            return self._caption_bulk(embeddings, **sampling)
+        plain engines').
 
-        out = []
-        start = 0
-        if probe:
-            # decide from the first batch, served on the batch engine
-            tokens, _ = self._dispatch_batch(embeddings[: self.batch_size], row_start=0,
-                                             **sampling)
-            tokens = self._rows(tokens).cpu()
-            out.append(tokens)
-            # the loops write pad after a row ends: its non-pad count is
-            # the caption's length
-            lens = (tokens != self.pad_token_id).sum(dim=1).float()
-            ratio = float(lens.mean()) / max(1, self.max_new_tokens)
-            start = self.batch_size
-            if ratio < _BULK_LEN_RATIO:
+        Spans: serve.call over the call, serve.dispatch over each batch's
+        preparation and launch, serve.readback over the host's wait for
+        the ids."""
+        with span("serve.call"):
+            if engine not in ("auto", "batch", "bulk"):
+                raise ValueError(f"unknown engine {engine!r}")
+            embeddings = np.asarray(embeddings, np.float32)
+            n = embeddings.shape[0]
+            sampling = dict(temperature=temperature, top_k=top_k, seed=seed, top_p=top_p,
+                            plain=plain)
+            self.spec_rounds = 0
+            if self.spec_k:
+                if engine == "bulk" and self.max_new_tokens >= 2 and n > 0:
+                    self.engine_decision = ("bulk", "explicit (speculative)")
+                    return self._caption_bulk_spec(embeddings, **sampling)
+                engine = "batch"
+            decision, reason, probe = engine, "explicit", False
+            if engine == "auto":
+                if n <= self.batch_size:
+                    decision, reason = "batch", "single batch (nothing to amortize)"
+                elif self.batch_size > _BULK_MAX_POOL:
+                    decision, reason = "batch", (
+                        f"pool {self.batch_size} > {_BULK_MAX_POOL} "
+                        "(bulk measured a wash at 512)")
+                else:
+                    decision, probe = "batch", True
+            if decision == "bulk" and n > 0:
+                self.engine_decision = ("bulk", reason)
+                return self._caption_bulk(embeddings, **sampling)
+
+            out = []
+            start = 0
+            if probe:
+                # decide from the first batch, served on the batch engine
+                tokens, _ = self._dispatch_batch(embeddings[: self.batch_size], row_start=0,
+                                                 **sampling)
+                with span("serve.readback"):
+                    tokens = self._rows(tokens).cpu()
+                out.append(tokens)
+                # the loops write pad after a row ends: its non-pad count is
+                # the caption's length
+                lens = (tokens != self.pad_token_id).sum(dim=1).float()
+                ratio = float(lens.mean()) / max(1, self.max_new_tokens)
+                start = self.batch_size
+                if ratio < _BULK_LEN_RATIO:
+                    self.engine_decision = (
+                        "bulk", f"probe: mean-length ratio {ratio:.2f} < "
+                        f"{_BULK_LEN_RATIO} (idle-lane waste; bulk regime)")
+                    out.append(self._caption_bulk(embeddings[start:], req_base=start,
+                                                  **sampling))
+                    return torch.cat(out)
                 self.engine_decision = (
-                    "bulk", f"probe: mean-length ratio {ratio:.2f} < "
-                    f"{_BULK_LEN_RATIO} (idle-lane waste; bulk regime)")
-                out.append(self._caption_bulk(embeddings[start:], req_base=start, **sampling))
-                return torch.cat(out)
-            self.engine_decision = (
-                "batch", f"probe: mean-length ratio {ratio:.2f} >= "
-                f"{_BULK_LEN_RATIO} (bulk eos-free overhead)")
-        else:
-            self.engine_decision = ("batch", reason)
-        # every batch is dispatched before the first is read back, so that
-        # host preparation overlaps the device's decode
-        pending = [
-            self._dispatch_batch(embeddings[s: s + self.batch_size], row_start=s, **sampling)
-            for s in range(start, n, self.batch_size)
-        ]
-        out.extend(self._rows(tokens)[:real].cpu() for tokens, real in pending)
-        if not out:
-            return torch.zeros((0, self.max_new_tokens), dtype=torch.long)
-        return torch.cat(out)
+                    "batch", f"probe: mean-length ratio {ratio:.2f} >= "
+                    f"{_BULK_LEN_RATIO} (bulk eos-free overhead)")
+            else:
+                self.engine_decision = ("batch", reason)
+            # every batch is dispatched before the first is read back, so that
+            # host preparation overlaps the device's decode
+            pending = [
+                self._dispatch_batch(embeddings[s: s + self.batch_size], row_start=s, **sampling)
+                for s in range(start, n, self.batch_size)
+            ]
+            with span("serve.readback"):
+                out.extend(self._rows(tokens)[:real].cpu() for tokens, real in pending)
+            if not out:
+                return torch.zeros((0, self.max_new_tokens), dtype=torch.long)
+            return torch.cat(out)
 
     def caption(
         self,

@@ -68,7 +68,7 @@ from dmi_tpu_torch.training.optim import (
 )
 from dmi_tpu_torch.training.trainer import StepConditions, pick_loader, strip_to_assistant
 from dmi_tpu_torch.utils.grad_stats import grad_summary, host_grad_summary, named_leaves, tree_map
-from dmi_tpu_torch.utils.profiling import trace
+from dmi_tpu_torch.utils.profiling import region, span, trace
 from dmi_tpu_torch.utils.rng import CounterRNG
 
 log = logging.getLogger("dmi_tpu_torch")
@@ -163,7 +163,12 @@ class ProjectorTrainer:
         set_leaves(self.params, tree)
 
     def _soft_train(self, params, embs, generator):
-        return proj.apply(self.proj_spec, params, embs, train=True, generator=generator)
+        """The training projector's soft tokens: span train.projector, its
+        backward to the parameters train.projector.bwd."""
+        with region("train.projector") as r:
+            params = tree_map(r.enter, params)
+            return r.leave(proj.apply(self.proj_spec, params, embs, train=True,
+                                      generator=generator))
 
     def _soft_eval(self, params, embs):
         return proj.apply(self.proj_spec, params, embs)
@@ -190,8 +195,9 @@ class ProjectorTrainer:
         projector runs over the global batch, so its dropout mask is the
         one-rank run's, and the rank keeps its rows' soft tokens."""
         idx, batch = prefetched if prefetched is not None else self.fetch_batch(step)
-        embs = self.emb_mgrs[idx].get_embeddings(batch["embs"])
-        ids, mask, labels = self._device_batch(batch)
+        with span("train.batch"):
+            embs = self.emb_mgrs[idx].get_embeddings(batch["embs"])
+            ids, mask, labels = self._device_batch(batch)
         gen = dropout_generator(self.train_args.seed, step, self.device)
         soft = tm.local_rows(self.shard, self._soft_train(self.params, embs, gen))
         return tm.token_mean_part(self.shard, mmmodel.caption_loss(
@@ -200,19 +206,25 @@ class ProjectorTrainer:
     def train_step(self, step: int, total_steps: int, prefetched=None):
         """Accumulate micro-step `step`'s gradient; on the accumulation
         boundary, clip, update and zero it.  Returns (loss / accum as a
-        device scalar, the global loss on a mesh; whether it updated)."""
-        loss = self.micro_loss(step, prefetched) / self.train_args.gradient_accumulation_steps
-        loss.backward()
-        do_update = self.cond.grad_acc(step, total_steps)
-        if do_update:
-            tm.reduce_grads(self.shard, self.opt)
-            # summary of the full accumulated gradient the optimizer consumes
-            self._last_grad_stats = grad_summary(tree_map(lambda t: t.grad, self.params))
-            set_lr(self.opt, self.lr_fn(self.sched_step))
-            clip_and_step(self.opt, self.train_args.max_grad_norm)
-            self.opt.zero_grad(set_to_none=True)
-            self.sched_step = step
-        return tm.global_value(self.shard, loss.detach()), do_update
+        device scalar, the global loss on a mesh; whether it updated).
+        Spans: train.step, over train.batch, train.projector,
+        train.forward, train.backward (the host's wait for autograd's
+        engine) and train.optimizer."""
+        with span("train.step"):
+            loss = self.micro_loss(step, prefetched) / self.train_args.gradient_accumulation_steps
+            with span("train.backward"):
+                loss.backward()
+            do_update = self.cond.grad_acc(step, total_steps)
+            if do_update:
+                with span("train.optimizer"):
+                    tm.reduce_grads(self.shard, self.opt)
+                    # summary of the full accumulated gradient the optimizer consumes
+                    self._last_grad_stats = grad_summary(tree_map(lambda t: t.grad, self.params))
+                    set_lr(self.opt, self.lr_fn(self.sched_step))
+                    clip_and_step(self.opt, self.train_args.max_grad_norm)
+                    self.opt.zero_grad(set_to_none=True)
+                self.sched_step = step
+            return tm.global_value(self.shard, loss.detach()), do_update
 
     @torch.no_grad()
     def eval_loss(self, embs, ids, mask, labels) -> torch.Tensor:

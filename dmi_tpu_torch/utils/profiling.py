@@ -1,9 +1,33 @@
-"""Tracing hook (counterpart of dmi_tpu/utils/profiling.py:trace) and device
-timing.
+"""Tracing hook (counterpart of dmi_tpu/utils/profiling.py:trace), the
+program's own spans, and device timing.
 
 `trace(profile_dir)` wraps a training region in torch.profiler, CPU and CUDA
 activity, and writes a Chrome/Perfetto trace into profile_dir when the
 region ends; with no directory it does nothing.
+
+`span(name)` is the program's range around one piece of work (serving's
+call, prefill, a decode step and its layers' attention, MLP and head; a
+training micro-step and its phases): a torch.profiler.record_function
+range while a profiler records, else one shared no-op context, so the
+untraced path pays one check of the profiler's state.  The ranges are
+`user_annotation` events of the same profiler session as the device's
+kernels, so they share the trace's clock, and their nesting on a thread is
+their parentage.  Every span's name is listed in PERF.md.
+
+`region(name)` is a span around a differentiable region that also makes
+the region's backward one range, `<name>.bwd`, which autograd's engine
+runs on its own thread where no Python function of the program is on the
+stack: `r.enter(x)` passes the region's input through an identity node
+whose backward closes the range, `r.leave(y)` its output through one whose
+backward opens it, so every backward node of the region runs inside.  Both
+are applied only while grad is enabled and a profiler records at forward
+time; the open checks again at backward time, and the close tolerates a
+range that was never opened.  Untraced, the autograd graph is the same as
+without the region (no extra nodes), and so are the gradients traced (the
+nodes are identities).  Tensor hooks would not do: a hook runs inside the
+engine's event for the node it precedes, so the range would cut across the
+events of the region's first node and of the node after it, and a hook on
+a leaf (the projector's parameters) stays registered after the step.
 
 `device_spans(run)` lists what the card ran during one run() (the smoke's
 busy and idle shares), `device_ms(fn)` is the device time of one fn()
@@ -45,6 +69,124 @@ def trace(profile_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, f"trace-{int(time.time())}.json"))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named `name` while a profiler records, else a shared
+    no-op context (record_function costs its call even with no profiler)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+class _RangeOpen(torch.autograd.Function):
+    """Identity at a region's output; its backward opens the range."""
+
+    @staticmethod
+    def forward(ctx, y, region):
+        ctx.region = region
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.region.open_backward()
+        return grad, None
+
+
+class _RangeClose(torch.autograd.Function):
+    """Identity at a region's input; its backward closes the range."""
+
+    @staticmethod
+    def forward(ctx, x, region):
+        ctx.region = region
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.region.close_backward()
+        return grad, None
+
+
+class _Region:
+    """region(name) while a profiler records: the forward span and, with
+    grad enabled, the backward range `<name>.bwd`, opened by the output's
+    node and closed by the last of the inputs' nodes to run."""
+
+    __slots__ = ("_span", "_bwd", "_grad", "_inputs", "_left", "_handle")
+
+    def __init__(self, name: str):
+        self._span = torch.profiler.record_function(name)
+        self._bwd, self._grad = name + ".bwd", torch.is_grad_enabled()
+        self._inputs = self._left = 0
+        self._handle = None
+
+    def __enter__(self):
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._span.__exit__(*exc)
+        return False
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._grad or not x.requires_grad:
+            return x
+        self._inputs += 1
+        return _RangeClose.apply(x, self)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        if not self._inputs or not y.requires_grad:
+            return y
+        return _RangeOpen.apply(y, self)
+
+    def open_backward(self) -> None:
+        if self._handle is None and torch.autograd._profiler_enabled():
+            self._handle = torch.ops.profiler._record_function_enter_new(self._bwd, None)
+            self._left = self._inputs
+
+    def close_backward(self) -> None:
+        self._left -= 1
+        if self._left <= 0 and self._handle is not None:
+            torch.ops.profiler._record_function_exit._RecordFunction(self._handle)
+            self._handle = None
+
+
+class _NoRegion:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def enter(self, x):
+        return x
+
+    def leave(self, y):
+        return y
+
+
+_NO_REGION = _NoRegion()
+
+
+def region(name: str):
+    """span(name) around a differentiable region, whose backward is the
+    range `<name>.bwd` (module docstring):
+
+        with region("llama.moe") as r:
+            h = r.enter(h)
+            ...
+            return r.leave(out)
+
+    With no profiler recording it is one shared no-op whose enter and
+    leave return their argument."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_REGION
+    return _Region(name)
 
 
 def device_spans(run) -> list:
