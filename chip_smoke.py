@@ -3261,7 +3261,7 @@ def moe_mla_kernel_phase(torch, dev, label, cfg, params):
     E, I = cfg.num_experts, cfg.intermediate_size
     with torch.no_grad():
         moe_ms = device_ms(lambda: dec._moe_mlp_bl(cfg, lw, hn))
-    stacks = nbytes(lw["moe_w1"], lw["moe_w3"], lw["moe_w2"], lw["w_router"], hn, hn)
+    stacks = nbytes(*llama.expert_stacks(lw, bf), lw["w_router"], hn, hn)
     shared = sum(nbytes(lw[k]) for k in ("w_shared_gate", "w_shared_up", "w_shared_down")
                  if k in lw)
     bound = least_time(stacks + shared, 2 * B * 3 * H * I * (E + cfg.n_shared_experts), bf)

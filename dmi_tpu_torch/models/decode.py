@@ -419,13 +419,15 @@ def _mm_bl(w, h, plain: bool = False, shard=None):
 
 def _moe_mlp_bl(cfg, lw, hn, plain: bool = False, shard=None):
     """The dense-evaluated sparse-MoE MLP, batch-last (dmi_tpu's
-    _moe_mlp_bl): hn [H, B] -> [H, B], llama._moe_mlp's math with the
-    expert axis leading.  The router product runs in the model dtype (f32
-    with moe_gate_fp32); the expert stacks are dequantized into their
-    products (torch ops, as dmi_tpu's XLA einsums; no kernel); deepseek's
-    shared experts go through _mm_bl, so a quantized tree runs them on the
-    int8 kernels.  shard: this rank's experts and shared-expert slice, as
-    llama._moe_mlp.  Span decode.moe."""
+    _moe_mlp_bl): hn [H, B] -> [H, B], llama._moe_mlp's formula
+    transposed: g = W1 hn and u = W3 hn over the stacks viewed [E * I, H]
+    (llama.expert_stacks), z = act(g) * u * w_e, out = W2^T z, so no
+    [E, H, B] tensor is formed.  The router product runs in the model dtype
+    (f32 with moe_gate_fp32); the expert products are torch ops (as
+    dmi_tpu's XLA einsums; no kernel); deepseek's shared experts go through
+    _mm_bl, so a quantized tree runs them on the int8 kernels.  shard: this
+    rank's experts and shared-expert slice, as llama._moe_mlp.  Span
+    decode.moe."""
     with span("decode.moe"):
         if cfg.moe_gate_fp32:
             router = dequantize(lw["w_router"], torch.float32).float().t() @ hn.float()
@@ -434,11 +436,12 @@ def _moe_mlp_bl(cfg, lw, hn, plain: bool = False, shard=None):
         w_e = llama.moe_gate_weights(cfg, router.t()).t().to(hn.dtype)  # [E, B]
         if shard is not None:
             w_e = w_e[shard.e0:shard.e1]
-        g = dequantize(lw["moe_w1"], hn.dtype).transpose(1, 2) @ hn  # [E, I, B]
-        u = dequantize(lw["moe_w3"], hn.dtype).transpose(1, 2) @ hn
-        y = (dequantize(lw["moe_w2"], hn.dtype).transpose(1, 2)
-             @ (llama.mlp_activation(cfg, g) * u))
-        out = (y * w_e[:, None, :]).sum(dim=0)  # [H, B]
+        w1, w3, w2 = llama.expert_stacks(lw, hn.dtype)
+        E, I, H = w2.shape
+        g = w1.reshape(E * I, H) @ hn  # [E * I, B]
+        u = w3.reshape(E * I, H) @ hn
+        z = (llama.mlp_activation(cfg, g) * u).view(E, I, -1) * w_e[:, None, :]
+        out = w2.reshape(E * I, H).t() @ z.view(E * I, -1)  # [H, B]
         if shard is not None:
             out = shard.psum(out.float()).to(hn.dtype)
         if cfg.n_shared_experts:

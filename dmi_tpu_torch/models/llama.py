@@ -307,8 +307,13 @@ def init(cfg: LlamaConfig, generator: rng.Generator, device="cpu") -> dict:
 def fuse_projections(params: dict) -> dict:
     """Concatenate wq|wk|wv -> w_qkv, bq|bk|bv -> b_qkv and w_gate|w_up ->
     w_gu in every layer (fewer, wider matmuls per decode step); MLA layers
-    (no wk) keep their projections and MoE layers (no w_gate) their
-    experts.  Idempotent."""
+    (no wk) keep their projections.  MoE layers replace the gate and up
+    stacks moe_w1/moe_w3 [E, H, I] by moe_w1t/moe_w3t [E, I, H] (each
+    expert's Linear weight as HF stores it), so that `.view(E * I, H)` is
+    the 2-D operand of the routed MLP's products (_moe_mlp); moe_w2
+    [E, I, H] already views as [E * I, H].  The originals are popped, as
+    wq/wk/wv are, and the caller's tensors left as they are; quantized
+    stacks keep their layout.  Idempotent."""
     layers = []
     for lw in params["layers"]:
         lw = dict(lw)
@@ -318,8 +323,25 @@ def fuse_projections(params: dict) -> dict:
             lw["w_gu"] = torch.cat([lw.pop("w_gate"), lw.pop("w_up")], dim=-1)
         if "bq" in lw:
             lw["b_qkv"] = torch.cat([lw.pop("bq"), lw.pop("bk"), lw.pop("bv")], dim=-1)
+        for key in ("moe_w1", "moe_w3"):
+            if isinstance(lw.get(key), torch.Tensor):
+                lw[key + "t"] = lw.pop(key).transpose(1, 2).contiguous()
         layers.append(lw)
     return {**params, "layers": layers}
+
+
+def expert_stacks(lw: dict, dtype) -> tuple:
+    """An MoE layer's gate, up and down stacks, each [E, I, H]: the
+    prepared moe_w1t/moe_w3t of fuse_projections, dequantized along their
+    contraction axis H (quant.EXPERT_ROWS); an unfused tree's moe_w1/moe_w3
+    [E, H, I] dequantized and transposed (a view, which the products'
+    reshape then copies on every call)."""
+    def rows(key):
+        if key + "t" in lw:
+            return dequantize(lw[key + "t"], dtype, axis=-1)
+        return dequantize(lw[key], dtype).transpose(1, 2)
+
+    return rows("moe_w1"), rows("moe_w3"), dequantize(lw["moe_w2"], dtype)
 
 
 def hf_layer_keys(cfg: LlamaConfig, fused: bool, moe: str = "mlp") -> dict:
@@ -794,9 +816,17 @@ def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor, shard=None) -> torch.T
     _moe_mlp): every expert's gated MLP runs on every token, combined with
     moe_gate_weights (0 for the experts not chosen), so the result equals
     HF's sparse dispatch.  The router product runs in the model dtype, or
-    in f32 with moe_gate_fp32 (deepseek); the expert stacks are
-    dequantized into the products; deepseek's shared experts add an
-    always-on gated MLP.  shard: the layer holds this rank's experts
+    in f32 with moe_gate_fp32 (deepseek); deepseek's shared experts add an
+    always-on gated MLP.  The experts are three 2-D products over the N
+    tokens x [N, H] and the stacks viewed [E * I, H] (expert_stacks):
+
+        g, u = x @ W1^T, x @ W3^T                      [N, E * I]
+        z    = act(g) * u * w_e, per expert's I columns
+        out  = z @ W2                                  [N, H]
+
+    the gate weights applied before the down product, so that product sums
+    over the experts: no [E, N, H] tensor, and on a fused tree no copy
+    forward or backward.  shard: the layer holds this rank's experts
     [e0, e1) and its slice of the shared experts; the router is whole, and
     the partial combine is summed over the model group.  The experts read
     h and their gate weights through Shard.copy (the router's gradient
@@ -813,11 +843,14 @@ def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor, shard=None) -> torch.T
         if shard is not None:
             w_e = shard.copy(w_e)[:, shard.e0:shard.e1]
             h = shard.copy(h)
-        x = h.reshape(1, B * T, H)
-        g = x @ dequantize(lw["moe_w1"], h.dtype)  # [E, N, I]
-        u = x @ dequantize(lw["moe_w3"], h.dtype)
-        y = (mlp_activation(cfg, g) * u) @ dequantize(lw["moe_w2"], h.dtype)  # [E, N, H]
-        out = torch.einsum("enh,ne->nh", y, w_e).reshape(B, T, H)
+        w1, w3, w2 = expert_stacks(lw, h.dtype)
+        E, I = w2.shape[:2]
+        N = B * T
+        x = h.reshape(N, H)
+        g = x @ w1.reshape(E * I, H).t()  # [N, E * I]
+        u = x @ w3.reshape(E * I, H).t()
+        z = (mlp_activation(cfg, g) * u).view(N, E, I) * w_e[:, :, None]
+        out = (z.view(N, E * I) @ w2.reshape(E * I, H)).view(B, T, H)
         if shard is not None:
             out = shard.psum(out.float()).to(h.dtype)
         if cfg.n_shared_experts:

@@ -38,6 +38,9 @@ import torch
 _QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_qkv", "w_gu",
                "moe_w1", "moe_w3", "moe_w2", "wq_a", "wq_b", "wkv_a", "wkv_b",
                "w_shared_gate", "w_shared_up", "w_shared_down"}
+# fuse_projections' gate and up stacks [E, I, H], [E, out, in]: quantized
+# along their last axis (quantize_rows), and dequantized with axis=-1
+EXPERT_ROWS = {"moe_w1t", "moe_w3t"}
 
 
 def _scale(absmax: torch.Tensor, levels: float) -> torch.Tensor:
@@ -73,13 +76,14 @@ def pack_w4(q: torch.Tensor) -> torch.Tensor:
     return (lo & 0xF) | ((hi & 0xF) << 4)
 
 
-def unpack_w4(p: torch.Tensor) -> torch.Tensor:
+def unpack_w4(p: torch.Tensor, axis: int = -2) -> torch.Tensor:
     """Inverse of pack_w4: uint8 [..., K/2, out] -> int8 [..., K, out],
-    sign-extending each nibble."""
+    sign-extending each nibble; axis=-1 for a stack packed along its last
+    axis (quantize_rows): [..., out, K/2] -> [..., out, K]."""
     p8 = p.contiguous().view(torch.int8)
     lo = (p8 << 4) >> 4  # low nibble, sign-extended
     hi = p8 >> 4         # high nibble (the arithmetic shift sign-extends)
-    return torch.cat([lo, hi], dim=-2)
+    return torch.cat([lo, hi], dim=axis)
 
 
 def quantize_tensor_int4(w: torch.Tensor, group_size: Optional[int] = None) -> dict:
@@ -105,6 +109,16 @@ def quantize_tensor_int4(w: torch.Tensor, group_size: Optional[int] = None) -> d
     return {"qp": pack_w4(q), "s4g": s.squeeze(-2)}
 
 
+def quantize_rows(w: torch.Tensor, quantize) -> dict:
+    """A stack w [..., out, in] (fuse_projections' expert rows) quantized
+    by `quantize` (quantize_tensor or quantize_tensor_int4) as its
+    [..., in, out] transpose, each payload and scale transposed back: q
+    [..., out, in], qp [..., out, in/2] packed along the last axis, s
+    [..., out, 1], s4g [..., out, G].  The integers and scales are those of
+    the transpose, bit for bit; dequantize(..., axis=-1) reads them."""
+    return {k: v.transpose(-1, -2).contiguous() for k, v in quantize(w.transpose(-1, -2)).items()}
+
+
 def quantize_act(h: torch.Tensor, axis: int, reduce=None) -> tuple:
     """Dynamic symmetric per-token int8 activations: the scale runs over the
     contraction axis.  Returns (h_q int8, scales f32 with the axis kept).
@@ -125,19 +139,25 @@ def quantize_embed_tensor(w: torch.Tensor, native: bool = False) -> dict:
     return {("q8" if native else "q"): _round_clip(wf / s, 127), "s": s}
 
 
-def dequantize(w, dtype) -> torch.Tensor:
+def dequantize(w, dtype, axis: int = -2) -> torch.Tensor:
     """A quantized weight dict back as a dense tensor of `dtype` (any other
     weight is returned as it is): the consumers without a quantized matmul,
-    the MoE expert products and MLA's absorbed wkv_b."""
+    the MoE expert products and MLA's absorbed wkv_b.  axis: the
+    contraction axis, along which int4 is packed and scales are grouped;
+    -1 for the stacks of quantize_rows."""
     if not isinstance(w, dict):
         return w
     if "q8" in w or "q" in w:
         q = w["q8"] if "q8" in w else w["q"]
         return (q.float() * w["s"]).to(dtype)
     if "qp" in w:
-        q = unpack_w4(w["qp"]).float()
+        q = unpack_w4(w["qp"], axis).float()
         if "s4g" in w:
-            s4g = w["s4g"]  # [..., G, out]
+            s4g = w["s4g"]  # [..., G, out], or [..., out, G] at axis -1
+            if axis == -1:
+                G, K = s4g.shape[-1], q.shape[-1]
+                return (q.reshape(*q.shape[:-1], G, K // G) * s4g[..., None]
+                        ).reshape(q.shape).to(dtype)
             G, K = s4g.shape[-2], q.shape[-2]
             qg = q.reshape(*q.shape[:-2], G, K // G, q.shape[-1])
             return (qg * s4g[..., :, None, :]).reshape(q.shape).to(dtype)
@@ -175,9 +195,13 @@ def quantize_llama(
     def leaf(v):
         return quantize_tensor_int4(v, group_size) if bits == 4 else quantize_tensor(v, native)
 
+    def quantize(k, v):
+        if k in EXPERT_ROWS:
+            return quantize_rows(v, leaf)
+        return leaf(v) if k in _QUANT_KEYS else v
+
     out: dict[str, Any] = {"final_norm": params["final_norm"]}
-    out["layers"] = [{k: leaf(v) if k in _QUANT_KEYS else v for k, v in lw.items()}
-                     for lw in params["layers"]]
+    out["layers"] = [{k: quantize(k, v) for k, v in lw.items()} for lw in params["layers"]]
     out["embed"] = (quantize_embed_tensor(params["embed"], native=native or bits == 4)
                     if quantize_embed else params["embed"])
     if "lm_head" in params:

@@ -52,7 +52,7 @@ from dmi_tpu_torch.parallel.distributed import batch_axes
 _COLUMNS = {"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w_qkv", "b_qkv", "w_gu",
             "wq_b", "wkv_b", "w_shared_gate", "w_shared_up"}
 _ROWS = {"wo", "w_down", "w_shared_down"}
-_EXPERTS = {"moe_w1", "moe_w3", "moe_w2"}
+_EXPERTS = {"moe_w1", "moe_w3", "moe_w2", "moe_w1t", "moe_w3t"}
 _REPLICATED = {"ln_attn", "ln_mlp", "ln_post_attn", "ln_post_mlp", "w_router", "wq_a",
                "q_a_norm", "wkv_a", "kv_a_norm"}
 

@@ -439,8 +439,9 @@ def test_quantized_untied_head_matches_dmi_tpu(mode):
 @pytest.mark.parametrize("mode", ["w8a8", "w4a8"])
 @pytest.mark.parametrize("family", MOE_MLA)
 def test_quantized_moe_and_mla_match_dmi_tpu(family, mode):
-    """quantize_llama over the MoE and MLA leaves (expert stacks [E, in,
-    out] with per-expert scales, MLA's projections, the shared experts; the
+    """quantize_llama over the MoE and MLA leaves (expert stacks with
+    per-expert scales, fuse_projections' gate and up stacks [E, I, H]
+    quantized along H, MLA's projections, the shared experts; the
     router and the a-norms untouched) is dmi_tpu's tree (integer payloads
     bit for bit, scales within 1 ulp, as tests/test_torch_quant.py), and the
     batch-last loop over it (expert stacks dequantized into the expert
@@ -453,11 +454,17 @@ def test_quantized_moe_and_mla_match_dmi_tpu(family, mode):
     ttree = tq.quantize_llama(tfused, **kw)
     ref = bridge.llm_params_from_jax(jax.tree.map(np.asarray, jtree))
     for got, want in zip(ttree["layers"], ref["layers"]):
-        assert set(got) == set(want)
+        # fuse_projections' gate and up stacks moe_w1t/moe_w3t [E, I, H]
+        # hold dmi_tpu's [E, H, I] payloads and scales transposed
+        rows = {k[:-1]: k for k in tq.EXPERT_ROWS if k in got}
+        assert set(got) == {rows.get(k, k) for k in want}
         for name, leaf in want.items():
-            assert isinstance(got[name], dict) == isinstance(leaf, dict), name
+            mine = got[rows.get(name, name)]
+            assert isinstance(mine, dict) == isinstance(leaf, dict), name
             for key, t in (leaf.items() if isinstance(leaf, dict) else [("", leaf)]):
-                g = got[name][key] if key else got[name]
+                g = mine[key] if key else mine
+                if name in rows:
+                    g = g.transpose(1, 2)
                 if key in ("s", "s4g"):
                     # dmi_tpu's lax.map over the stacked layers (and experts)
                     # may divide by 127 as a product with its reciprocal

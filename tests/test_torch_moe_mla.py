@@ -9,8 +9,10 @@ batch-last step over one latent cache equals dmi_tpu's and the expanded
 per-head oracle's.  Yarn's frequencies and attention factor at
 DeepSeek-V2-Lite's published rope_scaling equal dmi_tpu's and transformers'
 own.  Expert stacks quantize per expert and output column (int8 and int4)
-as dmi_tpu's 4-D stacks do, and dequantize alike.  f32 on the CPU, 1e-5
-relative unless stated.
+as dmi_tpu's 4-D stacks do, and dequantize alike.  The routed MLP's 2-D
+products over fuse_projections' [E, I, H] stacks equal dmi_tpu's and the
+batched formulation's, forward and backward, and copy no activation-sized
+tensor.  f32 on the CPU, 1e-5 relative unless stated.
 """
 
 import dataclasses
@@ -105,22 +107,198 @@ def test_gate_weights_match_dmi_tpu(norm, scale):
         _close(got.sum(-1), np.full((3, 5), scale))
 
 
-def test_routed_mlp_batch_last_equals_batch_first():
-    """_moe_mlp_bl over [H, B] equals llama._moe_mlp over [B, 1, H] and
-    dmi_tpu's _moe_mlp_bl, with the deepseek f32 gate and a shared expert."""
-    jcfg = jllama.tiny_deepseek_config(n_experts=4, n_shared=1, routed_scale=2.0, **TINY)
-    tcfg = bridge.config_from_jax(jcfg)
-    tree = jax.tree.map(np.asarray, jllama.init(jax.random.key(3), jcfg))
+# tiny MoE families: the router's renormalisation, olmoe's wide q/k norms,
+# deepseek's f32 gate, routed_scaling_factor and a shared expert
+MOE_FAMILIES = {
+    "olmoe": lambda: jllama.tiny_olmoe_config(n_experts=4, **TINY),
+    "mixtral": lambda: jllama.tiny_mixtral_config(n_experts=4, **TINY),
+    "qwen3-moe": lambda: jllama.tiny_qwen3moe_config(n_experts=4, **TINY),
+    "deepseek": lambda: jllama.tiny_deepseek_config(n_experts=4, n_shared=1, routed_scale=2.0,
+                                                    **TINY),
+}
+
+
+def _moe_layer(family, fused, seed=3):
+    """(dmi_tpu's config and layer 0, the port's config, the port's
+    unfused layer 0 and the layer the routed MLP runs: fuse_projections'
+    when fused).  Weights x10 so the gate and the experts' products are
+    far from 0."""
+    jcfg = MOE_FAMILIES[family]()
+    tree = jax.tree.map(np.asarray, jllama.init(jax.random.key(seed), jcfg))
     tree["layers"] = {k: a * 10.0 if k.startswith(("w", "moe")) else a
                       for k, a in tree["layers"].items()}
     jlw = {k: jnp.asarray(a[0]) for k, a in tree["layers"].items()}
-    tlw = bridge.llm_params_from_jax(tree)["layers"][0]
+    tparams = bridge.llm_params_from_jax(tree)
+    plain = {k: v.clone() for k, v in tparams["layers"][0].items()}
+    tlw = tllama.fuse_projections(tparams)["layers"][0] if fused else tparams["layers"][0]
+    return jcfg, jlw, bridge.config_from_jax(jcfg), plain, tlw
+
+
+def _moe_mlp_parent(cfg, lw, h):
+    """The routed MLP as the port computed it before the 2-D formulation:
+    batched expert products over [E, H, I] stacks, each expert's output
+    [E, N, H] combined by an einsum with the gate weights."""
+    B, T, H = h.shape
+    if cfg.moe_gate_fp32:
+        router = h.float() @ lw["w_router"].float()
+    else:
+        router = h @ lw["w_router"]
+    w_e = tllama.moe_gate_weights(cfg, router).to(h.dtype).reshape(B * T, -1)
+    x = h.reshape(1, B * T, H)
+    g, u = x @ lw["moe_w1"], x @ lw["moe_w3"]
+    y = (tllama.mlp_activation(cfg, g) * u) @ lw["moe_w2"]
+    out = torch.einsum("enh,ne->nh", y, w_e).reshape(B, T, H)
+    if cfg.n_shared_experts:
+        gate = tllama.mlp_activation(cfg, h @ lw["w_shared_gate"])
+        out = out + (gate * (h @ lw["w_shared_up"])) @ lw["w_shared_down"]
+    return out
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("family", list(MOE_FAMILIES))
+def test_routed_mlp_batch_last_equals_batch_first(family, fused):
+    """_moe_mlp_bl over [H, B] equals llama._moe_mlp over [B, 1, H], and
+    both equal dmi_tpu's _moe_mlp_bl and _moe_mlp, on the unfused tree
+    (the stacks transposed per call) and on fuse_projections' (the
+    prepared [E, I, H] stacks)."""
+    jcfg, jlw, tcfg, _, tlw = _moe_layer(family, fused)
     h = np.random.default_rng(4).normal(size=(64, 6)).astype(np.float32)
     want = np.asarray(jdec._moe_mlp_bl(jcfg, jlw, jnp.asarray(h)))
     bl = tdec._moe_mlp_bl(tcfg, tlw, torch.from_numpy(h))
     _close(bl.numpy(), want)
     bf = tllama._moe_mlp(tcfg, tlw, torch.from_numpy(h.T.copy())[:, None, :])
     _close(bf[:, 0].t().numpy(), want)
+    hb = h.T.copy().reshape(2, 3, 64)
+    _close(tllama._moe_mlp(tcfg, tlw, torch.from_numpy(hb)).numpy(),
+           np.asarray(jllama._moe_mlp(jcfg, jlw, jnp.asarray(hb))))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("family", list(MOE_FAMILIES))
+def test_routed_mlp_output_and_input_gradient_equal_the_batched_formulation(family, fused):
+    """Over [B, T, H] f32, the 2-D formulation's output and its gradient
+    with respect to h (through the experts and through the router) equal
+    the batched formulation's (the [E, N, H] combine) to 1e-5 relative."""
+    _, _, tcfg, plain, tlw = _moe_layer(family, fused)
+    gen = torch.Generator().manual_seed(7)
+    h0 = torch.randn(3, 5, 64, generator=gen)
+    up = torch.randn(3, 5, 64, generator=gen)  # a contiguous upstream gradient
+    outs = []
+    for fn, lw in ((tllama._moe_mlp, tlw), (_moe_mlp_parent, plain)):
+        h = h0.clone().requires_grad_()
+        out = fn(tcfg, lw, h)
+        out.backward(up)
+        outs.append((out.detach().numpy(), h.grad.numpy()))
+    (got, got_dh), (want, want_dh) = outs
+    _close(got, want)
+    _close(got_dh, want_dh)
+
+
+@pytest.mark.parametrize("family", ["olmoe", "deepseek"])
+def test_fuse_projections_lays_the_expert_stacks_out_once(family):
+    """fuse_projections replaces moe_w1/moe_w3 [E, H, I] by contiguous
+    moe_w1t/moe_w3t [E, I, H] and keeps no original stack; the caller's
+    tree keeps its tensors, values and strides; fusing the fused tree again
+    moves nothing, and fusing the unfused tree again gives the same
+    values."""
+    params = bridge.llm_params_from_jax(
+        jax.tree.map(np.asarray, jllama.init(jax.random.key(3), MOE_FAMILIES[family]())))
+    before = {k: (v, v.clone(), v.stride()) for k, v in params["layers"][0].items()}
+    fused = tllama.fuse_projections(params)
+    lw = fused["layers"][0]
+    E, H, I = before["moe_w1"][1].shape
+    assert not {"moe_w1", "moe_w3"} & set(lw)
+    for key in ("moe_w1", "moe_w3"):
+        t = lw[key + "t"]
+        assert t.shape == (E, I, H) and t.is_contiguous()
+        assert torch.equal(t, before[key][1].transpose(1, 2))
+    assert lw["moe_w2"] is before["moe_w2"][0]
+    for key, (obj, values, stride) in before.items():  # the caller's tree, untouched
+        got = params["layers"][0][key]
+        assert got is obj and got.stride() == stride and torch.equal(got, values), key
+    again = tllama.fuse_projections(fused)["layers"][0]
+    twice = tllama.fuse_projections(params)["layers"][0]
+    assert again.keys() == lw.keys() == twice.keys()
+    assert all(again[key] is lw[key] and torch.equal(twice[key], lw[key]) for key in lw)
+
+
+@pytest.mark.parametrize("kind", ["q", "q8", "w4", "w4-grouped"])
+def test_prepared_stacks_quantize_and_shard_as_the_originals(kind):
+    """quantize_llama on fuse_projections' tree quantizes moe_w1t/moe_w3t
+    [E, I, H] along H: payloads and scales are the unfused tree's
+    [E, H, I] ones transposed bit for bit (int4 packed along H, scales
+    [E, I, 1] or [E, I, G]), and they dequantize (axis -1) to the
+    transposed per-expert weights as contiguous stacks, so the products'
+    [E * I, H] view copies nothing; each rank of two keeps its experts'
+    prepared stacks, plain or quantized, and they dequantize to its slice
+    of the originals."""
+    from dmi_tpu_torch.parallel import sharding
+
+    kw = {"q": {}, "q8": {"native": True}, "w4": {"bits": 4},
+          "w4-grouped": {"bits": 4, "group_size": 16}}[kind]
+    cfg = tllama.tiny_olmoe_config(n_experts=4)
+    params = tllama.init(cfg, torch.Generator().manual_seed(0))
+    unfused = {**params, "layers": [{k: v.clone() for k, v in lw.items()}
+                                    for lw in params["layers"]]}
+    fused = tllama.fuse_projections(params)
+    qf, qu = tq.quantize_llama(fused, **kw), tq.quantize_llama(unfused, **kw)
+    E, H, I = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    for lf, lu in zip(qf["layers"], qu["layers"]):
+        assert not {"moe_w1", "moe_w3"} & set(lf)
+        for key in ("moe_w1", "moe_w3"):
+            rows, cols = lf[key + "t"], lu[key]
+            assert rows.keys() == cols.keys()
+            for leaf in rows:
+                assert rows[leaf].is_contiguous()
+                assert torch.equal(rows[leaf], cols[leaf].transpose(1, 2)), (key, leaf)
+            if "s" in rows:
+                assert rows["s"].shape == (E, I, 1)
+            got = tq.dequantize(rows, torch.float32, axis=-1)
+            assert got.is_contiguous() and got.shape == (E, I, H)
+            assert torch.equal(got, tq.dequantize(cols, torch.float32).transpose(1, 2)), key
+        assert lf["moe_w2"].keys() == lu["moe_w2"].keys()
+        assert all(torch.equal(lf["moe_w2"][k], lu["moe_w2"][k]) for k in lf["moe_w2"])
+    vocab = sharding.vocab_of(fused)
+    for r in range(2):
+        sh = sharding.plan_shard(cfg, vocab, 2, r)
+        lo, hi = sh.e0, sh.e1
+        for tree in (fused, qf):
+            lw = sharding.shard_tree(tree, cfg, sh)["layers"][0]
+            w1, w3, w2 = tllama.expert_stacks(lw, torch.float32)
+            for got, key in ((w1, "moe_w1"), (w3, "moe_w3")):
+                want = unfused["layers"][0][key][lo:hi].transpose(1, 2)
+                if tree is qf:
+                    want = tq.dequantize({k: v[lo:hi] for k, v in qu["layers"][0][key].items()},
+                                         torch.float32).transpose(1, 2)
+                assert got.is_contiguous() and torch.equal(got, want), key
+
+
+def test_routed_mlp_copies_no_activation_sized_tensor():
+    """_moe_mlp forward and backward on a fused tiny OLMoE tree under a CPU
+    profiler with record_shapes, its spans recording, the backward driven
+    by a contiguous upstream gradient: no aten::copy_ inside llama.moe or
+    llama.moe.bwd has N * H elements or more (the batched formulation's
+    [E, N, H] permute and its [E, I, H] re-layouts of the stacks are such
+    copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = tllama.tiny_olmoe_config(n_experts=8)
+    lw = tllama.fuse_projections(tllama.init(cfg, torch.Generator().manual_seed(0)))["layers"][0]
+    B, T, H = 4, 16, cfg.hidden_size
+    gen = torch.Generator().manual_seed(1)
+    h = torch.randn(B, T, H, generator=gen).requires_grad_()
+    up = torch.randn(B, T, H, generator=gen)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        tllama._moe_mlp(cfg, lw, h).backward(up)
+    events = prof.events()
+    spans = [(e.thread, e.time_range.start, e.time_range.end) for e in events
+             if e.name in ("llama.moe", "llama.moe.bwd")]
+    assert {e.name for e in events} >= {"llama.moe", "llama.moe.bwd"}
+    copies = [e for e in events if e.name == "aten::copy_"
+              and any(e.thread == t and a <= e.time_range.start and e.time_range.end <= b
+                      for t, a, b in spans)]
+    sizes = [int(np.prod(e.input_shapes[0])) for e in copies]
+    assert all(n < B * T * H for n in sizes), sizes
 
 
 # ---------------------------------------------------------------------------

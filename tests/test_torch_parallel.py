@@ -222,7 +222,7 @@ def test_experts_and_wide_norms_slice():
     tree = _tree(cfg)
     whole = tree["layers"][0]
     shards = _shards(cfg, tree, 2)
-    for key in ("moe_w1", "moe_w3", "moe_w2"):
+    for key in ("moe_w1t", "moe_w3t", "moe_w2"):
         assert torch.equal(_cat([sh["layers"][0][key] for sh in shards], 0), whole[key])
     assert torch.equal(shards[1]["layers"][0]["w_router"], whole["w_router"])
     assert torch.equal(_cat([sh["layers"][0]["q_norm"] for sh in shards], 0), whole["q_norm"])
