@@ -426,16 +426,21 @@ def _moe_mlp_bl(cfg, lw, hn, plain: bool = False, shard=None):
     (f32 with moe_gate_fp32); the expert products are torch ops (as
     dmi_tpu's XLA einsums; no kernel); deepseek's shared experts go through
     _mm_bl, so a quantized tree runs them on the int8 kernels.  shard: this
-    rank's experts and shared-expert slice, as llama._moe_mlp.  Span
-    decode.moe."""
+    rank's experts and shared-expert slice, as llama._moe_mlp; the experts
+    held are llama.held_experts' (a config's expert-parallel share adds
+    its own experts' part alone).  Span decode.moe, the router product and
+    gate weights inside it moe.route."""
     with span("decode.moe"):
-        if cfg.moe_gate_fp32:
-            router = dequantize(lw["w_router"], torch.float32).float().t() @ hn.float()
-        else:
-            router = _mm_bl(lw["w_router"], hn, plain)  # [E, B]
-        w_e = llama.moe_gate_weights(cfg, router.t()).t().to(hn.dtype)  # [E, B]
-        if shard is not None:
-            w_e = w_e[shard.e0:shard.e1]
+        with span("moe.route"):
+            if cfg.moe_gate_fp32:
+                router = dequantize(lw["w_router"], torch.float32).float().t() @ hn.float()
+            else:
+                router = _mm_bl(lw["w_router"], hn, plain)  # [E, B]
+            w_e = llama.moe_gate_weights(cfg, router.t(), lw.get("router_bias"))
+            w_e = w_e.t().to(hn.dtype)  # [E, B]
+        held = llama.held_experts(cfg, shard)
+        if held is not None:
+            w_e = w_e[held]
         w1, w3, w2 = llama.expert_stacks(lw, hn.dtype)
         E, I, H = w2.shape
         g = w1.reshape(E * I, H) @ hn  # [E * I, B]
@@ -598,9 +603,13 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
     kernels' in f32), and the vocab-sharded logits are gathered; the final
     norm's output (head=False) is replicated, for the fused head's merge.
 
+    Each layer takes the MLP its tree holds (llama.moe_layer: a w_router
+    means the routed MLP), so a stack may mix the two (deepseek's leading
+    dense layers).
+
     Spans, each layer: decode.attn from the q/k/v products (or
-    _mla_attn_bl) to wo, then decode.moe (_moe_mlp_bl); then decode.head
-    over the final norm and the head."""
+    _mla_attn_bl) to wo, then decode.moe (_moe_mlp_bl) or decode.mlp (the
+    dense MLP); then decode.head over the final norm and the head."""
     cfg = llama.local_config(cfg, params)
     shard = params.get("shard")
     rows = llama.row_parallel(shard)
@@ -678,19 +687,22 @@ def _decode_step_bl(cfg, params, h, caches, pos: Optional[int], head: bool = Tru
             attn = _mm_bl(lw["wo"], attn, plain, rows)
         x = x + llama._block_out(cfg, attn, lw, "ln_post_attn", "ln_attn", _rms_norm_bl)
         hn = x if cfg.norm_after else _rms_norm_bl(x, lw["ln_mlp"], eps)
-        if cfg.num_experts:  # never the decode-MLP kernel, as in dmi_tpu
+        if "w_router" in lw:  # never the decode-MLP kernel, as in dmi_tpu
             mlp_out = _moe_mlp_bl(cfg, lw, hn, plain, rows)
-        elif "w_gu" in lw and not isinstance(lw["w_gu"], dict):
-            # the whole MLP in one weight stream
-            mlp_out = mlp(lw["w_gu"], lw["w_down"], hn, cfg.mlp_act)
-            if rows is not None:  # the kernel emits h's dtype: summed in f32
-                mlp_out = rows.psum(mlp_out.float()).to(hn.dtype)
-        elif "w_gu" in lw:  # quantized layouts go through _mm_bl
-            gate, up = mm(lw["w_gu"], hn).chunk(2, dim=0)
-            mlp_out = _mm_bl(lw["w_down"], llama.mlp_activation(cfg, gate) * up, plain, rows)
         else:
-            gate = llama.mlp_activation(cfg, mm(lw["w_gate"], hn))
-            mlp_out = _mm_bl(lw["w_down"], gate * mm(lw["w_up"], hn), plain, rows)
+            with span("decode.mlp"):
+                if "w_gu" in lw and not isinstance(lw["w_gu"], dict):
+                    # the whole MLP in one weight stream
+                    mlp_out = mlp(lw["w_gu"], lw["w_down"], hn, cfg.mlp_act)
+                    if rows is not None:  # the kernel emits h's dtype: summed in f32
+                        mlp_out = rows.psum(mlp_out.float()).to(hn.dtype)
+                elif "w_gu" in lw:  # quantized layouts go through _mm_bl
+                    gate, up = mm(lw["w_gu"], hn).chunk(2, dim=0)
+                    mlp_out = _mm_bl(lw["w_down"], llama.mlp_activation(cfg, gate) * up, plain,
+                                     rows)
+                else:
+                    gate = llama.mlp_activation(cfg, mm(lw["w_gate"], hn))
+                    mlp_out = _mm_bl(lw["w_down"], gate * mm(lw["w_up"], hn), plain, rows)
         x = x + llama._block_out(cfg, mlp_out, lw, "ln_post_mlp", "ln_mlp", _rms_norm_bl)
     with span("decode.head"):
         x = _rms_norm_bl(x, params["final_norm"], eps)

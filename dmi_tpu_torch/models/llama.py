@@ -46,7 +46,7 @@ from dmi_tpu_torch.models.quant import dequantize, int_matmul, quantize_act, unp
 from dmi_tpu_torch.ops.cuda.decode_attn import _decode_attn_plain, fused_decode_attention
 from dmi_tpu_torch.ops.cuda.flash_attn import _flash_attn_plain, flash_attention
 from dmi_tpu_torch.utils import rng
-from dmi_tpu_torch.utils.profiling import region
+from dmi_tpu_torch.utils.profiling import region, span
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -127,6 +127,37 @@ class LlamaConfig:
     routed_scaling_factor: float = 1.0
     n_shared_experts: int = 0
     moe_gate_fp32: bool = False
+    # deepseek-v3 routing ("sigmoid"): sigmoid scores, a per-expert
+    # correction bias (router_bias) added for the choice only, the choice
+    # limited to the moe_topk_group best of moe_n_group expert groups
+    moe_scoring: str = "softmax"
+    moe_n_group: int = 1
+    moe_topk_group: int = 1
+    # one expert-parallel rank's share: the layers hold the stacks of
+    # experts [e0, e1) of the num_experts the router scores; None: all
+    moe_expert_range: Optional[Tuple[int, int]] = None
+    # per-layer MLP kind (deepseek's leading dense layers): True a routed
+    # MLP, False a dense one dense_intermediate_size wide; None: every
+    # layer routed iff num_experts
+    moe_layers: Optional[Tuple[bool, ...]] = None
+    dense_intermediate_size: Optional[int] = None
+
+
+def moe_layer(cfg: LlamaConfig, i: int) -> bool:
+    """Whether layer i holds a routed MLP (the tree then has w_router,
+    which is what the forward passes test)."""
+    return cfg.moe_layers[i] if cfg.moe_layers is not None else bool(cfg.num_experts)
+
+
+def held_experts(cfg: LlamaConfig, shard=None) -> Optional[slice]:
+    """The columns of the router's num_experts whose stacks a layer holds: a
+    mesh rank's experts (Shard e0:e1) or the config's expert-parallel share
+    (moe_expert_range); None where the stacks hold every expert."""
+    if shard is not None:
+        return slice(shard.e0, shard.e1)
+    if cfg.moe_expert_range is not None:
+        return slice(*cfg.moe_expert_range)
+    return None
 
 
 def llama32_1b(dtype=torch.bfloat16) -> LlamaConfig:
@@ -254,7 +285,11 @@ def init(cfg: LlamaConfig, generator: rng.Generator, device="cpu") -> dict:
     w_router [H, E] and the stacks moe_w1/moe_w3 [E, H, I], moe_w2
     [E, I, H] (and w_shared_{gate,up,down} of width n_shared * I); with MLA
     wkv_a [H, r + dr], kv_a_norm [r], wkv_b [r, nh (dn + dv)], wo
-    [nh dv, H] and either wq [H, nh (dn + dr)] or wq_a, q_a_norm, wq_b."""
+    [nh dv, H] and either wq [H, nh (dn + dr)] or wq_a, q_a_norm, wq_b.
+    Each layer takes the MLP moe_layer names: a routed one's stacks hold
+    the experts held_experts names (its router scores all num_experts; a
+    sigmoid router has its correction bias router_bias [E]), a dense one
+    is dense_intermediate_size wide in a mixed stack."""
     H, I = cfg.hidden_size, cfg.intermediate_size
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -265,7 +300,7 @@ def init(cfg: LlamaConfig, generator: rng.Generator, device="cpu") -> dict:
         return torch.ones(n, dtype=cfg.dtype, device=device)
 
     layers = []
-    for _ in range(cfg.num_hidden_layers):
+    for i in range(cfg.num_hidden_layers):
         if cfg.kv_lora_rank is not None:
             r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
             dv = cfg.v_head_dim
@@ -279,15 +314,20 @@ def init(cfg: LlamaConfig, generator: rng.Generator, device="cpu") -> dict:
         else:
             lw = {"wq": w(H, nh * hd), "wk": w(H, nkv * hd), "wv": w(H, nkv * hd),
                   "wo": w(nh * hd, H)}
-        if cfg.num_experts:
+        if moe_layer(cfg, i):
             E = cfg.num_experts
-            lw.update(w_router=w(H, E), moe_w1=w(E, H, I), moe_w3=w(E, H, I),
-                      moe_w2=w(E, I, H))
+            held = held_experts(cfg)
+            Eh = E if held is None else held.stop - held.start
+            lw.update(w_router=w(H, E), moe_w1=w(Eh, H, I), moe_w3=w(Eh, H, I),
+                      moe_w2=w(Eh, I, H))
+            if cfg.moe_scoring == "sigmoid":
+                lw["router_bias"] = w(E)
             if cfg.n_shared_experts:
                 Is = I * cfg.n_shared_experts
                 lw.update(w_shared_gate=w(H, Is), w_shared_up=w(H, Is), w_shared_down=w(Is, H))
         else:
-            lw.update(w_gate=w(H, I), w_up=w(H, I), w_down=w(I, H))
+            Id = cfg.dense_intermediate_size or I
+            lw.update(w_gate=w(H, Id), w_up=w(H, Id), w_down=w(Id, H))
         lw.update(ln_attn=ones(H), ln_mlp=ones(H))
         if cfg.attention_bias:
             lw.update(bq=w(nh * hd), bk=w(nkv * hd), bv=w(nkv * hd))
@@ -344,18 +384,22 @@ def expert_stacks(lw: dict, dtype) -> tuple:
     return rows("moe_w1"), rows("moe_w3"), dequantize(lw["moe_w2"], dtype)
 
 
-def hf_layer_keys(cfg: LlamaConfig, fused: bool, moe: str = "mlp") -> dict:
+def hf_layer_keys(cfg: LlamaConfig, fused: bool, moe: str = "mlp",
+                  sparse: Optional[bool] = None) -> dict:
     """The port's per-layer names -> (HF key under model.layers.{i}., kind):
     "w" a Linear weight, transposed from HF's (out, in) to (in, out); "b" a
-    bias; "n" a norm ((1 + w) folded when cfg.norm_plus_one); "x" an expert
-    stack, the key holding "{e}" for the expert index, each expert a Linear
-    weight.  `fused`: phi-3's checkpoint layout, one qkv_proj and one
-    gate_up_proj, split at import.  `moe`: the module of the experts, "mlp"
-    (qwen3-moe, olmoe, deepseek-v2: gate_proj/up_proj/down_proj) or
-    "block_sparse_moe" (mixtral: w1/w3/w2).  MLA layers have deepseek's
-    kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj and a q_proj or the
-    q_a_proj, q_a_layernorm, q_b_proj bottleneck.  The norms' roles follow
-    dmi_tpu's from_hf_state_dict: gemma's pre-MLP norm is
+    bias; "f" a vector kept in f32 (deepseek-v3's e_score_correction_bias,
+    which HF keeps in f32 too); "n" a norm ((1 + w) folded when
+    cfg.norm_plus_one); "x" an expert stack, the key holding "{e}" for the
+    expert index, each expert a Linear weight.  `fused`: phi-3's checkpoint
+    layout, one qkv_proj and one gate_up_proj, split at import.  `moe`: the
+    module of the experts, "mlp" (qwen3-moe, olmoe, deepseek: gate_proj/
+    up_proj/down_proj) or "block_sparse_moe" (mixtral: w1/w3/w2).  `sparse`:
+    whether this layer holds the routed MLP (moe_layer; None: every layer
+    routed iff cfg.num_experts), else the dense gate/up/down.  MLA layers
+    have deepseek's kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj and a
+    q_proj or the q_a_proj, q_a_layernorm, q_b_proj bottleneck.  The norms'
+    roles follow dmi_tpu's from_hf_state_dict: gemma's pre-MLP norm is
     pre_feedforward_layernorm, and olmo2 (norm_after) has no pre-norms, its
     ln_attn/ln_mlp being the post-attention and post-feedforward norms of
     the block outputs."""
@@ -375,10 +419,14 @@ def hf_layer_keys(cfg: LlamaConfig, fused: bool, moe: str = "mlp") -> dict:
         keys = {"wq": ("self_attn.q_proj.weight", "w"), "wk": ("self_attn.k_proj.weight", "w"),
                 "wv": ("self_attn.v_proj.weight", "w")}
     keys["wo"] = ("self_attn.o_proj.weight", "w")
-    if cfg.num_experts:
+    if sparse is None:
+        sparse = bool(cfg.num_experts)
+    if sparse:
         names = ("w1", "w3", "w2") if moe == "block_sparse_moe" else \
             ("gate_proj", "up_proj", "down_proj")
         keys["w_router"] = (f"{moe}.gate.weight", "w")
+        if cfg.moe_scoring == "sigmoid":
+            keys["router_bias"] = (f"{moe}.gate.e_score_correction_bias", "f")
         for name, hf in zip(("moe_w1", "moe_w3", "moe_w2"), names):
             keys[name] = (f"{moe}.experts.{{e}}.{hf}.weight", "x")
         if cfg.n_shared_experts:
@@ -389,7 +437,7 @@ def hf_layer_keys(cfg: LlamaConfig, fused: bool, moe: str = "mlp") -> dict:
         keys["w_gu"] = ("mlp.gate_up_proj.weight", "w")
     else:
         keys.update(w_gate=("mlp.gate_proj.weight", "w"), w_up=("mlp.up_proj.weight", "w"))
-    if not cfg.num_experts:
+    if not sparse:
         keys["w_down"] = ("mlp.down_proj.weight", "w")
     if cfg.norm_after:
         keys.update(ln_attn=("post_attention_layernorm.weight", "n"),
@@ -421,16 +469,20 @@ def from_hf_state_dict(state_dict, cfg: LlamaConfig, device="cpu") -> dict:
     layer's experts are stacked [E, in, out].  A key the config's layout
     does not use (biases, norms, experts or projections the config has not)
     is refused; so is an lm_head.weight under a tied config unless it is the
-    embedding itself (the tied head saved twice, as .bin files do)."""
+    embedding itself (the tied head saved twice, as .bin files do).  Each
+    layer takes its own MLP's keys (moe_layer: deepseek's leading dense
+    layers), and a share of the experts (moe_expert_range) reads the
+    experts it holds, in index order."""
     keys = set(state_dict)
     fused = "model.layers.0.self_attn.qkv_proj.weight" in keys
     moe = ("block_sparse_moe" if "model.layers.0.block_sparse_moe.gate.weight" in keys
            else "mlp")
+    held = held_experts(cfg) or slice(0, cfg.num_experts)
     per_layer = {}
     for i in range(cfg.num_hidden_layers):
-        for name, (hf, kind) in hf_layer_keys(cfg, fused, moe).items():
+        for name, (hf, kind) in hf_layer_keys(cfg, fused, moe, moe_layer(cfg, i)).items():
             if kind == "x":
-                for e in range(cfg.num_experts):
+                for e in range(held.start, held.stop):
                     per_layer[f"model.layers.{i}.{hf.format(e=e)}"] = (i, name, kind)
             else:
                 per_layer[f"model.layers.{i}.{hf}"] = (i, name, kind)
@@ -453,6 +505,8 @@ def from_hf_state_dict(state_dict, cfg: LlamaConfig, device="cpu") -> dict:
         t = state_dict[key]
         if kind == "n" and cfg.norm_plus_one:
             return (t.float() + 1.0).to(device)
+        if kind == "f":
+            return t.to(device=device, dtype=torch.float32)
         t = t.to(device=device, dtype=cfg.dtype)
         return (t.t() if kind in ("w", "x") else t).contiguous()
 
@@ -793,19 +847,48 @@ def mlp_activation(cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown mlp_act {cfg.mlp_act!r}")
 
 
-def moe_gate_weights(cfg: LlamaConfig, router_logits: torch.Tensor) -> torch.Tensor:
+def moe_gate_weights(cfg: LlamaConfig, router_logits: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-token expert weights [..., E] from router logits [..., E]
     (dmi_tpu's moe_gate_weights, HF's sparse-MoE gates): softmax over the
     experts in f32, keep the top num_experts_per_tok, renormalise the kept
     ones when cfg.moe_norm_topk, times routed_scaling_factor (deepseek);
     0 for every other expert.  Among equal probabilities the lower expert
     index is kept, as jax.lax.top_k keeps it (torch.topk promises no order
-    for ties): a stable descending sort."""
-    probs = torch.softmax(router_logits.float(), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    vals, idx = vals[..., :cfg.num_experts_per_tok], idx[..., :cfg.num_experts_per_tok]
-    if cfg.moe_norm_topk:
-        vals = vals / vals.sum(dim=-1, keepdim=True)
+    for ties): a stable descending sort.
+
+    moe_scoring "sigmoid" (deepseek-v3's noaux_tc, transformers'
+    DeepseekV3TopkRouter), in f32: s = sigmoid(logits), c = s + bias (the
+    correction bias [E], router_bias); a group of E / moe_n_group experts
+    scores the sum of its top 2 c, the moe_topk_group best groups are kept
+    and the other groups' c set to 0; the top k of c are chosen (ties to
+    the lower index, groups and experts alike) and weighted by s, without
+    the bias, over their sum (+ 1e-20) when moe_norm_topk, times
+    routed_scaling_factor."""
+    k = cfg.num_experts_per_tok
+    if cfg.moe_scoring == "softmax":
+        probs = torch.softmax(router_logits.float(), dim=-1)
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        vals, idx = vals[..., :k], idx[..., :k]
+        if cfg.moe_norm_topk:
+            vals = vals / vals.sum(dim=-1, keepdim=True)
+    elif cfg.moe_scoring == "sigmoid":
+        probs = torch.sigmoid(router_logits.float())
+        choice = probs + bias.float()
+        G = cfg.moe_n_group
+        if G > 1:
+            groups = choice.unflatten(-1, (G, -1))
+            score = groups.topk(2, dim=-1).values.sum(dim=-1)  # [..., G]
+            keep = torch.sort(score, dim=-1, descending=True, stable=True).indices
+            mask = torch.zeros_like(score, dtype=torch.bool).scatter(
+                -1, keep[..., :cfg.moe_topk_group], True)
+            choice = groups.masked_fill(~mask[..., None], 0.0).flatten(-2)
+        idx = torch.sort(choice, dim=-1, descending=True, stable=True).indices[..., :k]
+        vals = probs.gather(-1, idx)
+        if cfg.moe_norm_topk:
+            vals = vals / (vals.sum(dim=-1, keepdim=True) + 1e-20)
+    else:
+        raise ValueError(f"unknown moe_scoring {cfg.moe_scoring!r}")
     if cfg.routed_scaling_factor != 1.0:
         vals = vals * cfg.routed_scaling_factor
     return torch.zeros_like(probs).scatter(-1, idx, vals)
@@ -826,23 +909,33 @@ def _moe_mlp(cfg: LlamaConfig, lw: dict, h: torch.Tensor, shard=None) -> torch.T
 
     the gate weights applied before the down product, so that product sums
     over the experts: no [E, N, H] tensor, and on a fused tree no copy
-    forward or backward.  shard: the layer holds this rank's experts
-    [e0, e1) and its slice of the shared experts; the router is whole, and
-    the partial combine is summed over the model group.  The experts read
-    h and their gate weights through Shard.copy (the router's gradient
-    sums the model ranks'); the router reads h as it is.  Span llama.moe
-    (its backward llama.moe.bwd)."""
+    forward or backward.  The stacks hold the experts held_experts names
+    (all, a mesh rank's or an expert-parallel share's), the router scores
+    all num_experts, and the layer adds its own experts' part.  shard: the
+    layer holds this rank's experts [e0, e1) and its slice of the shared
+    experts; the router is whole, and the partial combine is summed over
+    the model group.  The experts read h and their gate weights through
+    Shard.copy (the router's gradient sums the model ranks'); the router
+    reads h as it is.  A config's share (moe_expert_range) is one chip's
+    part of an expert-parallel layer run without its exchange: its partial
+    result goes on as it is.  Span llama.moe (its backward llama.moe.bwd),
+    the router product and gate weights inside it moe.route."""
     with region("llama.moe") as r:
         h = r.enter(h)
         B, T, H = h.shape
-        if cfg.moe_gate_fp32:
-            router = h.float() @ dequantize(lw["w_router"], torch.float32).float()
-        else:
-            router = _mm(h, lw["w_router"])  # [B, T, E]
-        w_e = moe_gate_weights(cfg, router).to(h.dtype).reshape(B * T, -1)
+        with span("moe.route"):
+            if cfg.moe_gate_fp32:
+                router = h.float() @ dequantize(lw["w_router"], torch.float32).float()
+            else:
+                router = _mm(h, lw["w_router"])  # [B, T, E]
+            w_e = moe_gate_weights(cfg, router, lw.get("router_bias")).to(h.dtype)
+        w_e = w_e.reshape(B * T, -1)
+        held = held_experts(cfg, shard)
         if shard is not None:
-            w_e = shard.copy(w_e)[:, shard.e0:shard.e1]
+            w_e = shard.copy(w_e)
             h = shard.copy(h)
+        if held is not None:
+            w_e = w_e[:, held]
         w1, w3, w2 = expert_stacks(lw, h.dtype)
         E, I = w2.shape[:2]
         N = B * T
@@ -1026,7 +1119,7 @@ def _block(cfg: LlamaConfig, x, lw, cos, sin, bias, cache_kv=None, cache_index: 
     x = x + _block_out(cfg, attn, lw, "ln_post_attn", "ln_attn")
 
     h = x if cfg.norm_after else rms_norm(x, lw["ln_mlp"], eps)
-    if cfg.num_experts:
+    if "w_router" in lw:  # the layer's kind, as its tree was built (moe_layer)
         out = _moe_mlp(cfg, lw, h, shard)
     else:
         with region("llama.mlp") as r:

@@ -54,7 +54,7 @@ _COLUMNS = {"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w_qkv", "b_qk
 _ROWS = {"wo", "w_down", "w_shared_down"}
 _EXPERTS = {"moe_w1", "moe_w3", "moe_w2", "moe_w1t", "moe_w3t"}
 _REPLICATED = {"ln_attn", "ln_mlp", "ln_post_attn", "ln_post_mlp", "w_router", "wq_a",
-               "q_a_norm", "wkv_a", "kv_a_norm"}
+               "q_a_norm", "wkv_a", "kv_a_norm", "router_bias"}
 
 
 def replicate(mesh: DeviceMesh, tree):
@@ -149,6 +149,10 @@ def plan_shard(cfg, vocab: int, m: int, r: int, model_group=None, n_data: int = 
         raise ValueError(f"the model axis ({m}) must divide the {nkv} kv heads or be a "
                          "multiple of them")
     E = cfg.num_experts
+    if cfg.moe_expert_range is not None:
+        raise ValueError(f"a tree holding one expert-parallel rank's share of the experts "
+                         f"({cfg.moe_expert_range} of {E}, moe_expert_range) cannot be sharded "
+                         "again over a model axis; serve it unsharded")
     if E % m:
         raise ValueError(f"the model axis ({m}) must divide the {E} experts")
     block = -(-vocab // m)

@@ -7,15 +7,17 @@
     fixture vocab (production-scale compute without HF weights)
   * anything else — a model of one of dmi_tpu's families (llama, mistral,
     qwen2, qwen3, phi3, olmo2, granite, gemma2, gemma3_text, mixtral,
-    qwen3_moe, olmoe, deepseek_v2) in the HF layout from a local directory
+    qwen3_moe, olmoe, deepseek_v2) or deepseek_v3 in the HF layout from a local directory
     or the HF hub cache (training/hf_weights.py: config.json and
     safetensors or .bin weights, read without transformers), and its
     tokenizer: in Llama-3's layout read by data/hf_tokenizer.py, any other
     through transformers.AutoTokenizer
 The DMI_LM_OVERRIDE environment variable substitutes any configured name
 with one of the above, as in dmi_tpu.  What dmi_tpu refuses stays refused
-(mixed dense/sparse stacks, deepseek's group-limited routing, olmoe's
-clip_qkv), as do options outside its layouts.  Tokenizers outside
+(qwen3-moe's mixed dense/sparse stacks, deepseek_v2's group-limited
+routing, olmoe's clip_qkv), as do options outside its layouts and quantized
+checkpoints; deepseek's mixed stacks (leading dense layers) the port
+computes, as it computes deepseek_v3.  Tokenizers outside
 Llama-3's layout need transformers and tokenizers, so they are imported
 only here, lazily.
 
@@ -29,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+import math
 import os
 from typing import Tuple
 
@@ -78,8 +81,8 @@ def _resolve_name(name: str) -> str:
 
 def _refused(what: str):
     return NotImplementedError(
-        f"{what}: outside the layouts of the decoder families dmi_tpu and dmi_tpu_torch "
-        f"compute ({', '.join(_FAMILIES)})"
+        f"{what}: outside the layouts of the decoder families dmi_tpu_torch computes "
+        f"({', '.join(_FAMILIES)})"
     )
 
 
@@ -157,7 +160,18 @@ _FAMILIES = {
                     "n_routed_experts": 64, "n_shared_experts": 2, "num_experts_per_tok": None,
                     "routed_scaling_factor": 1.0, "topk_method": "greedy",
                     "norm_topk_prob": False, "moe_intermediate_size": 1407},
+    # DeepseekV3Config, and DeepSeek's own configuration_deepseek.py for the
+    # keys transformers' class has not (its router is always noaux_tc)
+    "deepseek_v3": {"bos_token_id": 0, "eos_token_id": 1, "num_key_value_heads": None,
+                    "max_position_embeddings": 4096, "first_k_dense_replace": 3,
+                    "kv_lora_rank": 512, "q_lora_rank": 1536, "qk_nope_head_dim": 128,
+                    "qk_rope_head_dim": 64, "v_head_dim": 128, "n_routed_experts": 256,
+                    "n_shared_experts": 1, "num_experts_per_tok": 8,
+                    "routed_scaling_factor": 2.5, "n_group": 8, "topk_group": 4,
+                    "norm_topk_prob": True, "moe_intermediate_size": 2048,
+                    "topk_method": "noaux_tc", "scoring_func": "sigmoid"},
 }
+_DEEPSEEK = ("deepseek_v2", "deepseek_v3")
 _GEMMA = ("gemma2", "gemma3_text")
 
 
@@ -191,7 +205,8 @@ def _layer_types(family: str, c: dict):
 def _hf_to_config(hf_cfg: dict, dtype: torch.dtype, tokenizer) -> llama.LlamaConfig:
     """The port's config for a parsed HF config.json (dmi_tpu's _hf_to_config
     for model_type llama, mistral, qwen2, qwen3, phi3, olmo2, granite,
-    gemma2, gemma3_text, mixtral, qwen3_moe, olmoe and deepseek_v2):
+    gemma2, gemma3_text, mixtral, qwen3_moe, olmoe and deepseek_v2; and
+    deepseek_v3, which dmi_tpu has not: _deepseek_fields):
     per-layer sliding flags from layer_types (or the family's own rule) and
     the window where a layer slides; llama3 or linear rope_scaling (yarn for
     deepseek_v2); qwen's q/k biases and norms, olmo2's post-norm blocks,
@@ -203,16 +218,27 @@ def _hf_to_config(hf_cfg: dict, dtype: torch.dtype, tokenizer) -> llama.LlamaCon
     width, nkv = nh), f32 gate, routed_scaling_factor and shared experts;
     tie_word_embeddings.  Keys left out take the family's defaults
     (_FAMILIES).  eos comes from the config, else from the tokenizer.
-    Refused as dmi_tpu refuses them: qwen3-moe and deepseek stacks mixing
-    dense and sparse layers, deepseek's topk_method other than greedy,
-    olmoe's clip_qkv and attention bias, deepseek's attention bias.  Refused
+    Refused as dmi_tpu refuses them: qwen3-moe stacks mixing dense and
+    sparse layers, deepseek_v2's topk_method other than greedy, olmoe's
+    clip_qkv and attention bias, deepseek's attention bias (deepseek's
+    mixed stacks, which dmi_tpu refuses, the port computes).  Refused
     besides, as outside the layouts: another model type, dynamic or longrope
     rope scaling (yarn outside deepseek), MLP biases, another activation,
-    and the o_proj bias that attention_bias adds outside qwen."""
+    the o_proj bias that attention_bias adds outside qwen, deepseek_v3's
+    routing other than noaux_tc over sigmoid scores, and a
+    quantization_config (DeepSeek-V3's block-scaled FP8 checkpoint among
+    them)."""
     family = hf_cfg.get("model_type", "llama")
     if family not in _FAMILIES:
         raise _refused(f"model_type {family!r}")
     c = {**_COMMON_DEFAULTS, **_FAMILIES[family], **hf_cfg}
+    quant = c.get("quantization_config")
+    if quant:
+        method = quant.get("quant_method")
+        what = ("block-scaled FP8 weights, which the port cannot dequantize"
+                if method == "fp8" else "quantized weights, which the port does not read")
+        raise _refused(f"{family} with quantization_config {method!r} ({what}; convert the "
+                       "checkpoint to bf16 first)")
     act = c.get("hidden_activation" if family in _GEMMA else "hidden_act")
     want = "gelu_pytorch_tanh" if family in _GEMMA else "silu"
     if act is not None and act != want:
@@ -227,7 +253,7 @@ def _hf_to_config(hf_cfg: dict, dtype: torch.dtype, tokenizer) -> llama.LlamaCon
         raise _refused("gemma3 with bidirectional attention")
     rs = c.get("rope_scaling") or {}
     rope_type = rs.get("rope_type", rs.get("type"))
-    yarn = family == "deepseek_v2" and rope_type == "yarn"
+    yarn = family in _DEEPSEEK and rope_type == "yarn"
     if rs and not yarn and (rope_type not in ("llama3", "linear") or family == "phi3"):
         raise _refused(f"{family} with rope_scaling of type {rope_type!r}")
 
@@ -278,8 +304,8 @@ def _hf_to_config(hf_cfg: dict, dtype: torch.dtype, tokenizer) -> llama.LlamaCon
         kw.update(qk_norm_wide=True, num_experts=int(c["num_experts"]),
                   num_experts_per_tok=int(c["num_experts_per_tok"]),
                   moe_norm_topk=bool(c["norm_topk_prob"]))
-    elif family == "deepseek_v2":
-        kw.update(_deepseek_fields(c, rs if yarn else None))
+    elif family in _DEEPSEEK:
+        kw.update(_deepseek_fields(family, c, rs if yarn else None))
     if family == "qwen3_moe":
         if c["decoder_sparse_step"] != 1 or c["mlp_only_layers"]:
             raise _refused("qwen3_moe with mixed dense and sparse layers (decoder_sparse_step "
@@ -309,36 +335,67 @@ def _hf_to_config(hf_cfg: dict, dtype: torch.dtype, tokenizer) -> llama.LlamaCon
     )
 
 
-def _deepseek_fields(c: dict, yarn) -> dict:
-    """deepseek_v2's config fields (dmi_tpu's branch of _hf_to_config): MLA
-    widths (head_dim the q/k width qk_nope + qk_rope, nkv = nh, interleaved
-    rope), the deepseek MoE where the stack is all sparse
-    (first_k_dense_replace 0 and routed experts), and yarn from its
+def _deepseek_fields(family: str, c: dict, yarn) -> dict:
+    """deepseek_v2's and deepseek_v3's config fields (dmi_tpu's deepseek_v2
+    branch of _hf_to_config, widened): MLA widths (head_dim the q/k width
+    qk_nope + qk_rope, nkv = nh, interleaved rope), yarn from its
     rope_scaling (original_max_position_embeddings, else the config's
-    max_position_embeddings)."""
+    max_position_embeddings), and the deepseek MoE on the layers HF and
+    DeepSeek's code make sparse (i >= first_k_dense_replace and i %
+    moe_layer_freq == 0; the others dense at intermediate_size, the experts
+    moe_intermediate_size wide).
+
+    deepseek_v2 routes greedy over softmax scores.  deepseek_v3 routes by
+    noaux_tc (sigmoid scores, the correction bias, n_group groups of which
+    topk_group are kept) and scales its scores by (qk_nope + qk_rope) ** -0.5
+    times yarn's mscale(factor, mscale_all_dim) ** 2, as transformers'
+    DeepseekV3Attention and DeepSeek's code do (deepseek_v2 keeps the plain
+    (qk_nope + qk_rope) ** -0.5 of transformers' DeepseekV2Attention).
+
+    ep_size > 1 is one expert-parallel rank's share: each of ep_size ranks
+    holds n_routed_experts experts, the router scores n_routed_experts x
+    ep_size, and this config's layers hold experts [0, n_routed_experts)."""
     L = c["num_hidden_layers"]
     fkd = int(c.get("first_k_dense_replace") or 0)
-    if 0 < fkd < L:
-        raise _refused(f"deepseek_v2 with mixed dense and MoE layers (first_k_dense_replace "
-                       f"{fkd} of {L} layers; dmi_tpu takes 0 or >= the layer count)")
+    freq = int(c.get("moe_layer_freq") or 1)
+    dn, dr = int(c["qk_nope_head_dim"]), int(c["qk_rope_head_dim"])
     kw = dict(q_lora_rank=c.get("q_lora_rank"), kv_lora_rank=int(c["kv_lora_rank"]),
-              qk_nope_head_dim=int(c["qk_nope_head_dim"]),
-              qk_rope_head_dim=int(c["qk_rope_head_dim"]), v_head_dim=int(c["v_head_dim"]),
-              rope_interleaved=True,
-              head_dim=int(c["qk_nope_head_dim"]) + int(c["qk_rope_head_dim"]),
+              qk_nope_head_dim=dn, qk_rope_head_dim=dr, v_head_dim=int(c["v_head_dim"]),
+              rope_interleaved=True, head_dim=dn + dr,
               num_key_value_heads=c["num_attention_heads"])
-    if fkd == 0 and c.get("n_routed_experts"):
-        if c.get("topk_method", "greedy") != "greedy":
-            raise _refused(f"deepseek_v2 with topk_method {c['topk_method']!r} (dmi_tpu routes "
-                           "greedy only)")
+    rs = c.get("rope_scaling") or {}
+    if family == "deepseek_v3" and rs.get("mscale_all_dim") and rs.get("factor", 1) > 1:
+        mscale = 0.1 * float(rs["mscale_all_dim"]) * math.log(float(rs["factor"])) + 1.0
+        kw["attn_scale"] = (dn + dr) ** -0.5 * mscale * mscale
+    sparse = tuple(bool(c.get("n_routed_experts")) and i >= fkd and i % freq == 0
+                   for i in range(L))
+    if any(sparse):
+        if family == "deepseek_v2" and c.get("topk_method", "greedy") != "greedy":
+            raise _refused(f"deepseek_v2 with topk_method {c['topk_method']!r} (the port routes "
+                           "deepseek_v2 greedy only)")
+        if family == "deepseek_v3" and (c.get("topk_method"), c.get("scoring_func")) != (
+                "noaux_tc", "sigmoid"):
+            raise _refused(f"deepseek_v3 with topk_method {c.get('topk_method')!r} and "
+                           f"scoring_func {c.get('scoring_func')!r} (the port routes noaux_tc "
+                           "over sigmoid scores)")
         if c.get("num_experts_per_tok") is None:
-            raise _refused("deepseek_v2 with routed experts and no num_experts_per_tok")
-        kw.update(num_experts=int(c["n_routed_experts"]),
-                  num_experts_per_tok=int(c["num_experts_per_tok"]),
+            raise _refused(f"{family} with routed experts and no num_experts_per_tok")
+        held = int(c["n_routed_experts"])
+        ep = int(c.get("ep_size") or 1)
+        kw.update(num_experts=held * ep, num_experts_per_tok=int(c["num_experts_per_tok"]),
                   moe_norm_topk=bool(c.get("norm_topk_prob", False)),
                   routed_scaling_factor=float(c["routed_scaling_factor"]),
                   n_shared_experts=int(c.get("n_shared_experts") or 0), moe_gate_fp32=True,
-                  intermediate_size=int(c["moe_intermediate_size"]))
+                  intermediate_size=int(c["moe_intermediate_size"]),
+                  moe_expert_range=(0, held) if ep > 1 else None)
+        if not all(sparse):
+            kw.update(moe_layers=sparse, dense_intermediate_size=int(c["intermediate_size"]))
+        if family == "deepseek_v3":
+            groups, kept = int(c["n_group"]), int(c["topk_group"])
+            if (held * ep) % groups or (held * ep) // groups < 2 or not 0 < kept <= groups:
+                raise _refused(f"deepseek_v3 with {held * ep} experts in n_group {groups} "
+                               f"(topk_group {kept}): a group needs 2 or more experts")
+            kw.update(moe_scoring="sigmoid", moe_n_group=groups, moe_topk_group=kept)
     if yarn is not None:
         kw.update(rope_yarn_factor=float(yarn["factor"]),
                   rope_yarn_beta_fast=float(yarn.get("beta_fast") or 32),
@@ -362,8 +419,17 @@ def build_lm(lm_args, tokenizer, seed: int = 0,
     if not is_test_lm(name):
         path = hf_weights.model_dir(name)
         log.info("loading %s from %s", name, path)
-        cfg = _hf_to_config(hf_weights.read_config(path), dtype, tokenizer)
-        return cfg, llama.from_hf_state_dict(hf_weights.load_state_dict(path), cfg, device)
+        hf_cfg = hf_weights.read_config(path)
+        cfg = _hf_to_config(hf_cfg, dtype, tokenizer)
+        state_dict = hf_weights.load_state_dict(path)
+        if hf_cfg.get("model_type") == "deepseek_v3":
+            # the multi-token-prediction layers after the stack, which
+            # transformers' DeepseekV3ForCausalLM does not load either
+            mtp = range(cfg.num_hidden_layers,
+                        cfg.num_hidden_layers + int(hf_cfg.get("num_nextn_predict_layers") or 0))
+            state_dict = {k: v for k, v in state_dict.items()
+                          if not any(k.startswith(f"model.layers.{i}.") for i in mtp)}
+        return cfg, llama.from_hf_state_dict(state_dict, cfg, device)
     parts = name.split(":")
     makers = {"tiny": llama.tiny_config, "tiny-qwen2": llama.tiny_qwen2_config,
               "tiny-gemma2": llama.tiny_gemma2_config,

@@ -138,14 +138,21 @@ def _x(shape, seed):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_config_bridges_and_routes_as_dmi_tpu(family):
-    """config_from_jax keeps every dense field; the forward's attention
-    route is dmi_tpu's use_flash condition (llama.py:1311-1322) at short and
-    window-binding lengths, so gemma never reaches the flash kernels."""
+    """config_from_jax keeps every dense field, and the fields the port has
+    beyond dmi_tpu's (deepseek-v3's routing, expert share and mixed stacks)
+    stay at their defaults; the forward's attention route is dmi_tpu's
+    use_flash condition (llama.py:1311-1322) at short and window-binding
+    lengths, so gemma never reaches the flash kernels."""
     jcfg = _jcfg(family)
     tcfg = bridge.config_from_jax(jcfg)
     for f in dataclasses.fields(tcfg):
-        if f.name != "dtype":
-            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+        if f.name == "dtype":
+            continue
+        want = getattr(jcfg, f.name) if hasattr(jcfg, f.name) else f.default
+        assert getattr(tcfg, f.name) == want, f.name
+    assert {f.name for f in dataclasses.fields(tcfg)} - {f.name for f in dataclasses.fields(jcfg)} \
+        == {"moe_scoring", "moe_n_group", "moe_topk_group", "moe_expert_range", "moe_layers",
+            "dense_intermediate_size"}
     for T in (4, 13):
         use_flash = (jcfg.attn_logit_softcap is None and not jllama.sliding_effective(jcfg, T)
                      and jcfg.rope_local_theta is None and jcfg.kv_lora_rank is None)

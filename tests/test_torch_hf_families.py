@@ -192,10 +192,13 @@ def test_refusals_name_a9_and_phi3_fused_layout(saved):
 ], ids=lambda v: v if isinstance(v, str) else "-".join(f"{k}={x}" for k, x in v.items()))
 def test_refusals_dmi_tpu_keeps(family, change):
     """What dmi_tpu refuses for the MoE and MLA types the port refuses too:
-    mixed dense and sparse stacks (qwen3-moe's decoder_sparse_step and
-    mlp_only_layers, deepseek's first_k_dense_replace between 0 and the
-    layer count, as in V2-Lite's 1 of 27), group-limited routing, olmoe's
-    clip_qkv and attention bias, deepseek's attention bias."""
+    qwen3-moe's mixed dense and sparse stacks (decoder_sparse_step and
+    mlp_only_layers), group-limited routing, olmoe's clip_qkv and attention
+    bias, deepseek's attention bias.  Deepseek's mixed stacks
+    (first_k_dense_replace between 0 and the layer count, as in V2-Lite's 1
+    of 27), which dmi_tpu refuses, the port computes: its leading layers
+    dense, the rest routed (tests/test_torch_deepseek_v3.py holds them to
+    the reference)."""
     import types
 
     cfg = {"model_type": family, **BASE, **REQUIRED.get(family, {}), **change}
@@ -203,5 +206,11 @@ def test_refusals_dmi_tpu_keeps(family, change):
     obj = getattr(transformers, FAMILIES[family][0])(**cfg)
     with pytest.raises(ValueError):
         jmu._hf_to_config(obj, jnp.float32, tok)
+    if family == "deepseek_v2" and "first_k_dense_replace" in change:
+        dense = change["first_k_dense_replace"]
+        got = tmu._hf_to_config(cfg, torch.float32, tok)
+        assert got.moe_layers == tuple(i >= dense for i in range(cfg["num_hidden_layers"]))
+        assert got.dense_intermediate_size == cfg["intermediate_size"]
+        return
     with pytest.raises(NotImplementedError, match="outside the layouts"):
         tmu._hf_to_config(cfg, torch.float32, tok)

@@ -274,9 +274,20 @@ def test_benchmark_wrappers_still_fire():
         seen |= set(_ranges(events, ours=False))
         for name, got in spans.calls.items():
             calls.setdefault(name, []).extend(got)
+    # a dense model's decode step runs the decode MLP, which neither MoE family has
+    cfg = llama.tiny_config(dtype=torch.bfloat16, eos=())
+    params = hx.draw_weights(cfg, 11, "cpu")
+    spec = proj.ProjectorSpec(mm_dim=MM, lm_dim=cfg.hidden_size, n_layers=2)
+    dense = Captioner(cfg, params, spec, hx.draw_projector(spec.layer_dims(), 11, "cpu"),
+                      max_new_tokens=BUDGET, batch_size=ROWS, prefix_ids=PREFIX, pad_token_id=0)
+    with hx.Spans(specs) as spans:
+        _, events = _profiled(lambda: dense.caption_ids(_embs()))
+    seen |= set(_ranges(events, ours=False))
+    for name, got in spans.calls.items():
+        calls.setdefault(name, []).extend(got)
     # the CPU path runs every target but the flash kernels (their plain twin runs)
     ran = {"moe", "decode_attn", "mla_attn", "head_argmax", "prefill", "decode_step",
-           "forward"}
+           "forward", "moe_ep", "mla_qlora", "decode_mlp"}
     assert ran <= seen and set(specs) - ran == {"flash.fwd", "flash.bwd"}
     for name, targets in specs.items():
         if name in ran and any(fn is not None for _, _, fn in targets):
